@@ -18,6 +18,7 @@ from repro_torch.api.session import Session
 # the declaration vocabulary, re-exported so callers need only this module
 from repro_torch.core.engine import JobSpec, emit_multi, emit_single
 from repro_torch.core.incremental import DeltaKV, make_delta
+from repro_torch.core.iterative import IterSpec, State, default_difference
 from repro_torch.core.kvstore import (
     KV, Edges, Reducer, make_edges, make_kv, max_reducer, mean_reducer,
     min_reducer, sum_reducer,
@@ -25,7 +26,8 @@ from repro_torch.core.kvstore import (
 
 __all__ = [
     "Session", "RunConfig", "RunReport", "ShuffleStats", "MODES",
-    "JobSpec", "DeltaKV", "make_delta",
+    "JobSpec", "IterSpec", "State", "default_difference",
+    "DeltaKV", "make_delta",
     "KV", "Edges", "Reducer", "make_kv", "make_edges",
     "sum_reducer", "min_reducer", "max_reducer", "mean_reducer",
     "emit_single", "emit_multi",

@@ -1,10 +1,11 @@
-"""RunConfig: the one-step engine's knobs, declared once.
+"""RunConfig: the engine's knobs, declared once.
 
 Counterpart of ``repro.api.config.RunConfig`` for the paths the port runs
-so far (one-step MRBG and accumulator).  ``device`` takes the place of the
-reference's ``backend``: ``"cuda"`` (the default) runs the hand-written
-kernels and raises when there is no card; ``"cpu"`` runs their plain
-versions.  Nothing else selects the plain versions.
+so far (one-step MRBG and accumulator, iterative and incremental
+iterative), with the reference's names and defaults.  ``device`` takes the
+place of the reference's ``backend``: ``"cuda"`` (the default) runs the
+hand-written kernels and raises when there is no card; ``"cpu"`` runs
+their plain versions.  Nothing else selects the plain versions.
 """
 from __future__ import annotations
 
@@ -39,6 +40,20 @@ class RunConfig:
     cache_bytes: int = DEFAULT_CACHE
     fix_window_bytes: int = DEFAULT_FIX_WINDOW
 
+    # -- convergence control (iterative specs)
+    max_iters: int = 100
+    tol: float = 1e-4
+    refresh_max_iters: Optional[int] = None      # None -> max_iters
+    refresh_tol: Optional[float] = None          # None -> tol
+
+    # -- incremental iterative (§5.3 / §5.2)
+    cpc_threshold: float = 0.0
+    pdelta_threshold: float = 0.5
+
+    # -- plainMR cost modeling (Algorithm 5 baseline): re-shuffle the
+    #    structure data every iteration instead of keeping the loop warm
+    plain_shuffle: bool = False
+
     # -- distributed execution comes with a later slice
     mesh: Optional[Any] = None
 
@@ -72,6 +87,15 @@ class RunConfig:
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def refresh_iters_(self) -> int:
+        return self.max_iters if self.refresh_max_iters is None \
+            else self.refresh_max_iters
+
+    @property
+    def refresh_tol_(self) -> float:
+        return self.tol if self.refresh_tol is None else self.refresh_tol
 
     def store_kw(self) -> dict:
         """MRBG-Store constructor knobs beyond (num_keys, value_bytes)."""

@@ -1,14 +1,20 @@
 """Session: the supported way to drive the port's engine.
 
-Counterpart of ``repro.api.session.Session`` for one-step jobs: a
-:class:`JobSpec` is declared once with one :class:`RunConfig`, then
-``run(data)`` executes the full job and ``update(delta)`` refreshes it
-through the fine-grain MRBGraph merge (§3.3) or the accumulator fast path
-(§3.5).  Data and deltas may be given on the host; the session moves them
-to ``config.device`` (``cuda`` unless the caller asks for the CPU).
+Counterpart of ``repro.api.session.Session`` on one device: a
+:class:`JobSpec` or :class:`IterSpec` is declared once with one
+:class:`RunConfig`, then
 
-Iterative jobs (``IterSpec``) come with slice 2 and delta queries
-(``QuerySpec``) with slice 4; both raise ``NotImplementedError`` here.
+  * ``run(data)``     -> the full one-step job, or prime-loop convergence;
+  * ``update(delta)`` -> the fine-grain MRBGraph merge (§3.3), the
+                         accumulator fast path (§3.5), or the incremental
+                         iterative refresh with CPC and auto MRBG-off (§5);
+                         ``RunConfig(plain_shuffle=True)`` runs the plainMR
+                         baseline instead.
+
+Data and deltas may be given on the host; the session moves them to
+``config.device`` (``cuda`` unless the caller asks for the CPU).  Delta
+queries (``QuerySpec``) come with slice 4 and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -22,15 +28,17 @@ from repro_torch.api.config import RunConfig
 from repro_torch.api.report import RunReport
 from repro_torch.core.accumulator import AccumulatorJob
 from repro_torch.core.engine import JobSpec, run_onestep
+from repro_torch.core.incr_iter import IncrIterJob
 from repro_torch.core.incremental import (
-    DeltaKV, ResultView, _v2_dict, incremental_onestep, pad_delta,
+    DeltaKV, ResultView, _v2_dict, apply_delta_host, incremental_onestep,
+    pad_delta, pad_mirror,
 )
+from repro_torch.core.iterative import IterSpec, State, run_plain
 from repro_torch.core.kvstore import KV, edges_to_host, next_bucket
-from repro_torch.core.mrbg_store import MRBGStore
+from repro_torch.core.mrbg_store import IOStats, MRBGStore
 from repro_torch.tree import tree_map
 
-_LATER_SLICES = {"IterSpec": "slice 2 (iterative jobs)",
-                 "QuerySpec": "slice 4 (delta queries)"}
+_LATER_SLICES = {"QuerySpec": "slice 4 (delta queries)"}
 
 
 def _to(tree, device: torch.device):
@@ -57,16 +65,21 @@ class Session:
                 path = ("accumulator" if spec.reducer.invertible else "mrbg")
             return (_OneStepAccumulator(spec, config)
                     if path == "accumulator" else _OneStepMRBG(spec, config))
+        if isinstance(spec, IterSpec):
+            return (_PlainIter(spec, config, self.device)
+                    if config.plain_shuffle
+                    else _IncrIter(spec, config, self.device))
         later = _LATER_SLICES.get(type(spec).__name__)
         if later is not None:
             raise NotImplementedError(
                 f"{type(spec).__name__} is not ported yet: it comes with "
                 f"{later}")
-        raise TypeError(f"spec must be a JobSpec, got {type(spec).__name__}")
+        raise TypeError(f"spec must be a JobSpec or IterSpec, got "
+                        f"{type(spec).__name__}")
 
     # -- lifecycle ---------------------------------------------------------
     def run(self, data: KV) -> RunReport:
-        """Initial job: the full one-step run."""
+        """Initial job: one-step run or iterative convergence."""
         if self.epoch >= 0:
             raise RuntimeError("run() already executed for this session; "
                                "apply changes with update(delta)")
@@ -89,6 +102,18 @@ class Session:
         self._driver.update(_to(delta, self.device))
         self.epoch += 1
         return self._finish(t0)
+
+    def grow_records(self, capacity: int) -> None:
+        """Extend the record-id address space to ``capacity`` rows.
+
+        Drivers that mirror the structure file (iterative, plain) extend
+        their mirrors with invalid rows and rebuild derived indexes;
+        one-step drivers keep no per-record structure, so this is a no-op
+        for them.  Shrinking is never performed.
+        """
+        hook = getattr(self._driver, "grow_records", None)
+        if hook is not None:
+            hook(int(capacity))
 
     def _finish(self, t0: float) -> RunReport:
         if self.device.type == "cuda":
@@ -125,6 +150,11 @@ class Session:
     @property
     def view(self) -> Optional[ResultView]:
         return getattr(self._driver, "view", None)
+
+    @property
+    def state(self) -> Optional[State]:
+        """The iterative drivers' dense state <DK, DV> on the device."""
+        return getattr(self._driver, "state", None)
 
     @property
     def store(self) -> Optional[MRBGStore]:
@@ -208,3 +238,122 @@ class _OneStepAccumulator:
     def fill(self, rep: RunReport) -> None:
         rep.counts = self.job.view.counts
         rep.mrbg_on = False               # nothing preserved beyond <K3,V3>
+
+
+class _IncrIter:
+    """IncrIterJob: converge once, then fine-grain refresh (§5)."""
+
+    kind = "incr-iter"
+
+    def __init__(self, spec: IterSpec, cfg: RunConfig, device: torch.device):
+        self.spec = spec
+        self.cfg = cfg
+        self.device = device
+        self.job: Optional[IncrIterJob] = None     # built on run()
+        self.mode = "iterative"
+        self._iters = 0
+        self._max_change: list = []
+        self._logs: list = []
+
+    @property
+    def state(self) -> Optional[State]:
+        return self.job.state if self.job is not None else None
+
+    @property
+    def store(self) -> Optional[MRBGStore]:
+        return self.job.store if self.job is not None else None
+
+    def run(self, struct: KV) -> None:
+        self.job = IncrIterJob(
+            self.spec, struct, device=self.device,
+            value_bytes=self.cfg.value_bytes, policy=self.cfg.store_policy,
+            cpc_threshold=self.cfg.cpc_threshold,
+            pdelta_threshold=self.cfg.pdelta_threshold,
+            store_kw=self.cfg.store_kw())
+        _, hist = self.job.initial_converge(max_iters=self.cfg.max_iters,
+                                            tol=self.cfg.tol)
+        self.mode = "iterative"
+        self._iters = hist["iters"]
+        self._max_change = hist["max_change"]
+        self._logs = []
+
+    def update(self, delta: DeltaKV) -> None:
+        _, hist = self.job.refresh(delta, max_iters=self.cfg.refresh_iters_,
+                                   tol=self.cfg.refresh_tol_)
+        self.mode = hist["mode"]
+        self._iters = hist["iters"]
+        self._logs = hist.get("logs", [])
+        self._max_change = []
+
+    def grow_records(self, capacity: int) -> None:
+        if self.job is not None:
+            self.job.grow_records(capacity)
+
+    def result(self) -> Dict[str, np.ndarray]:
+        return self.job.state.to_host()
+
+    def fill(self, rep: RunReport) -> None:
+        rep.iters = self._iters
+        rep.max_change = list(self._max_change)
+        rep.logs = list(self._logs)
+        if self._logs:
+            rep.affected_keys = sum(l.n_affected_dks for l in self._logs)
+            rep.io = IOStats(n_reads=sum(l.io_reads for l in self._logs),
+                             bytes_read=sum(l.io_bytes for l in self._logs))
+        store = self.job.store
+        rep.store_bytes = store.file_bytes()
+        rep.live_bytes = store.live_bytes()
+        rep.store_batches = store.n_batches
+        rep.mrbg_on = self.job.mrbg_on
+
+
+class _PlainIter:
+    """plainMR recomp baseline: re-shuffles structure data every iteration
+    and recomputes every epoch from scratch (Algorithm 5 cost model)."""
+
+    kind = "plain-iter"
+
+    def __init__(self, spec: IterSpec, cfg: RunConfig, device: torch.device):
+        self.spec = spec
+        self.cfg = cfg
+        self.device = device
+        self.state: Optional[State] = None
+        self.mode = "plainMR"
+        self._iters = 0
+        self._max_change: list = []
+
+    def run(self, struct: KV) -> None:
+        host = lambda a: a.cpu().numpy().copy()
+        self._keys = host(struct.keys)
+        self._values = {n: host(a) for n, a in struct.values.items()}
+        self._valid = host(struct.valid)
+        self._converge(self.cfg.max_iters, self.cfg.tol)
+
+    def _struct_kv(self) -> KV:
+        dev = lambda a: torch.from_numpy(a).to(self.device, copy=True)
+        return KV(dev(self._keys),
+                  {n: dev(a) for n, a in self._values.items()},
+                  dev(self._valid))
+
+    def _converge(self, max_iters: int, tol: float) -> None:
+        self.state, hist = run_plain(self.spec, self._struct_kv(), None,
+                                     max_iters=max_iters, tol=tol)
+        self._iters = hist["iters"]
+        self._max_change = hist["max_change"]
+
+    def update(self, delta: DeltaKV) -> None:
+        apply_delta_host(self._keys, self._values, self._valid, delta)
+        # vanilla MR: recompute everything (under the refresh budget)
+        self._converge(self.cfg.refresh_iters_, self.cfg.refresh_tol_)
+
+    def grow_records(self, capacity: int) -> None:
+        self._keys, self._values, self._valid = pad_mirror(
+            self._keys, self._values, self._valid, capacity)
+
+    def result(self) -> Dict[str, np.ndarray]:
+        return self.state.to_host()
+
+    def fill(self, rep: RunReport) -> None:
+        rep.iters = self._iters
+        rep.max_change = list(self._max_change)
+        rep.mrbg_on = False

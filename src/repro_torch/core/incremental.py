@@ -102,6 +102,18 @@ def apply_delta_host(keys: np.ndarray, values: Dict[str, np.ndarray],
                 a[r] = dvals[n][i]
 
 
+def pad_mirror(keys: np.ndarray, values: Dict[str, np.ndarray],
+               valid: np.ndarray, capacity: int):
+    """A host record mirror extended with invalid rows up to ``capacity``
+    (returned as new ``(keys, values, valid)``; never shrinks)."""
+    pad = capacity - keys.shape[0]
+    if pad <= 0:
+        return keys, values, valid
+    grow = lambda a: np.concatenate(
+        [a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+    return grow(keys), {n: grow(a) for n, a in values.items()}, grow(valid)
+
+
 class ResultView:
     """Host-side dense view of the job's current output <K3,V3> (K3 == K2);
     incremental runs patch only the affected keys."""

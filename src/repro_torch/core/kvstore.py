@@ -184,8 +184,8 @@ def mean_reducer(finalize=None) -> Reducer:
 def segment_reduce(reducer: Reducer, segment_ids: torch.Tensor, values: Any,
                    valid: torch.Tensor, num_segments: int):
     """Reduce ``values`` into ``num_segments`` groups; returns
-    (accumulated tree [K, ...], counts [K] int32).  Invalid rows go to a
-    scratch segment so they never pollute real groups."""
+    (accumulated tree [K, ...], counts [K] int32).  Invalid rows never
+    reach a real group."""
     return ops.segment_reduce(reducer, segment_ids, values, valid,
                               num_segments)
 

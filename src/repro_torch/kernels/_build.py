@@ -27,7 +27,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("sort", "segment_sum", "fused")
+SOURCES = ("sort", "segment_sum", "fused", "segment_minmax", "spmv_ell")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -47,6 +47,12 @@ _SIGNATURES = {
     "fused": {
         "fused_small_launch": ([_P] * 6 + [_I] * 4 + [_P] * 8, _I),
         "fused_lww_launch": ([_P] * 7 + [_I] * 4 + [_P] * 5, _I),
+    },
+    "segment_minmax": {
+        "segment_minmax_launch": ([_P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
+    },
+    "spmv_ell": {
+        "spmv_ell_launch": ([_P, _P, _P, _LL, _I, _P], _I),
     },
 }
 

@@ -2,18 +2,16 @@
 
 Counterpart of ``repro.kernels.ops`` with the same contract: the sort's
 total order is (k2, mk, row index); invalid rows are masked to int32 max
-and sort to the tail; invalid rows reduce into a scratch segment that the
-slice drops; ``mean`` returns sums plus counts and ``finalize_reduce``
-divides.
+and sort to the tail; invalid rows never reach a real group; ``mean``
+returns sums plus counts and ``finalize_reduce`` divides.
 
 There is no backend name.  The device of the tensors decides: a CUDA
 tensor reaches the hand-written kernel (or raises), a CPU tensor the plain
 version.  The paths themselves follow the reference's pallas backend,
 whose kernels these are: the fused merge whenever ``_can_fuse`` holds (the
 plain fused version on the CPU gives the composed path's bits), the sum
-kernel with counts riding the first leaf's launch.  ``min``/``max`` on a
-CUDA tensor raise ``NotImplementedError`` until ``segment_minmax_mxu`` is
-ported (slice 2).
+kernel with counts riding the first leaf's launch, and the min/max kernel
+for ``min``/``max`` reducers.
 """
 from __future__ import annotations
 
@@ -23,8 +21,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.fused import fused_shuffle_reduce
-from repro_torch.kernels.ref import segment_minmax_ref
-from repro_torch.kernels.segment_reduce import segment_sum
+from repro_torch.kernels.segment_reduce import segment_minmax, segment_sum
 from repro_torch.kernels.sort_u32 import sort_lex
 from repro_torch.tree import tree_flatten, tree_map
 
@@ -76,20 +73,6 @@ def _kind_of(reducer) -> str:
     return kind
 
 
-def _identity_scalar(kind: str, dtype):
-    info = (torch.finfo(dtype) if dtype.is_floating_point
-            else torch.iinfo(dtype))
-    return info.max if kind == "min" else info.min
-
-
-def _mask_leaf(kind: str, leaf: torch.Tensor,
-               valid: torch.Tensor) -> torch.Tensor:
-    mask = valid.reshape((-1,) + (1,) * (leaf.ndim - 1))
-    fill = _identity_scalar(kind, leaf.dtype) if kind in ("min", "max") else 0
-    return torch.where(mask, leaf, torch.tensor(fill, dtype=leaf.dtype,
-                                                device=leaf.device))
-
-
 def _sum_dtype(dtype) -> torch.dtype:
     return torch.float32 if dtype.is_floating_point else torch.int32
 
@@ -99,43 +82,40 @@ def segment_reduce(reducer, segment_ids: torch.Tensor, values: Any,
     """Reduce ``values`` into ``num_segments`` groups.
 
     Returns (accumulated tree [K, ...], counts [K] int32); mean returns the
-    *sum*.  Invalid rows go to the scratch segment ``num_segments``.  Ids
-    need not be sorted.
+    *sum*.  Invalid rows take the id ``num_segments``, which the kernels
+    drop as out of range (the reference reduces them into a scratch
+    segment and slices it off: the same result, without every invalid row
+    contending for one output row's atomics).  Ids need not be sorted.
     """
     kind = _kind_of(reducer)
     valid = valid.to(torch.bool)
     seg = torch.where(valid, segment_ids.to(torch.int32),
                       torch.tensor(num_segments, dtype=torch.int32,
                                    device=valid.device))
-    if kind in ("min", "max") and seg.device.type == "cuda":
-        raise NotImplementedError(
-            f"segment {kind} has no CUDA kernel yet: segment_minmax_mxu is "
-            "ported with slice 2 (iterative jobs)")
     k = num_segments
     leaves, unflatten = tree_flatten(values)
     counts = None
     outs = []
     for leaf in leaves:
-        masked = _mask_leaf(kind, leaf, valid)
-        width = math.prod(masked.shape[1:])          # -1 breaks on 0 rows
-        flat = masked.reshape(masked.shape[0], width)
+        # invalid rows need no masking: the kernels never read a dropped row
+        width = math.prod(leaf.shape[1:])          # -1 breaks on 0 rows
+        flat = leaf.reshape(leaf.shape[0], width)
         if kind in ("sum", "mean"):
             out_dtype = _sum_dtype(leaf.dtype)
             if counts is None:
                 # the counts ride the first sum leaf's launch
-                out, cnt = segment_sum(seg, flat, k + 1, out_dtype=out_dtype,
-                                       counts=True)
-                counts = cnt[:k]
+                out, counts = segment_sum(seg, flat, k, out_dtype=out_dtype,
+                                          counts=True)
             else:
-                out = segment_sum(seg, flat, k + 1, out_dtype=out_dtype)
+                out = segment_sum(seg, flat, k, out_dtype=out_dtype)
             out = out.to(leaf.dtype)
         else:
-            out = segment_minmax_ref(kind, seg, flat, k + 1)
-        outs.append(out[:k].reshape((k,) + tuple(leaf.shape[1:])))
+            out = segment_minmax(kind, seg, flat, k)
+        outs.append(out.reshape((k,) + tuple(leaf.shape[1:])))
     acc = unflatten(outs)
     if counts is None:
-        counts = segment_sum(seg, valid.to(torch.int32)[:, None], k + 1,
-                             out_dtype=torch.int32)[:k, 0]
+        counts = segment_sum(seg, valid.to(torch.int32)[:, None], k,
+                             out_dtype=torch.int32)[:, 0]
     return acc, counts
 
 

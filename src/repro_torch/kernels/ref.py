@@ -49,8 +49,7 @@ def segment_minmax_ref(kind: str, seg: torch.Tensor, vals: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """Per-segment min or max [K, D]; ids outside [0, K) dropped; segments
     with no rows hold the identity (+-inf for floats, the iinfo extreme for
-    ints).  The plain version of ``segment_minmax_mxu``, whose kernel comes
-    with slice 2."""
+    ints).  The plain version of ``segment_minmax_mxu``."""
     k = max(int(num_segments), 0)
     d = vals.shape[1]
     if vals.dtype.is_floating_point:
@@ -91,3 +90,17 @@ def fused_shuffle_reduce_ref(k2, mk, vals, valid, sign, affected_keys, *,
     acc, counts = segment_sum_ref(torch.where(routed, slot, key_cap), vals_s,
                                   key_cap, out_dtype=out_dtype, counts=True)
     return k2_s, mk_s, vals_s, live, perm, acc, counts
+
+
+# -- ELL SpMV ---------------------------------------------------------------
+
+def spmv_ell_ref(nbrs: torch.Tensor, contrib: torch.Tensor,
+                 num_vertices: int) -> torch.Tensor:
+    """y [V] float32 with y[j] = sum of ``contrib`` [S, F] over the slots
+    whose ``nbrs`` [S, F] entry is j; -1 padding and ids >= V dropped."""
+    v = max(int(num_vertices), 0)
+    flat = nbrs.reshape(-1).to(torch.int64)
+    sid = torch.where((flat >= 0) & (flat < v), flat, v)
+    y = torch.zeros(v + 1, dtype=torch.float32, device=contrib.device)
+    y.index_add_(0, sid, contrib.reshape(-1).to(torch.float32))
+    return y[:v]

@@ -1,6 +1,7 @@
-"""Segment sum with optional row counts — the Reduce stage.
+"""Segment sum (with optional row counts) and segment min/max — the Reduce
+stage.
 
-Counterpart of ``repro.kernels.segment_reduce``: one kernel,
+Counterpart of ``repro.kernels.segment_reduce``.  One kernel,
 ``csrc/segment_sum.cu``, covers both ``segment_sum_mxu`` and
 ``segment_sum_counts_mxu`` (counts on or off).  The TPU's one-hot matmul
 and its sorted-input block skip do not carry over; on the H100 the kernel
@@ -10,20 +11,26 @@ ids outside [0, K) are dropped.  int32 sums are exact; float32 atomics add
 in a run-dependent order (exact on integer-valued data).  It is bounded by
 device-memory bytes: seg and vals read once, [K, D] written once.
 
-``segment_minmax_mxu`` has no kernel yet (slice 2): see
-``repro_torch.kernels.ops``.
+``segment_minmax_mxu`` becomes ``csrc/segment_minmax.cu``: the output is
+filled with the identity (+-inf for float32, the int32 extreme), then one
+thread per (row, column) folds its value in with an atomic min or max
+(float32 through its bits, see the source).  Min and max are exact and do
+not depend on order, so it equals its plain version bit for bit on data
+without NaN.  It is bounded by device-memory bytes as well.
 
-CUDA tensors launch the kernel or raise; CPU tensors take the plain
-version :func:`ref.segment_sum_ref`, and only they.
+CUDA tensors launch the kernels or raise; CPU tensors take the plain
+versions :func:`ref.segment_sum_ref` and :func:`ref.segment_minmax_ref`,
+and only they.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import segment_sum_ref
+from repro_torch.kernels.ref import segment_minmax_ref, segment_sum_ref
 
 OUT_DTYPES = (torch.int32, torch.float32)
+MINMAX_DTYPES = (torch.int32, torch.float32)
 
 
 def segment_sum(seg: torch.Tensor, vals: torch.Tensor, num_segments: int, *,
@@ -68,3 +75,47 @@ def segment_sum(seg: torch.Tensor, vals: torch.Tensor, num_segments: int, *,
 
 
 segment_sum.launches = 0
+
+
+def segment_minmax(kind: str, seg: torch.Tensor, vals: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """seg [N] int32, vals [N, D] int32 or float32 -> per-segment min or max
+    [K, D] in ``vals``' type.
+
+    Rows whose id is outside [0, K) are dropped; a segment with no rows
+    holds the identity (+inf / -inf for float32, the int32 extreme).
+    """
+    if kind not in ("min", "max"):
+        raise ValueError(f"segment_minmax kind must be 'min' or 'max', "
+                         f"got {kind!r}")
+    if vals.ndim != 2 or seg.shape != vals.shape[:1]:
+        raise ValueError(f"segment_minmax takes seg [N] and vals [N, D], "
+                         f"got {tuple(seg.shape)}, {tuple(vals.shape)}")
+    if seg.device != vals.device:
+        raise ValueError("segment_minmax inputs lie on different devices")
+    if vals.device.type == "cpu":
+        return segment_minmax_ref(kind, seg, vals, num_segments)
+    if vals.device.type != "cuda":
+        raise ValueError(f"segment_minmax runs on cuda or cpu, not "
+                         f"{vals.device}")
+    if vals.dtype not in MINMAX_DTYPES:
+        raise TypeError(f"the segment_minmax kernel takes {MINMAX_DTYPES}, "
+                        f"got {vals.dtype}")
+    k = max(int(num_segments), 0)
+    n, d = vals.shape
+    out = torch.empty((k, d), dtype=vals.dtype, device=vals.device)
+    if k and d:
+        # the launcher fills the identity on the stream before it folds
+        lib = _build.library("segment_minmax")
+        seg = seg.to(torch.int32).contiguous()
+        vals = vals.contiguous()
+        rc = lib.segment_minmax_launch(
+            seg.data_ptr(), vals.data_ptr(), out.data_ptr(), n, d, k,
+            int(vals.dtype == torch.float32), int(kind == "min"),
+            _build.stream_ptr(vals.device))
+        _build.check(lib, rc, "segment_minmax")
+        segment_minmax.launches += 1
+    return out
+
+
+segment_minmax.launches = 0

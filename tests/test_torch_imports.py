@@ -13,8 +13,9 @@ import torch
 from repro_torch.api import RunConfig, Session
 from repro_torch.apps import wordcount as wc
 from repro_torch.kernels.fused import fused_shuffle_reduce
-from repro_torch.kernels.segment_reduce import segment_sum
+from repro_torch.kernels.segment_reduce import segment_minmax, segment_sum
 from repro_torch.kernels.sort_u32 import sort_lex
+from repro_torch.kernels.spmv_ell import spmv_ell
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -40,7 +41,10 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch.api, repro_torch.core.transfer, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.kernels.spmv_ell, "
+            "repro_torch.apps.pagerank, repro_torch.apps.sssp, "
+            "repro_torch.apps.gimv, repro_torch.apps.kmeans, "
+            "repro_torch.apps.apriori; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -67,6 +71,10 @@ def test_wrappers_refuse_other_devices():
         sort_lex(a, a)
     with pytest.raises(ValueError):
         segment_sum(a, torch.zeros((4, 1), device=meta), 3)
+    with pytest.raises(ValueError):
+        segment_minmax("min", a, torch.zeros((4, 1), device=meta), 3)
+    with pytest.raises(ValueError):
+        spmv_ell(a[None], torch.zeros((1, 4), device=meta), 3)
     with pytest.raises(ValueError):
         fused_shuffle_reduce(a, a, torch.zeros((4, 1), device=meta),
                              torch.ones(4, dtype=torch.bool, device=meta),

@@ -3,9 +3,12 @@
 The same numpy inputs, made from a seed, go through the Pallas kernel as
 ``tests/test_kernels.py`` runs it on the CPU and through the port's kernel
 wrapper, which takes its plain version for CPU tensors.  Results must be
-exactly equal: the sort's permutation is a total order, and the sums are
-of integer data or integer-valued floats.  ``test_torch_cuda.py`` holds
-the hand-written kernels against the same plain versions on a card.
+exactly equal: the sort's permutation is a total order, min and max are
+exact, and the sums are of integer data or integer-valued floats.  The
+SpMV's float sums of non-integer data hold within 1e-5 of sum|contrib|
+per vertex (the one-hot matmul and ``index_add_`` add in other orders).
+``test_torch_cuda.py`` holds the hand-written kernels against the same
+plain versions on a card.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -14,12 +17,16 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.fused import fused_shuffle_reduce as jax_fused
-from repro.kernels.segment_reduce import segment_sum_counts_mxu
+from repro.kernels.segment_reduce import (
+    segment_minmax_mxu, segment_sum_counts_mxu,
+)
 from repro.kernels.sort_u32 import sort_lex_pallas
+from repro.kernels.spmv_ell import spmv_ell as jax_spmv_ell
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused import fused_shuffle_reduce
-from repro_torch.kernels.segment_reduce import segment_sum
+from repro_torch.kernels.segment_reduce import segment_minmax, segment_sum
 from repro_torch.kernels.sort_u32 import sort_kv32, sort_lex
+from repro_torch.kernels.spmv_ell import spmv_ell
 
 INT32_MAX = 2**31 - 1
 
@@ -98,6 +105,10 @@ def test_segment_sum_empty():
     assert out.shape == (0, 3) and cnt.shape == (0,)
 
 
+# ---------------------------------------------------------------------------
+# segment min / max
+# ---------------------------------------------------------------------------
+
 @pytest.mark.parametrize("kind", ["min", "max"])
 def test_segment_minmax_plain_matches_reference(kind):
     rng = np.random.default_rng(3)
@@ -108,6 +119,59 @@ def test_segment_minmax_plain_matches_reference(kind):
     want = jref.segment_minmax_ref(kind, jnp.asarray(seg), jnp.asarray(vals),
                                    10)
     _eq(got, want)
+
+
+# n, d, k as tests/test_kernels.py sweeps the sublane kernel; ids reach past
+# K (dropped) and below it some segments stay empty (the identity)
+@pytest.mark.parametrize("n,d,k", [(7, 3, 5), (513, 4, 129), (64, 1, 1)])
+@pytest.mark.parametrize("kind", ["min", "max"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_segment_minmax_matches_pallas(n, d, k, kind, dtype):
+    rng = np.random.default_rng(n * 31 + d)
+    seg = rng.integers(-1, k + 2, n).astype(np.int32)
+    if dtype == "float32":
+        vals = rng.normal(0, 1, (n, d)).astype(np.float32)
+    else:
+        vals = rng.integers(-50, 50, (n, d)).astype(np.int32)
+    # the Pallas kernel takes ids in [0, K] (padding included); the port
+    # drops any id outside [0, K), so hand Pallas the dropped rows as K
+    jseg = np.where((seg >= 0) & (seg < k), seg, k).astype(np.int32)
+    want = segment_minmax_mxu(kind, jnp.asarray(jseg), jnp.asarray(vals),
+                              k + 1, rows=64, kblk=64)[:k]
+    got = segment_minmax(kind, torch.from_numpy(seg),
+                         torch.from_numpy(vals), k)
+    assert got.dtype == torch.from_numpy(vals).dtype and got.shape == (k, d)
+    _eq(got, want)
+    empty = np.setdiff1d(np.arange(k), jseg)
+    if empty.size and dtype == "float32":
+        assert np.isinf(got.numpy()[empty]).all()
+
+
+# ---------------------------------------------------------------------------
+# ELL SpMV
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,f,v", [(100, 4, 50), (500, 6, 700),
+                                   (256, 8, 1024)])
+def test_spmv_ell_matches_pallas(s, f, v):
+    rng = np.random.default_rng(s)
+    nbrs = rng.integers(0, v + 5, (s, f))               # some ids >= V
+    nbrs[rng.random((s, f)) < 0.3] = -1
+    nbrs = nbrs.astype(np.int32)
+    contrib = rng.normal(0, 1, (s, f)).astype(np.float32)
+    want = np.asarray(jax_spmv_ell(jnp.asarray(nbrs), jnp.asarray(contrib),
+                                   v, rows=64, kblk=256))
+    got = spmv_ell(torch.from_numpy(nbrs), torch.from_numpy(contrib), v)
+    assert got.dtype == torch.float32 and got.shape == (v,)
+    # float sums in another order: within 1e-5 of sum|contrib| per vertex
+    scale = ref.spmv_ell_ref(torch.from_numpy(nbrs),
+                             torch.from_numpy(np.abs(contrib)), v).numpy()
+    assert (np.abs(got.numpy() - want) <= 1e-5 * np.maximum(scale, 1)).all()
+    # integer-valued contributions sum exactly in any order
+    ints = rng.integers(-9, 10, (s, f)).astype(np.float32)
+    _eq(spmv_ell(torch.from_numpy(nbrs), torch.from_numpy(ints), v),
+        jax_spmv_ell(jnp.asarray(nbrs), jnp.asarray(ints), v, rows=64,
+                     kblk=256))
 
 
 # ---------------------------------------------------------------------------

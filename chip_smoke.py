@@ -20,6 +20,17 @@ Runs on one CUDA card, from the root of a checkout:
      from ``tol`` and the CPC threshold, and SSSP against
      ``scipy.sparse.csgraph.dijkstra``.
 
+  5. drives the LM serving path — Gemma 2 9B at full width (9,241,705,984
+     parameters, bf16, random weights from ``--seed``): ``make_prefill_step``
+     on 2 requests of 8192 tokens (every attention layer through the flash
+     kernel: 42 launches a prefill), then 4 requests decoded through
+     ``make_serve_step`` (a 16-token prompt fed one token at a time, then
+     24 greedy tokens); one more prefill and 4 more decode steps run under
+     ``torch.profiler`` for the device time of the flash kernel, the
+     matrix products and the rest, and the device's idle share; then the
+     decode-versus-prefill parity of the two paths over 64 tokens, in
+     float32 at full width and 4 layers and in bf16 at full depth.
+
 The kernels' launch counts are set to 0 before each path and read after
 it.  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
 to 2^20; each cut is logged as a ``CUT`` line.
@@ -35,6 +46,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -53,6 +65,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet): the
 # rate charged for the kernels' adds and key compares
 PEAK_OPS_PER_S = 67e12
+# H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet): the rate
+# charged for attention's two matrix products
+TENSOR_BF16_FLOPS_PER_S = 989e12
 INT32_MAX = 2**31 - 1
 # iterative shapes: graphs of 2^22 vertices (the scale; may be cut only as
 # far as 2^20), 16 out-slots, each present with probability 0.5.  The
@@ -67,6 +82,43 @@ P_EDGE = 0.5
 # ranks land far closer to the new fixpoint than the run's ranks do (about
 # 1/40 of that distance, against about 1/7 at a threshold of 0.01)
 PR_CPC = 1e-3
+# flash attention, held elementwise: |kernel - plain| <= rel * (|plain| + A)
+# with A = sum_j p_j |v_j| (the plain version on |v|), the size every
+# rounding of an output is proportional to.  bf16, rel 2^-7: the kernel
+# rounds P to bf16 before P.V, which moves each term p_j v_j by at most
+# 2^-8 of itself (at most 2^-8 A in all), and the two outputs are rounded
+# to bf16 apart (at most 2^-8 |o| each; one step of bf16 is at most
+# 2^-7 |o|).  float32, rel 2e-5 times the scores' scale: 2e-5 is the bound
+# of the reference's own kernel test (tests/test_kernels.py) at scores of
+# unit scale, and float32 rounds each score relative to its size.
+FLASH_REL = {"float32": 2e-5, "bfloat16": 2**-7}
+# q drawn at std 1 and at std 20 (k and v at 1): scores of std 20 reach
+# the softcaps (30, 50), the softmax rests on a few keys, |o| is about 1,
+# and dropping the window or the softcap moves most outputs far past the
+# bound (the main shape checks that it does)
+FLASH_Q_SCALES = (1.0, 20.0)
+# the main path's shape: one Gemma 2 9B attention layer of a prefill of
+# 2 requests x 8192 tokens
+FLASH_MAIN = (2, 16, 8, 8192, 256)           # B, H, KH, S, hd
+# LM serving: Gemma 2 9B at full width (arXiv:2408.00118), bf16; prefill
+# of 2 requests at its context length, decode as examples/serve_lm.py
+LM_ARCH = "gemma2_9b"
+LM_PARAMS = 9_241_705_984
+PREFILL_BATCH, PREFILL_LEN, PREFILL_CALLS = 2, 8192, 2
+DECODE_BATCH, PROMPT_LEN, GEN_LEN = 4, 16, 24
+# one more prefill call and this many more decode steps run under
+# torch.profiler, for the device time by kind of kernel and the idle share
+PROFILE_STEPS = 4
+# decode-versus-prefill parity over 64 tokens.  float32 (TF32 off): the
+# reference's own bound (tests/test_models.py), at 4 layers.  bf16 at full
+# depth: each layer rounds the two paths' activations to 8 bits at
+# different places (flash P in bf16 against softmax probabilities in bf16,
+# another matmul shape); about 4 such roundings a layer add up like a
+# random walk to sqrt(42 * 4) * 2^-8 = 0.05 of the logit scale, and the
+# bound allows twice that.  A wrong cache slot or mask moves the logits by
+# their whole scale.
+PARITY_BATCH, PARITY_LEN, PARITY_F32_LAYERS = 2, 64, 4
+PARITY_TOL = {"float32": 2e-4, "bfloat16": 0.1}
 
 
 def log(msg: str) -> None:
@@ -88,12 +140,12 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: int, ops: float) -> dict:
+def bound(nbytes: int, ops: float, ops_per_s: float = PEAK_OPS_PER_S) -> dict:
     """The least time for the work: the larger of bytes (each input read
     once, each output written once) over the memory rate and operations
-    over the peak rate, and which of the two it is."""
+    over the peak rate for their type, and which of the two it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     if t_bytes >= t_ops:
         return {"bound_ms": t_bytes, "bound_by": "bytes"}
     return {"bound_ms": t_ops, "bound_by": "operations"}
@@ -294,6 +346,155 @@ def sum_rel_err(name, got, want, scale) -> float:
     if not err <= 1e-5:
         raise AssertionError(f"{name}: relative error {err} > 1e-5")
     return err
+
+
+def flash_bound(q, k, v, opt: dict, rel: float):
+    """The plain version's output (float32) and the elementwise bound
+    ``rel * (|plain| + A)`` the kernel is held to (see FLASH_REL)."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    want = flash_attention_ref(q, k, v, **opt).float()
+    a = flash_attention_ref(q.float(), k.float(), v.float().abs(), **opt)
+    return want, a.add_(want.abs()).mul_(rel).clamp_min_(1e-30)
+
+
+def flash_share(got, want, bound) -> tuple:
+    """Max |got - want| and its largest share of the bound (fails above
+    1)."""
+    d = (got.float() - want).abs_()
+    if not d.numel():
+        return 0.0, 0.0
+    return float(d.max()), float(d.div_(bound).max())
+
+
+def check_flash_attention(dev, rng) -> None:
+    """The flash kernel against its plain version: float32 and bf16, head
+    dims 64, 128, 256; KH = H, H/2, 1; S of 1, 100 and 333 (no multiple of
+    either dtype's tile); causal and not; windows under one tile; softcap
+    on and off; q at std 1 and 20."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    options = (dict(causal=True), dict(causal=True, window=20),
+               dict(causal=True, softcap=50.0),
+               dict(causal=True, window=20, softcap=50.0),
+               dict(causal=False), dict(causal=False, window=100,
+                                        softcap=30.0))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        worst, worst_share = 0.0, 0.0
+        for scale in FLASH_Q_SCALES:
+            rel = FLASH_REL[name] * (scale if dtype == torch.float32 else 1)
+            for hd in (64, 128, 256):
+                for kh in (8, 4, 1):
+                    for s in (1, 100, 333):
+                        q, k, v = (torch.as_tensor(
+                            rng.normal(0, sd, (2, n, s, hd)).astype(
+                                np.float32), device=dev).to(dtype)
+                            for n, sd in ((8, scale), (kh, 1), (kh, 1)))
+                        for opt in options:
+                            got = flash_attention(q, k, v, **opt)
+                            err, share = flash_share(
+                                got, *flash_bound(q, k, v, opt, rel))
+                            if got.dtype != dtype or not share <= 1:
+                                raise AssertionError(
+                                    f"flash_attention {dtype} q std {scale} "
+                                    f"hd={hd} H=8 KH={kh} S={s} {opt}: max "
+                                    f"abs err {err}, {share:.3g} of the "
+                                    f"bound {rel} (|plain| + A)")
+                            worst = max(worst, err)
+                            worst_share = max(worst_share, share)
+        log(f"  flash_attention {dtype}: q std 1/20, hd 64/128/256, KH 8/4/1 "
+            f"of H 8, S 1/100/333, causal or not, window 20/100, softcap "
+            f"0/30/50: max abs err {worst:.3g}, at most {worst_share:.3g} of "
+            f"the bound {FLASH_REL[name]:.3g}"
+            f"{' x q std' if dtype == torch.float32 else ''} (|plain| + A)")
+
+
+def keys_in_range(s: int, window: int) -> int:
+    """Keys a causal attention of S rows attends, summed over the rows."""
+    w = window if window > 0 else s
+    return sum(min(i + 1, w) for i in range(s))
+
+
+def time_flash_attention(dev) -> dict:
+    """The flash kernel at the main path's shape, bf16: (a) a local layer
+    (window 4096, softcap 50), (b) a global layer (softcap 50), each with
+    its plain version; (c) softcap 0, window 0, beside
+    ``scaled_dot_product_attention``, the softcap-free yardstick (no one
+    PyTorch call computes softcap 50).  q is drawn at std 20, so the
+    softcap and the window act; each is shown to move most outputs past
+    the bound the kernel is held to (the plain version without it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, h, kh, s, hd = FLASH_MAIN
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn((b, n, s, hd), generator=gen, device=dev).mul_(
+        sd).to(torch.bfloat16)
+        for n, sd in ((h, FLASH_Q_SCALES[-1]), (kh, 1), (kh, 1)))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    res = {}
+    for label, window, cap, dropped in (
+            ("local", 4096, 50.0, dict(window=0)),
+            ("global", 0, 50.0, dict(softcap=0.0)),
+            ("softcap0", 0, 0.0, None)):
+        opt = dict(window=window, softcap=cap)
+        fn = lambda: flash_attention(q, k, v, **opt)
+        plain = lambda: flash_attention_ref(q, k, v, **opt)
+        want, tol = flash_bound(q, k, v, opt, FLASH_REL["bfloat16"])
+        err, share = flash_share(fn(), want, tol)
+        if not share <= 1:
+            raise AssertionError(f"flash_attention main shape {label}: max "
+                                 f"abs err {err}, {share:.3g} of the bound")
+        if dropped:
+            wrong = flash_attention_ref(q, k, v, **{**opt, **dropped})
+            moved = float(((wrong.float() - want).abs_() > tol).float()
+                          .mean())
+            del wrong
+            if not moved > 0.1:
+                raise AssertionError(
+                    f"flash_attention main shape {label}: dropping "
+                    f"{dropped} moves only {moved:.3g} of the outputs past "
+                    f"the bound; the check cannot see that option")
+        del want, tol
+        flops = 4 * b * h * hd * keys_in_range(s, window)
+        res[label] = dict(max_abs_err=err, share_of_bound=share,
+                          ms=cuda_ms(fn),
+                          **bound(nbytes, flops, TENSOR_BF16_FLOPS_PER_S))
+        if dropped:
+            res[label]["moved_if_dropped"] = moved
+        if label == "softcap0":
+            res[label]["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True))
+        else:
+            res[label]["plain_ms"] = cuda_ms(plain)
+        res[label]["tflops"] = flops / res[label]["ms"] / 1e9
+        torch.cuda.empty_cache()
+    a, g, c = res["local"], res["global"], res["softcap0"]
+    return dict(
+        shape=(f"B={b} H={h} KH={kh} S={s} hd={hd} bf16, causal, softcap "
+               f"50, q std {FLASH_Q_SCALES[-1]:g}"),
+        max_abs_err=max(a["max_abs_err"], g["max_abs_err"],
+                        c["max_abs_err"]),
+        share_of_bound=max(a["share_of_bound"], g["share_of_bound"],
+                           c["share_of_bound"]),
+        moved_without_window=a["moved_if_dropped"],
+        moved_without_softcap=g["moved_if_dropped"],
+        ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+        bound_by=g["bound_by"], library_ms=c["library_ms"],
+        ms_local=a["ms"], plain_ms_local=a["plain_ms"],
+        bound_ms_local=a["bound_ms"], ms_softcap0=c["ms"],
+        bound_ms_softcap0=c["bound_ms"],
+        tflops={n: r["tflops"] for n, r in res.items()},
+        note=("ms, plain_ms, bound_ms: a global layer (window 0, softcap "
+              "50); *_local: a local layer (window 4096); library_ms: "
+              "scaled_dot_product_attention(is_causal, enable_gqa) at "
+              "softcap 0, beside ms_softcap0 (the kernel there): no one "
+              "PyTorch call computes softcap 50; share_of_bound: the "
+              "largest |kernel - plain| / (2^-7 (|plain| + A)); moved_*: "
+              "share of the outputs the plain version without that option "
+              "moves past the bound"))
 
 
 # ---------------------------------------------------------------------------
@@ -874,6 +1075,255 @@ def drive_sssp(dev, rng, vertices: int) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5: LM serving (Gemma 2 9B at full width)
+# ---------------------------------------------------------------------------
+
+def parity_model(cfg, gen, dev):
+    """Random weights at 1/sqrt(input width) for the parity checks.  The
+    reference's draw (``init_params``) scales body matrices by
+    1/sqrt(cycles), its stacked axis read as fan-in; at full width that
+    saturates the attention softcap and makes the random network chaotic,
+    so that any two orders of rounding part ways (see PERF.md).  Embedding
+    and norms as the reference."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_init
+    plan = {}
+    for name, spec in lm.plan_model(cfg).items():
+        if spec.fan_in:
+            width = spec.shape[0] * spec.shape[1] if name.endswith(".wo") \
+                else spec.shape[0]
+            spec = spec._replace(fan_in=width)
+        plan[name] = spec
+    return lm.LM(cfg, tree_init(plan, gen, cfg.dtype("param"), dev))
+
+
+def decode_vs_prefill(cfg, model, toks, dev) -> float:
+    """Largest gap between the per-step decode logits (the cache path, plain
+    decode attention) and the teacher-forced logits of one cache-less
+    forward over the same tokens (the flash kernel), over the largest
+    |logit|; the forward's logits get the logit softcap here, which
+    ``serve_step`` applies and the prefill step does not."""
+    import torch
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import softcap
+    b, s = toks.shape
+    with torch.inference_mode():
+        hidden, _ = lm.forward(cfg, model, toks)
+        full = softcap(lm.logits_fn(cfg, model, hidden).float(),
+                       cfg.logit_softcap)
+    serve = make_serve_step(cfg, dev)
+    caches = lm.init_caches(cfg, b, s, device=dev)
+    scale = max(1.0, float(full.abs().max()))
+    worst = 0.0
+    for t in range(s):
+        logits, caches = serve(model, caches, toks[:, t:t + 1])
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name}: decode step {t} not finite")
+        worst = max(worst, float((logits - full[:, t]).abs().max()) / scale)
+    return worst
+
+
+MATMUL_KERNELS = re.compile(r"gemm|gemv|xmma|nvjet|cutlass|cublas|splitk",
+                            re.IGNORECASE)
+
+
+def device_shares(fn, dev) -> dict:
+    """Runs ``fn`` once under ``torch.profiler`` and splits the device time
+    of its kernels into the flash kernel, matrix products (cuBLAS's and
+    CUTLASS's kernels) and the rest (elementwise passes, reductions,
+    copies).  ``busy_ms`` is the union of the kernels' intervals, ``wall_ms``
+    the host clock of the profiled call (which the profiler slows);
+    ``top`` the five kernels that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    ms = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        lo, hi = e.time_range.start, e.time_range.end
+        spans.append((lo, hi))
+        kind = "flash" if "flash" in e.name else \
+            "matmul" if MATMUL_KERNELS.search(e.name) else "other"
+        ms[kind] += (hi - lo) / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + (hi - lo) / 1e3
+    busy, end = 0.0, -math.inf
+    for lo, hi in sorted(spans):
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(kernels=len(spans), busy_ms=busy / 1e3, wall_ms=wall * 1e3,
+                top=[(n[:60], round(t, 3)) for n, t in top], **ms)
+
+
+def log_shares(label: str, p: dict, wall_ms: float) -> None:
+    """One line of a profile: device time by kind as shares of the busy
+    time, and the device's idle share of the unprofiled host-clock time
+    ``wall_ms`` of the same work (and of the profiled one)."""
+    if not p["kernels"]:
+        log(f"  [lm] profile, {label}: the profiler saw no device kernels; "
+            f"shares not measured")
+        return
+    busy = p["busy_ms"]
+    log(f"  [lm] profile, {label}: {p['kernels']} kernels, device busy "
+        f"{p['busy_ms']:.3f} ms: flash {p['flash']:.3f} ms "
+        f"({p['flash'] / busy:.1%}), matmul {p['matmul']:.3f} ms "
+        f"({p['matmul'] / busy:.1%}), other {p['other']:.3f} ms "
+        f"({p['other'] / busy:.1%}); device idle {1 - p['busy_ms'] / wall_ms:.1%}"
+        f" of the unprofiled {wall_ms:.3f} ms ({1 - p['busy_ms'] / p['wall_ms']:.1%}"
+        f" of the profiled {p['wall_ms']:.3f} ms); top {p['top']}")
+
+
+def drive_lm(dev, seed: int) -> dict:
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import lm
+    cfg = C.get(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, gen, device=dev)
+    sync(dev)
+    n_params = lm.count_params(model)
+    log(f"  [lm] {cfg.name}: {n_params} parameters ({cfg.n_layers} layers "
+        f"{cfg.layer_kinds[:2]} x {cfg.cycles}, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}), {cfg.param_dtype}, drawn in "
+        f"{time.perf_counter() - t0:.3f} s; {memory_gib(dev):.2f} GiB")
+    if n_params != LM_PARAMS:
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, not the "
+                             f"published {LM_PARAMS}")
+
+    # the main path: prefill, then decode
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    prefill = make_prefill_step(cfg, dev)
+    toks = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN),
+                         generator=gen, device=dev, dtype=torch.int32)
+    secs = []
+    for _ in range(PREFILL_CALLS):
+        t0 = time.perf_counter()
+        logits = prefill(model, {"inputs": toks})
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+        if tuple(logits.shape) != (PREFILL_BATCH, 1, cfg.vocab) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)}: "
+                                 f"not [{PREFILL_BATCH}, 1, {cfg.vocab}] "
+                                 f"finite values")
+    peak = memory_gib(dev, peak=True)
+    tokens = PREFILL_BATCH * PREFILL_LEN
+    prof = device_shares(lambda: prefill(model, {"inputs": toks}), dev)
+    n_flash = launch_counts()["flash_attention"]
+    log(f"  [lm] prefill {PREFILL_BATCH} x {PREFILL_LEN} tokens: "
+        + ", ".join(f"{t:.3f} s ({tokens / t:.0f} tokens/s)" for t in secs)
+        + f"; flash launches {n_flash} (one more call profiled); peak "
+        f"device memory {peak:.2f} GiB")
+    log_shares("one prefill", prof, secs[-1] * 1e3)
+    if dev.type == "cuda" and n_flash != cfg.n_layers * (PREFILL_CALLS + 1):
+        raise AssertionError(f"prefill launched the flash kernel {n_flash} "
+                             f"times, not {cfg.n_layers} x "
+                             f"{PREFILL_CALLS + 1}")
+    del logits
+    release(dev)
+
+    serve = make_serve_step(cfg, dev)
+    caches = lm.init_caches(cfg, DECODE_BATCH,
+                            PROMPT_LEN + GEN_LEN + PROFILE_STEPS, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (DECODE_BATCH, PROMPT_LEN),
+                            generator=gen, device=dev, dtype=torch.int32)
+    t0 = time.perf_counter()
+    for t in range(PROMPT_LEN):
+        logits, caches = serve(model, caches, prompts[:, t:t + 1])
+    sync(dev)
+    t_prompt = time.perf_counter() - t0
+    step_secs, out = [], []
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    for _ in range(GEN_LEN):
+        out.append(tok)
+        t0 = time.perf_counter()
+        logits, caches = serve(model, caches, tok)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        sync(dev)
+        step_secs.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("decode logits not finite")
+    gen_toks = torch.cat(out, dim=1).cpu().numpy()
+    steps = np.array(step_secs)
+    log(f"  [lm] decode {DECODE_BATCH} requests: prompt of {PROMPT_LEN} "
+        f"tokens stepped in {t_prompt:.3f} s, {GEN_LEN} greedy steps: "
+        f"median {np.median(steps) * 1e3:.2f} ms a step (min "
+        f"{steps.min() * 1e3:.2f}, max {steps.max() * 1e3:.2f}), "
+        f"{DECODE_BATCH / np.median(steps):.1f} tokens/s; cache at "
+        f"position {int(caches['pos'])}; first request's tokens "
+        f"{gen_toks[0, :8].tolist()}...")
+    if int(caches["pos"]) != PROMPT_LEN + GEN_LEN or gen_toks.shape != (
+            DECODE_BATCH, GEN_LEN) or gen_toks.min() < 0 \
+            or gen_toks.max() >= cfg.vocab:
+        raise AssertionError("decode produced no valid tokens")
+
+    def decode_steps():
+        nonlocal caches, tok
+        for _ in range(PROFILE_STEPS):
+            logits, caches = serve(model, caches, tok)
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    log_shares(f"{PROFILE_STEPS} decode steps",
+               device_shares(decode_steps, dev),
+               np.median(steps) * 1e3 * PROFILE_STEPS)
+    counts = launch_counts()
+    log(f"  [lm] launches {counts}")
+    del model, caches, logits
+    release(dev)
+
+    # the two paths against each other, on weights at 1/sqrt(input width)
+    ptoks = torch.randint(0, cfg.vocab, (PARITY_BATCH, PARITY_LEN),
+                          generator=gen, device=dev, dtype=torch.int32)
+    cfg32 = cfg.replace(n_layers=PARITY_F32_LAYERS, param_dtype="float32",
+                        compute_dtype="float32")
+    for pcfg, tol, label in (
+            (cfg32, PARITY_TOL["float32"],
+             f"float32, {PARITY_F32_LAYERS} layers at full width"),
+            (cfg, PARITY_TOL["bfloat16"], f"bf16, {cfg.n_layers} layers")):
+        model = parity_model(pcfg, gen, dev)
+        err = decode_vs_prefill(pcfg, model, ptoks, dev)
+        log(f"  [lm] decode vs prefill over {PARITY_BATCH} x {PARITY_LEN} "
+            f"tokens, {label}: max |gap| / max |logit| {err:.3g} "
+            f"(bound {tol})")
+        if not err <= tol:
+            raise AssertionError(f"decode vs prefill ({label}): {err} > "
+                                 f"{tol}")
+        del model
+        release(dev)
+    return counts
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def memory_gib(dev, peak: bool = False) -> float:
+    """Device memory allocated now (or at its peak), in GiB; nan off the
+    card."""
+    import torch
+    if dev.type != "cuda":
+        return float("nan")
+    return (torch.cuda.max_memory_allocated(dev) if peak
+            else torch.cuda.memory_allocated(dev)) / 2**30
+
+
 def release(dev) -> None:
     import torch
     gc.collect()
@@ -882,13 +1332,16 @@ def release(dev) -> None:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--docs", type=int, default=FULL_DOCS,
                     help="documents in the corpus (the scale; >= 2^18)")
     ap.add_argument("--vertices", type=int, default=FULL_VERTICES,
                     help="vertices of the iterative graphs (the scale; "
                          ">= 2^20)")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the data and of phase 5's random weights")
     args = ap.parse_args(argv)
 
     import torch
@@ -929,13 +1382,27 @@ def main(argv=None) -> int:
     check_fused(dev, rng)
     check_segment_minmax(dev, rng)
     check_spmv_ell(dev, rng)
+    check_flash_attention(dev, rng)
     timed = time_kernels(dev, rng, args.docs * DOC_LEN, args.vertices)
+    torch.cuda.empty_cache()
+    timed["flash_attention"] = time_flash_attention(dev)
     for name, t in timed.items():
         lib = "n/a" if t["library_ms"] is None \
             else f"{t['library_ms']:.3f} ms"
         log(f"  {name} [{t['shape']}]: kernel {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.3f} ms, library {lib}, "
             f"bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
+    t = timed["flash_attention"]
+    log(f"  flash_attention local layer (window 4096): kernel "
+        f"{t['ms_local']:.3f} ms, plain {t['plain_ms_local']:.3f} ms, bound "
+        f"{t['bound_ms_local']:.3f} ms; softcap 0: kernel "
+        f"{t['ms_softcap0']:.3f} ms, scaled_dot_product_attention "
+        f"{t['library_ms']:.3f} ms, bound {t['bound_ms_softcap0']:.3f} ms; "
+        f"TFLOP/s {', '.join(f'{n} {v:.1f}' for n, v in t['tflops'].items())}"
+        f"; q std {FLASH_Q_SCALES[-1]:g}: at most {t['share_of_bound']:.3g} "
+        f"of the bound; without the window {t['moved_without_window']:.3g}, "
+        f"without the softcap {t['moved_without_softcap']:.3g} of the "
+        f"outputs move past it")
     check_iterative_shapes(dev, rng, args.vertices)
     torch.cuda.empty_cache()
 
@@ -960,7 +1427,11 @@ def main(argv=None) -> int:
         log(f"  CUT: {args.vertices} vertices instead of {FULL_VERTICES}")
     pr = drive_pagerank(dev, rng, args.vertices)
     sp = drive_sssp(dev, rng, args.vertices)
-    paths = (mrbg, acc, pr, sp)
+
+    log("phase 5: LM serving (Gemma 2 9B at full width: prefill, decode, "
+        "decode-versus-prefill parity)")
+    lmc = drive_lm(dev, args.seed)
+    paths = (mrbg, acc, pr, sp, lmc)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -973,6 +1444,8 @@ def main(argv=None) -> int:
                            "src/repro/kernels/segment_reduce.py:255"),
         "spmv_ell": ("src/repro_torch/kernels/csrc/spmv_ell.cu",
                      "src/repro/kernels/spmv_ell.py:51"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:82"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -987,13 +1460,19 @@ def main(argv=None) -> int:
             entry["note"] = ("no engine path calls it (nor the JAX "
                              "package's); held against its plain version "
                              "at PageRank's shapes")
+        if name == "flash_attention":
+            entry.update({n: t[n] for n in (
+                "shape", "share_of_bound", "moved_without_window",
+                "moved_without_softcap", "ms_local", "plain_ms_local",
+                "bound_ms_local", "ms_softcap0", "bound_ms_softcap0",
+                "tflops", "note")})
         kernels.append(entry)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
-        f"auto {acc}, pagerank {pr}, sssp {sp}")
+        f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

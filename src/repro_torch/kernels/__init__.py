@@ -11,13 +11,15 @@ from typing import Dict
 
 
 def _wrappers():
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused import fused_shuffle_reduce
     from repro_torch.kernels.segment_reduce import segment_minmax, segment_sum
     from repro_torch.kernels.sort_u32 import sort_lex
     from repro_torch.kernels.spmv_ell import spmv_ell
     return {"sort_lex": sort_lex, "segment_sum": segment_sum,
             "fused_shuffle_reduce": fused_shuffle_reduce,
-            "segment_minmax": segment_minmax, "spmv_ell": spmv_ell}
+            "segment_minmax": segment_minmax, "spmv_ell": spmv_ell,
+            "flash_attention": flash_attention}
 
 
 def launch_counts() -> Dict[str, int]:

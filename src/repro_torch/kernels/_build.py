@@ -27,7 +27,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("sort", "segment_sum", "fused", "segment_minmax", "spmv_ell")
+SOURCES = ("sort", "segment_sum", "fused", "segment_minmax", "spmv_ell",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
@@ -35,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # exported C functions: name -> (argtypes, restype)
 _SIGNATURES = {
     "sort": {
@@ -53,6 +55,9 @@ _SIGNATURES = {
     },
     "spmv_ell": {
         "spmv_ell_launch": ([_P, _P, _P, _LL, _I, _P], _I),
+    },
+    "flash_attention": {
+        "flash_attention_launch": ([_P] * 4 + [_I] * 8 + [_F, _P], _I),
     },
 }
 

@@ -1,0 +1,81 @@
+"""Flash attention (forward) — every cache-less attention layer of the
+LM's prefill as one kernel.
+
+Counterpart of ``repro.kernels.flash_attention.flash_attention``, with its
+contract and layout: q [B, H, S, hd], k/v [B, KH, S, hd] (GQA, H % KH ==
+0), queries and keys at positions 0..S-1; causal mask, sliding window
+(``window > 0``: key within ``window`` of the query), tanh softcap; scale
+1/sqrt(hd); bf16 or float32 in, q's dtype out.  On the H100
+``csrc/flash_attention.cu`` walks the KV tiles of one (q tile, head,
+batch) inside a block with the streaming softmax in registers: tensor-core
+``mma.sync`` for bf16, plain FMAs for float32.  At the serving shape it is
+bounded by tensor-core operations, not bytes (see the source).
+
+CUDA tensors launch the kernel or raise; CPU tensors take the plain
+version :func:`ref.flash_attention_ref`, and only they.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """q [B, H, S, hd]; k/v [B, KH, S, hd] (H % KH == 0) -> [B, H, S, hd]."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention takes q [B, H, S, hd] and k, v "
+                         f"[B, KH, S, hd], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, s, hd = q.shape
+    kh = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != s or k.shape[3] != hd:
+        raise ValueError(f"flash_attention needs k, v [{b}, KH, {s}, {hd}] "
+                         f"(queries and keys at the same positions), got "
+                         f"{tuple(k.shape)}")
+    if kh < 1 or h % kh:
+        raise ValueError(f"flash_attention needs H % KH == 0, got H {h}, "
+                         f"KH {kh}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, "
+                         f"got {hd}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes bf16 or float32 q, k, v of "
+                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention inputs lie on different devices")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    if out.numel():
+        lib = _build.library("flash_attention")
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            kh, s, hd, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            max(int(window), 0), float(softcap),
+            _build.stream_ptr(q.device))
+        _build.check(lib, rc, "flash_attention")
+        flash_attention.launches += 1
+    return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, on a 16-byte boundary (the kernel loads 16 bytes a
+    thread)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+flash_attention.launches = 0

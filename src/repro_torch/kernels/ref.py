@@ -104,3 +104,37 @@ def spmv_ell_ref(nbrs: torch.Tensor, contrib: torch.Tensor,
     y = torch.zeros(v + 1, dtype=torch.float32, device=contrib.device)
     y.index_add_(0, sid, contrib.reshape(-1).to(torch.float32))
     return y[:v]
+
+
+# -- attention --------------------------------------------------------------
+
+_NEG = -2.0e38
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Dense masked softmax attention in float32, the flash kernel's
+    contract: q [B, H, S, hd], k/v [B, KH, S, hd] (GQA, H % KH == 0) at
+    positions 0..S-1; scale 1/sqrt(hd), tanh softcap before the mask,
+    masked scores at -2e38; the output in q's dtype.  Counterpart of
+    ``repro.kernels.ref.mha_ref``.  It holds the [B, H, S, S] scores."""
+    b, h, sq, hd = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    rep = h // kh
+    kx = k.float().repeat_interleave(rep, dim=1)
+    vx = v.float().repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx).div_(hd ** 0.5)
+    if softcap > 0:
+        s.div_(softcap).tanh_().mul_(softcap)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window > 0:
+        mask &= (qp - kp) < window
+    s.masked_fill_(~mask, _NEG)
+    p = torch.softmax(s, dim=-1)
+    del s
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)

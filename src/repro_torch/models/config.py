@@ -1,0 +1,119 @@
+"""Model configuration for the port's LM stack.
+
+Counterpart of ``repro.models.config``: a ``ModelConfig`` describes one
+architecture, whose layer stack cycles ``block_pattern`` (``cycles``
+times, then ``remainder_blocks``) after optional ``prefix_blocks``.  The
+fields keep the reference's names and defaults, so that ``cfg.replace``
+takes the same keywords; ``dtype()`` returns torch dtypes.
+
+Not carried over: ``ShardingRules`` and the ``sharding`` field (one card,
+no mesh), and the MoE, MLA and RG-LRU sub-configs, which come with their
+blocks.  ``attn_impl``, ``attn_block`` and ``loss_chunk`` are kept so
+that ``replace`` takes the reference's keywords, and nothing reads them:
+every cache-less attention runs the flash kernel whatever they say
+(``repro_torch.models.blocks.attend``), and the loss waits for the
+training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    block_pattern: Tuple[str, ...] = ("attn_dense",)
+    prefix_blocks: Tuple[str, ...] = ()     # unrolled layers before the body
+    causal: bool = True
+    tie_embeddings: bool = False
+    # attention options
+    qk_norm: bool = False                   # qwen3
+    ffn_kind: str = "swiglu"                # swiglu | geglu | gelu
+    attn_softcap: float = 0.0               # gemma2
+    logit_softcap: float = 0.0              # gemma2
+    local_window: int = 4096                # for "attn_local" blocks
+    rope_theta: float = 10000.0
+    embed_inputs: bool = True
+    # numerics
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    attn_impl: str = "dense"                # inert (see above)
+    attn_block: int = 1024                  # inert
+    loss_chunk: int = 0                     # inert
+    norm_eps: float = 1e-6
+    post_norms: bool = False                # gemma2 pre+post norms
+
+    def __post_init__(self):
+        for which in ("param", "compute"):
+            if getattr(self, which + "_dtype") not in DTYPES:
+                raise ValueError(f"{which}_dtype must be one of "
+                                 f"{tuple(DTYPES)}")
+
+    # ---- derived -------------------------------------------------------
+    @property
+    def cycles(self) -> int:
+        body = self.n_layers - len(self.prefix_blocks)
+        return body // len(self.block_pattern)
+
+    @property
+    def remainder_blocks(self) -> Tuple[str, ...]:
+        body = self.n_layers - len(self.prefix_blocks)
+        rem = body % len(self.block_pattern)
+        return tuple(self.block_pattern[:rem])
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Every layer's block kind, in order: prefix, body, remainder."""
+        return (tuple(self.prefix_blocks)
+                + tuple(self.block_pattern) * self.cycles
+                + self.remainder_blocks)
+
+    def dtype(self, which: str) -> torch.dtype:
+        return DTYPES[getattr(self, which + "_dtype")]
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) cell."""
+    name: str                      # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def smoke_config(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family config for CPU tests (the reference's sizes)."""
+    return cfg.replace(
+        n_layers=max(len(cfg.block_pattern) + len(cfg.prefix_blocks), 2),
+        d_model=64, n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2) or 1,
+        d_ff=128, vocab=256, head_dim=16, local_window=32)

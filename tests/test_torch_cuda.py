@@ -6,7 +6,13 @@ JAX, so the machine with the card runs it alone:
 must be exactly equal: the sort is a total order, min and max are exact,
 and the sums are of integer data or integer-valued floats (float atomics
 add in a run-dependent order, which is exact there).  The SpMV's sums of
-non-integer floats hold within 1e-5 of sum|contrib| per vertex.
+non-integer floats hold within 1e-5 of sum|contrib| per vertex.  The
+flash kernel holds elementwise within rel * (|plain| + sum_j p_j |v_j|) of
+its plain version: rel 2^-7 in bf16 (P and the output rounded to bf16),
+2e-5 times the scores' scale in float32 (the same arithmetic in another
+order; chip_smoke.FLASH_REL gives the reasons).  The LM on the card holds
+within 2e-4 of the largest logit of the same weights on the CPU, in
+float32.
 """
 import numpy as np
 import pytest
@@ -16,10 +22,15 @@ from repro_torch.api import RunConfig, Session, make_delta
 from repro_torch.apps import apriori, gimv, kmeans, pagerank, sssp
 from repro_torch.apps import wordcount as wc
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
+import repro_torch.configs as C
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused import fused_shuffle_reduce
 from repro_torch.kernels.segment_reduce import segment_minmax, segment_sum
 from repro_torch.kernels.sort_u32 import sort_lex
 from repro_torch.kernels.spmv_ell import spmv_ell
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models import lm
+from repro_torch.models.config import smoke_config
 
 INT32_MAX = 2**31 - 1
 pytestmark = pytest.mark.cuda
@@ -227,3 +238,61 @@ def test_apps_on_card_match_cpu(cuda, name):
     assert results[0][0] == results[1][0]
     for n, a in results[1][1].items():
         np.testing.assert_allclose(results[0][1][n], a, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2**-7)])
+@pytest.mark.parametrize("q_std", [1.0, 20.0])
+@pytest.mark.parametrize("hd,kh,s", [(64, 8, 100), (128, 4, 333),
+                                     (256, 1, 65), (256, 8, 1)])
+def test_flash_attention(cuda, dtype, rel, q_std, hd, kh, s):
+    """q at std 20 puts the scores in the softcaps' range."""
+    rng = np.random.default_rng(hd + s)
+    q, k, v = (torch.as_tensor(rng.normal(0, sd, (2, n, s, hd)).astype(
+        np.float32), device=cuda).to(dtype)
+        for n, sd in ((8, q_std), (kh, 1), (kh, 1)))
+    if dtype == torch.float32:
+        rel *= q_std
+    for opts in (dict(causal=True), dict(causal=True, window=20),
+                 dict(causal=True, window=20, softcap=50.0),
+                 dict(causal=False, window=100, softcap=30.0)):
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, **opts)
+        assert flash_attention.launches == before + 1
+        want = ref.flash_attention_ref(q, k, v, **opts).float()
+        a = ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                    **opts)
+        assert got.dtype == dtype
+        assert bool(((got.float() - want).abs()
+                     <= rel * (want.abs() + a)).all()), opts
+
+
+@pytest.mark.parametrize("arch", ["gemma2_9b", "qwen3_1_7b"])
+def test_lm_on_card_launches_flash_and_matches_cpu(cuda, arch):
+    """A prefill launches the flash kernel once a layer; prefill and 40
+    decode steps (Gemma 2's local window of 32 wraps) agree with the
+    CPU."""
+    cfg = smoke_config(C.get(arch)).replace(param_dtype="float32",
+                                            compute_dtype="float32")
+    model = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    on_cpu = lm.LM(cfg, {n: p.detach().cpu()
+                         for n, p in model.named_parameters()})
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)).astype(
+        np.int32)
+    before = flash_attention.launches
+    got = make_prefill_step(cfg, cuda)(model, {"inputs": toks})
+    assert flash_attention.launches == before + cfg.n_layers
+    want = make_prefill_step(cfg, "cpu")(on_cpu, {"inputs": toks})
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) / scale < 2e-4
+    serve, serve_cpu = make_serve_step(cfg, cuda), make_serve_step(cfg, "cpu")
+    caches = lm.init_caches(cfg, 2, 40, device=cuda)
+    caches_cpu = lm.init_caches(cfg, 2, 40, device="cpu")
+    before = flash_attention.launches
+    for t in range(40):
+        got, caches = serve(model, caches, toks[:, t:t + 1])
+        want, caches_cpu = serve_cpu(on_cpu, caches_cpu, toks[:, t:t + 1])
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) / scale < 2e-4, t
+    assert flash_attention.launches == before       # decode: plain code

@@ -12,10 +12,15 @@ import torch
 
 from repro_torch.api import RunConfig, Session
 from repro_torch.apps import wordcount as wc
+import repro_torch.configs as C
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused import fused_shuffle_reduce
 from repro_torch.kernels.segment_reduce import segment_minmax, segment_sum
 from repro_torch.kernels.sort_u32 import sort_lex
 from repro_torch.kernels.spmv_ell import spmv_ell
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models import lm
+from repro_torch.models.config import smoke_config
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -44,7 +49,9 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.ops, repro_torch.kernels.spmv_ell, "
             "repro_torch.apps.pagerank, repro_torch.apps.sssp, "
             "repro_torch.apps.gimv, repro_torch.apps.kmeans, "
-            "repro_torch.apps.apriori; "
+            "repro_torch.apps.apriori, repro_torch.models.lm, "
+            "repro_torch.models.transfer, repro_torch.configs.gemma2_9b, "
+            "repro_torch.launch.steps, repro_torch.kernels.flash_attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -62,6 +69,46 @@ def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         Session(spec, RunConfig())
     Session(spec, RunConfig(device="cpu"))       # the only way onto the CPU
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_card(
+        monkeypatch):
+    cfg = smoke_config(C.get("gemma2_9b"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: lm.init_params(cfg, torch.Generator()),
+                 lambda: lm.init_caches(cfg, 2, 8),
+                 lambda: make_prefill_step(cfg),
+                 lambda: make_serve_step(cfg)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    with pytest.raises(ValueError):
+        lm.init_caches(cfg, 2, 8, device="tpu")
+    # the only way onto the CPU
+    model = lm.init_params(cfg, torch.Generator(), device="cpu")
+    logits = make_prefill_step(cfg, "cpu")(
+        model, {"inputs": np.zeros((1, 4), np.int32)})
+    assert tuple(logits.shape) == (1, 1, cfg.vocab)
+    with pytest.raises(ValueError, match="lies on"):
+        make_prefill_step(cfg, "meta")(model, {"inputs": np.zeros((1, 4))})
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
+    def qkv(device="cpu", hd=64, s=8, kh=2, dtype=torch.float32):
+        return (torch.zeros((1, 4, s, hd), device=device, dtype=dtype),
+                torch.zeros((1, kh, s, hd), device=device, dtype=dtype),
+                torch.zeros((1, kh, s, hd), device=device, dtype=dtype))
+    flash_attention(*qkv())
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(*qkv(device="meta"))
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(*qkv(hd=48))
+    with pytest.raises(ValueError, match="H % KH"):
+        flash_attention(*qkv(kh=3))
+    with pytest.raises(TypeError):
+        flash_attention(*qkv(dtype=torch.float16))
+    q, k, v = qkv()
+    with pytest.raises(ValueError, match="same positions"):
+        flash_attention(q, k[:, :, :4], v[:, :, :4])
 
 
 def test_wrappers_refuse_other_devices():

@@ -100,6 +100,9 @@ FLASH_Q_SCALES = (1.0, 20.0)
 # the main path's shape: one Gemma 2 9B attention layer of a prefill of
 # 2 requests x 8192 tokens
 FLASH_MAIN = (2, 16, 8, 8192, 256)           # B, H, KH, S, hd
+# Qwen3-1.7B's attention (hd 128, H 16, KH 8, no softcap, global) at the
+# same prefill: the other head dim the serving path takes
+FLASH_QWEN = (2, 16, 8, 8192, 128)
 # LM serving: Gemma 2 9B at full width (arXiv:2408.00118), bf16; prefill
 # of 2 requests at its context length, decode as examples/serve_lm.py
 LM_ARCH = "gemma2_9b"
@@ -151,6 +154,37 @@ def bound(nbytes: int, ops: float, ops_per_s: float = PEAK_OPS_PER_S) -> dict:
     return {"bound_ms": t_ops, "bound_by": "operations"}
 
 
+def ptxas_summary(text: str) -> list:
+    """``kernel<hd>: N registers, M bytes spilled`` for every kernel in
+    nvcc's -Xptxas -v report (mangled names read by their length
+    prefix)."""
+    out, name, spill = [], None, "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled, name = m.group(1), m.group(1)
+            for d in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
+                for i in range(d.start(), d.end()):   # any suffix of digits
+                    ident = mangled[d.end():d.end() + int(mangled[i:d.end()])]
+                    if re.fullmatch(r"[A-Za-z_]\w*_kernel", ident):
+                        arg = re.match(r"ILi(\d+)E(?:Lb([01])E)?",
+                                       mangled[d.end() + len(ident):])
+                        name = ident + ("" if not arg else (
+                            f"<{arg.group(1)}>" if arg.group(2) is None
+                            else f"<{arg.group(1)}, "
+                                 f"{('false', 'true')[int(arg.group(2))]}>"))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill} bytes "
+                       f"spilled")
+            name, spill = None, "?"
+    return out
+
+
 def max_abs_err(got, want) -> float:
     import torch
     if got.numel() == 0:
@@ -173,15 +207,30 @@ def require_equal(name, got, want) -> None:
 # ---------------------------------------------------------------------------
 
 def check_sort(dev, rng) -> None:
+    """The sort against its plain version, bit for bit on all three outputs:
+    sizes around the kernel's tile and of many tiles, heavy duplicates
+    (also 2^24 rows in one bucket: the look-back with every tile feeding
+    one digit), INT32_MAX and negative keys, descending keys, and keys
+    that differ only in the top or only in the lowest digit (every other
+    digit constant, so the kernel skips those passes)."""
     import torch
     from repro_torch.kernels.ref import sort_lex_ref
-    from repro_torch.kernels.sort_u32 import sort_lex
+    from repro_torch.kernels.sort_u32 import TILE_ROWS, sort_lex
     cases = []
-    for n in (1, 5, 4095, 4096, 4097, 2**20 + 3):
+    for n in sorted({1, 5, 4095, 4096, 4097, TILE_ROWS - 1, TILE_ROWS,
+                     TILE_ROWS + 1, 2 * TILE_ROWS - 1, 2 * TILE_ROWS + 1,
+                     37 * TILE_ROWS + 5, 2**20 + 3}):
         cases.append((f"n={n}", rng.integers(0, max(n // 2, 2), n),
                       rng.integers(0, 7, n)))
     n = 100_003
     cases.append(("heavy duplicates", rng.integers(0, 2, n), np.zeros(n)))
+    big = 2**24
+    cases.append((f"{big} equal rows (one bucket)", np.full(big, 7),
+                  np.full(big, -3)))
+    lo = np.full(big, 5)
+    lo[::2**20] = 6
+    cases.append((f"{big} rows, all but 16 in one bucket", np.full(big, -9),
+                  lo))
     hi = rng.integers(0, 50, n)
     hi[rng.random(n) < 0.3] = INT32_MAX
     lo = rng.integers(0, 50, n)
@@ -189,6 +238,13 @@ def check_sort(dev, rng) -> None:
     cases.append(("INT32_MAX keys", hi, lo))
     cases.append(("negative keys", rng.integers(-2**31, 2**31, n),
                   rng.integers(-2**31, 2**31, n)))
+    cases.append(("descending keys", np.arange(n, 0, -1) * 977,
+                  -np.arange(n)))
+    top = rng.integers(0, 256, n) << 24
+    cases.append(("only the top digit differs", (top | 0x5A5A5A) - 2**31,
+                  np.full(n, 12345)))
+    cases.append(("only the lowest digit differs", np.full(n, -77),
+                  (rng.integers(0, 256, n) | 0x3C3C3C00)))
     for label, hi, lo in cases:
         h = torch.as_tensor(np.asarray(hi, np.int64).astype(np.int32), device=dev)
         l = torch.as_tensor(np.asarray(lo, np.int64).astype(np.int32), device=dev)
@@ -370,7 +426,10 @@ def check_flash_attention(dev, rng) -> None:
     """The flash kernel against its plain version: float32 and bf16, head
     dims 64, 128, 256; KH = H, H/2, 1; S of 1, 100 and 333 (no multiple of
     either dtype's tile); causal and not; windows under one tile; softcap
-    on and off; q at std 1 and 20."""
+    on and off; q at std 1 and 20.  Then Qwen3-1.7B's heads (hd 128, H 16,
+    KH 8) at S of 1, 127, 128, 129 (around the bf16 kernel's 128-row q
+    tile and 128-key tile) and 200 (no multiple of 64), with windows of 20
+    and 50 keys (under one key tile) besides the options above."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     options = (dict(causal=True), dict(causal=True, window=20),
@@ -378,33 +437,36 @@ def check_flash_attention(dev, rng) -> None:
                dict(causal=True, window=20, softcap=50.0),
                dict(causal=False), dict(causal=False, window=100,
                                         softcap=30.0))
+    shapes = [(8, hd, kh, s, options) for hd in (64, 128, 256)
+              for kh in (8, 4, 1) for s in (1, 100, 333)]
+    qwen = options + (dict(causal=True, window=50),)
+    shapes += [(16, 128, 8, s, qwen) for s in (1, 127, 128, 129, 200)]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         worst, worst_share = 0.0, 0.0
         for scale in FLASH_Q_SCALES:
             rel = FLASH_REL[name] * (scale if dtype == torch.float32 else 1)
-            for hd in (64, 128, 256):
-                for kh in (8, 4, 1):
-                    for s in (1, 100, 333):
-                        q, k, v = (torch.as_tensor(
-                            rng.normal(0, sd, (2, n, s, hd)).astype(
-                                np.float32), device=dev).to(dtype)
-                            for n, sd in ((8, scale), (kh, 1), (kh, 1)))
-                        for opt in options:
-                            got = flash_attention(q, k, v, **opt)
-                            err, share = flash_share(
-                                got, *flash_bound(q, k, v, opt, rel))
-                            if got.dtype != dtype or not share <= 1:
-                                raise AssertionError(
-                                    f"flash_attention {dtype} q std {scale} "
-                                    f"hd={hd} H=8 KH={kh} S={s} {opt}: max "
-                                    f"abs err {err}, {share:.3g} of the "
-                                    f"bound {rel} (|plain| + A)")
-                            worst = max(worst, err)
-                            worst_share = max(worst_share, share)
+            for h, hd, kh, s, opts in shapes:
+                q, k, v = (torch.as_tensor(
+                    rng.normal(0, sd, (2, n, s, hd)).astype(
+                        np.float32), device=dev).to(dtype)
+                    for n, sd in ((h, scale), (kh, 1), (kh, 1)))
+                for opt in opts:
+                    got = flash_attention(q, k, v, **opt)
+                    err, share = flash_share(
+                        got, *flash_bound(q, k, v, opt, rel))
+                    if got.dtype != dtype or not share <= 1:
+                        raise AssertionError(
+                            f"flash_attention {dtype} q std {scale} "
+                            f"hd={hd} H={h} KH={kh} S={s} {opt}: max "
+                            f"abs err {err}, {share:.3g} of the "
+                            f"bound {rel} (|plain| + A)")
+                    worst = max(worst, err)
+                    worst_share = max(worst_share, share)
         log(f"  flash_attention {dtype}: q std 1/20, hd 64/128/256, KH 8/4/1 "
             f"of H 8, S 1/100/333, causal or not, window 20/100, softcap "
-            f"0/30/50: max abs err {worst:.3g}, at most {worst_share:.3g} of "
+            f"0/30/50; hd 128 H 16 KH 8 at S 1/127/128/129/200, window "
+            f"20/50: max abs err {worst:.3g}, at most {worst_share:.3g} of "
             f"the bound {FLASH_REL[name]:.3g}"
             f"{' x q std' if dtype == torch.float32 else ''} (|plain| + A)")
 
@@ -422,7 +484,9 @@ def time_flash_attention(dev) -> dict:
     ``scaled_dot_product_attention``, the softcap-free yardstick (no one
     PyTorch call computes softcap 50).  q is drawn at std 20, so the
     softcap and the window act; each is shown to move most outputs past
-    the bound the kernel is held to (the plain version without it)."""
+    the bound the kernel is held to (the plain version without it).  Then
+    (d) Qwen3-1.7B's heads (``FLASH_QWEN``: hd 128, softcap 0) beside
+    SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
@@ -471,30 +535,53 @@ def time_flash_attention(dev) -> dict:
             res[label]["plain_ms"] = cuda_ms(plain)
         res[label]["tflops"] = flops / res[label]["ms"] / 1e9
         torch.cuda.empty_cache()
-    a, g, c = res["local"], res["global"], res["softcap0"]
+    # Qwen3-1.7B's shape: hd 128, softcap 0, beside SDPA
+    del q, k, v
+    b, h, kh, s, hd = FLASH_QWEN
+    q, k, v = (torch.randn((b, n, s, hd), generator=gen, device=dev).mul_(
+        sd).to(torch.bfloat16)
+        for n, sd in ((h, FLASH_Q_SCALES[-1]), (kh, 1), (kh, 1)))
+    fn = lambda: flash_attention(q, k, v)
+    want, tol = flash_bound(q, k, v, {}, FLASH_REL["bfloat16"])
+    err, share = flash_share(fn(), want, tol)
+    if not share <= 1:
+        raise AssertionError(f"flash_attention hd 128 shape: max abs err "
+                             f"{err}, {share:.3g} of the bound")
+    del want, tol
+    flops = 4 * b * h * hd * keys_in_range(s, 0)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    res["hd128"] = dict(
+        max_abs_err=err, share_of_bound=share, ms=cuda_ms(fn),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        **bound(nbytes, flops, TENSOR_BF16_FLOPS_PER_S))
+    res["hd128"]["tflops"] = flops / res["hd128"]["ms"] / 1e9
+    del q, k, v
+    torch.cuda.empty_cache()
+    a, g, c, d = (res[n] for n in ("local", "global", "softcap0", "hd128"))
     return dict(
-        shape=(f"B={b} H={h} KH={kh} S={s} hd={hd} bf16, causal, softcap "
-               f"50, q std {FLASH_Q_SCALES[-1]:g}"),
-        max_abs_err=max(a["max_abs_err"], g["max_abs_err"],
-                        c["max_abs_err"]),
-        share_of_bound=max(a["share_of_bound"], g["share_of_bound"],
-                           c["share_of_bound"]),
+        shape=("B={} H={} KH={} S={} hd={} bf16, causal, softcap 50, q std "
+               "{:g}".format(*FLASH_MAIN, FLASH_Q_SCALES[-1])),
+        max_abs_err=max(r["max_abs_err"] for r in res.values()),
+        share_of_bound=max(r["share_of_bound"] for r in res.values()),
         moved_without_window=a["moved_if_dropped"],
         moved_without_softcap=g["moved_if_dropped"],
         ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
         bound_by=g["bound_by"], library_ms=c["library_ms"],
         ms_local=a["ms"], plain_ms_local=a["plain_ms"],
         bound_ms_local=a["bound_ms"], ms_softcap0=c["ms"],
-        bound_ms_softcap0=c["bound_ms"],
+        bound_ms_softcap0=c["bound_ms"], ms_hd128=d["ms"],
+        library_ms_hd128=d["library_ms"], bound_ms_hd128=d["bound_ms"],
         tflops={n: r["tflops"] for n, r in res.items()},
         note=("ms, plain_ms, bound_ms: a global layer (window 0, softcap "
               "50); *_local: a local layer (window 4096); library_ms: "
               "scaled_dot_product_attention(is_causal, enable_gqa) at "
               "softcap 0, beside ms_softcap0 (the kernel there): no one "
-              "PyTorch call computes softcap 50; share_of_bound: the "
-              "largest |kernel - plain| / (2^-7 (|plain| + A)); moved_*: "
-              "share of the outputs the plain version without that option "
-              "moves past the bound"))
+              "PyTorch call computes softcap 50; *_hd128: Qwen3-1.7B's "
+              "heads (hd 128, softcap 0) at the same B and S, SDPA beside; "
+              "share_of_bound: the largest |kernel - plain| / (2^-7 "
+              "(|plain| + A)); moved_*: share of the outputs the plain "
+              "version without that option moves past the bound"))
 
 
 # ---------------------------------------------------------------------------
@@ -522,6 +609,11 @@ def time_kernels(dev, rng, n_edges: int, vertices: int) -> dict:
     for part, g, w in zip(("hi", "lo", "perm"), got, want):
         require_equal(f"sort_lex main-path {part}", g, w)
     del got, want
+    parts = device_shares(lambda: sort_lex(hi, lo), dev)
+    log(f"  sort_lex at N={n}, one call under torch.profiler: device busy "
+        f"{parts['busy_ms']:.3f} ms; by kernel (ms, summed over launches: "
+        f"one count, then one a pass, the constant digits' passes "
+        f"returning at once) {parts['top']}")
     packed = (hi.to(torch.int64) << 32) | (lo.to(torch.int64) + 2**31)
     out["sort_lex"] = dict(
         shape=f"N={n}", max_abs_err=err,
@@ -1371,10 +1463,8 @@ def main(argv=None) -> int:
     secs = _build.build_all()
     log(f"  built {', '.join(_build.SOURCES)} in {secs:.2f} s "
         f"into {_build.BUILD_DIR}")
-    for lib in sorted(_build.BUILD_DIR.glob("*.log")):
-        regs = [l.strip() for l in lib.read_text().splitlines()
-                if "registers" in l or "spill" in l]
-        log(f"  {lib.name}: " + " | ".join(regs[:6]))
+    for lib in sorted(_build.BUILD_DIR.glob(f"*-{_build._digest()}.log")):
+        log(f"  {lib.name}: " + "; ".join(ptxas_summary(lib.read_text())))
 
     log("phase 2: kernels against their plain versions")
     check_sort(dev, rng)
@@ -1397,8 +1487,11 @@ def main(argv=None) -> int:
         f"{t['ms_local']:.3f} ms, plain {t['plain_ms_local']:.3f} ms, bound "
         f"{t['bound_ms_local']:.3f} ms; softcap 0: kernel "
         f"{t['ms_softcap0']:.3f} ms, scaled_dot_product_attention "
-        f"{t['library_ms']:.3f} ms, bound {t['bound_ms_softcap0']:.3f} ms; "
-        f"TFLOP/s {', '.join(f'{n} {v:.1f}' for n, v in t['tflops'].items())}"
+        f"{t['library_ms']:.3f} ms, bound {t['bound_ms_softcap0']:.3f} ms"
+        f"; hd 128 (Qwen3-1.7B heads, softcap 0): kernel "
+        f"{t['ms_hd128']:.3f} ms, scaled_dot_product_attention "
+        f"{t['library_ms_hd128']:.3f} ms, bound {t['bound_ms_hd128']:.3f} ms"
+        f"; TFLOP/s {', '.join(f'{n} {v:.1f}' for n, v in t['tflops'].items())}"
         f"; q std {FLASH_Q_SCALES[-1]:g}: at most {t['share_of_bound']:.3g} "
         f"of the bound; without the window {t['moved_without_window']:.3g}, "
         f"without the softcap {t['moved_without_softcap']:.3g} of the "
@@ -1465,7 +1558,8 @@ def main(argv=None) -> int:
                 "shape", "share_of_bound", "moved_without_window",
                 "moved_without_softcap", "ms_local", "plain_ms_local",
                 "bound_ms_local", "ms_softcap0", "bound_ms_softcap0",
-                "tflops", "note")})
+                "ms_hd128", "library_ms_hd128", "bound_ms_hd128", "tflops",
+                "note")})
         kernels.append(entry)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

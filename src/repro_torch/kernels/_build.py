@@ -6,7 +6,11 @@ the sources so that an edit rebuilds and an unchanged tree reuses the
 library.  All sources compile in parallel, one ``nvcc`` each, at the first
 use of any kernel; nothing is fetched or pre-built.  The libraries link the
 CUDA runtime statically and take PyTorch's stream and device pointers as
-plain integers (``c_void_p``).
+plain integers (``c_void_p``).  Headers under ``csrc/`` (``common.cuh``,
+``wgmma.cuh``) are part of the hash.  The flash kernel's TMA descriptors
+come from libcuda's ``cuTensorMapEncodeTiled``, which it looks up through
+the CUDA runtime's entry-point query at its first launch, so no library
+links ``-lcuda``.
 
 Nothing here runs at import: the CPU tests import every module, and the
 loader only touches ``nvcc`` when a CUDA tensor asks for a kernel.

@@ -11,41 +11,71 @@
 //
 // On the H100 the TPU's sequential grid becomes independent blocks: one
 // block per (q tile, head, batch), the KV tiles walked by a loop inside
-// it.  Tiles wholly after the diagonal (causal) or wholly before the
-// window are skipped: every row keeps its own diagonal key, so a skipped
-// tile would have added exp(-2e38 - m) = 0.  The last tile of a sequence
-// that is not a multiple of the tile is zero-filled and masked.
+// it, the heaviest (latest) q tiles launched first.  Tiles wholly after
+// the diagonal (causal) or wholly before the window are skipped: every
+// row keeps its own diagonal key, so a skipped tile would have added
+// exp(-2e38 - m) = 0.  K and V rows past S are zeros and masked, so any
+// S runs.  Three kernels, chosen by dtype and head dim:
 //
-//   bf16: 4 warps, 64 q rows (16 a warp) x 64-key tiles, Q, K and V tiles
-//         in shared memory (rows padded by 8 elements, so the fragment
-//         loads and ldmatrix hit 32 distinct banks); S = Q.K^T and
-//         O += P.V on the tensor cores with mma.sync m16n8k16 (float32
-//         accumulators in registers; P goes from the S accumulators into
-//         A fragments without a trip through shared memory; V's B
-//         fragments come from ldmatrix.trans).  m and l per row live in
-//         registers, l as per-thread partial sums reduced over the quad
-//         at the end.
-//   f32:  plain FMAs (the tensor cores' TF32 would break the float32
-//         contract), 256 threads, 32 q rows x 32-key tiles in shared
-//         memory, 8 threads a row.  It serves the float32 checks, not
-//         the serving path.
+//   bf16, hd 64/128/256 (the serving path): wgmma with a TMA ring.  A
+//     block of 384 threads owns 128 q rows of one head: warpgroup 0 is
+//     the producer (its registers cut to 40 by setmaxnreg; one thread
+//     issues every TMA copy), warpgroups 1 and 2 the consumers (232
+//     registers), 64 q rows each.  Q comes in once by TMA; K and V
+//     tiles of BK keys (80 at hd 256, 128 below) go through a 2-stage
+//     ring in shared memory, each with its own full and empty mbarriers,
+//     so the next K lands while this tile's P.V still reads V.  Every
+//     tile is 64-column boxes of 128-byte rows in the 128-byte swizzle
+//     (the widest a TMA box row may be), so hd 256 is 4 boxes; rows past
+//     S arrive as zeros.  S = Q.K^T is wgmma with A and B from shared
+//     memory (both K-major); the streaming softmax runs on the float32
+//     accumulators in registers, in base 2, with the softcap's tanh as
+//     1 - 2 / (2^(2 y log2 e) + 1) (two special-function ops, about
+//     1e-7 absolute, where tanhf is a long software sequence) and the
+//     softcap and masks as compile-time variants; P is rounded to bf16 in
+//     registers and O += P.V is wgmma with A from registers and V as an
+//     MN-major (transposed) B from shared memory.  Within a consumer,
+//     S of tile t and P.V of tile t-1 are issued together and the
+//     softmax of tile t runs while P.V does.  Each consumer skips the
+//     tiles that only the other one's rows need.  Not done: a persistent
+//     grid, a TMA store of O, and sharing one K/V tile between the two q
+//     heads of a KV head (each block loads its own; L2 serves the
+//     second).  Shared memory: Q 128 x hd + 2 stages x (K + V) of BK x
+//     hd, bf16: 224 KB at hd 256, 160 KB at 128, 80 KB at 64 (plus 1 KB
+//     alignment and the barriers).  Registers a consumer thread: hd / 2
+//     float32 for O, BK / 2 for S and BK / 4 for P (128 + 40 + 20 at hd
+//     256).
+//   bf16, hd 16/32: mma.sync m16n8k16, 4 warps, 64 q rows x 64-key
+//     tiles loaded synchronously into shared memory (rows padded by 8
+//     elements so fragment loads hit 32 distinct banks); P goes from the
+//     S accumulators into A fragments.  Their rows are narrower than the
+//     128-byte swizzle row that the wgmma kernel's TMA boxes and
+//     descriptors assume, and no serving model uses them, so they keep
+//     this simpler kernel.
+//   float32: plain FMAs (the tensor cores' TF32 would break the float32
+//     contract), 256 threads, 32 q rows x 32-key tiles in shared
+//     memory, 8 threads a row.  It serves the float32 checks, not the
+//     serving path.
 //
 // What bounds it: at the main shape (B 2, H 16, KH 8, S 8192, hd 256,
 // bf16) tensor-core operations: about 1.1e12 FLOP for a global layer
 // (4 B H hd x the keys in range) against 0.4 GB of q, k, v and o (0.12 ms
-// at 3.35 TB/s); 1.1 ms at 989 TFLOP/s.  What this simple design leaves:
-// mma.sync instead of wgmma (about two thirds of the tensor-core rate at
-// best), synchronous tile loads (no cp.async/TMA ring, so the tensor
-// cores idle while a tile arrives; two blocks an SM hide part of it), no
-// warp specialisation, and an accurate tanhf/expf per score.
+// at 3.35 TB/s); 1.1 ms at 989 TFLOP/s.  What the design still leaves: the softmax of a tile takes about as long
+// as its two products (the special-function unit does 16 exponentials
+// or reciprocals a cycle an SM, and the softcap needs three a score),
+// the two consumers are not scheduled against each other (a ping-pong
+// of named barriers measured no faster), and O is stored from registers.
 #include "common.cuh"
+#include "wgmma.cuh"
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
 namespace {
 
 constexpr float NEG = -2.0e38f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -67,16 +97,433 @@ __device__ inline void kv_tiles(const Params& p, int q0, int q1, int bk,
   t_hi = (k_hi + bk - 1) / bk;
 }
 
+__device__ inline bool key_visible(const Params& p, int qpos, int kpos) {
+  return kpos < p.S && (!p.causal || kpos <= qpos) &&
+         (p.window <= 0 || qpos - kpos < p.window);
+}
+
 __device__ inline float masked_score(const Params& p, float dot, int qpos,
                                      int kpos) {
   float s = dot * p.scale;
   if (p.softcap > 0.f) s = tanhf(s / p.softcap) * p.softcap;
-  const bool ok = kpos < p.S && (!p.causal || kpos <= qpos) &&
-                  (p.window <= 0 || qpos - kpos < p.window);
-  return ok ? s : NEG;
+  return key_visible(p, qpos, kpos) ? s : NEG;
 }
 
-// ----------------------------------------------------------------- bf16
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------- bf16, hd >= 64: wgmma + TMA
+
+__device__ inline float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ inline uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// One box of a 3-d tensor map (inner coordinate first) into shared memory,
+// completing `bytes` on `bar`.
+__device__ inline void tma_load_3d(void* dst, const CUtensorMap* map,
+                                   uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar)) : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ inline uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                      uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// Keep the compiler from moving accumulator registers across the async
+// wgmma that reads and writes them.
+template <int N>
+__device__ inline void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ inline void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ inline void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+__device__ inline float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD>
+struct Wg {
+  static constexpr int BQ = 128;                 // q rows a block
+  // keys a tile: at hd 256 the widest that fits two stages beside Q
+  static constexpr int BK = HD == 256 ? 80 : 128;
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 384;            // producer + 2 consumers
+  static constexpr int BOX = 64;                 // columns a TMA box
+  static constexpr int Q_ELEMS = BQ * HD;
+  static constexpr int KV_ELEMS = BK * HD;       // one K or V tile
+  static constexpr uint32_t Q_BYTES = Q_ELEMS * 2;
+  static constexpr uint32_t KV_BYTES = KV_ELEMS * 2;
+  static constexpr int SMEM =
+      (Q_ELEMS + 2 * STAGES * KV_ELEMS) * 2 + 1024 + 128;
+};
+
+// S (BK/2 accumulators) for the 64 rows of consumer `c`: Q.K^T over hd.
+template <int HD>
+__device__ inline void qk_product(float* s, const __nv_bfloat16* Qs,
+                                  const __nv_bfloat16* Kst, int c) {
+  using W = Wg<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int box = kk / 4, sub = kk % 4;        // 4 k16 steps a box
+    const uint64_t a = sw128_desc(
+        Qs + box * W::BQ * W::BOX + c * 64 * W::BOX + sub * 16, 16, 1024);
+    const uint64_t b =
+        sw128_desc(Kst + box * W::BK * W::BOX + sub * 16, 16, 1024);
+    if constexpr (W::BK == 80)
+      repro::wgmma_ss_m64n80k16(s, a, b, kk > 0);
+    else
+      repro::wgmma_ss_m64n128k16(s, a, b, kk > 0);
+  }
+}
+
+// O (HD/2 accumulators) += P (bf16 A fragments) . V over BK keys.
+template <int HD>
+__device__ inline void pv_product(float* o, uint32_t (*pa)[4],
+                                  const __nv_bfloat16* Vst) {
+  using W = Wg<HD>;
+#pragma unroll
+  for (int kk = 0; kk < W::BK / 16; ++kk) {
+    // MN-major B: 16 key rows of 128 bytes (8-row groups 1024 bytes
+    // apart), the hd columns in boxes of 64 BK * 128 bytes apart
+    const uint64_t b = sw128_desc(Vst + kk * 16 * W::BOX, W::BK * 128, 1024);
+    if constexpr (HD == 256)
+      repro::wgmma_rs_m64n256k16(o, pa[kk], b);
+    else if constexpr (HD == 128)
+      repro::wgmma_rs_m64n128k16(o, pa[kk], b);
+    else
+      repro::wgmma_rs_m64n64k16(o, pa[kk], b);
+  }
+}
+
+// The streaming softmax of one tile for one consumer thread, in base 2:
+// the scores in sc (BK/2 accumulators, rows qpos[0] and qpos[1]) become
+// p = 2^(y - m) in place, with y = s log2(e) / sqrt(hd), or cap log2(e)
+// tanh(s / (cap sqrt(hd))) with the softcap; m and l move on and corr =
+// 2^(m_old - m_new).  Straight-line code: the softcap and the masks are
+// compile-time choices (tested per score at run time, they split this
+// loop into small blocks that run latency-bound).
+// `k` is log2(e) / sqrt(hd), or 2 log2(e) / (cap sqrt(hd)) with the cap.
+template <int BK, bool CAPPED, bool MASKED>
+__device__ __forceinline__ void tile_softmax(float* sc, float* m, float* l,
+                                             float* corr, const Params& p,
+                                             float k, float cap2, int k0,
+                                             const int* qpos, int t4) {
+  constexpr int NS = BK / 8;
+  // unmasked and uncapped, y stays the raw score and goes to base 2 in
+  // the exponent's FMA (k > 0, so the max commutes with the scaling);
+  // otherwise y is scaled first, so that a row whose keys are all masked
+  // gets y - m = -2e38 - -2e38 = 0 exactly
+  constexpr bool SCALED = CAPPED || MASKED;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float y = sc[4 * j + e];
+      // tanh(x) = 1 - 2 / (e^2x + 1), about 1e-7 absolute
+      if constexpr (CAPPED)
+        y = cap2 - 2.f * cap2 * rcp(ex2(y * k) + 1.f);
+      else if constexpr (MASKED)
+        y *= k;
+      if constexpr (MASKED)
+        if (!key_visible(p, qpos[e >> 1], k0 + 8 * j + 2 * t4 + (e & 1)))
+          y = NEG;
+      sc[4 * j + e] = y;
+      mx[e >> 1] = fmaxf(mx[e >> 1], y);
+    }
+  const float ks = SCALED ? 1.f : k;
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::FULL_MASK, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::FULL_MASK, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * ks);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = ex2(fmaf(sc[4 * j + e], ks, -m[e >> 1]));
+      sc[4 * j + e] = pe;
+      rs[e >> 1] += pe;
+    }
+  l[0] = l[0] * corr[0] + rs[0];
+  l[1] = l[1] * corr[1] + rs[1];
+}
+
+template <int HD, bool CAPPED>
+__global__ void __launch_bounds__(Wg<HD>::THREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const Params p) {
+  using W = Wg<HD>;
+  constexpr int BK = W::BK, STAGES = W::STAGES, NS = BK / 8, NO = HD / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* Ks = Qs + W::Q_ELEMS;
+  __nv_bfloat16* Vs = Ks + STAGES * W::KV_ELEMS;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * W::KV_ELEMS);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
+  const int n_qt = (p.S + W::BQ - 1) / W::BQ;
+  const int qt = n_qt - 1 - (int)blockIdx.x;     // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KH);
+  const int q0 = qt * W::BQ, q1 = min(q0 + W::BQ, p.S);
+  int t_lo, t_hi;
+  kv_tiles(p, q0, q1, BK, t_lo, t_hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 2);                 // one arrival a consumer
+      mbar_init(&v_empty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full.  K of a stage is
+    // free once both consumers have S, V once both have added P.V.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, W::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < HD / W::BOX; ++c)
+        tma_load_3d(Qs + c * W::BQ * W::BOX, &tm_q, q_full, c * W::BOX, q0,
+                    b * p.H + h);
+      for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
+        const int s = i % STAGES;
+        const uint32_t prev = ((i / STAGES) - 1) & 1;
+        __nv_bfloat16* kd = Ks + s * W::KV_ELEMS;
+        __nv_bfloat16* vd = Vs + s * W::KV_ELEMS;
+        if (i >= STAGES) mbar_wait(&k_empty[s], prev);
+        mbar_expect_tx(&k_full[s], W::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < HD / W::BOX; ++c)
+          tma_load_3d(kd + c * BK * W::BOX, &tm_k, &k_full[s], c * W::BOX,
+                      t * BK, b * p.KH + kvh);
+        if (i >= STAGES) mbar_wait(&v_empty[s], prev);
+        mbar_expect_tx(&v_full[s], W::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < HD / W::BOX; ++c)
+          tma_load_3d(vd + c * BK * W::BOX, &tm_v, &v_full[s], c * W::BOX,
+                      t * BK, b * p.KH + kvh);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 q rows each.  S of tile t and P.V of tile t - 1
+  // go to the tensor cores together, and the softmax of tile t runs
+  // while P.V does.  The loop is peeled (first tile, steady state, last
+  // P.V) so that every wgmma reaches its wait on every path: otherwise
+  // ptxas serialises all of them.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int c = wg - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row_lo = q0 + 64 * c, row_hi = min(row_lo + 64, p.S);
+  int c_lo = t_hi, c_hi = t_hi;                  // none when no rows
+  if (row_lo < row_hi) kv_tiles(p, row_lo, row_hi, BK, c_lo, c_hi);
+  const int qpos[2] = {row_lo + 16 * warp + g, row_lo + 16 * warp + g + 8};
+  const float k = CAPPED ? 2.f * LOG2E * p.scale / p.softcap
+                         : LOG2E * p.scale;
+  const float cap2 = p.softcap * LOG2E;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+  float sc[BK / 2];
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+  uint32_t pa[BK / 16][4];
+
+  // a tile only the other consumer's rows need
+  auto skip_tile = [&](int i) {
+    const int s = i % STAGES;
+    const uint32_t par = (i / STAGES) & 1;
+    mbar_wait(&k_full[s], par);
+    mbar_wait(&v_full[s], par);
+    if (tid == 0) {
+      mbar_arrive(&k_empty[s]);
+      mbar_arrive(&v_empty[s]);
+    }
+  };
+  auto softmax = [&](int t) {
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > p.S || (p.causal && k0 + BK - 1 > row_lo) ||
+                      (p.window > 0 && row_hi - 1 - k0 >= p.window);
+    if (edge)
+      tile_softmax<BK, CAPPED, true>(sc, m, l, corr, p, k, cap2, k0, qpos,
+                                     t4);
+    else
+      tile_softmax<BK, CAPPED, false>(sc, m, l, corr, p, k, cap2, k0, qpos,
+                                      t4);
+  };
+  // P rounded to bf16: the S accumulators of n8 groups 2kk and 2kk + 1
+  // are the A fragment of k16 step kk
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      pa[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+    }
+  };
+
+  mbar_wait(q_full, 0);
+  int i = 0, t = t_lo;
+  for (; t < c_lo; ++t, ++i) skip_tile(i);
+  if (c_lo < c_hi) {
+    int s = i % STAGES;
+    uint32_t par = (i / STAGES) & 1;
+    mbar_wait(&k_full[s], par);
+    fence_regs<BK / 2>(sc);
+    wgmma_fence();
+    qk_product<HD>(sc, Qs, Ks + s * W::KV_ELEMS, c);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<BK / 2>(sc);
+    if (tid == 0) mbar_arrive(&k_empty[s]);
+    softmax(t);                                  // O is still 0
+    pack_p();
+    int pend = s;                                // stage of P's V
+    uint32_t pend_par = par;
+    for (++t, ++i; t < c_hi; ++t, ++i) {
+      s = i % STAGES;
+      par = (i / STAGES) & 1;
+      mbar_wait(&k_full[s], par);
+      mbar_wait(&v_full[pend], pend_par);
+      fence_regs<BK / 2>(sc);
+      fence_regs<HD / 2>(o);
+      wgmma_fence();
+      qk_product<HD>(sc, Qs, Ks + s * W::KV_ELEMS, c);
+      wgmma_commit();
+      pv_product<HD>(o, pa, Vs + pend * W::KV_ELEMS);
+      wgmma_commit();
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_regs<BK / 2>(sc);
+      if (tid == 0) mbar_arrive(&k_empty[s]);
+      softmax(t);
+      wgmma_wait_all();
+      fence_regs<HD / 2>(o);
+      if (tid == 0) mbar_arrive(&v_empty[pend]);
+      // rescale O where a row's max moved (a factor of 1 changes nothing)
+      if (__any_sync(repro::FULL_MASK, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          o[4 * n] *= corr[0];
+          o[4 * n + 1] *= corr[0];
+          o[4 * n + 2] *= corr[1];
+          o[4 * n + 3] *= corr[1];
+        }
+      }
+      pack_p();
+      pend = s;
+      pend_par = par;
+    }
+    mbar_wait(&v_full[pend], pend_par);
+    fence_regs<HD / 2>(o);
+    wgmma_fence();
+    pv_product<HD>(o, pa, Vs + pend * W::KV_ELEMS);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<HD / 2>(o);
+    if (tid == 0) mbar_arrive(&v_empty[pend]);
+  }
+  for (; t < t_hi; ++t, ++i) skip_tile(i);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(repro::FULL_MASK, l[r], 1);
+    l[r] += __shfl_xor_sync(repro::FULL_MASK, l[r], 2);
+    // acc / max(l, 1e-30) as one division a row and hd / 2 products,
+    // within one float32 rounding of the quotient (bf16 keeps 8 bits)
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  const size_t qoff = ((size_t)b * p.H + h) * p.S * HD;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + qoff;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= p.S) continue;
+    __nv_bfloat16* orow = out + (size_t)qpos[r] * HD + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          pack_bf16(o[4 * n + 2 * r] * l[r], o[4 * n + 2 * r + 1] * l[r]);
+  }
+}
+
+// ------------------------------------------ bf16, hd 16/32: mma.sync
 
 constexpr int BF_BQ = 64, BF_BK = 64, BF_THREADS = 128;
 
@@ -95,11 +542,6 @@ __device__ inline void ldmatrix_x4_trans(uint32_t* r, const void* ptr) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ inline uint32_t ld_u32(const __nv_bfloat16* p) {
@@ -124,7 +566,7 @@ __device__ inline void load_tile(__nv_bfloat16* dst,
 
 template <int HD>
 __global__ void __launch_bounds__(BF_THREADS)
-    flash_bf16_kernel(const Params p) {
+    flash_mma_kernel(const Params p) {
   constexpr int LD = HD + 8;
   constexpr int NS = BF_BK / 8;        // score n-tiles of 8 keys
   constexpr int NO = HD / 8;           // output n-tiles of 8 columns
@@ -354,13 +796,75 @@ __global__ void __launch_bounds__(F_THREADS) flash_f32_kernel(const Params p) {
 
 // --------------------------------------------------------------- launch
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda: looked up through the CUDA
+// runtime's entry-point query, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                            cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// [heads, S, hd] bf16 as a 3-d tensor map of boxes [1, rows, 64] in the
+// 128-byte swizzle; rows past S read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int heads, int S, int hd,
+                int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)S,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)S * hd * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int HD>
-int launch_bf16(const Params& p, cudaStream_t stream) {
+int launch_wgmma(const Params& p, cudaStream_t stream) {
+  using W = Wg<HD>;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, p.q, p.B * p.H, p.S, HD, W::BQ) ||
+      !tensor_map(&tk, p.k, p.B * p.KH, p.S, HD, W::BK) ||
+      !tensor_map(&tv, p.v, p.B * p.KH, p.S, HD, W::BK))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = p.softcap > 0.f ? flash_wgmma_kernel<HD, true>
+                                : flash_wgmma_kernel<HD, false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       W::SMEM);
+  const dim3 grid((p.S + W::BQ - 1) / W::BQ, p.H, p.B);
+  kernel<<<grid, W::THREADS, W::SMEM, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_mma(const Params& p, cudaStream_t stream) {
   const int smem = 3 * BF_BQ * (HD + 8) * (int)sizeof(__nv_bfloat16);
-  cudaFuncSetAttribute(flash_bf16_kernel<HD>,
+  cudaFuncSetAttribute(flash_mma_kernel<HD>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((p.S + BF_BQ - 1) / BF_BQ, p.H, p.B);
-  flash_bf16_kernel<HD><<<grid, BF_THREADS, smem, stream>>>(p);
+  flash_mma_kernel<HD><<<grid, BF_THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -375,15 +879,22 @@ int launch_f32(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// bf16 goes to the wgmma kernel from hd 64 up and to the mma.sync kernel
+// for hd 16 and 32; float32 to the FMA kernel.
 template <int HD>
 int launch_hd(const Params& p, int bf16, cudaStream_t stream) {
-  return bf16 ? launch_bf16<HD>(p, stream) : launch_f32<HD>(p, stream);
+  if (!bf16) return launch_f32<HD>(p, stream);
+  if constexpr (HD >= 64)
+    return launch_wgmma<HD>(p, stream);
+  else
+    return launch_mma<HD>(p, stream);
 }
 
 }  // namespace
 
-// q [B, H, S, hd], k/v [B, KH, S, hd], o [B, H, S, hd], contiguous, all
-// float32 (dtype 0) or all bf16 (dtype 1); hd in {16, 32, 64, 128, 256}.
+// q [B, H, S, hd], k/v [B, KH, S, hd], o [B, H, S, hd], contiguous and
+// 16-byte aligned, all float32 (dtype 0) or all bf16 (dtype 1); hd in
+// {16, 32, 64, 128, 256}.
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
                                         const void* v, void* o, int B, int H,
                                         int KH, int S, int hd, int dtype,

@@ -5,11 +5,24 @@ Counterpart of ``repro.kernels.flash_attention.flash_attention``, with its
 contract and layout: q [B, H, S, hd], k/v [B, KH, S, hd] (GQA, H % KH ==
 0), queries and keys at positions 0..S-1; causal mask, sliding window
 (``window > 0``: key within ``window`` of the query), tanh softcap; scale
-1/sqrt(hd); bf16 or float32 in, q's dtype out.  On the H100
-``csrc/flash_attention.cu`` walks the KV tiles of one (q tile, head,
-batch) inside a block with the streaming softmax in registers: tensor-core
-``mma.sync`` for bf16, plain FMAs for float32.  At the serving shape it is
-bounded by tensor-core operations, not bytes (see the source).
+1/sqrt(hd); bf16 or float32 in, q's dtype out.
+
+On the H100 ``csrc/flash_attention.cu`` replaces the Pallas kernel (its
+``pl.pallas_call`` walks the KV blocks of one q block with a fori_loop):
+a block walks the KV tiles of one (q tile, head, batch) with the
+streaming softmax in registers.  At the serving shape it is bounded by
+tensor-core operations, not bytes.  bf16 at hd 64, 128 and 256 (the
+serving path) runs the Hopper design: a producer warpgroup keeps Q and a
+2-stage ring of K and V tiles coming by TMA (mbarriers; its registers
+cut by ``setmaxnreg``), and two consumer warpgroups of 64 q rows each
+multiply with ``wgmma`` (S = Q.K^T from shared memory, O += P.V with P
+in registers; S of one tile and P.V of the one before issued together),
+the softcap's tanh from one exponential and one reciprocal.  Shared
+memory: 224 KB at hd 256 (80-key tiles), 160 KB at 128 and 80 KB at 64
+(128-key tiles).  bf16 at hd 16 and 32 runs a smaller ``mma.sync``
+kernel with synchronous loads, chosen by head dim in the launcher;
+float32 runs plain FMAs (TF32 would break its contract) and serves the
+checks.  The source note gives the bounds and what the design leaves.
 
 CUDA tensors launch the kernel or raise; CPU tensors take the plain
 version :func:`ref.flash_attention_ref`, and only they.
@@ -72,8 +85,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, on a 16-byte boundary (the kernel loads 16 bytes a
-    thread)."""
+    """Contiguous, on a 16-byte boundary (TMA and the 16-byte loads of the
+    other kernels need it)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

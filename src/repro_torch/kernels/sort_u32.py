@@ -4,13 +4,18 @@ Counterpart of ``repro.kernels.sort_u32``.  :func:`sort_lex` returns
 ``(hi_sorted, lo_sorted, perm)`` in the total order (hi, lo, row index), so
 the permutation is unique and equals the reference's bit for bit.
 
-On a CUDA tensor it launches ``csrc/sort.cu``: an LSD radix sort of the
-packed 64-bit key (8 stable passes of 8 bits; histogram in shared memory,
-stable in-block ranks from warp match masks, one exclusive scan per pass).
-It replaces the TPU bitonic network ``sort_u32.sort_lex_pallas`` and its
-tile, cross-tile and finish kernels.  It is bounded by device-memory bytes:
-each pass reads the keys twice and writes keys and indices once.  Output is
-exactly n rows, never padded to a power of two.
+On a CUDA tensor it launches ``csrc/sort.cu``, which replaces the TPU
+bitonic network ``sort_u32.sort_lex_pallas`` (its tile, cross-tile and
+finish kernels): a one-sweep LSD radix sort of the packed 64-bit key, 8
+stable passes of 8 bits.  It is bounded by device-memory bytes, 24 a row a
+pass at the least.  One kernel counts all 8 digits up front; each pass is
+one kernel whose blocks take 4096-row tiles in arrival order, rank them in
+shared memory, take their offsets by decoupled look-back and write each
+digit's run contiguously; the first pass reads the lanes and the last
+writes the outputs; a digit that is the same for every row is skipped on
+the device, with no host synchronisation.  Workspace
+(``sort_lex_workspace_bytes``): 24.5 n bytes + 16 KB; 58 KB of shared
+memory a block.  Output is exactly n rows, never padded.
 
 On a CPU tensor it takes the plain version :func:`ref.sort_lex_ref`, and
 only there.
@@ -23,6 +28,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sort_lex_ref
 
 _MAX_ROWS = 2**31 - 1
+TILE_ROWS = 4096          # rows a block of csrc/sort.cu takes (its TILE)
 
 
 def _check_lanes(hi: torch.Tensor, lo: torch.Tensor) -> None:
@@ -37,7 +43,7 @@ def _check_lanes(hi: torch.Tensor, lo: torch.Tensor) -> None:
 
 
 def sort_lex_cuda(hi: torch.Tensor, lo: torch.Tensor):
-    """Launch the radix sort on CUDA lanes (no launch count: callers that
+    """Launch the one-sweep radix sort on CUDA lanes (no launch count: callers that
     are kernels of their own, like the fused path, use this directly)."""
     n = hi.shape[0]
     if n >= _MAX_ROWS:

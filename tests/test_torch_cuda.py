@@ -26,6 +26,7 @@ import repro_torch.configs as C
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused import fused_shuffle_reduce
 from repro_torch.kernels.segment_reduce import segment_minmax, segment_sum
+from repro_torch.kernels import sort_u32
 from repro_torch.kernels.sort_u32 import sort_lex
 from repro_torch.kernels.spmv_ell import spmv_ell
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -43,12 +44,38 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1, 4096, 4097, 300_001])
-def test_sort_lex(cuda, n):
-    rng = np.random.default_rng(n)
-    hi = torch.as_tensor(rng.integers(-2**31, 2**31, n).astype(np.int32),
-                         device=cuda) // 1024
-    lo = torch.as_tensor(rng.integers(0, 4, n).astype(np.int32), device=cuda)
+def _sort_lanes(case, rng):
+    """(hi, lo) int64 arrays of one sort case: a size with random keys, or
+    an edge case of the one-sweep radix sort (TILE_ROWS is its tile)."""
+    tile = sort_u32.TILE_ROWS
+    sizes = {"tile-1": tile - 1, "tile+1": tile + 1,
+             "many tiles": 97 * tile + 3}
+    if case.isdigit() or case in sizes:
+        n = int(case) if case.isdigit() else sizes[case]
+        return (rng.integers(-2**31, 2**31, n) // 1024,
+                rng.integers(0, 4, n))
+    n = 100_003
+    if case == "one bucket 2^24":               # every tile feeds one digit
+        lo = np.full(2**24, 5)
+        lo[::2**20] = 6
+        return np.full(2**24, -9), lo
+    if case == "descending":
+        return np.arange(n, 0, -1) * 977, -np.arange(n)
+    if case == "top digit only":
+        return ((rng.integers(0, 256, n) << 24) | 0x5A5A5A) - 2**31, \
+            np.full(n, 12345)
+    assert case == "lowest digit only"
+    return np.full(n, -77), rng.integers(0, 256, n) | 0x3C3C3C00
+
+
+@pytest.mark.parametrize("case", ["1", "4096", "4097", "300001", "tile-1",
+                                  "tile+1", "many tiles", "one bucket 2^24",
+                                  "descending", "top digit only",
+                                  "lowest digit only"])
+def test_sort_lex(cuda, case):
+    rng = np.random.default_rng(len(case))
+    hi, lo = (torch.as_tensor(a.astype(np.int32), device=cuda)
+              for a in _sort_lanes(case, rng))
     before = sort_lex.launches
     got = sort_lex(hi, lo)
     assert sort_lex.launches == before + 1
@@ -243,17 +270,29 @@ def test_apps_on_card_match_cpu(cuda, name):
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2**-7)])
 @pytest.mark.parametrize("q_std", [1.0, 20.0])
-@pytest.mark.parametrize("hd,kh,s", [(64, 8, 100), (128, 4, 333),
-                                     (256, 1, 65), (256, 8, 1)])
-def test_flash_attention(cuda, dtype, rel, q_std, hd, kh, s):
-    """q at std 20 puts the scores in the softcaps' range."""
+@pytest.mark.parametrize("hd,h,kh,s", [
+    pytest.param(64, 8, 8, 100, id="64-8-100"),
+    # rows whose window lies wholly in a later key tile: every key of an
+    # earlier tile masked for them (a finite -2e38 must give p = 1 there)
+    pytest.param(64, 8, 4, 333, id="64-4-333"),
+    pytest.param(128, 8, 4, 333, id="128-4-333"),
+    pytest.param(256, 8, 1, 65, id="256-1-65"),
+    pytest.param(256, 8, 8, 1, id="256-8-1"),
+    # Qwen3-1.7B's heads around the bf16 kernel's 128-row q tile and
+    # 128-key tile, and at an S that is no multiple of 64
+    *(pytest.param(128, 16, 8, s, id=f"qwen3-{s}")
+      for s in (1, 127, 128, 129, 200))])
+def test_flash_attention(cuda, dtype, rel, q_std, hd, h, kh, s):
+    """q at std 20 puts the scores in the softcaps' range; windows of 20
+    and 50 lie under one key tile."""
     rng = np.random.default_rng(hd + s)
     q, k, v = (torch.as_tensor(rng.normal(0, sd, (2, n, s, hd)).astype(
         np.float32), device=cuda).to(dtype)
-        for n, sd in ((8, q_std), (kh, 1), (kh, 1)))
+        for n, sd in ((h, q_std), (kh, 1), (kh, 1)))
     if dtype == torch.float32:
         rel *= q_std
     for opts in (dict(causal=True), dict(causal=True, window=20),
+                 dict(causal=True, window=50),
                  dict(causal=True, window=20, softcap=50.0),
                  dict(causal=False, window=100, softcap=30.0)):
         before = flash_attention.launches

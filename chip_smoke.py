@@ -167,12 +167,19 @@ def ptxas_summary(text: str) -> list:
                 for i in range(d.start(), d.end()):   # any suffix of digits
                     ident = mangled[d.end():d.end() + int(mangled[i:d.end()])]
                     if re.fullmatch(r"[A-Za-z_]\w*_kernel", ident):
-                        arg = re.match(r"ILi(\d+)E(?:Lb([01])E)?",
-                                       mangled[d.end() + len(ident):])
+                        rest = mangled[d.end() + len(ident):]
+                        arg = re.match(r"ILi(\d+)E(?:Lb([01])E)?", rest)
+                        typed = re.match(r"I([fi])(?:Lb([01])E)?E", rest)
                         name = ident + ("" if not arg else (
                             f"<{arg.group(1)}>" if arg.group(2) is None
                             else f"<{arg.group(1)}, "
                                  f"{('false', 'true')[int(arg.group(2))]}>"))
+                        if typed:
+                            t = {"f": "float", "i": "int"}[typed.group(1)]
+                            name = ident + (
+                                f"<{t}>" if typed.group(2) is None else
+                                f"<{t}, "
+                                f"{('false', 'true')[int(typed.group(2))]}>")
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -258,7 +265,7 @@ def check_sort(dev, rng) -> None:
 def check_segment_sum(dev, rng) -> None:
     import torch
     from repro_torch.kernels.ref import segment_sum_ref
-    from repro_torch.kernels.segment_reduce import segment_sum
+    from repro_torch.kernels.segment_reduce import SLAB_WORDS, segment_sum
     for k in (1, 2**18 + 1):
         for d in (1, 3, 64):
             n = 20_000 if d == 64 else 200_000
@@ -282,6 +289,83 @@ def check_segment_sum(dev, rng) -> None:
                                   want[0])
             log(f"  segment_sum K={k} D={d}: int32 and integer-valued "
                 f"float32, sorted and unsorted ids: equal")
+    # the core's variants (csrc/scatter_sum.cuh): a block-private copy of
+    # the output up to K (D + counts) = SLAB_WORDS words; above, the direct
+    # pass at D = 1 without counts and the partition otherwise; bins of
+    # 16384 keys (D = 1, counts) reach 2048 at K = 2^25, and one more key
+    # takes two slab windows a bin; D above the slab's words splits into
+    # column groups; a seg view off 16-byte alignment takes the scalar
+    # loads
+    cases = []
+    for d in (1, 3, 64):
+        for cnt in (True, False):
+            kb = SLAB_WORDS // (d + cnt)
+            for k in (kb - 1, kb, kb + 1):
+                cases.append((f"K={k} D={d} at the private variant's "
+                              f"boundary", rng.integers(-2, k + 3, 100_003),
+                              d, k, (cnt,)))
+    for k in (2**25, 2**25 + 1):
+        cases.append((f"K={k} at the slab-window boundary",
+                      rng.integers(0, k + 1, 2**20), 1, k, (True,)))
+    cases.append((f"D={SLAB_WORDS + 3} (two column groups)",
+                  rng.integers(-1, 6, 300), SLAB_WORDS + 3, 5,
+                  (True, False)))
+    n = 2**24
+    cases.append((f"{n} rows on one id, K=2^18+1", np.full(n, 12345), 1,
+                   2**18 + 1, (True, False)))
+    cases.append((f"{n} rows on one id, K=1", np.zeros(n), 1, 1,
+                  (True, False)))
+    z = rng.zipf(1.2, 2**22) - 1
+    z[z > 2**18] = -1                        # the tail past K dropped
+    cases.append(("Zipf(1.2) ids, K=2^18+1", z, 1, 2**18 + 1, (True, False)))
+    cases.append(("sorted ids, K=2^20", np.sort(rng.integers(0, 2**20, 2**22)),
+                  1, 2**20, (True, False)))
+    # the partition sizes its bins (16384 keys at D = 1 with counts) from
+    # every 16th run of 128 rows: ids whose bin follows the run make every
+    # other bin overflow its room
+    run = np.arange(2**21) // 128
+    ids = np.where(run % 16 == 0, rng.integers(0, 16384, 2**21),
+                   (run % 16) * 16384 + rng.integers(0, 16384, 2**21))
+    for d in (1, 3):
+        cases.append((f"ids the bin sizing misjudges (rows past their bin's "
+                      f"room), D={d}", ids, d, 2**18 + 1, (True, False)))
+    live = rng.random(2**24) < 0.5
+    cases.append(("K=2^22, half the rows dropped",
+                   np.where(live, rng.integers(0, 2**22, 2**24), 2**22), 1,
+                   2**22, (True, False)))
+    for label, seg, d, k, modes in cases:
+        for dtype in (torch.int32, torch.float32):
+            s = torch.as_tensor(np.asarray(seg).astype(np.int32), device=dev)
+            v = torch.as_tensor(rng.integers(-9, 10, (s.numel(), d)),
+                                dtype=torch.int32, device=dev).to(dtype)
+            for cnt in modes:
+                got = segment_sum(s, v, k, out_dtype=dtype, counts=cnt)
+                want = segment_sum_ref(s, v, k, out_dtype=dtype, counts=cnt)
+                if cnt:
+                    require_equal(f"segment_sum {label} {dtype} counts",
+                                  got[1], want[1])
+                    got, want = got[0], want[0]
+                require_equal(f"segment_sum {label} {dtype} sums", got, want)
+            del s, v, got, want
+        log(f"  segment_sum {label}: int32 and integer-valued float32, "
+            f"counts {' and '.join('on' if c else 'off' for c in modes)}: "
+            f"equal")
+    s = torch.as_tensor(rng.integers(-1, 300, 50_001).astype(np.int32),
+                        device=dev)[1:]
+    v = torch.as_tensor(rng.integers(-9, 10, (50_001, 1)), dtype=torch.int32,
+                        device=dev).to(torch.float32)[1:]
+    for k in (300, 2**18 + 1):
+        got = segment_sum(s, v, k, counts=True)
+        want = segment_sum_ref(s, v, k, counts=True)
+        require_equal(f"segment_sum unaligned views K={k} sums", got[0],
+                      want[0])
+        require_equal(f"segment_sum unaligned views K={k} counts", got[1],
+                      want[1])
+        require_equal(f"segment_sum unaligned views K={k} no counts",
+                      segment_sum(s, v, k), want[0])
+    log("  segment_sum views 4 bytes off 16-byte alignment (scalar loads), "
+        "private, direct and partitioned: equal")
+    torch.cuda.empty_cache()
     # non-integer floats: atomics add in run-dependent order; allow the
     # reordering error of float32 sums (relative to the sum of |v|)
     n, k = 500_000, 1000
@@ -385,9 +469,24 @@ def check_spmv_ell(dev, rng) -> None:
                                        spmv_ell(nb, c, v),
                                        spmv_ell_ref(nb, c, v),
                                        spmv_ell_ref(nb, c.abs(), v)))
-    log(f"  spmv_ell: integer-valued sums equal; non-integer float32 "
-        f"relative error {worst:.3g} (tolerance 1e-5 of sum|contrib|: "
-        f"atomic order)")
+    # one vertex takes 10% of all in-edges (a hot bin split across blocks)
+    s_rows, f, v = 2**18, 16, 2**18
+    nbrs = rng.integers(0, v, (s_rows, f)).astype(np.int32)
+    nbrs[rng.random((s_rows, f)) < 0.1] = 7
+    nbrs[rng.random((s_rows, f)) < 0.3] = -1
+    nb = torch.as_tensor(nbrs, device=dev)
+    ints = torch.as_tensor(rng.integers(-9, 10, (s_rows, f)),
+                           device=dev).to(torch.float32)
+    require_equal("spmv_ell hot vertex integer-valued",
+                  spmv_ell(nb, ints, v), spmv_ell_ref(nb, ints, v))
+    c = torch.as_tensor(rng.normal(0, 1, (s_rows, f)).astype(np.float32),
+                        device=dev)
+    worst = max(worst, sum_rel_err("spmv_ell hot vertex", spmv_ell(nb, c, v),
+                                   spmv_ell_ref(nb, c, v),
+                                   spmv_ell_ref(nb, c.abs(), v)))
+    log(f"  spmv_ell (also one vertex with 10% of the in-edges): "
+        f"integer-valued sums equal; non-integer float32 relative error "
+        f"{worst:.3g} (tolerance 1e-5 of sum|contrib|: order of the adds)")
 
 
 def sum_rel_err(name, got, want, scale) -> float:
@@ -646,6 +745,9 @@ def time_kernels(dev, rng, n_edges: int, vertices: int) -> dict:
         library_ms=cuda_ms(library),
         # adds: one value and one count per row
         **bound(n * 4 + n * 4 + k * 4 + k * 4, 2 * n))
+    parts = device_shares(lambda: segment_sum(seg, vals, k, counts=True), dev)
+    log(f"  segment_sum at N={n}, K={k}, one call under torch.profiler: "
+        f"device busy {parts['busy_ms']:.3f} ms; by kernel {parts['top']}")
     del seg, vals, seg64, got, want
 
     # merge of update (a): 2048 affected keys x 256 preserved rows, then
@@ -752,13 +854,15 @@ def time_kernels(dev, rng, n_edges: int, vertices: int) -> dict:
     return out
 
 
-def check_iterative_shapes(dev, rng, vertices: int) -> None:
+def check_iterative_shapes(dev, rng, vertices: int) -> dict:
     """The slice-1 kernels at the shapes the iterative path gives them,
     against their plain versions: PageRank's Reduce (non-integer float32,
     counts on and off), SSSP's counts-only Reduce, and PageRank's refresh
     merge at the fused path's largest key_cap.  Float sums are held within
     1e-5 of the sum of |v| per output (``sum_rel_err``), everything else
-    bit for bit; the times are logged."""
+    bit for bit.  Returns segment_sum's times and bounds at the PageRank
+    and SSSP shapes (``ms_pagerank``, ``library_ms_pagerank``, ...); the
+    fused kernel's are logged."""
     import torch
     from repro_torch.kernels.fused import fused_shuffle_reduce
     from repro_torch.kernels.ref import fused_shuffle_reduce_ref, segment_sum_ref
@@ -791,12 +895,25 @@ def check_iterative_shapes(dev, rng, vertices: int) -> None:
         torch.zeros((k, 1), device=dev).index_add_(0, lsid, lvals)
         torch.bincount(lsid, minlength=k)
 
-    log(f"  segment_sum at PageRank's Reduce [N={n} D=1 K={k}, non-integer "
-        f"float32]: relative error {err:.3g} (tolerance 1e-5 of sum|v|), "
-        f"counts equal; kernel "
-        f"{cuda_ms(lambda: segment_sum(seg, vals, k, counts=True)):.3f} ms, "
-        f"plain {cuda_ms(lambda: segment_sum_ref(seg, vals, k, counts=True)):.3f}"
-        f" ms, library on the rows in range {cuda_ms(library):.3f} ms")
+    n_live = int(live.sum())
+    times = dict(
+        ms_pagerank=cuda_ms(lambda: segment_sum(seg, vals, k, counts=True)),
+        plain_ms_pagerank=cuda_ms(
+            lambda: segment_sum_ref(seg, vals, k, counts=True)),
+        library_ms_pagerank=cuda_ms(library),
+        # seg and vals read once, sums and counts written once; a value and
+        # a count add a row in range
+        bound_ms_pagerank=bound(n * 8 + k * 8, 2 * n_live)["bound_ms"])
+    parts = device_shares(lambda: segment_sum(seg, vals, k, counts=True),
+                          dev)
+    log(f"  segment_sum at PageRank's Reduce [N={n} D=1 K={k}, {n_live} rows "
+        f"in range, non-integer float32]: relative error {err:.3g} "
+        f"(tolerance 1e-5 of sum|v|), counts equal; kernel "
+        f"{times['ms_pagerank']:.3f} ms, plain "
+        f"{times['plain_ms_pagerank']:.3f} ms, library on the rows in range "
+        f"{times['library_ms_pagerank']:.3f} ms, bound "
+        f"{times['bound_ms_pagerank']:.3f} ms; one call under torch.profiler:"
+        f" device busy {parts['busy_ms']:.3f} ms, by kernel {parts['top']}")
     del seg, vals, want, scale, got, seg64, live, lsid, lvals
 
     # SSSP's Reduce counts: (V + 1) * 16 edge rows, int32 ones, no sums
@@ -806,9 +923,16 @@ def check_iterative_shapes(dev, rng, vertices: int) -> None:
     require_equal("segment_sum SSSP counts",
                   segment_sum(seg, ones, k, out_dtype=torch.int32),
                   segment_sum_ref(seg, ones, k, out_dtype=torch.int32))
-    log(f"  segment_sum at SSSP's counts [N={n} D=1 K={k} int32]: equal; "
-        f"kernel {cuda_ms(lambda: segment_sum(seg, ones, k, out_dtype=torch.int32)):.3f}"
-        f" ms")
+    n_live = int((seg < k).sum())
+    times["ms_sssp_counts"] = cuda_ms(
+        lambda: segment_sum(seg, ones, k, out_dtype=torch.int32))
+    times["bound_ms_sssp_counts"] = bound(n * 8 + k * 4, n_live)["bound_ms"]
+    parts = device_shares(
+        lambda: segment_sum(seg, ones, k, out_dtype=torch.int32), dev)
+    log(f"  segment_sum at SSSP's counts [N={n} D=1 K={k} int32, {n_live} "
+        f"rows in range]: equal; kernel {times['ms_sssp_counts']:.3f} ms, "
+        f"bound {times['bound_ms_sssp_counts']:.3f} ms; profiled: device "
+        f"busy {parts['busy_ms']:.3f} ms, by kernel {parts['top']}")
     del seg, ones
     torch.cuda.empty_cache()
 
@@ -853,6 +977,7 @@ def check_iterative_shapes(dev, rng, vertices: int) -> None:
         f" ms, plain "
         f"{cuda_ms(lambda: fused_shuffle_reduce_ref(*args, out_dtype=torch.float32)):.3f}"
         f" ms")
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -1496,7 +1621,8 @@ def main(argv=None) -> int:
         f"of the bound; without the window {t['moved_without_window']:.3g}, "
         f"without the softcap {t['moved_without_softcap']:.3g} of the "
         f"outputs move past it")
-    check_iterative_shapes(dev, rng, args.vertices)
+    timed["segment_sum"].update(
+        check_iterative_shapes(dev, rng, args.vertices))
     torch.cuda.empty_cache()
 
     log("phase 3: main path (wordcount, one-step incremental)")
@@ -1549,6 +1675,17 @@ def main(argv=None) -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if name == "segment_sum":
+            entry.update({n: t[n] for n in (
+                "shape", "ms_pagerank", "plain_ms_pagerank",
+                "library_ms_pagerank", "bound_ms_pagerank", "ms_sssp_counts",
+                "bound_ms_sssp_counts")})
+            entry["note"] = (
+                "ms, plain_ms, library_ms, bound_ms: wordcount's Reduce; "
+                "*_pagerank: PageRank's Reduce (N 2^26, K 2^22, half the "
+                "rows dropped, counts on; library: index_add_ + bincount on "
+                "the rows in range); *_sssp_counts: SSSP's counts (int32 "
+                "ones, counts off)")
         if name == "spmv_ell":
             entry["note"] = ("no engine path calls it (nor the JAX "
                              "package's); held against its plain version "

@@ -7,10 +7,10 @@ library.  All sources compile in parallel, one ``nvcc`` each, at the first
 use of any kernel; nothing is fetched or pre-built.  The libraries link the
 CUDA runtime statically and take PyTorch's stream and device pointers as
 plain integers (``c_void_p``).  Headers under ``csrc/`` (``common.cuh``,
-``wgmma.cuh``) are part of the hash.  The flash kernel's TMA descriptors
-come from libcuda's ``cuTensorMapEncodeTiled``, which it looks up through
-the CUDA runtime's entry-point query at its first launch, so no library
-links ``-lcuda``.
+``wgmma.cuh``, ``scatter_sum.cuh``) are part of the hash.  The flash
+kernel's TMA descriptors come from libcuda's ``cuTensorMapEncodeTiled``,
+which it looks up through the CUDA runtime's entry-point query at its
+first launch, so no library links ``-lcuda``.
 
 Nothing here runs at import: the CPU tests import every module, and the
 loader only touches ``nvcc`` when a CUDA tensor asks for a kernel.
@@ -41,14 +41,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_SZ = ctypes.c_size_t
 # exported C functions: name -> (argtypes, restype)
 _SIGNATURES = {
     "sort": {
-        "sort_lex_workspace_bytes": ([_LL], ctypes.c_size_t),
+        "sort_lex_workspace_bytes": ([_LL], _SZ),
         "sort_lex_launch": ([_P, _P, _P, _P, _P, _LL, _P, _P], _I),
     },
     "segment_sum": {
-        "segment_sum_launch": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P], _I),
+        "segment_sum_workspace_bytes": ([_LL, _I, _I, _I], _SZ),
+        "segment_sum_launch": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P, _SZ,
+                                _P], _I),
     },
     "fused": {
         "fused_small_launch": ([_P] * 6 + [_I] * 4 + [_P] * 8, _I),
@@ -58,7 +61,8 @@ _SIGNATURES = {
         "segment_minmax_launch": ([_P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
     },
     "spmv_ell": {
-        "spmv_ell_launch": ([_P, _P, _P, _LL, _I, _P], _I),
+        "spmv_ell_workspace_bytes": ([_LL, _I], _SZ),
+        "spmv_ell_launch": ([_P, _P, _P, _LL, _I, _P, _SZ, _P], _I),
     },
     "flash_attention": {
         "flash_attention_launch": ([_P] * 4 + [_I] * 8 + [_F, _P], _I),

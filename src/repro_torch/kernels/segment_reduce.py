@@ -1,15 +1,27 @@
 """Segment sum (with optional row counts) and segment min/max — the Reduce
 stage.
 
-Counterpart of ``repro.kernels.segment_reduce``.  One kernel,
+Counterpart of ``repro.kernels.segment_reduce``.  One launcher,
 ``csrc/segment_sum.cu``, covers both ``segment_sum_mxu`` and
 ``segment_sum_counts_mxu`` (counts on or off).  The TPU's one-hot matmul
-and its sorted-input block skip do not carry over; on the H100 the kernel
-is a scatter-add, one thread per (row, column), with the row count added
-by the column-0 thread in the same launch.  Ids need not be sorted, and
-ids outside [0, K) are dropped.  int32 sums are exact; float32 atomics add
-in a run-dependent order (exact on integer-valued data).  It is bounded by
-device-memory bytes: seg and vals read once, [K, D] written once.
+and its sorted-input block skip do not carry over; on the H100 a segment
+sum is a scatter-add, and one global atomic a row is bound by the L2's
+reduction rate (~89 G/s; 0.75 ms for 2^26 adds against 0.19 ms to read
+the rows: ``tools/scatter_probes.py``).  The core,
+``csrc/scatter_sum.cuh``, adds in shared memory instead.  Its variants,
+chosen by the launcher from the output's K (D + counts) words: up to
+128 KB, each block sums a chunk of rows into a private copy of the whole
+output; above, with counts or D > 1, the live rows are partitioned into
+bins of 16,384 keys (at D = 1 with counts) and each bin is reduced in
+shared memory, a hot bin split across blocks; above, at D = 1 without
+counts, one pass adds each run of equal ids into the output with one L2
+atomic (one add a row is all the L2 is asked for there).  At D = 1 a
+thread takes 4 rows with 16-byte loads and equal adjacent ids collapse to
+one add.  The workspace (``segment_sum_workspace_bytes``: ~6.75 bytes a
+row plus at most 66 MB of partial slabs when partitioned) comes from the
+wrapper's ``torch.empty``.  Ids need not be sorted, and ids outside
+[0, K) are dropped.  int32 sums are exact; float32 adds in a
+run-dependent order (exact on integer-valued data).
 
 ``segment_minmax_mxu`` becomes ``csrc/segment_minmax.cu``: the output is
 filled with the identity (+-inf for float32, the int32 extreme), then one
@@ -30,6 +42,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import segment_minmax_ref, segment_sum_ref
 
 OUT_DTYPES = (torch.int32, torch.float32)
+MAX_ROWS = 2**31 - 1          # rows a launch (32-bit positions)
+MAX_SEGMENTS = 2**27          # 2048 bins of at most 2^16 keys (16-bit ids)
+# words of csrc/scatter_sum.cuh's shared-memory slab: an output of at most
+# this many words (K (D + counts)) takes the block-private variant
+SLAB_WORDS = 32768
 MINMAX_DTYPES = (torch.int32, torch.float32)
 
 
@@ -56,8 +73,11 @@ def segment_sum(seg: torch.Tensor, vals: torch.Tensor, num_segments: int, *,
                          f"{vals.device}")
     k = max(int(num_segments), 0)
     n, d = vals.shape
-    # the launcher zeroes its outputs on the stream before it adds
-    launch = bool(n and d and k)
+    if n > MAX_ROWS or k > MAX_SEGMENTS:
+        raise ValueError(f"the segment_sum kernel takes at most {MAX_ROWS} "
+                         f"rows and {MAX_SEGMENTS} segments, got {n}, {k}")
+    # the launcher writes every output element
+    launch = bool(n and k and (d or counts))
     alloc = torch.empty if launch else torch.zeros
     out = alloc((k, d), dtype=out_dtype, device=vals.device)
     cnt = alloc(k, dtype=torch.int32, device=vals.device)
@@ -65,10 +85,13 @@ def segment_sum(seg: torch.Tensor, vals: torch.Tensor, num_segments: int, *,
         lib = _build.library("segment_sum")
         seg = seg.to(torch.int32).contiguous()
         vals = vals.to(out_dtype).contiguous()
+        ws = torch.empty(lib.segment_sum_workspace_bytes(n, d, k, int(counts)),
+                         dtype=torch.uint8, device=vals.device)
         rc = lib.segment_sum_launch(
             seg.data_ptr(), vals.data_ptr(), out.data_ptr(),
             cnt.data_ptr() if counts else None, n, d, k,
-            int(out_dtype == torch.float32), _build.stream_ptr(vals.device))
+            int(out_dtype == torch.float32), ws.data_ptr(), ws.numel(),
+            _build.stream_ptr(vals.device))
         _build.check(lib, rc, "segment_sum")
         segment_sum.launches += 1
     return (out, cnt) if counts else out

@@ -3,11 +3,18 @@
 Counterpart of ``repro.kernels.spmv_ell.spmv_ell``: ``y[j]`` is the sum of
 ``contrib[i, f]`` over the slots with ``nbrs[i, f] == j``; -1 padding and
 ids >= V are dropped.  The TPU kernel turns the scatter into a one-hot
-matmul per (row tile, output block); on the H100 ``csrc/spmv_ell.cu`` is
-the scatter itself, one thread per slot adding into ``y`` with an atomic.
-float32 atomics add in a run-dependent order, so ``y`` equals a
-sequential sum only up to the reordering of its additions.  It is bounded
-by device-memory bytes.
+matmul per (row tile, output block).  On the H100 it is ``segment_sum``
+at D = 1 with counts off over the flattened slots, and
+``csrc/spmv_ell.cu`` runs on the same core, ``csrc/scatter_sum.cuh``, in
+its direct variant: one pass of 16-byte loads, padding dropped before any
+add, each run of equal ids one L2 atomic into ``y``.  The probes
+(``tools/scatter_probes.py``) put the L2 at ~73 G adds/s beside the
+stream of slots, so 2^25 live slots of 2^26 take at least ~0.46 ms; the
+core's partition measured slower here (it moves each live slot twice).
+No workspace (``spmv_ell_workspace_bytes`` gives the launcher's minimum).
+float32 adds in a run-dependent order, so ``y`` equals a sequential sum
+only up to the reordering of its additions (exact on integer-valued
+data).
 
 No engine path calls it, in the port as in the JAX package: the iterative
 engine runs PageRank's Map and Reduce as separate stages.
@@ -21,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import spmv_ell_ref
+from repro_torch.kernels.segment_reduce import MAX_ROWS, MAX_SEGMENTS
 
 
 def spmv_ell(nbrs: torch.Tensor, contrib: torch.Tensor,
@@ -36,14 +44,21 @@ def spmv_ell(nbrs: torch.Tensor, contrib: torch.Tensor,
     if nbrs.device.type != "cuda":
         raise ValueError(f"spmv_ell runs on cuda or cpu, not {nbrs.device}")
     v = max(int(num_vertices), 0)
+    if nbrs.numel() > MAX_ROWS or v > MAX_SEGMENTS:
+        raise ValueError(f"the spmv_ell kernel takes at most {MAX_ROWS} "
+                         f"slots and {MAX_SEGMENTS} vertices, got "
+                         f"{nbrs.numel()}, {v}")
     y = torch.empty(v, dtype=torch.float32, device=nbrs.device)
     if v:
-        # the launcher zeroes y on the stream before it adds
+        # the launcher writes every element of y
         lib = _build.library("spmv_ell")
         nbrs = nbrs.to(torch.int32).contiguous()
         contrib = contrib.to(torch.float32).contiguous()
+        ws = torch.empty(lib.spmv_ell_workspace_bytes(nbrs.numel(), v),
+                         dtype=torch.uint8, device=nbrs.device)
         rc = lib.spmv_ell_launch(nbrs.data_ptr(), contrib.data_ptr(),
                                  y.data_ptr(), nbrs.numel(), v,
+                                 ws.data_ptr(), ws.numel(),
                                  _build.stream_ptr(nbrs.device))
         _build.check(lib, rc, "spmv_ell")
         spmv_ell.launches += 1

@@ -25,7 +25,9 @@ from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
 import repro_torch.configs as C
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused import fused_shuffle_reduce
-from repro_torch.kernels.segment_reduce import segment_minmax, segment_sum
+from repro_torch.kernels.segment_reduce import (
+    SLAB_WORDS, segment_minmax, segment_sum,
+)
 from repro_torch.kernels import sort_u32
 from repro_torch.kernels.sort_u32 import sort_lex
 from repro_torch.kernels.spmv_ell import spmv_ell
@@ -83,18 +85,61 @@ def test_sort_lex(cuda, case):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("d", [1, 3, 64])
-def test_segment_sum(cuda, d):
-    rng = np.random.default_rng(d)
-    n, k = 50_000, 2**18 + 1
-    seg = torch.as_tensor(rng.integers(-2, k + 2, n).astype(np.int32),
-                          device=cuda)
+def _segment_case(case, rng):
+    """(seg, d, k) of one segment_sum case: random ids at K = 2^18 + 1 for
+    D in (1, 3, 64), or an edge case of csrc/scatter_sum.cuh's variants
+    (the block-private copy up to K (D + counts) = SLAB_WORDS words; above
+    it the direct pass at D = 1 without counts, the partition otherwise)."""
+    if case.isdigit():
+        k = 2**18 + 1
+        return rng.integers(-2, k + 2, 50_000), int(case), k
+    n = 200_003
+    w = SLAB_WORDS
+    bounds = {"private edge": w // 2, "private edge + 1": w // 2 + 1,
+              "direct edge": w, "direct edge + 1": w + 1,
+              "D=3 edge": w // 4, "D=3 edge + 1": w // 4 + 1}
+    if case in bounds:
+        k = bounds[case]
+        return rng.integers(-2, k + 2, n), 3 if "D=3" in case else 1, k
+    if case == "one id 2^24":
+        return np.full(2**24, 12345), 1, 2**18 + 1
+    if case == "zipf":
+        z = rng.zipf(1.2, 2**22) - 1
+        z[z > 2**18] = -1
+        return z, 1, 2**18 + 1
+    if case == "sorted 2^20":
+        return np.sort(rng.integers(0, 2**20, 2**22)), 1, 2**20
+    if case == "half dropped 2^22":
+        live = rng.random(2**24) < 0.5
+        return np.where(live, rng.integers(0, 2**22, 2**24), 2**22), 1, 2**22
+    if case == "misjudged bins":
+        # the partition sizes bins from every 16th run of 128 rows
+        run = np.arange(2**21) // 128
+        return np.where(run % 16 == 0, rng.integers(0, 16384, 2**21),
+                        (run % 16) * 16384 + rng.integers(0, 16384, 2**21)), \
+            1, 2**18 + 1
+    assert case == "D=0 counts"
+    return rng.integers(-2, 70_000, n), 0, 65_536
+
+
+@pytest.mark.parametrize("case", [
+    "1", "3", "64", "private edge", "private edge + 1", "direct edge",
+    "direct edge + 1", "D=3 edge", "D=3 edge + 1", "one id 2^24", "zipf",
+    "sorted 2^20", "half dropped 2^22", "misjudged bins", "D=0 counts"])
+def test_segment_sum(cuda, case):
+    rng = np.random.default_rng(len(case))
+    ids, d, k = _segment_case(case, rng)
+    seg = torch.as_tensor(np.asarray(ids).astype(np.int32), device=cuda)
     for dtype in (torch.int32, torch.float32):
-        vals = torch.as_tensor(rng.integers(-9, 10, (n, d)),
-                               device=cuda).to(dtype)
+        vals = torch.as_tensor(rng.integers(-9, 10, (seg.numel(), d)),
+                               dtype=torch.int32, device=cuda).to(dtype)
+        before = segment_sum.launches
         got = segment_sum(seg, vals, k, out_dtype=dtype, counts=True)
+        assert segment_sum.launches == before + 1
         want = ref.segment_sum_ref(seg, vals, k, out_dtype=dtype, counts=True)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(segment_sum(seg, vals, k, out_dtype=dtype),
+                           want[0])
 
 
 @pytest.mark.parametrize("n", [100, 4096, 20_000])
@@ -143,10 +188,13 @@ def test_ops_minmax_launches_kernel(cuda):
     assert counts.tolist() == [1, 2, 0, 0]
 
 
-def test_spmv_ell(cuda):
+@pytest.mark.parametrize("case", ["random", "hot vertex"])
+def test_spmv_ell(cuda, case):
     rng = np.random.default_rng(7)
     s, f, v = 20_000, 16, 30_000
     nbrs = rng.integers(0, v + 9, (s, f)).astype(np.int32)
+    if case == "hot vertex":                 # 10% of the in-edges on one
+        nbrs[rng.random((s, f)) < 0.1] = 7
     nbrs[rng.random((s, f)) < 0.5] = -1
     nb = torch.as_tensor(nbrs, device=cuda)
     ints = torch.as_tensor(rng.integers(-9, 10, (s, f)), device=cuda).float()

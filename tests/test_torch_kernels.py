@@ -96,6 +96,19 @@ def test_segment_sum_counts_matches_pallas(n, d, k, dtype):
                                          k))
 
 
+def test_segment_sum_counts_without_columns():
+    """vals [N, 0] with counts: the counts of the ids in range, as
+    np.bincount gives them (the Pallas kernel raises at D = 0, so the plain
+    version is the contract the card's launcher follows)."""
+    rng = np.random.default_rng(11)
+    seg = rng.integers(-2, 70, 5000).astype(np.int32)
+    out, cnt = segment_sum(torch.from_numpy(seg), torch.zeros((5000, 0)), 64,
+                           counts=True)
+    assert out.shape == (64, 0) and cnt.dtype == torch.int32
+    live = seg[(seg >= 0) & (seg < 64)]
+    _eq(cnt, np.bincount(live, minlength=64).astype(np.int32))
+
+
 def test_segment_sum_empty():
     out, cnt = segment_sum(torch.zeros(0, dtype=torch.int32),
                            torch.zeros((0, 4)), 8, counts=True)

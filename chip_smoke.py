@@ -82,6 +82,12 @@ P_EDGE = 0.5
 # ranks land far closer to the new fixpoint than the run's ranks do (about
 # 1/40 of that distance, against about 1/7 at a threshold of 0.01)
 PR_CPC = 1e-3
+# (N, K, D) of the segment_minmax launch SSSP's refresh makes most often
+# (phase 4's launch log: 4 of its 9 launches, NVIDIA H100 80GB HBM3)
+SSSP_REFRESH_MINMAX = (2**17, 16384, 1)
+# (N, key_cap) of the one-block fused launches of PageRank's refresh
+# (phase 4's launch log: 3 of its 5 fused launches; this is the largest)
+PR_REFRESH_ONE_BLOCK = (4096, 256)
 # flash attention, held elementwise: |kernel - plain| <= rel * (|plain| + A)
 # with A = sum_j p_j |v_j| (the plain version on |v|), the size every
 # rounding of an output is proportional to.  bf16, rel 2^-7: the kernel
@@ -377,23 +383,97 @@ def check_segment_sum(dev, rng) -> None:
         f"(tolerance 1e-5 of sum|v|: atomic order)")
 
 
-def fused_case(dev, rng, n, d, dtype, nkeys):
+def fused_rows(dev, rng, n, d, dtype, nkeys, *, absent=0, tomb=0.25,
+               hot=False, float_vals=False, routed=1.0):
     """Rows with duplicate (k2, mk) runs, tombstones, invalid rows and k2
-    values outside the affected set."""
+    values outside the affected set: ``nkeys`` distinct k2 (one key owning
+    every row when ``hot``), a share ``tomb`` of tombstones, 10% invalid
+    rows; the affected keys are a share ``routed`` of the present k2 plus
+    ``absent`` keys with no rows (empty slots), padded with INT32_MAX to a
+    power of two; values integer-valued unless ``float_vals``."""
     import torch
-    k2 = rng.integers(0, nkeys, n).astype(np.int32)
+    k2 = np.full(n, 7) if hot else rng.integers(0, nkeys, n)
     mk = rng.integers(0, 8, n).astype(np.int32)
-    vals = rng.integers(-20, 20, (n, d))
+    vals = rng.normal(0, 1, (n, d)) if float_vals \
+        else rng.integers(-20, 20, (n, d))
     valid = rng.random(n) < 0.9
-    sign = np.where(rng.random(n) < 0.75, 1, -1).astype(np.int8)
+    sign = np.where(rng.random(n) < tomb, -1, 1).astype(np.int8)
     present = np.unique(k2[valid])
-    aff = present[rng.random(present.size) < 0.8]      # some k2 not routed
-    cap = 1 << max(int(np.ceil(np.log2(max(aff.size, 1)))), 3)
+    aff = np.union1d(present[rng.random(present.size) < routed],
+                     nkeys + 3 * np.arange(absent)).astype(np.int32)
+    cap = 1 << max(int(np.ceil(np.log2(aff.size + 1))), 3)
     keys = np.full(cap, INT32_MAX, np.int32)
     keys[:aff.size] = aff
     t = lambda a: torch.as_tensor(a, device=dev)
-    k2m = np.where(valid, k2, INT32_MAX).astype(np.int32)
-    return (t(k2m), t(mk), t(vals).to(dtype), t(valid), t(sign), t(keys))
+    return (t(np.where(valid, k2, INT32_MAX).astype(np.int32)), t(mk),
+            t(vals.astype(np.float32)).to(dtype), t(valid), t(sign), t(keys))
+
+
+def check_fused_runs(dev, rng) -> None:
+    """The large path's edges (``csrc/fused.cu``: tiles of 1024 sorted rows
+    at D = 1, a warp's 32 at D > 1), bit for bit against the plain version
+    and the composed path on integer data: runs longer than a tile that
+    cross its edges, one key owning every row, every row tombstoned,
+    affected keys with no rows, key_cap 4096 at D = 8.  Then non-integer
+    float32: acc within 1e-5 of the sum of |v|, and equal bit for bit
+    from one call to the next (the runs add in a fixed order)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused import fused_shuffle_reduce
+    from repro_torch.kernels.ref import fused_shuffle_reduce_ref
+    names = ("k2", "mk", "vals", "live", "perm", "acc", "counts")
+    cases = [
+        ("runs of ~6,700 rows across tile edges", 20_000, (1, 8), 3, {}),
+        ("runs of ~2,048 rows", 2**16 + 5, (1, 8), 32, {}),
+        ("one key owning every row", 2**20, (1,), 1, dict(hot=True)),
+        ("one key owning every row", 2**16, (8,), 1, dict(hot=True)),
+        ("every row a tombstone", 50_000, (1, 8), 500, dict(tomb=1.0)),
+        ("500 affected keys with no rows", 50_000, (1, 8), 700,
+         dict(absent=500)),
+        ("key_cap 4096", 100_000, (1, 8), 4000, dict(absent=90)),
+    ]
+    for label, n, ds, nkeys, opt in cases:
+        for d in ds:
+            for dtype in (torch.int32, torch.float32):
+                args = fused_rows(dev, rng, n, d, dtype, nkeys, **opt)
+                got = fused_shuffle_reduce(*args, out_dtype=dtype)
+                want = fused_shuffle_reduce_ref(*args, out_dtype=dtype)
+                for name, g, w in zip(names, got, want):
+                    require_equal(f"fused {label} n={n} d={d} {dtype} "
+                                  f"{name}", g, w)
+                k2m, mk, vals, valid, sign, keys = args
+                cp = ops.shuffle_reduce("sum", k2m, mk, vals, valid, sign,
+                                        keys, fused=False)
+                for name, g in zip(names, got):
+                    c = getattr(cp, "values" if name == "vals" else name)
+                    require_equal(f"fused vs composed {label} d={d} {name}",
+                                  g, c)
+        log(f"  fused_shuffle_reduce {label} (N={n}, key_cap "
+            f"{args[5].numel()}, D in {ds}): int32 and integer-valued "
+            f"float32 equal to plain and to composed")
+    worst = 0.0
+    for label, n, d, nkeys, opt in (
+            ("runs across tile edges", 20_000, 1, 3, {}),
+            ("one key owning every row", 2**20, 1, 1, dict(hot=True)),
+            ("key_cap 4096", 100_000, 8, 4000, {})):
+        args = fused_rows(dev, rng, n, d, torch.float32, nkeys,
+                          float_vals=True, **opt)
+        got = fused_shuffle_reduce(*args, out_dtype=torch.float32)
+        again = fused_shuffle_reduce(*args, out_dtype=torch.float32)
+        require_equal(f"fused {label} float acc from one call to the next",
+                      got[5], again[5])
+        want = fused_shuffle_reduce_ref(*args, out_dtype=torch.float32)
+        abs_args = list(args)
+        abs_args[2] = args[2].abs()
+        worst = max(worst, sum_rel_err(
+            f"fused {label} float acc", got[5], want[5],
+            fused_shuffle_reduce_ref(*abs_args, out_dtype=torch.float32)[5]))
+        for name, g, w in zip(names, got, want):
+            if name != "acc":
+                require_equal(f"fused {label} float {name}", g, w)
+    log(f"  fused_shuffle_reduce non-integer float32 (runs across tiles, "
+        f"one hot key, key_cap 4096 at D = 8): acc equal from call to "
+        f"call, relative error {worst:.3g} (tolerance 1e-5 of sum|v|)")
 
 
 def check_fused(dev, rng) -> None:
@@ -407,7 +487,8 @@ def check_fused(dev, rng) -> None:
             for dtype in (torch.float32, torch.int32):
                 # few distinct keys: long (k2, mk) runs straddle every
                 # 4096-row boundary of the sorted order
-                args = fused_case(dev, rng, n, d, dtype, max(n // 64, 2))
+                args = fused_rows(dev, rng, n, d, dtype, max(n // 64, 2),
+                                  routed=0.8)
                 got = fused_shuffle_reduce(*args, out_dtype=dtype)
                 want = fused_shuffle_reduce_ref(*args, out_dtype=dtype)
                 for name, g, w in zip(names, got, want):
@@ -423,14 +504,14 @@ def check_fused(dev, rng) -> None:
                     require_equal(f"fused vs composed n={n} d={d} {name}",
                                   getattr(fz, name), getattr(cp, name))
         log(f"  fused_shuffle_reduce n={n} "
-            f"({'one block' if n <= 4096 else 'sort + LWW kernel'}), "
+            f"({'one block' if n <= 4096 else 'sort + runs'}), "
             f"D in (1, 8), int32/float32: equal to plain and to composed")
 
 
 def check_segment_minmax(dev, rng) -> None:
     import torch
     from repro_torch.kernels.ref import segment_minmax_ref
-    from repro_torch.kernels.segment_reduce import segment_minmax
+    from repro_torch.kernels.segment_reduce import SLAB_WORDS, segment_minmax
     # K = 1; K = 5000 over 300 rows (most segments empty: the identity);
     # K = 2^18 + 1 over 2e5 rows; ids from -2 to K + 2 (out of range
     # dropped); negative values; no -0.0 (see csrc/segment_minmax.cu)
@@ -448,6 +529,50 @@ def check_segment_minmax(dev, rng) -> None:
                                   segment_minmax_ref(kind, s, v, k))
         log(f"  segment_minmax K={k} N={n}: min and max, D in (1, 3, 64), "
             f"int32 and float32 with negatives: equal")
+    # the pass's edges (csrc/segment_minmax.cu): K D on either side of
+    # SLAB_WORDS (SSSP's refresh buckets); N of 2^17 to 2^22, which launch
+    # blocks of 128 to 1,024 threads, and a partial last quad; sorted ids
+    # (runs the warp collapses, as SSSP's refresh gives them) and one hot
+    # id; values in random, decreasing and increasing order, 5% at +inf and
+    # 5% at -inf (float32), 5% at each int32 extreme
+    w = SLAB_WORDS
+    cases = [(f"K={k} D={d}", rng.integers(-2, k + 3, 200_003), d, k)
+             for d in (1, 4) for k in (w // d, w // d + 1)]
+    cases += [("sorted ids, K=16384", np.sort(rng.integers(0, 16384, 2**17)),
+               1, 16384),
+              ("sorted ids, K=2^18+1 (blocks of 256)",
+               np.sort(rng.integers(0, 2**18 + 1, 2**19 - 1)), 1, 2**18 + 1),
+              ("sorted ids, K=2^18+1 (blocks of 512)",
+               np.sort(rng.integers(0, 2**18 + 1, 2**20 - 1)), 1, 2**18 + 1),
+              ("sorted ids, K=2^20", np.sort(rng.integers(0, 2**20, 2**22)),
+               1, 2**20),
+              ("2^22 rows on one id, K=2^18+1", np.full(2**22, 777), 1,
+               2**18 + 1),
+              ("2^22 rows on one id, K=5", np.full(2**22, 3), 1, 5)]
+    for label, seg, d, k in cases:
+        s = torch.as_tensor(seg.astype(np.int32), device=dev)
+        n = s.numel()
+        for order in ("random", "decreasing", "increasing"):
+            f = rng.normal(0, 100, (n, d)).astype(np.float32)
+            i = rng.integers(-2**31, 2**31, (n, d)).astype(np.int32)
+            u = rng.random((n, d))
+            f[u < 0.05] = np.inf
+            f[u > 0.95] = -np.inf
+            i[u < 0.05] = 2**31 - 1
+            i[u > 0.95] = -2**31
+            if order != "random":
+                f, i = np.sort(f, axis=0), np.sort(i, axis=0)
+                if order == "decreasing":
+                    f, i = f[::-1].copy(), i[::-1].copy()
+            for vals in (f, i):
+                v = torch.as_tensor(vals, device=dev)
+                for kind in ("min", "max"):
+                    require_equal(f"segment_minmax {kind} {label} {order} "
+                                  f"{v.dtype}", segment_minmax(kind, s, v, k),
+                                  segment_minmax_ref(kind, s, v, k))
+        log(f"  segment_minmax {label}, N={n}: min and max, int32 and "
+            f"float32 with both infinities and both int32 extremes, rows in "
+            f"random, decreasing and increasing order: equal")
 
 
 def check_spmv_ell(dev, rng) -> None:
@@ -687,6 +812,101 @@ def time_flash_attention(dev) -> dict:
 # phase 2b: times at the main path's shapes
 # ---------------------------------------------------------------------------
 
+def merge_rows(rng, dev, m: int, universe: int, key_cap: int, per_key: int,
+               redo: int, tomb: int, new: int, ones: bool = False):
+    """A shuffle-reduce merge's rows as the main paths give it: ``key_cap``
+    affected keys (sorted, unique, from [0, universe)) of ``per_key``
+    preserved rows each, then a delta of ``redo`` rewrites and ``tomb``
+    tombstones of preserved rows and ``new`` rows on affected keys, padded
+    to ``m`` rows at k2 = mk = INT32_MAX.  Values of width 1: ones, or
+    uniform in [0, 0.25) float32 (PageRank's rank shares).  Returns the six
+    arguments of ``fused_shuffle_reduce`` and the count of valid rows."""
+    import torch
+    keys = np.sort(rng.choice(universe, key_cap, replace=False)).astype(
+        np.int32)
+    pk2 = np.repeat(keys, per_key)
+    pmk = rng.choice(2**26, pk2.size, replace=False)
+    pick = rng.choice(pk2.size, redo + tomb, replace=False)
+    nv = pk2.size + redo + tomb + new
+    k2 = np.full(m, INT32_MAX, np.int32)
+    k2[:nv] = np.concatenate([pk2, pk2[pick], rng.choice(keys, new)])
+    mk = np.full(m, INT32_MAX, np.int32)
+    mk[:nv] = np.concatenate([pmk, pmk[pick], rng.integers(0, 2**26, new)])
+    sign = np.zeros(m, np.int8)
+    sign[:nv] = np.concatenate([np.ones(pk2.size + redo), -np.ones(tomb),
+                                np.ones(new)])
+    vals = (np.ones((m, 1), np.float32) if ones
+            else (rng.random((m, 1)) * 0.25).astype(np.float32))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return [t(k2), t(mk), t(vals), t(np.arange(m) < nv), t(sign), t(keys)], nv
+
+
+def sssp_run_rows(dev, vertices: int):
+    """SSSP's run Reduce: (V + 1) * 16 edge rows, half of them padding
+    slots, whose id V (= num_state) the kernel drops; D = 1, K = V;
+    float32 distances in [0, 30).  Returns seg, vals and the mask of the
+    rows in range."""
+    import torch
+    k = vertices
+    n = (vertices + 1) * OUT_SLOTS
+    present = torch.rand(n, device=dev) < P_EDGE
+    seg = torch.where(present,
+                      torch.randint(0, k, (n,), device=dev, dtype=torch.int32),
+                      torch.full((n,), k, device=dev, dtype=torch.int32))
+    vals = (torch.rand((n, 1), device=dev) * 30).to(torch.float32)
+    return seg, vals, present
+
+
+def sssp_refresh_rows(rng, dev, n: int, k: int):
+    """SSSP's refresh Reduce at (N, K = key_cap): the composed merge's rows,
+    sorted by key, so the slot ids ascend: 76% of the rows valid, over 73%
+    of the slots (~8 rows each), 15% of those not live (id K), the rest
+    padding (id K); float32 in [0, 30).  Returns seg, vals and the ids as
+    numpy."""
+    import torch
+    nv = int(n * 0.76)
+    ids = np.full(n, k, np.int32)
+    ids[:nv] = np.sort(rng.integers(0, int(k * 0.73), nv))
+    ids[:nv][rng.random(nv) < 0.15] = k
+    vals = torch.as_tensor((rng.random((n, 1)) * 30).astype(np.float32),
+                           device=dev)
+    return torch.as_tensor(ids, device=dev), vals, ids
+
+
+def time_fused(label: str, args, nv: int, dev) -> dict:
+    """The fused kernel's time (CUDA events), its plain version's, the port's
+    composed path's on the same rows (``ops.shuffle_reduce(..., fused=
+    False)``: no one PyTorch call computes this function, so the composed
+    path is the yardstick), the bound, and the split of one call by kernel.
+    ``args`` are float32 rows of width 1; ``nv`` counts the valid ones."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused import fused_shuffle_reduce
+    from repro_torch.kernels.ref import fused_shuffle_reduce_ref
+    k2m, mk, vals, valid, sign, keys = args
+    m, key_cap = k2m.numel(), keys.numel()
+    fn = lambda: fused_shuffle_reduce(*args, out_dtype=torch.float32)
+    composed = lambda: ops.shuffle_reduce("sum", k2m, mk, vals, valid, sign,
+                                          keys, fused=False)
+    # read: k2, mk, vals, valid, sign, keys; written: k2_s, mk_s, vals_s,
+    # perm, live, acc, counts
+    read = m * (4 + 4 + 4 + 1 + 1) + key_cap * 4
+    written = m * (4 + 4 + 4 + 4 + 1) + key_cap * (4 + 4)
+    res = dict(
+        ms=cuda_ms(fn),
+        plain_ms=cuda_ms(lambda: fused_shuffle_reduce_ref(
+            *args, out_dtype=torch.float32)),
+        composed_ms=cuda_ms(composed),
+        # compares of the sort, then one value and one count add per row
+        **bound(read + written, m * math.log2(m) + 2 * nv))
+    log(f"  fused_shuffle_reduce at {label} [N={m} D=1 key_cap={key_cap}, "
+        f"{nv} valid rows]: composed path {res['composed_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.4f} ms; kernel "
+        + split_line(fn, dev, res["ms"]))
+    log(f"    composed path split: " + split_line(composed, dev,
+                                                   res["composed_ms"]))
+    return res
+
 def time_kernels(dev, rng, n_edges: int, vertices: int) -> dict:
     import torch
     from repro_torch.kernels.fused import fused_shuffle_reduce
@@ -752,56 +972,26 @@ def time_kernels(dev, rng, n_edges: int, vertices: int) -> dict:
 
     # merge of update (a): 2048 affected keys x 256 preserved rows, then
     # 2048 delta rows (tombstones and inserts), padded to 2^20 rows
-    key_cap, per_key, m = 2048, 256, 2**20
-    keys = np.sort(rng.choice(VOCAB, key_cap, replace=False)).astype(np.int32)
-    pk2 = np.repeat(keys, per_key)
-    pmk = rng.integers(0, 2**26, pk2.size).astype(np.int32)
-    pick = rng.choice(pk2.size, 1024, replace=False)
-    dk2 = np.concatenate([pk2[pick], rng.choice(keys, 1024)])
-    dmk = np.concatenate([pmk[pick], rng.integers(0, 2**26, 1024)])
-    dsign = np.concatenate([-np.ones(1024), np.ones(1024)]).astype(np.int8)
-    nv = pk2.size + dk2.size
-    k2 = np.full(m, INT32_MAX, np.int32)
-    k2[:nv] = np.concatenate([pk2, dk2])
-    mk = np.full(m, INT32_MAX, np.int32)
-    mk[:nv] = np.concatenate([pmk, dmk]).astype(np.int32)
-    sign = np.zeros(m, np.int8)
-    sign[:pk2.size] = 1
-    sign[pk2.size:nv] = dsign
-    valid = np.arange(m) < nv
-    t = lambda a: torch.as_tensor(a, device=dev)
-    args = (t(k2), t(mk), torch.ones((m, 1), device=dev), t(valid), t(sign),
-            t(keys))
+    m, key_cap = 2**20, 2048
+    args, nv = merge_rows(rng, dev, m, VOCAB, key_cap, 256, 0, 1024, 1024,
+                          ones=True)
     got = fused_shuffle_reduce(*args, out_dtype=torch.float32)
     want = fused_shuffle_reduce_ref(*args, out_dtype=torch.float32)
     for name, g, w in zip(("k2", "mk", "vals", "live", "perm", "acc",
                            "counts"), got, want):
         require_equal(f"fused main-path {name}", g, w)
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
-    read = m * (4 + 4 + 4 + 1 + 1) + key_cap * 4
-    written = m * (4 + 4 + 4 + 4 + 1) + key_cap * (4 + 4)
     out["fused_shuffle_reduce"] = dict(
         shape=f"N={m} D=1 key_cap={key_cap} ({nv} valid rows)",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: fused_shuffle_reduce(*args,
-                                                out_dtype=torch.float32)),
-        plain_ms=cuda_ms(lambda: fused_shuffle_reduce_ref(
-            *args, out_dtype=torch.float32)),
-        library_ms=None,
-        # compares of the sort, then one value and one count add per row
-        **bound(read + written, m * math.log2(m) + 2 * nv))
+        max_abs_err=err, library_ms=None,
+        **time_fused("wordcount's update (a) merge", args, nv, dev))
     del args, got, want
     torch.cuda.empty_cache()
 
-    # SSSP's run Reduce: (V + 1) * 16 edge rows, half of them padding
-    # slots, whose id V (= num_state) the kernel drops; D = 1, K = V
+    # SSSP's run Reduce
     k = vertices
-    n = (vertices + 1) * OUT_SLOTS
-    present = torch.rand(n, device=dev) < P_EDGE
-    seg = torch.where(present,
-                      torch.randint(0, k, (n,), device=dev, dtype=torch.int32),
-                      torch.full((n,), k, device=dev, dtype=torch.int32))
-    vals = (torch.rand((n, 1), device=dev) * 30).to(torch.float32)
+    seg, vals, present = sssp_run_rows(dev, vertices)
+    n = seg.numel()
     got = segment_minmax("min", seg, vals, k)
     want = segment_minmax_ref("min", seg, vals, k)
     require_equal("segment_minmax main-path", got, want)
@@ -821,7 +1011,38 @@ def time_kernels(dev, rng, n_edges: int, vertices: int) -> dict:
             0, live_sid, live_vals, "amin")),
         # one compare per row in range
         **bound(n * 4 + n * 4 + k * 4, n_live))
+    log(f"  segment_minmax at SSSP's run [N={n} D=1 K={k}, {n_live} rows in "
+        f"range]: " + split_line(lambda: segment_minmax("min", seg, vals, k),
+                                 dev, out["segment_minmax"]["ms"]))
     del seg, vals, got, want, init, present, live_sid, live_vals
+
+    # SSSP's refresh Reduce at its most frequent launch shape
+    # (SSSP_REFRESH_MINMAX)
+    rn, rk, _ = SSSP_REFRESH_MINMAX
+    seg, vals, ids = sssp_refresh_rows(rng, dev, rn, rk)
+    got = segment_minmax("min", seg, vals, rk)
+    require_equal("segment_minmax refresh-shape", got,
+                  segment_minmax_ref("min", seg, vals, rk))
+    live = ids < rk
+    live_sid = torch.as_tensor(ids[live].astype(np.int64), device=dev)[:, None]
+    live_vals = vals[torch.as_tensor(live, device=dev)]
+    init = torch.full((rk, 1), float("inf"), device=dev)
+    n_live = int(live.sum())
+    fn = lambda: segment_minmax("min", seg, vals, rk)
+    refresh = dict(
+        ms=cuda_ms(fn),
+        plain_ms=cuda_ms(lambda: segment_minmax_ref("min", seg, vals, rk)),
+        library_ms=cuda_ms(lambda: init.clone().scatter_reduce_(
+            0, live_sid, live_vals, "amin")),
+        **bound(rn * 4 + rn * 4 + rk * 4, n_live))
+    out["segment_minmax"].update(
+        {f"{name}_refresh": v for name, v in refresh.items()})
+    log(f"  segment_minmax at SSSP's refresh [N={rn} D=1 K={rk}, {n_live} rows "
+        f"in range, ids ascending]: plain {refresh['plain_ms']:.3f} ms, "
+        f"scatter_reduce_ on the rows in range {refresh['library_ms']:.3f} "
+        f"ms, bound {refresh['bound_ms']:.4f} ms; kernel "
+        + split_line(fn, dev, refresh["ms"]))
+    del seg, vals, got, init, live_sid, live_vals
 
     # PageRank's propagation at the same graph: S = V rows of 16 slots
     nbrs = torch.where(torch.rand((k, OUT_SLOTS), device=dev) < P_EDGE,
@@ -924,41 +1145,33 @@ def check_iterative_shapes(dev, rng, vertices: int) -> dict:
                   segment_sum(seg, ones, k, out_dtype=torch.int32),
                   segment_sum_ref(seg, ones, k, out_dtype=torch.int32))
     n_live = int((seg < k).sum())
-    times["ms_sssp_counts"] = cuda_ms(
-        lambda: segment_sum(seg, ones, k, out_dtype=torch.int32))
-    times["bound_ms_sssp_counts"] = bound(n * 8 + k * 4, n_live)["bound_ms"]
+    # the library call cannot drop rows: bincount of the ids in range
+    # (compacted beforehand, untimed), as segment_minmax's library call
+    lsid = seg[seg < k].to(torch.int64)
+    times.update(
+        ms_sssp_counts=cuda_ms(
+            lambda: segment_sum(seg, ones, k, out_dtype=torch.int32)),
+        plain_ms_sssp_counts=cuda_ms(
+            lambda: segment_sum_ref(seg, ones, k, out_dtype=torch.int32)),
+        library_ms_sssp_counts=cuda_ms(
+            lambda: torch.bincount(lsid, minlength=k)),
+        bound_ms_sssp_counts=bound(n * 8 + k * 4, n_live)["bound_ms"])
     parts = device_shares(
         lambda: segment_sum(seg, ones, k, out_dtype=torch.int32), dev)
     log(f"  segment_sum at SSSP's counts [N={n} D=1 K={k} int32, {n_live} "
         f"rows in range]: equal; kernel {times['ms_sssp_counts']:.3f} ms, "
+        f"plain {times['plain_ms_sssp_counts']:.3f} ms, bincount on the ids "
+        f"in range {times['library_ms_sssp_counts']:.3f} ms, "
         f"bound {times['bound_ms_sssp_counts']:.3f} ms; profiled: device "
         f"busy {parts['busy_ms']:.3f} ms, by kernel {parts['top']}")
-    del seg, ones
+    del seg, ones, lsid
     torch.cuda.empty_cache()
 
     # PageRank's refresh merge with 4096 affected keys: 8 preserved rank
     # shares each, then the delta of one refresh iteration (8192 shares
     # rewritten, 1024 tombstones, 1024 new edges), padded to 2^16 rows
-    key_cap, per_key, m = 4096, 8, 2**16
-    keys = np.sort(rng.choice(vertices, key_cap, replace=False)).astype(np.int32)
-    pk2 = np.repeat(keys, per_key)
-    pmk = rng.choice(2**26, pk2.size, replace=False).astype(np.int32)
-    redo = rng.choice(pk2.size, 8192 + 1024, replace=False)
-    dk2 = np.concatenate([pk2[redo], rng.choice(keys, 1024)])
-    dmk = np.concatenate([pmk[redo], rng.integers(0, 2**26, 1024)])
-    dsign = np.concatenate([np.ones(8192), -np.ones(1024),
-                            np.ones(1024)]).astype(np.int8)
-    nv = pk2.size + dk2.size
-    k2 = np.full(m, INT32_MAX, np.int32)
-    k2[:nv] = np.concatenate([pk2, dk2])
-    mk = np.full(m, INT32_MAX, np.int32)
-    mk[:nv] = np.concatenate([pmk, dmk]).astype(np.int32)
-    sign = np.zeros(m, np.int8)
-    sign[:pk2.size] = 1
-    sign[pk2.size:nv] = dsign
-    t = lambda a: torch.as_tensor(a, device=dev)
-    vals = (rng.random((m, 1)) * 0.25).astype(np.float32)
-    args = [t(k2), t(mk), t(vals), t(np.arange(m) < nv), t(sign), t(keys)]
+    m, key_cap = 2**16, 4096
+    args, nv = merge_rows(rng, dev, m, vertices, key_cap, 8, 8192, 1024, 1024)
     got = fused_shuffle_reduce(*args, out_dtype=torch.float32)
     want = fused_shuffle_reduce_ref(*args, out_dtype=torch.float32)
     for name, g, w in zip(("k2", "mk", "vals", "live", "perm", "acc",
@@ -970,14 +1183,33 @@ def check_iterative_shapes(dev, rng, vertices: int) -> dict:
     err = sum_rel_err("fused PageRank-refresh acc", got[5], want[5],
                       fused_shuffle_reduce_ref(*abs_args,
                                                out_dtype=torch.float32)[5])
+    require_equal("fused PageRank-refresh acc from one call to the next",
+                  got[5], fused_shuffle_reduce(*args,
+                                               out_dtype=torch.float32)[5])
     log(f"  fused_shuffle_reduce at PageRank's refresh [N={m} D=1 key_cap="
         f"{key_cap}, {nv} valid rows, non-integer float32]: acc relative "
-        f"error {err:.3g} (tolerance 1e-5 of sum|v|), the rest equal; kernel "
-        f"{cuda_ms(lambda: fused_shuffle_reduce(*args, out_dtype=torch.float32)):.3f}"
-        f" ms, plain "
-        f"{cuda_ms(lambda: fused_shuffle_reduce_ref(*args, out_dtype=torch.float32)):.3f}"
-        f" ms")
-    return times
+        f"error {err:.3g} (tolerance 1e-5 of sum|v|) and equal from one "
+        f"call to the next, the rest equal")
+    fused = {f"{n}_pagerank": v for n, v in time_fused(
+        "PageRank's refresh", args, nv, dev).items()}
+
+    # the one-block path at the largest of its PageRank-refresh launches:
+    # 8 preserved shares a key, 1024 rewritten, 128 tombstones, 128 new
+    m, key_cap = PR_REFRESH_ONE_BLOCK
+    args, nv = merge_rows(rng, dev, m, vertices, key_cap, 8, 1024, 128, 128)
+    got = fused_shuffle_reduce(*args, out_dtype=torch.float32)
+    want = fused_shuffle_reduce_ref(*args, out_dtype=torch.float32)
+    for name, g, w in zip(("k2", "mk", "vals", "live", "perm"), got, want):
+        require_equal(f"fused one-block {name}", g, w)
+    require_equal("fused one-block counts", got[6], want[6])
+    abs_args = list(args)
+    abs_args[2] = args[2].abs()
+    sum_rel_err("fused one-block acc", got[5], want[5],
+                fused_shuffle_reduce_ref(*abs_args,
+                                         out_dtype=torch.float32)[5])
+    fused.update({f"{n}_one_block": v for n, v in time_fused(
+        "PageRank's refresh, one block", args, nv, dev).items()})
+    return times, fused
 
 
 # ---------------------------------------------------------------------------
@@ -1026,6 +1258,15 @@ def make_deltas(rng, docs: np.ndarray):
     return steps
 
 
+def shapes_line() -> str:
+    """The launches by shape of the kernels that keep them, since the last
+    reset: segment_minmax by (N, K, D), fused_shuffle_reduce by (N,
+    key_cap, D, path)."""
+    from repro_torch.kernels import launch_shapes
+    return "; ".join(f"{name} {dict(sorted(sh.items()))}"
+                     for name, sh in launch_shapes().items() if sh) or "none"
+
+
 def drive_path(path: str, docs: np.ndarray, steps) -> dict:
     import torch
     from repro_torch.api import RunConfig, Session, make_delta
@@ -1049,7 +1290,8 @@ def drive_path(path: str, docs: np.ndarray, steps) -> dict:
     rep = sess.run(data)
     check(sess, docs, np.ones(docs.shape[0], bool), "run")
     log(f"  [{path}] run: {time.perf_counter() - t0:.3f} s, "
-        f"{docs.size} edges, mode {rep.mode}, launches {launch_counts()}")
+        f"{docs.size} edges, mode {rep.mode}, launches {launch_counts()}; "
+        f"shapes {shapes_line()}")
     for label, (rid, words, sign), cur, valid in steps:
         t0 = time.perf_counter()
         rep = sess.update(make_delta(rid, {"w": words}, sign))
@@ -1057,7 +1299,7 @@ def drive_path(path: str, docs: np.ndarray, steps) -> dict:
         check(sess, cur, valid, label)
         log(f"  [{path}] {label}: {dt:.3f} s, {int((words >= 0).sum())} "
             f"delta edges, affected keys {rep.affected_keys}, mode "
-            f"{rep.mode}, launches {launch_counts()}")
+            f"{rep.mode}, launches {launch_counts()}; shapes {shapes_line()}")
     counts = launch_counts()
     log(f"  [{path}] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1156,7 +1398,8 @@ def drive_pagerank(dev, rng, vertices: int) -> dict:
     lim = pagerank_bound(vertices, vertices * run_change, ch)
     log(f"  [pagerank] run: {t_run:.3f} s, mode {rep.mode}, {rep.iters} "
         f"iterations, last change {run_change:.3g}; L1 error "
-        f"{err:.6g} <= bound {lim:.6g}; launches {launch_counts()}")
+        f"{err:.6g} <= bound {lim:.6g}; launches {launch_counts()}; shapes "
+        f"{shapes_line()}")
     if not (np.isfinite(sess.result["r"]).all() and err <= lim):
         raise AssertionError(f"pagerank run: L1 error {err} > {lim}")
 
@@ -1195,7 +1438,8 @@ def drive_pagerank(dev, rng, vertices: int) -> dict:
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" \
         else float("nan")
-    log(f"  [pagerank] launches {counts}; peak device memory {peak:.2f} GiB")
+    log(f"  [pagerank] launches {counts}; shapes {shapes_line()}; peak "
+        f"device memory {peak:.2f} GiB")
     for name in ("sort_lex", "segment_sum"):
         if dev.type == "cuda" and counts[name] == 0:
             raise AssertionError(f"pagerank path launched no {name}")
@@ -1256,7 +1500,7 @@ def drive_sssp(dev, rng, vertices: int) -> dict:
     rep = sess.run(data)
     t_run = time.perf_counter() - t0
     log(f"  [sssp] run: {t_run:.3f} s, mode {rep.mode}, {rep.iters} "
-        f"iterations; launches {launch_counts()}")
+        f"iterations; launches {launch_counts()}; shapes {shapes_line()}")
     check_sssp("run", sess.result["d"], dijkstra(nbrs, w, 0))
 
     # the update of benchmarks/fig8_overall.py: 30% of the slots of 0.1%
@@ -1284,7 +1528,8 @@ def drive_sssp(dev, rng, vertices: int) -> dict:
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" \
         else float("nan")
-    log(f"  [sssp] launches {counts}; peak device memory {peak:.2f} GiB")
+    log(f"  [sssp] launches {counts}; shapes {shapes_line()}; peak device "
+        f"memory {peak:.2f} GiB")
     if dev.type == "cuda" and counts["segment_minmax"] == 0:
         raise AssertionError("sssp path launched no segment_minmax")
     del sess, data
@@ -1346,13 +1591,13 @@ MATMUL_KERNELS = re.compile(r"gemm|gemv|xmma|nvjet|cutlass|cublas|splitk",
                             re.IGNORECASE)
 
 
-def device_shares(fn, dev) -> dict:
+def device_shares(fn, dev, top: int = 5) -> dict:
     """Runs ``fn`` once under ``torch.profiler`` and splits the device time
     of its kernels into the flash kernel, matrix products (cuBLAS's and
     CUTLASS's kernels) and the rest (elementwise passes, reductions,
-    copies).  ``busy_ms`` is the union of the kernels' intervals, ``wall_ms``
-    the host clock of the profiled call (which the profiler slows);
-    ``top`` the five kernels that took the most device time."""
+    copies, memsets).  ``busy_ms`` is the union of the kernels' intervals,
+    ``wall_ms`` the host clock of the profiled call (which the profiler
+    slows); ``top`` the ``top`` kernels that took the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sync(dev)
@@ -1377,9 +1622,19 @@ def device_shares(fn, dev) -> dict:
     for lo, hi in sorted(spans):
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return dict(kernels=len(spans), busy_ms=busy / 1e3, wall_ms=wall * 1e3,
-                top=[(n[:60], round(t, 3)) for n, t in top], **ms)
+                top=[(n[:60], round(t, 3)) for n, t in ranked], **ms)
+
+
+def split_line(fn, dev, ms: float) -> str:
+    """The device-side split of one call of ``fn`` (``device_shares``)
+    beside ``ms``, its time by CUDA events: kernels launched, device busy
+    ms, the profiled call's host-clock ms, and the time of each kernel."""
+    p = device_shares(fn, dev, top=10)
+    return (f"events {ms:.3f} ms; one call under torch.profiler: "
+            f"{p['kernels']} kernels, device busy {p['busy_ms']:.3f} ms, "
+            f"host clock {p['wall_ms']:.3f} ms; by kernel {p['top']}")
 
 
 def log_shares(label: str, p: dict, wall_ms: float) -> None:
@@ -1595,6 +1850,7 @@ def main(argv=None) -> int:
     check_sort(dev, rng)
     check_segment_sum(dev, rng)
     check_fused(dev, rng)
+    check_fused_runs(dev, rng)
     check_segment_minmax(dev, rng)
     check_spmv_ell(dev, rng)
     check_flash_attention(dev, rng)
@@ -1621,8 +1877,9 @@ def main(argv=None) -> int:
         f"of the bound; without the window {t['moved_without_window']:.3g}, "
         f"without the softcap {t['moved_without_softcap']:.3g} of the "
         f"outputs move past it")
-    timed["segment_sum"].update(
-        check_iterative_shapes(dev, rng, args.vertices))
+    sums, fused = check_iterative_shapes(dev, rng, args.vertices)
+    timed["segment_sum"].update(sums)
+    timed["fused_shuffle_reduce"].update(fused)
     torch.cuda.empty_cache()
 
     log("phase 3: main path (wordcount, one-step incremental)")
@@ -1679,13 +1936,37 @@ def main(argv=None) -> int:
             entry.update({n: t[n] for n in (
                 "shape", "ms_pagerank", "plain_ms_pagerank",
                 "library_ms_pagerank", "bound_ms_pagerank", "ms_sssp_counts",
+                "plain_ms_sssp_counts", "library_ms_sssp_counts",
                 "bound_ms_sssp_counts")})
             entry["note"] = (
                 "ms, plain_ms, library_ms, bound_ms: wordcount's Reduce; "
                 "*_pagerank: PageRank's Reduce (N 2^26, K 2^22, half the "
                 "rows dropped, counts on; library: index_add_ + bincount on "
                 "the rows in range); *_sssp_counts: SSSP's counts (int32 "
-                "ones, counts off)")
+                "ones, counts off; library: bincount of the ids in range)")
+        if name == "fused_shuffle_reduce":
+            entry.update({n: t[n] for n in (
+                "shape", "composed_ms", "ms_pagerank", "plain_ms_pagerank",
+                "composed_ms_pagerank", "bound_ms_pagerank", "ms_one_block",
+                "plain_ms_one_block", "composed_ms_one_block",
+                "bound_ms_one_block")})
+            entry["note"] = (
+                "ms, plain_ms, bound_ms: wordcount's update (a) merge; "
+                "*_pagerank: PageRank's refresh merge (N 2^16, key_cap "
+                "4096); *_one_block: the one-block path at PageRank's "
+                "refresh (N 4096, key_cap 256); composed_ms*: the port's "
+                "composed path (shuffle_reduce(fused=False)) on the same "
+                "rows, the yardstick, since no one PyTorch call computes "
+                "the function (library_ms null)")
+        if name == "segment_minmax":
+            entry.update({n: t[n] for n in (
+                "shape", "ms_refresh", "plain_ms_refresh",
+                "library_ms_refresh", "bound_ms_refresh")})
+            entry["note"] = (
+                "ms, plain_ms, library_ms, bound_ms: SSSP's run (K 2^22, "
+                "one pass); *_refresh: SSSP's refresh at N 2^17, K "
+                "16384, ids ascending; library: "
+                "scatter_reduce_(amin) on the rows in range")
         if name == "spmv_ell":
             entry["note"] = ("no engine path calls it (nor the JAX "
                              "package's); held against its plain version "

@@ -2,7 +2,9 @@
 
 Each kernel wrapper keeps a launch count (``<wrapper>.launches``), which
 adds one where the wrapper launches its kernel and nowhere else, so that a
-run can show that its main path went through the kernels.  Kernel modules
+run can show that its main path went through the kernels.  The wrappers
+of ``segment_minmax`` and ``fused_shuffle_reduce`` also count their
+launches by shape (``<wrapper>.shapes``, a ``Counter``).  Kernel modules
 build nothing at import; see ``_build``.
 """
 from __future__ import annotations
@@ -27,6 +29,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def launch_shapes() -> Dict[str, dict]:
+    """Launches by shape since the last :func:`reset_launch_counts`, of the
+    wrappers that keep them: ``{name: {shape: launches}}``."""
+    return {name: dict(fn.shapes) for name, fn in _wrappers().items()
+            if hasattr(fn, "shapes")}
+
+
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()

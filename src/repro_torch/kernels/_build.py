@@ -7,10 +7,10 @@ library.  All sources compile in parallel, one ``nvcc`` each, at the first
 use of any kernel; nothing is fetched or pre-built.  The libraries link the
 CUDA runtime statically and take PyTorch's stream and device pointers as
 plain integers (``c_void_p``).  Headers under ``csrc/`` (``common.cuh``,
-``wgmma.cuh``, ``scatter_sum.cuh``) are part of the hash.  The flash
-kernel's TMA descriptors come from libcuda's ``cuTensorMapEncodeTiled``,
-which it looks up through the CUDA runtime's entry-point query at its
-first launch, so no library links ``-lcuda``.
+``wgmma.cuh``, ``scatter_sum.cuh``, ``collapse.cuh``) are part of the
+hash.  The flash kernel's TMA descriptors come from libcuda's
+``cuTensorMapEncodeTiled``, which it looks up through the CUDA runtime's
+entry-point query at its first launch, so no library links ``-lcuda``.
 
 Nothing here runs at import: the CPU tests import every module, and the
 loader only touches ``nvcc`` when a CUDA tensor asks for a kernel.
@@ -55,7 +55,9 @@ _SIGNATURES = {
     },
     "fused": {
         "fused_small_launch": ([_P] * 6 + [_I] * 4 + [_P] * 8, _I),
-        "fused_lww_launch": ([_P] * 7 + [_I] * 4 + [_P] * 5, _I),
+        "fused_runs_workspace_bytes": ([_I, _I], _SZ),
+        "fused_runs_launch": ([_P] * 7 + [_I] * 4 + [_P] * 5 + [_SZ, _P],
+                              _I),
     },
     "segment_minmax": {
         "segment_minmax_launch": ([_P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),

@@ -76,6 +76,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "collapse.cuh"
 #include "common.cuh"
 
 // Internal linkage (the unnamed namespace): segment_sum.cu and spmv_ell.cu
@@ -265,67 +266,6 @@ __device__ inline T from_bits(uint32_t b) { return (T)b; }
 template <>
 __device__ inline float from_bits<float>(uint32_t b) {
   return __uint_as_float(b);
-}
-
-// Four consecutive rows of this lane (ids l, -1 where dropped; values v;
-// counts c) collapse runs of equal ids inside the lane and across adjacent
-// lanes of the warp, then each run is handed once to emit(id, sum, count).
-// The whole warp calls it together.
-template <typename T, typename Emit>
-__device__ inline void collapse_add(int (&l)[4], T (&v)[4], int (&c)[4],
-                                    Emit&& emit) {
-  const int lane = threadIdx.x & 31;
-  bool tail[4];
-#pragma unroll
-  for (int j = 1; j < 4; ++j) {
-    tail[j - 1] = l[j] != l[j - 1];
-    if (!tail[j - 1]) {
-      v[j] += v[j - 1];
-      c[j] += c[j - 1];
-    }
-  }
-  tail[3] = true;
-  const int prev_last = __shfl_up_sync(FULL_MASK, l[3], 1);
-  const int next_first = __shfl_down_sync(FULL_MASK, l[0], 1);
-  const bool joins_prev = lane > 0 && l[0] >= 0 && prev_last == l[0];
-  const bool joins_next = lane < 31 && l[3] >= 0 && next_first == l[3];
-  if (__any_sync(FULL_MASK, joins_prev)) {
-    const bool whole = !tail[0] && !tail[1] && !tail[2];
-    // segmented inclusive scan of each lane's last run across the warp
-    T sv = v[3];
-    int sc = c[3];
-    int open = !(whole && joins_prev);      // 1: a run starts in this lane
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const T ov = __shfl_up_sync(FULL_MASK, sv, off);
-      const int oc = __shfl_up_sync(FULL_MASK, sc, off);
-      const int oo = __shfl_up_sync(FULL_MASK, open, off);
-      if (lane >= off) {
-        if (!open) {
-          sv += ov;
-          sc += oc;
-        }
-        open |= oo;
-      }
-    }
-    const T carry_v = __shfl_up_sync(FULL_MASK, sv, 1);
-    const int carry_c = __shfl_up_sync(FULL_MASK, sc, 1);
-    if (whole) {
-      v[3] = sv;
-      c[3] = sc;
-    } else if (joins_prev) {
-      const int h = tail[0] ? 0 : (tail[1] ? 1 : 2);   // end of the head run
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        if (j == h) {
-          v[j] += carry_v;
-          c[j] += carry_c;
-        }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (tail[j] && l[j] >= 0 && !(j == 3 && joins_next)) emit(l[j], v[j], c[j]);
 }
 
 // red.global.add that asks L2 to keep the line (the output stays resident
@@ -731,11 +671,12 @@ __device__ inline void load_quad(const ReduceArgs& a, const T* vals,
 
 // The quad's rows whose key lies in the slab's window add into it.
 template <typename T, bool PART>
-__device__ inline void add_quad(const int (&id)[4], T (&v)[4], long long row,
-                                long long end, int lkey0, long long key0,
-                                int wlen, T* sums, int* cnt,
+__device__ inline void add_quad(const int (&id)[4], const T (&v)[4],
+                                long long row, long long end, int lkey0,
+                                long long key0, int wlen, T* sums, int* cnt,
                                 bool with_counts) {
-  int l[4], c[4];
+  int l[4];
+  SumCount<T> vc[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     // private: key0 = 0 and wlen = K, so this also drops ids outside
@@ -744,13 +685,17 @@ __device__ inline void add_quad(const int (&id)[4], T (&v)[4], long long row,
                               : (long long)id[j] - key0;
     const bool live = row + j < end && lk >= 0 && lk < wlen;
     l[j] = live ? (int)lk : -1;
-    c[j] = live;
-    if (!live) v[j] = 0;
+    vc[j] = {live ? v[j] : T(0), live};
   }
-  collapse_add<T>(l, v, c, [&](int key, T val, int count) {
-    atomicAdd(&sums[key], val);
-    if (with_counts) atomicAdd(&cnt[key], count);
-  });
+  collapse_runs(
+      l, vc,
+      [](SumCount<T> a, SumCount<T> b) {
+        return SumCount<T>{a.v + b.v, a.c + b.c};
+      },
+      [&](int key, SumCount<T> r) {
+        atomicAdd(&sums[key], r.v);
+        if (with_counts) atomicAdd(&cnt[key], r.c);
+      });
 }
 
 // 4. a block a (piece, key window, column group): sum into the slab, then
@@ -795,7 +740,7 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
       reinterpret_cast<uint32_t*>(smem)[i] = 0;
     __syncthreads();
     if (a.d == 1) {
-      // whole warps iterate together (collapse_add shuffles)
+      // whole warps iterate together (collapse_runs shuffles)
       for (long long base = begin; base < end;
            base += 4ll * REDUCE_THREADS) {
         const long long row = base + 4ll * threadIdx.x;
@@ -860,7 +805,7 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
   asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
                : "=l"(policy));
   // two quads a thread an iteration, both loaded before either adds; whole
-  // warps iterate together (collapse_add shuffles)
+  // warps iterate together (collapse_runs shuffles)
   for (long long base = 2ll * blockIdx.x * REDUCE_THREADS; base < quads;
        base += stride) {
     int id[2][4];
@@ -890,17 +835,16 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      int l[4], c[4];
+      int l[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool live = id[h][j] >= 0 && id[h][j] < k;
         l[j] = live ? id[h][j] : -1;
-        c[j] = live;
         if (!live) v[h][j] = 0;
       }
-      collapse_add<T>(l, v[h], c, [&](int key, T val, int) {
-        red_keep(out + key, val, policy);
-      });
+      collapse_runs(
+          l, v[h], [](T a, T b) { return a + b; },
+          [&](int key, T val) { red_keep(out + key, val, policy); });
     }
   }
 }

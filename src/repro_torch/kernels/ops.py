@@ -89,9 +89,8 @@ def segment_reduce(reducer, segment_ids: torch.Tensor, values: Any,
     """
     kind = _kind_of(reducer)
     valid = valid.to(torch.bool)
-    seg = torch.where(valid, segment_ids.to(torch.int32),
-                      torch.tensor(num_segments, dtype=torch.int32,
-                                   device=valid.device))
+    # a Python scalar: no host-to-device copy, and the result stays int32
+    seg = torch.where(valid, segment_ids.to(torch.int32), int(num_segments))
     k = num_segments
     leaves, unflatten = tree_flatten(values)
     counts = None
@@ -180,9 +179,8 @@ def shuffle_reduce(reducer, k2: torch.Tensor, mk: torch.Tensor, values: Any,
 
 
 def _mask_invalid_keys(k2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    return torch.where(valid.to(torch.bool), k2.to(torch.int32),
-                       torch.tensor(_INT32_MAX, dtype=torch.int32,
-                                    device=k2.device))
+    # a Python scalar: no host-to-device copy, and the result stays int32
+    return torch.where(valid.to(torch.bool), k2.to(torch.int32), _INT32_MAX)
 
 
 def _shuffle_reduce_composed(reducer, k2, mk, values, valid, sign,

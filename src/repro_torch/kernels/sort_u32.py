@@ -42,17 +42,20 @@ def _check_lanes(hi: torch.Tensor, lo: torch.Tensor) -> None:
         raise ValueError("sort_lex lanes lie on different devices")
 
 
-def sort_lex_cuda(hi: torch.Tensor, lo: torch.Tensor):
+def sort_lex_cuda(hi: torch.Tensor, lo: torch.Tensor, out=None):
     """Launch the one-sweep radix sort on CUDA lanes (no launch count: callers that
-    are kernels of their own, like the fused path, use this directly)."""
+    are kernels of their own, like the fused path, use this directly).
+    ``out``: three contiguous int32 [N] tensors for (hi_s, lo_s, perm), else
+    they are allocated."""
     n = hi.shape[0]
     if n >= _MAX_ROWS:
         raise ValueError(f"sort_lex takes fewer than 2^31 rows, got {n}")
     hi = hi.contiguous()
     lo = lo.contiguous()
-    hi_s = torch.empty_like(hi)
-    lo_s = torch.empty_like(lo)
-    perm = torch.empty(n, dtype=torch.int32, device=hi.device)
+    if out is None:
+        out = (torch.empty_like(hi), torch.empty_like(lo),
+               torch.empty(n, dtype=torch.int32, device=hi.device))
+    hi_s, lo_s, perm = out
     if n == 0:
         return hi_s, lo_s, perm
     lib = _build.library("sort")

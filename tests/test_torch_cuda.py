@@ -24,7 +24,7 @@ from repro_torch.apps import wordcount as wc
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
 import repro_torch.configs as C
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.fused import fused_shuffle_reduce
+from repro_torch.kernels.fused import RUN_TILE_ROWS, fused_shuffle_reduce
 from repro_torch.kernels.segment_reduce import (
     SLAB_WORDS, segment_minmax, segment_sum,
 )
@@ -161,6 +161,63 @@ def test_fused(cuda, n):
         assert torch.equal(g, w)
 
 
+def _fused_rows(case, rng, d, float_vals=False):
+    """Rows of one case of the large path's runs kernel (csrc/fused.cu:
+    tiles of RUN_TILE_ROWS sorted rows at D = 1, a warp's 32 at D > 1)."""
+    n, nkeys = {"run longer than a tile": (5 * RUN_TILE_ROWS + 7, 2),
+                "one key owns every row": (2**18, 1),
+                "every row a tombstone": (30_000, 300),
+                "key_cap 4096": (100_000, 4000)}[case]
+    k2 = np.full(n, 7) if nkeys == 1 else rng.integers(0, nkeys, n)
+    valid = rng.random(n) < 0.9
+    sign = np.where(rng.random(n) < 0.75, 1, -1).astype(np.int8)
+    if case == "every row a tombstone":
+        sign[:] = -1
+    aff = np.union1d(np.unique(k2[valid]), nkeys + 3 * np.arange(90))
+    keys = np.full(4096 if case == "key_cap 4096" else 1024, INT32_MAX,
+                   np.int32)
+    keys[:aff.size] = aff
+    vals = rng.normal(0, 1, (n, d)) if float_vals \
+        else rng.integers(-20, 20, (n, d))
+    return [torch.as_tensor(a, device="cuda") for a in (
+        np.where(valid, k2, INT32_MAX).astype(np.int32),
+        rng.integers(0, 8, n).astype(np.int32), vals.astype(np.float32),
+        valid, sign, keys)]
+
+
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("case", ["run longer than a tile",
+                                  "one key owns every row",
+                                  "every row a tombstone", "key_cap 4096"])
+def test_fused_runs(cuda, case, d):
+    args = _fused_rows(case, np.random.default_rng(d), d)
+    for dtype in (torch.float32, torch.int32):
+        a = list(args)
+        a[2] = a[2].to(dtype)
+        before = fused_shuffle_reduce.launches
+        got = fused_shuffle_reduce(*a, out_dtype=dtype)
+        assert fused_shuffle_reduce.launches == before + 1
+        for g, w in zip(got, ref.fused_shuffle_reduce_ref(*a,
+                                                          out_dtype=dtype)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("d", [1, 8])
+def test_fused_float_acc_same_every_call(cuda, d):
+    """The runs add in a fixed order: non-integer float32 acc is equal from
+    one call to the next, and within 1e-5 of sum|v| of the plain version."""
+    args = _fused_rows("run longer than a tile", np.random.default_rng(3), d,
+                       float_vals=True)
+    acc = fused_shuffle_reduce(*args, out_dtype=torch.float32)[5]
+    assert torch.equal(acc, fused_shuffle_reduce(
+        *args, out_dtype=torch.float32)[5])
+    want = ref.fused_shuffle_reduce_ref(*args, out_dtype=torch.float32)[5]
+    a = list(args)
+    a[2] = a[2].abs()
+    scale = ref.fused_shuffle_reduce_ref(*a, out_dtype=torch.float32)[5]
+    assert bool(((acc - want).abs() <= 1e-5 * scale.clamp_min(1e-30)).all())
+
+
 @pytest.mark.parametrize("kind", ["min", "max"])
 @pytest.mark.parametrize("d", [1, 3, 64])
 def test_segment_minmax(cuda, kind, d):
@@ -171,6 +228,54 @@ def test_segment_minmax(cuda, kind, d):
         for vals in (rng.integers(-9, 10, (n, d)).astype(np.int32),
                      rng.normal(0, 1, (n, d)).astype(np.float32)):
             v = torch.as_tensor(vals, device=cuda)
+            before = segment_minmax.launches
+            got = segment_minmax(kind, seg, v, k)
+            assert segment_minmax.launches == before + 1
+            assert torch.equal(got, ref.segment_minmax_ref(kind, seg, v, k))
+
+
+def _minmax_case(case, rng):
+    """(seg, d, k) of one segment_minmax case at csrc/segment_minmax.cu's
+    edges: N that launch blocks of 128 to 1,024 threads (the launcher's
+    choice by the rows), ids random in [-2, K + 2); D = 4 (a thread a
+    (row, column)); ids ascending (the refresh's runs); one id for every
+    row."""
+    sizes = {"blocks of 128": (200_003, 2**15, 1),
+             "blocks of 256": (2**19 - 1, 2**18 + 1, 1),
+             "blocks of 512": (2**20 - 1, 2**18 + 1, 1),
+             "blocks of 1024": (2**21 + 3, 2**18 + 1, 1),
+             "D=4": (200_003, 2**13 + 1, 4)}
+    if case in sizes:
+        n, k, d = sizes[case]
+        return rng.integers(-2, k + 2, n), d, k
+    if case == "sorted ids":
+        return np.sort(rng.integers(0, 16384, 2**17)), 1, 16384
+    assert case == "one id 2^22"
+    return np.full(2**22, 777), 1, 2**18 + 1
+
+
+@pytest.mark.parametrize("order", ["increasing", "decreasing"])
+@pytest.mark.parametrize("case", ["blocks of 128", "blocks of 256",
+                                  "blocks of 512", "blocks of 1024", "D=4",
+                                  "sorted ids", "one id 2^22"])
+def test_segment_minmax_variants(cuda, case, order):
+    """Rows in increasing and decreasing order of value (every row wins in
+    one of them), with both infinities and both int32 extremes."""
+    rng = np.random.default_rng(len(case))
+    ids, d, k = _minmax_case(case, rng)
+    seg = torch.as_tensor(ids.astype(np.int32), device=cuda)
+    n = seg.numel()
+    u = rng.random((n, d))
+    f = rng.normal(0, 100, (n, d)).astype(np.float32)
+    f[u < 0.05], f[u > 0.95] = np.inf, -np.inf
+    i = rng.integers(-2**31, 2**31, (n, d)).astype(np.int32)
+    i[u < 0.05], i[u > 0.95] = 2**31 - 1, -2**31
+    for vals in (f, i):
+        vals = np.sort(vals, axis=0)
+        if order == "decreasing":
+            vals = vals[::-1].copy()
+        v = torch.as_tensor(vals, device=cuda)
+        for kind in ("min", "max"):
             before = segment_minmax.launches
             got = segment_minmax(kind, seg, v, k)
             assert segment_minmax.launches == before + 1

@@ -160,6 +160,45 @@ def test_segment_minmax_matches_pallas(n, d, k, kind, dtype):
         assert np.isinf(got.numpy()[empty]).all()
 
 
+def _minmax_values(rng, n, d, dtype, order):
+    """Values with both infinities (float32) or both int32 extremes, 10% at
+    each end, in random or decreasing order of the rows."""
+    u = rng.random((n, d))
+    if dtype == "float32":
+        vals = rng.normal(0, 100, (n, d)).astype(np.float32)
+        vals[u < 0.1], vals[u > 0.9] = np.inf, -np.inf
+    else:
+        vals = rng.integers(-2**31, 2**31, (n, d)).astype(np.int32)
+        vals[u < 0.1], vals[u > 0.9] = 2**31 - 1, -2**31
+    if order == "decreasing":
+        vals = np.sort(vals, axis=0)[::-1].copy()
+    return vals
+
+
+# K D on either side of SLAB_WORDS = 32768 words, the size of SSSP's
+# refresh buckets (the segment sum's core switches variants there); against
+# the reference's plain jax.ops.segment_min/max (a Pallas run at K = 32768
+# would take minutes in interpret mode)
+@pytest.mark.parametrize("k,d", [(32768, 1), (32769, 1), (8192, 4),
+                                 (8193, 4)])
+@pytest.mark.parametrize("kind", ["min", "max"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("order", ["random", "decreasing"])
+def test_segment_minmax_slab_bound_matches_reference(k, d, kind, dtype,
+                                                     order):
+    rng = np.random.default_rng(k + d)
+    n = 3000
+    seg = rng.integers(-1, k + 2, n).astype(np.int32)
+    seg[:1000] = rng.integers(0, 5, 1000)        # a few hot segments
+    vals = _minmax_values(rng, n, d, dtype, order)
+    want = jref.segment_minmax_ref(kind, jnp.asarray(seg), jnp.asarray(vals),
+                                   k)
+    got = segment_minmax(kind, torch.from_numpy(seg), torch.from_numpy(vals),
+                         k)
+    assert got.shape == (k, d)
+    _eq(got, want)
+
+
 # ---------------------------------------------------------------------------
 # ELL SpMV
 # ---------------------------------------------------------------------------
@@ -233,3 +272,37 @@ def test_fused_last_writer_wins():
     live = out[3].numpy()
     assert live.sum() == n // reps
     _eq(out[2][:, 0].numpy()[live], np.arange(reps - 1, n, reps))
+
+
+# The large-path kernel's edge cases (one key's run covering every tile,
+# no live row, the most affected keys at D > 1), on one shape so that the
+# Pallas reference compiles once: N 300 in tiles of 128, key_cap 4096, D 8
+@pytest.mark.parametrize("case", ["one key owns every row",
+                                  "every row a tombstone",
+                                  "key_cap 4096 at D=8"])
+def test_fused_edge_cases_match_pallas(case):
+    n, d, cap = 300, 8, 4096
+    rng = np.random.default_rng(len(case))
+    k2 = np.full(n, 7, np.int32) if case.startswith("one key") \
+        else rng.integers(0, 3000, n).astype(np.int32)
+    mk = rng.integers(0, 40, n).astype(np.int32)
+    vals = rng.integers(-20, 20, (n, d)).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    sign = np.where(rng.random(n) < 0.75, 1, -1).astype(np.int8)
+    if case.startswith("every row"):
+        sign[:] = -1
+    # every present key, and keys with no rows, padded to key_cap
+    aff = np.union1d(np.unique(k2[valid]), 3001 + np.arange(40))
+    keys = np.full(cap, INT32_MAX, np.int32)
+    keys[:aff.size] = aff
+    args = (np.where(valid, k2, INT32_MAX).astype(np.int32), mk, vals, valid,
+            sign, keys)
+    want = jax_fused(*(jnp.asarray(a) for a in args), out_dtype=jnp.float32,
+                     tile=128, kblk=512)
+    got = fused_shuffle_reduce(*(torch.from_numpy(a) for a in args),
+                               out_dtype=torch.float32)
+    names = ("k2", "mk", "vals", "live", "perm", "acc", "counts")
+    for name, g, w in zip(names, got, want):
+        _eq(g, w, name)
+    if case.startswith("every row"):
+        assert not got[3].any() and not got[6].any()

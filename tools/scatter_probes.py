@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Probes of what bounds a scatter-add on the card (segment sum, ELL SpMV).
+"""Probes of what bounds a scatter on the card (segment sum, ELL SpMV,
+segment min/max), and times of the min/max and fused kernels.
 
     python3 tools/scatter_probes.py
+    python3 tools/scatter_probes.py --kernels SRC LABEL
 
 Builds a few throwaway kernels with ``nvcc`` (sm_90a) into the git-ignored
 ``src/repro_torch/kernels/build/probes/`` and times each with CUDA events
@@ -22,10 +24,33 @@ Builds a few throwaway kernels with ``nvcc`` (sm_90a) into the git-ignored
   (f) one pass that reads N ids and values with 16-byte loads and adds the
       half of the rows in range with red.global.add.f32 into 16 MB (the
       direct variant's work without its warp collapse), at 1-8 blocks of
-      512 threads an SM, with and without an L2 evict-last hint.
+      512 threads an SM, with and without an L2 evict-last hint;
+  (g) the same pass as (f) folding the half in range into 2^22 words with
+      an atomic min instead (segment_minmax's direct pass without its warp
+      collapse), each call after its identity fill: an unconditional
+      atomicMin on the order-preserving u32 keys of the floats; a load of
+      out[id] first and an atomicMin only where the row wins, on the keys
+      and on the float bits (the two-branch fold the kernel keeps in
+      device memory); the load-first variants with values in random,
+      increasing (the best case: late rows lose) and decreasing (the
+      worst: every row wins) order of the rows; the fill alone.  Best of
+      1-8 blocks of 512 an SM.
 
 Prints one line a probe (ms and adds or bytes per second), the card's
 name and power limit, and needs one CUDA card.
+
+With ``--kernels SRC LABEL`` it instead imports the ``repro_torch`` package
+under SRC (a checkout's ``src``, e.g. the parent commit unpacked into the
+git-ignored ``build/``) and times, for that package, ``segment_minmax`` at
+SSSP's run shape (values finite, and a third at +inf) and at its refresh
+launch shapes (ids ascending), and ``fused_shuffle_reduce`` and the
+composed path at the merge shapes of the main paths.  The inputs come from
+this checkout's ``chip_smoke.py`` (``sssp_run_rows``,
+``sssp_refresh_rows``, ``merge_rows``), so both packages and phase 2 time
+the same data: CUDA events (mean of 20 after a warm-up) beside the device
+busy time and the kernels of one call under ``torch.profiler``
+(``chip_smoke.device_shares``).  Every line starts with [LABEL]; run
+parent, change, change, parent in one call to compare two commits.
 """
 from __future__ import annotations
 
@@ -156,6 +181,75 @@ __global__ void stream_red_kernel(const int4* __restrict__ seg,
   }
 }
 
+// order-preserving u32 key of a float: one unsigned compare orders them
+__device__ __forceinline__ unsigned fkey(float f) {
+  const unsigned b = __float_as_uint(f);
+  return b ^ ((b & 0x80000000u) ? 0xFFFFFFFFu : 0x80000000u);
+}
+
+// MODE 0: unconditional atomicMin on keys; 1: load first, atomicMin on
+// keys where the row wins; 2: load first, two-branch fold on float bits
+template <int MODE>
+__global__ void stream_min_kernel(const int4* __restrict__ seg,
+                                  const float4* __restrict__ vals,
+                                  unsigned* out, long long quads,
+                                  unsigned mask) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < quads; i += (long long)gridDim.x * blockDim.x) {
+    const int4 s = __ldcs(seg + i);
+    const float4 v = __ldcs(vals + i);
+    const int id[4] = {s.x, s.y, s.z, s.w};
+    const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!(id[j] & 1)) continue;
+      unsigned* p = out + (((unsigned)id[j] >> 1) & mask);
+      if (MODE == 0) {
+        atomicMin(p, fkey(x[j]));
+      } else if (MODE == 1) {
+        const unsigned k = fkey(x[j]);
+        if (k < __ldcg(p)) atomicMin(p, k);
+      } else {
+        const float cur = __uint_as_float(__ldcg(p));
+        if (fkey(x[j]) < fkey(cur)) {
+          const int b = __float_as_int(x[j]);
+          if (b >= 0) atomicMin((int*)p, b);
+          else atomicMax(p, (unsigned)b);
+        }
+      }
+    }
+  }
+}
+
+__global__ void fill_kernel(unsigned* out, long long n, unsigned value) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    out[i] = value;
+}
+
+EXPORT int probe_stream_min(const void* seg, const void* vals, void* out,
+                            long long n, unsigned mask, int blocks, int mode,
+                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  // the identity: the key of +inf (modes 0, 1), +inf's bits (mode 2)
+  fill_kernel<<<132 * 4, 512, 0, st>>>(
+      (unsigned*)out, (long long)mask + 1,
+      mode == 2 ? 0x7F800000u : 0xFF800000u);
+  if (mode < 0) return (int)cudaGetLastError();        // the fill alone
+  const int4* s = (const int4*)seg;
+  const float4* v = (const float4*)vals;
+  if (mode == 0)
+    stream_min_kernel<0><<<blocks, 512, 0, st>>>(s, v, (unsigned*)out, n / 4,
+                                                 mask);
+  else if (mode == 1)
+    stream_min_kernel<1><<<blocks, 512, 0, st>>>(s, v, (unsigned*)out, n / 4,
+                                                 mask);
+  else
+    stream_min_kernel<2><<<blocks, 512, 0, st>>>(s, v, (unsigned*)out, n / 4,
+                                                 mask);
+  return (int)cudaGetLastError();
+}
+
 EXPORT int probe_stream_red(const void* seg, const void* vals, void* out,
                             long long n, unsigned mask, int blocks, int hint,
                             void* stream) {
@@ -279,6 +373,7 @@ def build() -> ctypes.CDLL:
     so.probe_red_shared.argtypes = [LL, I, I, P, P]
     so.probe_red_dsmem.argtypes = [LL, I, I, I, P, P, P]
     so.probe_stream_red.argtypes = [P, P, P, LL, U, I, I, P]
+    so.probe_stream_min.argtypes = [P, P, P, LL, U, I, I, P]
     so.probe_error.argtypes = [I]
     so.probe_error.restype = ctypes.c_char_p
     return so
@@ -301,10 +396,85 @@ def timed(so, fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_kernels(src: str, label: str) -> None:
+    """The --kernels mode: see the module's docstring."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import numpy as np
+    import chip_smoke as cs
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.fused import fused_shuffle_reduce
+    from repro_torch.kernels.ref import (fused_shuffle_reduce_ref,
+                                         segment_minmax_ref)
+    from repro_torch.kernels.segment_reduce import segment_minmax
+    _build.build_all()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def rec(name, fn):
+        ms = cs.cuda_ms(fn, reps=20)
+        p = cs.device_shares(fn, dev, top=8)
+        print(f"[{label}] {name}: events {ms:.4f} ms; device busy "
+              f"{p['busy_ms']:.4f} ms, {p['kernels']} kernels; {p['top']}",
+              flush=True)
+
+    # SSSP's run, then with a third of the rows at +inf (unreached
+    # vertices)
+    vertices = k = 2**22
+    seg, vals, _ = cs.sssp_run_rows(dev, vertices)
+    rec("segment_minmax run", lambda: segment_minmax("min", seg, vals, k))
+    vals[torch.rand(seg.numel(), device=dev) < 1 / 3] = float("inf")
+    rec("segment_minmax run, a third of the rows at +inf",
+        lambda: segment_minmax("min", seg, vals, k))
+    del seg, vals
+    # SSSP's refresh launch shapes, ids ascending
+    for n, k in ((2**19, 65536), (2**17, 16384), (2**16, 8192),
+                 (2**15, 4096), (2**13, 1024)):
+        seg, vals, _ = cs.sssp_refresh_rows(rng, dev, n, k)
+        cs.require_equal(f"segment_minmax {n}/{k}",
+                         segment_minmax("min", seg, vals, k),
+                         segment_minmax_ref("min", seg, vals, k))
+        rec(f"segment_minmax refresh N={n} K={k}",
+            lambda: segment_minmax("min", seg, vals, k))
+
+    # the merges of the main paths (chip_smoke phase 2's), and two
+    # PageRank-refresh launch shapes between them
+    one_m, one_cap = cs.PR_REFRESH_ONE_BLOCK
+    v = vertices
+    for name, a in (
+            ("N=2^20 key_cap=2048 (wordcount's update (a))",
+             cs.merge_rows(rng, dev, 2**20, cs.VOCAB, 2048, 256, 0, 1024,
+                           1024, ones=True)[0]),
+            ("N=2^16 key_cap=4096 (PageRank's refresh)",
+             cs.merge_rows(rng, dev, 2**16, v, 4096, 8, 8192, 1024, 1024)[0]),
+            ("N=2^15 key_cap=4096",
+             cs.merge_rows(rng, dev, 2**15, v, 4096, 4, 4096, 512, 512)[0]),
+            ("N=2^14 key_cap=1024",
+             cs.merge_rows(rng, dev, 2**14, v, 1024, 8, 2048, 256, 256)[0]),
+            ("N=4096 key_cap=256 (one block)",
+             cs.merge_rows(rng, dev, one_m, v, one_cap, 8, 1024, 128,
+                           128)[0])):
+        got = fused_shuffle_reduce(*a, out_dtype=torch.float32)
+        want = fused_shuffle_reduce_ref(*a, out_dtype=torch.float32)
+        for part, g, w in zip(("k2", "mk", "vals", "live", "perm", "acc",
+                               "counts"), got, want):
+            if part != "acc":
+                cs.require_equal(f"fused {name} {part}", g, w)
+        # the values are non-negative: the sums are the sums of |v|
+        cs.sum_rel_err(f"fused {name} acc", got[5], want[5], want[5])
+        rec(f"fused_shuffle_reduce {name}",
+            lambda: fused_shuffle_reduce(*a, out_dtype=torch.float32))
+        rec(f"composed path {name}",
+            lambda: ops.shuffle_reduce("sum", *a, fused=False))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("scatter_probes: needs a CUDA card", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--kernels"]:
+        time_kernels(*sys.argv[2:4])
+        return 0
     so = build()
     dev = torch.device("cuda")
     st = torch.cuda.current_stream(dev).cuda_stream
@@ -370,6 +540,33 @@ def main() -> int:
                   f"half in range into 16 MB{' (L2 evict_last)' if hint else ''}"
                   f", {blocks_per_sm} x 512 threads an SM: {ms:.4f} ms, "
                   f"{N / 2 / ms / 1e6:.1f} G reds/s")
+
+    # (g): ids as in (f); values at SSSP's scale in three orders of rows
+    out = torch.empty(1 << 22, dtype=torch.int32, device=dev)
+    mask = (1 << 22) - 1
+    ms = timed(so, lambda: so.probe_stream_min(
+        ids.data_ptr(), vals.data_ptr(), out.data_ptr(), N, mask, 132, -1,
+        st))
+    print(f"(g) identity fill of 2^22 words alone: {ms:.4f} ms")
+    rand = torch.rand(N, device=dev, generator=g) * 30
+    orders = {"random": rand, "increasing": rand.sort().values,
+              "decreasing": rand.sort(descending=True).values}
+    variants = (("unconditional atomicMin on u32 keys", 0, ("random",)),
+                ("load first, atomicMin on u32 keys where the row wins", 1,
+                 tuple(orders)),
+                ("load first, two-branch fold on float bits where the row "
+                 "wins", 2, tuple(orders)))
+    for label, mode, names in variants:
+        for name in names:
+            v = orders[name]
+            best = min(
+                (timed(so, lambda: so.probe_stream_min(
+                    ids.data_ptr(), v.data_ptr(), out.data_ptr(), N, mask,
+                    132 * b, mode, st)), b) for b in (1, 2, 4, 8))
+            print(f"(g) read N=2^26 ids + values ({name} order), fill + "
+                  f"{label}, half in range, into 2^22 words: best "
+                  f"{best[0]:.4f} ms at {best[1]} x 512 threads an SM, "
+                  f"{N / 2 / best[0] / 1e6:.1f} G rows/s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -30,6 +30,17 @@ Runs on one CUDA card, from the root of a checkout:
      matrix products and the rest, and the device's idle share; then the
      decode-versus-prefill parity of the two paths over 64 tokens, in
      float32 at full width and 4 layers and in bf16 at full depth.
+  6. drives the streaming path — ``repro_torch.stream.StreamSession`` on
+     phase 3's corpus: (a) the accumulator path through the background
+     worker, 16 epochs of 1,024 rewritten documents, its first batch
+     building the kernels (marked retraced); (b) the MRBG path step by
+     step with an adversarial burst; (c) one batch past the crossover (a
+     rerun); (d) snapshots of (a) and (b) restored into fresh sessions,
+     bitwise equal to the uninterrupted ones; (e) a PageRank stream on
+     2^20 vertices (cut from 2^22) within ``pagerank_bound``; (f) the
+     coalescer's device part at 64, 4,096 and 2^20 rows, exactly equal to
+     its plain route, timed.  Phase 2 holds the sort and the int32
+     segment sum at the coalescer's sizes.
 
 The kernels' launch counts are set to 0 before each path and read after
 it.  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
@@ -46,6 +57,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -381,6 +393,57 @@ def check_segment_sum(dev, rng) -> None:
                       segment_sum_ref(s, v, k), segment_sum_ref(s, v.abs(), k))
     log(f"  segment_sum non-integer float32: relative error {err:.3g} "
         f"(tolerance 1e-5 of sum|v|: atomic order)")
+
+
+# the coalescer's sizes (repro_torch.stream.coalesce: cap = next_bucket(n,
+# 64)): the sort and the int32 segment sum with counts held bitwise there
+SMALL_N = (64, 4096, 8192)
+
+
+def check_small_sizes(dev, rng) -> dict:
+    """The sort and the int32 segment sum with counts at the coalescer's
+    sizes, against their plain versions bit for bit, on the coalescer's own
+    inputs: record ids with a padded tail of INT32_MAX, lo = the row index;
+    ascending segment ids of the signs, the padded tail dropped (id K).
+    Returns {n: kernel and plain ms of each}."""
+    import torch
+    from repro_torch.kernels.ref import segment_sum_ref, sort_lex_ref
+    from repro_torch.kernels.segment_reduce import segment_sum
+    from repro_torch.kernels.sort_u32 import sort_lex
+    out = {}
+    for n in SMALL_N:
+        live = n - n // 4
+        rid = rng.integers(0, max(live // 3, 1), n)
+        rid[live:] = INT32_MAX
+        hi = torch.as_tensor(rid.astype(np.int32), device=dev)
+        lo = torch.arange(n, dtype=torch.int32, device=dev)
+        for part, g, w in zip(("hi", "lo", "perm"), sort_lex(hi, lo),
+                              sort_lex_ref(hi, lo)):
+            require_equal(f"sort_lex n={n} (coalescer) {part}", g, w)
+        ids = np.cumsum(rng.random(n) < 0.4) - 1
+        ids[live:] = n
+        seg = torch.as_tensor(ids.astype(np.int32), device=dev)
+        vals = torch.as_tensor(rng.choice(np.int32([-1, 1]), (n, 1)),
+                               device=dev)
+        got = segment_sum(seg, vals, n, out_dtype=torch.int32, counts=True)
+        want = segment_sum_ref(seg, vals, n, out_dtype=torch.int32,
+                               counts=True)
+        for part, g, w in zip(("sums", "counts"), got, want):
+            require_equal(f"segment_sum n={n} int32 counts (coalescer) "
+                          f"{part}", g, w)
+        t = dict(
+            sort_ms=cuda_ms(lambda: sort_lex(hi, lo)),
+            sort_plain_ms=cuda_ms(lambda: sort_lex_ref(hi, lo)),
+            sum_ms=cuda_ms(lambda: segment_sum(
+                seg, vals, n, out_dtype=torch.int32, counts=True)),
+            sum_plain_ms=cuda_ms(lambda: segment_sum_ref(
+                seg, vals, n, out_dtype=torch.int32, counts=True)))
+        out[n] = t
+        log(f"  coalescer sizes n={n}: sort_lex and segment_sum (int32, "
+            f"counts) equal to their plain versions; sort {t['sort_ms']:.4f}"
+            f" ms (plain {t['sort_plain_ms']:.4f}), segment_sum "
+            f"{t['sum_ms']:.4f} ms (plain {t['sum_plain_ms']:.4f})")
+    return out
 
 
 def fused_rows(dev, rng, n, d, dtype, nkeys, *, absent=0, tomb=0.25,
@@ -1035,14 +1098,22 @@ def time_kernels(dev, rng, n_edges: int, vertices: int) -> dict:
         library_ms=cuda_ms(lambda: init.clone().scatter_reduce_(
             0, live_sid, live_vals, "amin")),
         **bound(rn * 4 + rn * 4 + rk * 4, n_live))
+    # the library call's device time: one call under torch.profiler, on a
+    # buffer filled beforehand (amin again is the same result)
+    buf = init.clone()
+    lib = device_shares(lambda: buf.scatter_reduce_(
+        0, live_sid, live_vals, "amin"), dev, top=3)
+    refresh["library_device_ms"] = lib["busy_ms"]
     out["segment_minmax"].update(
         {f"{name}_refresh": v for name, v in refresh.items()})
     log(f"  segment_minmax at SSSP's refresh [N={rn} D=1 K={rk}, {n_live} rows "
         f"in range, ids ascending]: plain {refresh['plain_ms']:.3f} ms, "
         f"scatter_reduce_ on the rows in range {refresh['library_ms']:.3f} "
-        f"ms, bound {refresh['bound_ms']:.4f} ms; kernel "
+        f"ms (one call under torch.profiler: {lib['kernels']} kernels, "
+        f"device busy {lib['busy_ms']:.4f} ms; {lib['top']}), bound "
+        f"{refresh['bound_ms']:.4f} ms; kernel "
         + split_line(fn, dev, refresh["ms"]))
-    del seg, vals, got, init, live_sid, live_vals
+    del seg, vals, got, init, live_sid, live_vals, buf
 
     # PageRank's propagation at the same graph: S = V rows of 16 slots
     nbrs = torch.where(torch.rand((k, OUT_SLOTS), device=dev) < P_EDGE,
@@ -1780,6 +1851,364 @@ def drive_lm(dev, seed: int) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the streaming refresh path (repro_torch.stream.StreamSession)
+# ---------------------------------------------------------------------------
+
+STREAM_FRAC = 2**-10          # (a): 1,024 of 2^20 documents an epoch
+STREAM_EPOCHS = 16            # (a): snapshot (d) after half of them
+STREAM_BATCH_ROWS = 4096      # (a), (e): max_batch_records
+MRBG_EPOCHS, MRBG_DOCS = 8, 16            # (b): snapshot (d) after half
+BURST_RECORDS, BURST_REWRITES = 256, 8    # (b): the adversarial burst
+CROSSOVER_FRAC = 0.3          # (c): one batch rewriting 30% of the corpus
+# (e): PageRank's stream, cut from phase 4's 2^22 vertices: its refresh
+# took 67-91 s there, more than this run's time limit leaves
+STREAM_VERTICES = 2**20
+STREAM_PR_FRAC, STREAM_PR_EPOCHS = 1e-3, 2
+COALESCE_SIZES = (64, 4096, 2**20)        # (f)
+
+
+def stream_check(label: str, got: np.ndarray, cur: np.ndarray) -> None:
+    want = np.bincount(cur.ravel(), minlength=VOCAB)
+    if got.shape != (VOCAB,) or not np.isfinite(got).all() \
+            or not np.array_equal(got, want.astype(got.dtype)):
+        bad = int(np.sum(got != want)) if got.shape == want.shape else -1
+        raise AssertionError(f"stream {label}: result differs from "
+                             f"np.bincount at {bad} keys")
+
+
+def rewrite_record(rng, cur: np.ndarray, rows: np.ndarray, epoch: int,
+                   times: int = 1):
+    """One DeltaRecord rewriting ``rows`` of the corpus ``times`` times in
+    a row ('-' old, '+' new each time), and ``cur`` updated in place."""
+    from repro_torch.apps import wordcount as wc
+    from repro_torch.stream import DeltaRecord
+    mut = wc.doc_mutator(VOCAB)
+    rid, words = [], []
+    for _ in range(times):
+        new = mut(rng, rows, {"w": cur[rows]})["w"]
+        w = np.empty((2 * rows.size, DOC_LEN), np.int32)
+        w[0::2], w[1::2] = cur[rows], new
+        cur[rows] = new
+        rid.append(np.repeat(rows, 2))
+        words.append(w)
+    return DeltaRecord(np.concatenate(rid).astype(np.int32),
+                       {"w": np.concatenate(words)},
+                       np.tile(np.int8([-1, 1]), rows.size * times),
+                       epoch=epoch)
+
+
+def restore_stream(spec, mirror, path, cfg, scfg, source=None, name="r"):
+    """A fresh StreamSession on ``mirror`` whose engine is restored from
+    ``path`` (``Session.restore``)."""
+    from repro_torch.api import Session
+    from repro_torch.stream import StreamSession
+    ss = StreamSession(spec, mirror, source=source, config=cfg,
+                       stream=scfg, name=name)
+    ss.session = Session.restore(spec, str(path), cfg)
+    return ss
+
+
+def log_split(label: str, ss) -> None:
+    sp = ss.last_split
+    log(f"  [{label}] batch split: coalesce {sp['coalesce']:.4f} s, mirror "
+        f"update {sp['mirror']:.4f} s, refresh {sp['refresh']:.4f} s")
+
+
+def require_same(label: str, got: np.ndarray, want: np.ndarray) -> None:
+    if got.dtype != want.dtype or not np.array_equal(got, want):
+        raise AssertionError(f"{label}: restored session differs from the "
+                             f"uninterrupted one")
+
+
+def stream_accumulator(dev, rng, docs: np.ndarray, seed: int, root: Path):
+    """(a) the accumulator path through the background worker, its first
+    batch building the kernels; (d) snapshot after half the epochs and
+    restore; (c) one batch past the crossover."""
+    from repro_torch.api import RunConfig
+    from repro_torch.apps import wordcount as wc
+    from repro_torch.kernels import _build, jitcache
+    from repro_torch.stream import StreamConfig, StreamSession
+    cfg = RunConfig(device=dev.type, onestep_path="auto")
+    scfg = StreamConfig(policy="paper", max_batch_records=STREAM_BATCH_ROWS)
+    spec, data, source = wc.make_stream(docs, VOCAB, frac=STREAM_FRAC,
+                                        seed=seed, epochs=STREAM_EPOCHS // 2)
+    ss = StreamSession(spec, data, source=source, config=cfg, stream=scfg,
+                       name="acc")
+    t0 = time.perf_counter()
+    ss.start(background=False)
+    t_run = time.perf_counter() - t0
+    log(f"  [acc] initial run {t_run:.3f} s ({docs.size} edges)")
+    if dev.type == "cuda":
+        # a serving node whose kernel build was wiped: the worker's first
+        # batch builds every kernel (into an empty directory) and loads
+        # the coalescer's and the refresh's
+        _build.reset(_build.BUILD_DIR / f"stream-{os.getpid()}")
+    g0 = jitcache.snapshot()
+    t0 = time.perf_counter()
+    with ss:
+        ss.drain(timeout=900)
+    t_half = time.perf_counter() - t0
+    mirror = ss.mirror_kv()
+    ss.snapshot(str(root / "acc"))
+    source.epochs = STREAM_EPOCHS
+    t0 = time.perf_counter()
+    with ss:
+        ss.drain(timeout=900)
+    t_drain = t_half + time.perf_counter() - t0
+    g1 = jitcache.snapshot()
+    stream_check("acc (a)", ss.result["c"], source.values["w"])
+    m = ss.metrics.snapshot()
+    lat, ref = ss.metrics._latencies, ss.metrics._refresh_seconds
+    rows = 2 * int(len(docs) * STREAM_FRAC)
+    log(f"  [acc] (a) {STREAM_EPOCHS} epochs of {rows} rows in "
+        f"{m['batches']} batches through the worker: drain "
+        f"{t_drain:.3f} s, equal to np.bincount; updates/s "
+        f"{m['updates_per_sec']:.1f}, refresh p50 {m['refresh_p50_ms']:.3f}"
+        f" ms, p95 {m['refresh_p95_ms']:.3f} ms, latency p50 "
+        f"{m['latency_p50_ms']:.3f} ms, p95 {m['latency_p95_ms']:.3f} ms; "
+        f"retrace_batches {m['retrace_batches']}, refreshes "
+        f"{m['refreshes']}; first batch latency {lat[0]:.3f} s (refresh "
+        f"{ref[0]:.4f} s); jitcache traces +{g1['traces'] - g0['traces']}, "
+        f"compiles +{g1['compiles'] - g0['compiles']} in "
+        f"{g1['compile_seconds'] - g0['compile_seconds']:.3f} s")
+    log_split("acc", ss)
+    if dev.type == "cuda" and m["retrace_batches"] != 1:
+        raise AssertionError(f"stream (a): {m['retrace_batches']} batches "
+                             f"marked retraced, not the one that built")
+
+    # (d) the snapshot restored into a fresh StreamSession on the device
+    _, _, src2 = wc.make_stream(docs, VOCAB, frac=STREAM_FRAC, seed=seed,
+                                epochs=STREAM_EPOCHS)
+    for _ in range(STREAM_EPOCHS // 2):
+        src2.poll(1)                      # the epochs before the snapshot
+    rs = restore_stream(spec, mirror, root / "acc", cfg, scfg, src2)
+    t0 = time.perf_counter()
+    with rs:
+        rs.drain(timeout=900)
+    require_same("stream (d) acc", rs.result["c"], ss.result["c"])
+    log(f"  [acc] (d) restored at epoch {STREAM_EPOCHS // 2} into a fresh "
+        f"StreamSession on {dev.type}, {STREAM_EPOCHS // 2} more epochs in "
+        f"{time.perf_counter() - t0:.3f} s: bitwise equal to the "
+        f"uninterrupted session")
+    del rs
+
+    # (c) one batch past the crossover: a rerun
+    cur = source.values["w"].copy()
+    rows = np.sort(rng.choice(len(docs), int(CROSSOVER_FRAC * len(docs)),
+                              replace=False))
+    rec = rewrite_record(rng, cur, rows, STREAM_EPOCHS)
+    e0 = ss.session.epoch
+    t0 = time.perf_counter()
+    ss.submit_record(rec)
+    ss.drain(timeout=900)
+    t_c = time.perf_counter() - t0
+    dec = ss.scheduler.decisions[-1]
+    rep = ss.session.history[-1]
+    if dec.action != "rerun" or ss.session.epoch != e0 + 1 \
+            or rep.mode != "onestep":
+        raise AssertionError(f"stream (c): action {dec.action}, epoch "
+                             f"{ss.session.epoch} (was {e0}), mode "
+                             f"{rep.mode}; a rerun was due")
+    stream_check("acc (c)", ss.result["c"], cur)
+    log(f"  [acc] (c) {rows.size} documents rewritten in one batch "
+        f"({rec.n_rows} rows): {dec.reason}; action rerun, epoch {e0} -> "
+        f"{ss.session.epoch}, {t_c:.3f} s, equal to np.bincount")
+    log_split("acc (c)", ss)
+    return dict(run_s=t_run, drain_s=t_drain, crossover_s=t_c,
+                first_batch_s=lat[0], metrics=m)
+
+
+def stream_mrbg(dev, rng, docs: np.ndarray, root: Path):
+    """(b) the MRBG path, step by step, with an adversarial burst; (d)
+    snapshot after half the epochs and restore."""
+    from repro_torch.api import RunConfig
+    from repro_torch.apps import wordcount as wc
+    from repro_torch.stream import StreamConfig, StreamSession
+    cfg = RunConfig(device=dev.type, onestep_path="mrbg")
+    scfg = StreamConfig(policy="paper", max_batch_records=2**22)
+    spec, data = wc.make_job(docs, VOCAB)
+    ss = StreamSession(spec, data, config=cfg, stream=scfg, name="mrbg")
+    t0 = time.perf_counter()
+    ss.start(background=False)
+    t_run = time.perf_counter() - t0
+    log(f"  [mrbg] initial run {t_run:.3f} s")
+    cur = docs.copy()
+    after = []                            # records after the snapshot
+    t_steps = []
+    for e in range(MRBG_EPOCHS):
+        rec = rewrite_record(rng, cur, np.sort(rng.choice(
+            len(docs), MRBG_DOCS, replace=False)), e)
+        t0 = time.perf_counter()
+        ss.submit_record(rec)
+        ss.drain(timeout=900)
+        t_steps.append(time.perf_counter() - t0)
+        stream_check(f"mrbg (b) epoch {e}", ss.result["c"], cur)
+        if e == MRBG_EPOCHS // 2 - 1:
+            mirror = ss.mirror_kv()
+            t0 = time.perf_counter()
+            ss.snapshot(str(root / "mrbg"))
+            t_snap = time.perf_counter() - t0
+        elif e >= MRBG_EPOCHS // 2:
+            after.append(rec)
+    log(f"  [mrbg] (b) {MRBG_EPOCHS} epochs of {MRBG_DOCS} documents, each "
+        f"equal to np.bincount: {', '.join(f'{t:.3f}' for t in t_steps)} s; "
+        f"snapshot at epoch {MRBG_EPOCHS // 2} {t_snap:.3f} s")
+    log_split("mrbg", ss)
+    rows = np.sort(rng.choice(len(docs), BURST_RECORDS, replace=False))
+    rec = rewrite_record(rng, cur, rows, MRBG_EPOCHS, times=BURST_REWRITES)
+    after.append(rec)
+    t0 = time.perf_counter()
+    ss.submit_record(rec)
+    ss.drain(timeout=900)
+    t_burst = time.perf_counter() - t0
+    stream_check("mrbg (b) burst", ss.result["c"], cur)
+    co = ss.session.history[-1].coalesce
+    if (co["n_in"], co["n_out"]) != (rec.n_rows, 2 * BURST_RECORDS):
+        raise AssertionError(f"stream (b) burst: coalescer {co}")
+    sb, lb = ss.store_bytes(), ss.session.store_live_bytes()
+    reclaimed = ss.compact_store()
+    log(f"  [mrbg] (b) burst of {BURST_RECORDS} records rewritten "
+        f"{BURST_REWRITES} times: coalescer n_in {co['n_in']} -> n_out "
+        f"{co['n_out']} ({co['n_cancelled']} cancelled), {t_burst:.3f} s, "
+        f"equal to np.bincount; store_bytes {sb}, store_live_bytes {lb}, "
+        f"compact_store reclaimed {reclaimed} bytes (now {ss.store_bytes()})")
+    log_split("mrbg burst", ss)
+
+    t0 = time.perf_counter()
+    rs = restore_stream(spec, mirror, root / "mrbg", cfg, scfg, name="rmrbg")
+    t_restore = time.perf_counter() - t0
+    rs.start(background=False)
+    for rec in after:
+        rs.submit_record(rec)
+        rs.drain(timeout=900)
+    require_same("stream (d) mrbg", rs.result["c"], ss.result["c"])
+    log(f"  [mrbg] (d) restored at epoch {MRBG_EPOCHS // 2} "
+        f"({t_restore:.3f} s), {len(after)} more batches: bitwise equal to "
+        f"the uninterrupted session")
+    return dict(run_s=t_run, steps_s=t_steps, burst_s=t_burst,
+                snapshot_s=t_snap, restore_s=t_restore)
+
+
+def stream_pagerank(dev, rng, vertices: int):
+    """(e) PageRank's stream, checked against the float64 fixpoint of the
+    final graph within ``pagerank_bound``."""
+    from repro_torch.api import RunConfig
+    from repro_torch.apps import pagerank
+    from repro_torch.stream import StreamConfig, StreamSession
+    nbrs = pagerank.random_graph(vertices, OUT_SLOTS, seed=int(
+        rng.integers(2**31)), p_edge=P_EDGE)
+    spec, struct, source = pagerank.make_stream(
+        nbrs, frac=STREAM_PR_FRAC, seed=int(rng.integers(2**31)),
+        epochs=STREAM_PR_EPOCHS, p_edge=P_EDGE)
+    cfg = RunConfig(device=dev.type, cpc_threshold=PR_CPC)
+    scfg = StreamConfig(policy="paper", max_batch_records=STREAM_BATCH_ROWS)
+    ss = StreamSession(spec, struct, source=source, config=cfg, stream=scfg,
+                       name="pagerank")
+    t0 = time.perf_counter()
+    ss.start(background=False)
+    t_run = time.perf_counter() - t0
+    run_change = ss.session.history[0].max_change[-1]
+    t0 = time.perf_counter()
+    with ss:
+        ss.drain(timeout=1800)
+    t_drain = time.perf_counter() - t0
+    reps = ss.session.history[1:]
+    if any(r.iters >= cfg.refresh_iters_ for r in reps):
+        raise AssertionError("stream (e): a refresh hit max_iters")
+    want, ch = pagerank_fixpoint(source.values["nbrs"])
+    got = ss.result["r"]
+    err = float(np.abs(got.astype(np.float64) - want).sum())
+    # as phase 4: a vertex no refresh touched holds the run's last change,
+    # a touched one at most the CPC threshold plus the refresh tolerance
+    held = vertices * max(run_change, cfg.cpc_threshold + cfg.refresh_tol_)
+    lim = pagerank_bound(vertices, held, ch)
+    batches = ", ".join(f"{r.mode} {r.iters} it {r.seconds:.3f} s"
+                        for r in reps)
+    log(f"  [pagerank] (e) {vertices} vertices (CUT from {FULL_VERTICES}), "
+        f"{STREAM_PR_EPOCHS} epochs rewiring {STREAM_PR_FRAC:g} of them: run "
+        f"{t_run:.3f} s, drain {t_drain:.3f} s in {len(reps)} batches "
+        f"({batches}); L1 error {err:.6g} <= bound {lim:.6g}")
+    log_split("pagerank", ss)
+    if not (np.isfinite(got).all() and err <= lim):
+        raise AssertionError(f"stream (e): L1 error {err} > {lim}")
+    return dict(run_s=t_run, drain_s=t_drain)
+
+
+def time_coalescer(dev, rng) -> dict:
+    """(f) the coalescer's device part alone, against the CPU tensors'
+    route (the plain versions) moved back to the card: perm, keep, firsts,
+    net and counts exactly equal; CUDA-event ms, one profiled call, and
+    the whole ``coalesce_rows`` (host compaction included)."""
+    import torch
+    from repro_torch.stream.coalesce import (
+        _coalesce_kernel, coalesce_rows, pad_rows,
+    )
+    out = {}
+    for n in COALESCE_SIZES:
+        m = n // 2
+        rid = np.repeat(rng.permutation(m), 2).astype(np.int32)
+        cancel = np.repeat(rng.random(m) < 1 / 3, 2)  # '+' then '-'
+        sign = np.where(cancel, np.tile(np.int8([1, -1]), m),
+                        np.tile(np.int8([-1, 1]), m)).astype(np.int8)
+        inputs = pad_rows(rid, sign, n, dev)
+        got = _coalesce_kernel(*inputs)
+        t0 = time.perf_counter()
+        want = _coalesce_kernel(*(t.cpu() for t in inputs))
+        plain_s = time.perf_counter() - t0
+        for part, g, w in zip(("perm", "keep", "firsts", "net", "counts"),
+                              got, want):
+            require_equal(f"coalesce n={n} {part}", g, w.to(dev))
+        fn = lambda: _coalesce_kernel(*inputs)
+        ms = cuda_ms(fn)
+        vals = {"w": np.zeros((n, 1), np.int32)}
+        coalesce_rows(rid, vals, sign, device=dev)
+        t0 = time.perf_counter()
+        res = coalesce_rows(rid, vals, sign, device=dev)
+        host_s = time.perf_counter() - t0
+        out[n] = dict(ms=ms, coalesce_rows_s=host_s, plain_s=plain_s)
+        log(f"  coalesce n={n} ({int(cancel.sum()) // 2} of {m} records "
+            f"cancel; n_out {res.n_out}): device part equal to the CPU "
+            f"route; coalesce_rows {host_s * 1e3:.3f} ms on the host clock, "
+            f"CPU route {plain_s * 1e3:.3f} ms; device part "
+            + split_line(fn, dev, ms))
+    return out
+
+
+def drive_stream(dev, rng, docs: np.ndarray, seed: int, vertices: int):
+    import shutil
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    root = ROOT / "build" / f"stream-ckpt-{os.getpid()}"
+    reset_launch_counts()
+    parts = {}
+    try:
+        t0 = time.perf_counter()
+        parts["acc"] = stream_accumulator(dev, rng, docs, seed, root)
+        a = launch_counts()
+        log(f"  [acc] (a)+(c)+(d) {time.perf_counter() - t0:.1f} s; "
+            f"launches {a}")
+        t0 = time.perf_counter()
+        parts["mrbg"] = stream_mrbg(dev, rng, docs, root)
+        b = launch_counts()
+        log(f"  [mrbg] (b)+(d) {time.perf_counter() - t0:.1f} s; launches "
+            f"{ {k: b[k] - a[k] for k in b} }")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release(dev)
+    t0 = time.perf_counter()
+    parts["pagerank"] = stream_pagerank(dev, rng, min(STREAM_VERTICES,
+                                                      vertices))
+    counts = launch_counts()
+    log(f"  [pagerank] (e) {time.perf_counter() - t0:.1f} s; launches "
+        f"{ {k: counts[k] - b[k] for k in counts} }")
+    for name in ("sort_lex", "segment_sum", "fused_shuffle_reduce"):
+        if dev.type == "cuda" and counts[name] == 0:
+            raise AssertionError(f"stream path launched no {name}")
+    release(dev)
+    parts["coalesce"] = time_coalescer(dev, rng)
+    return counts, parts
+
+
 def sync(dev) -> None:
     import torch
     if dev.type == "cuda":
@@ -1849,6 +2278,7 @@ def main(argv=None) -> int:
     log("phase 2: kernels against their plain versions")
     check_sort(dev, rng)
     check_segment_sum(dev, rng)
+    small = check_small_sizes(dev, rng)
     check_fused(dev, rng)
     check_fused_runs(dev, rng)
     check_segment_minmax(dev, rng)
@@ -1907,7 +2337,13 @@ def main(argv=None) -> int:
     log("phase 5: LM serving (Gemma 2 9B at full width: prefill, decode, "
         "decode-versus-prefill parity)")
     lmc = drive_lm(dev, args.seed)
-    paths = (mrbg, acc, pr, sp, lmc)
+
+    log("phase 6: streaming (StreamSession on phase 3's corpus and a "
+        "PageRank stream)")
+    t6 = time.perf_counter()
+    st, stream_parts = drive_stream(dev, rng, docs, args.seed, args.vertices)
+    log(f"  phase 6 {time.perf_counter() - t6:.1f} s; launches {st}")
+    paths = (mrbg, acc, pr, sp, lmc, st)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -1932,6 +2368,15 @@ def main(argv=None) -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if name in ("sort_lex", "segment_sum"):
+            key = "sort" if name == "sort_lex" else "sum"
+            entry["ms_coalescer"] = {n: small[n][f"{key}_ms"] for n in small}
+            entry["plain_ms_coalescer"] = {
+                n: small[n][f"{key}_plain_ms"] for n in small}
+            entry["note_coalescer"] = (
+                "ms_coalescer, plain_ms_coalescer: by N at the stream "
+                "coalescer's sizes (phase 2: sort by (record id, row); "
+                "int32 sum of the signs with counts)")
         if name == "segment_sum":
             entry.update({n: t[n] for n in (
                 "shape", "ms_pagerank", "plain_ms_pagerank",
@@ -1961,12 +2406,15 @@ def main(argv=None) -> int:
         if name == "segment_minmax":
             entry.update({n: t[n] for n in (
                 "shape", "ms_refresh", "plain_ms_refresh",
-                "library_ms_refresh", "bound_ms_refresh")})
+                "library_ms_refresh", "library_device_ms_refresh",
+                "bound_ms_refresh")})
             entry["note"] = (
                 "ms, plain_ms, library_ms, bound_ms: SSSP's run (K 2^22, "
                 "one pass); *_refresh: SSSP's refresh at N 2^17, K "
                 "16384, ids ascending; library: "
-                "scatter_reduce_(amin) on the rows in range")
+                "scatter_reduce_(amin) on the rows in range (CUDA events; "
+                "library_device_ms_refresh: its device busy time in one "
+                "call under torch.profiler)")
         if name == "spmv_ell":
             entry["note"] = ("no engine path calls it (nor the JAX "
                              "package's); held against its plain version "
@@ -1984,7 +2432,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
-        f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}")
+        f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

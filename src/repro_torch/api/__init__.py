@@ -11,7 +11,7 @@
 
 ``RunConfig(device="cpu")`` runs the kernels' plain versions on the CPU.
 """
-from repro_torch.api.config import RunConfig
+from repro_torch.api.config import STREAM_POLICIES, RunConfig, StreamConfig
 from repro_torch.api.report import MODES, RunReport, ShuffleStats
 from repro_torch.api.session import Session
 
@@ -25,7 +25,8 @@ from repro_torch.core.kvstore import (
 )
 
 __all__ = [
-    "Session", "RunConfig", "RunReport", "ShuffleStats", "MODES",
+    "Session", "RunConfig", "StreamConfig", "STREAM_POLICIES",
+    "RunReport", "ShuffleStats", "MODES",
     "JobSpec", "IterSpec", "State", "default_difference",
     "DeltaKV", "make_delta",
     "KV", "Edges", "Reducer", "make_kv", "make_edges",

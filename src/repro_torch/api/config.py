@@ -1,11 +1,15 @@
 """RunConfig: the engine's knobs, declared once.
 
-Counterpart of ``repro.api.config.RunConfig`` for the paths the port runs
-so far (one-step MRBG and accumulator, iterative and incremental
-iterative), with the reference's names and defaults.  ``device`` takes the
+Counterpart of ``repro.api.config`` for the paths the port runs so far
+(one-step MRBG and accumulator, iterative and incremental iterative, and
+the streaming layer's :class:`StreamConfig`), with the reference's names
+and defaults.  ``device`` takes the
 place of the reference's ``backend``: ``"cuda"`` (the default) runs the
 hand-written kernels and raises when there is no card; ``"cpu"`` runs
-their plain versions.  Nothing else selects the plain versions.
+their plain versions.  Nothing else selects the plain versions.  The
+reference's ``compilation_cache_dir`` has no counterpart: the kernels'
+build directory, keyed by the sources' digest, already persists across
+processes.
 """
 from __future__ import annotations
 
@@ -54,8 +58,13 @@ class RunConfig:
     #    structure data every iteration instead of keeping the loop warm
     plain_shuffle: bool = False
 
-    # -- distributed execution comes with a later slice
+    # -- distributed execution is not ported yet (ROADMAP Queue 1 item 11)
     mesh: Optional[Any] = None
+
+    # -- checkpointing (§6): directory + cadence in epochs (0 = manual via
+    #    Session.checkpoint only)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
 
     # -- telemetry: RunReports kept on Session.history
     report_history: int = 64
@@ -79,7 +88,7 @@ class RunConfig:
         if self.mesh is not None:
             raise NotImplementedError(
                 "RunConfig(mesh=...) is not ported yet: distributed "
-                "execution comes with slice 3")
+                "execution is ROADMAP Queue 1 item 11")
         if self.report_history < 1:
             raise ValueError("report_history must be >= 1")
         if self.delta_bucket_min < 1:
@@ -111,3 +120,68 @@ class RunConfig:
                 "False; pass RunConfig(device='cpu') to run the plain "
                 "versions on the CPU")
         return torch.device(self.device)
+
+
+STREAM_POLICIES = ("latency", "throughput", "paper")
+
+
+@dataclass(frozen=True)
+class StreamConfig:
+    """Knobs of the ``repro_torch.stream`` serving layer (one per
+    StreamSession), as ``repro.api.config.StreamConfig``.
+
+    Micro-batching trades refresh latency against per-record overhead; the
+    scheduler policy decides, per micro-batch, between the fine-grain
+    incremental refresh and full re-computation (the paper's Fig. 8
+    crossover, applied online).
+    """
+
+    # -- micro-batching: a refresh fires when ``max_batch_records`` delta
+    #    rows are buffered or ``max_batch_delay`` seconds elapsed since the
+    #    first buffered row, whichever comes first
+    max_batch_records: int = 4096
+    max_batch_delay: float = 0.05
+
+    # -- ingestion: bounded buffer between producers and the refresh
+    #    driver; a full buffer blocks submit() (backpressure)
+    queue_capacity: int = 64
+    poll_interval: float = 0.002       # idle sleep between source polls
+
+    # -- coalescer: merge/cancel opposing +/- rows per record before the
+    #    engine sees them (False streams raw rows through)
+    coalesce: bool = True
+
+    # -- input-mirror growth: record ids past the seed data's capacity
+    #    grow the mirror (and every driver-side record structure) up the
+    #    power-of-two ladder; ``grow_records=False`` rejects them at the
+    #    seed capacity; ``max_records`` bounds growth (ids at or past it
+    #    are rejected at ingest)
+    grow_records: bool = True
+    max_records: Optional[int] = None
+
+    # -- refresh scheduling
+    policy: str = "paper"              # latency | throughput | paper
+    crossover: float = 0.25            # |delta|/|D| where full recompute wins
+    cost_ema: float = 0.5              # EWMA factor of online cost estimates
+    store_bloat: float = 4.0           # throughput: rerun when file/live > x
+
+    # -- pre-warm: push no-op deltas through the delta bucket ladder
+    #    (delta_bucket_min up to prewarm_rows, default max_batch_records)
+    #    on start(), so the first real micro-batch finds every kernel
+    #    built and loaded
+    prewarm: bool = False
+    prewarm_rows: Optional[int] = None
+
+    def __post_init__(self):
+        if self.policy not in STREAM_POLICIES:
+            raise ValueError(
+                f"policy must be one of {STREAM_POLICIES}, "
+                f"got {self.policy!r}")
+        if self.queue_capacity < 1 or self.max_batch_records < 1:
+            raise ValueError("queue_capacity and max_batch_records must "
+                             "be >= 1")
+        if self.max_records is not None and self.max_records < 1:
+            raise ValueError("max_records must be >= 1 (or None)")
+
+    def replace(self, **kw) -> "StreamConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,8 +1,7 @@
 """RunReport: the one result/telemetry surface of a Session epoch.
 
-Counterpart of ``repro.api.report`` for the single-device paths.  The
-reference's ``coalesce`` field comes with the streaming layer; ``device``
-replaces ``backend``.
+Counterpart of ``repro.api.report`` for the single-device paths;
+``device`` replaces ``backend``.
 """
 from __future__ import annotations
 
@@ -58,6 +57,10 @@ class RunReport:
     store_batches: int = 0
     mrbg_on: bool = True
     shuffle: ShuffleStats = field(default_factory=ShuffleStats)
+    # coalescer savings for the batch that produced this epoch, attached by
+    # the stream layer (None outside streaming): n_in/n_out/n_records/
+    # n_inserts/n_deletes/n_cancelled of the CoalesceResult
+    coalesce: Optional[Dict[str, int]] = None
     # dense output values; {} when the producer skipped materialization
     result: Dict[str, np.ndarray] = field(default_factory=dict)
 
@@ -72,4 +75,6 @@ class RunReport:
         if self.store_bytes:
             parts.append(f"store={self.store_bytes}B "
                          f"(live {self.live_bytes}B)")
+        if self.coalesce and self.coalesce.get("n_cancelled"):
+            parts.append(f"coalesced=-{self.coalesce['n_cancelled']}rows")
         return " ".join(parts)

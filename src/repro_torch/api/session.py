@@ -9,17 +9,23 @@ Counterpart of ``repro.api.session.Session`` on one device: a
                          accumulator fast path (§3.5), or the incremental
                          iterative refresh with CPC and auto MRBG-off (§5);
                          ``RunConfig(plain_shuffle=True)`` runs the plainMR
-                         baseline instead.
+                         baseline instead;
+  * ``rerun(data)``   -> drop the preserved state and recompute, as one more
+                         epoch (the stream scheduler's other path);
+  * ``checkpoint()`` / ``restore()`` -> fault tolerance (§6), in the
+                         reference's npz + json layout, so that either
+                         package restores the other's snapshots.
 
 Data and deltas may be given on the host; the session moves them to
 ``config.device`` (``cuda`` unless the caller asks for the CPU).  Delta
-queries (``QuerySpec``) come with slice 4 and raise
-``NotImplementedError`` here.
+queries (``QuerySpec``) are not ported yet (ROADMAP Queue 1 item 15) and
+raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from pathlib import Path
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -38,7 +44,9 @@ from repro_torch.core.kvstore import KV, edges_to_host, next_bucket
 from repro_torch.core.mrbg_store import IOStats, MRBGStore
 from repro_torch.tree import tree_map
 
-_LATER_SLICES = {"QuerySpec": "slice 4 (delta queries)"}
+Spec = Union[JobSpec, IterSpec]
+
+_NOT_PORTED = {"QuerySpec": "ROADMAP Queue 1 item 15 (delta queries)"}
 
 
 def _to(tree, device: torch.device):
@@ -69,11 +77,10 @@ class Session:
             return (_PlainIter(spec, config, self.device)
                     if config.plain_shuffle
                     else _IncrIter(spec, config, self.device))
-        later = _LATER_SLICES.get(type(spec).__name__)
+        later = _NOT_PORTED.get(type(spec).__name__)
         if later is not None:
             raise NotImplementedError(
-                f"{type(spec).__name__} is not ported yet: it comes with "
-                f"{later}")
+                f"{type(spec).__name__} is not ported yet: it is {later}")
         raise TypeError(f"spec must be a JobSpec or IterSpec, got "
                         f"{type(spec).__name__}")
 
@@ -103,6 +110,20 @@ class Session:
         self.epoch += 1
         return self._finish(t0)
 
+    def rerun(self, data: KV) -> RunReport:
+        """Full re-computation refresh: drop every preserved structure and
+        recompute from scratch on the (fully updated) input, as one more
+        epoch of this session: the stream scheduler's alternative to
+        ``update(delta)`` past the paper's Fig. 8 crossover."""
+        if self.epoch < 0:
+            raise RuntimeError("rerun() before run(); execute the initial "
+                               "job first")
+        t0 = time.perf_counter()
+        self._driver = self._make_driver()   # fresh preserved state
+        self._driver.run(_to(data, self.device))
+        self.epoch += 1
+        return self._finish(t0)
+
     def grow_records(self, capacity: int) -> None:
         """Extend the record-id address space to ``capacity`` rows.
 
@@ -115,6 +136,16 @@ class Session:
         if hook is not None:
             hook(int(capacity))
 
+    def absorb_refresh(self, seconds: float) -> RunReport:
+        """Account one refresh epoch executed outside ``update()`` (a
+        batched cross-tenant refresh), so that ``epoch``, ``history`` and
+        auto-checkpointing stay consistent with the per-tenant path."""
+        if self.epoch < 0:
+            raise RuntimeError("absorb_refresh() before run(); execute the "
+                               "initial job first")
+        self.epoch += 1
+        return self._finish(time.perf_counter() - seconds)
+
     def _finish(self, t0: float) -> RunReport:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -124,6 +155,10 @@ class Session:
         self.history.append(rep)
         if len(self.history) > self.config.report_history:
             del self.history[:-self.config.report_history]
+        cfg = self.config
+        if (cfg.checkpoint_dir is not None and cfg.checkpoint_every > 0
+                and self.epoch % cfg.checkpoint_every == 0):
+            self.checkpoint(cfg.checkpoint_dir)
         return rep
 
     # -- uniform outputs ---------------------------------------------------
@@ -146,6 +181,26 @@ class Session:
             rep.seconds = self._last.seconds
         return rep
 
+    # -- fault tolerance ---------------------------------------------------
+    def checkpoint(self, path: Optional[str] = None) -> Path:
+        """Atomically snapshot all preserved state (view/state, MRBG-Store,
+        CPC accumulators, structure mirror) under ``path``."""
+        from repro_torch.api.ckpt import save_session
+        target = path or self.config.checkpoint_dir
+        if target is None:
+            raise ValueError("no checkpoint path: pass one or set "
+                             "RunConfig(checkpoint_dir=...)")
+        return save_session(self, str(target))
+
+    @classmethod
+    def restore(cls, spec: Spec, path: str,
+                config: Optional[RunConfig] = None) -> "Session":
+        """Rebuild a session from :meth:`checkpoint` output (this package's
+        or the reference's); the next ``update(delta)`` resumes exactly
+        where the snapshot left off, on ``config.device``."""
+        from repro_torch.api.ckpt import load_session
+        return load_session(cls, spec, str(path), config)
+
     # -- preserved state (read-only use) -----------------------------------
     @property
     def view(self) -> Optional[ResultView]:
@@ -156,10 +211,35 @@ class Session:
         """The iterative drivers' dense state <DK, DV> on the device."""
         return getattr(self._driver, "state", None)
 
+    # -- preserved-state accounting (serving-layer hooks) ------------------
     @property
     def store(self) -> Optional[MRBGStore]:
         """The driver's MRBG-Store, if this path preserves one."""
         return getattr(self._driver, "store", None)
+
+    @property
+    def stores(self) -> list:
+        """Every MRBG-Store this session preserves: ``[store]`` or ``[]``
+        (one device: no per-shard slices)."""
+        st = self.store
+        return [st] if st is not None else []
+
+    def store_bytes(self) -> int:
+        """MRBG file size including obsolete chunks (0 if nothing is
+        preserved)."""
+        return sum(s.file_bytes() for s in self.stores)
+
+    def store_live_bytes(self) -> int:
+        """Live chunk bytes."""
+        return sum(s.live_bytes() for s in self.stores)
+
+    def store_obsolete_bytes(self) -> int:
+        """Obsolete (compactable) chunk bytes."""
+        return sum(s.obsolete_bytes() for s in self.stores)
+
+    def compact_store(self) -> int:
+        """Offline MRBG compaction; returns the bytes reclaimed."""
+        return sum(s.compact() for s in self.stores)
 
 
 # ---------------------------------------------------------------------------

@@ -79,6 +79,20 @@ def graph_mutator(num_vertices: int, p_edge: float = 0.5):
     return mut
 
 
+def make_stream(nbrs: np.ndarray, frac: float = 0.02, seed: int = 7,
+                epochs: int = 3, p_edge: float = 0.5):
+    """Streaming app entry: ``(spec, struct, source)`` ready for
+    ``repro_torch.stream.StreamSession`` — one synthetic delta epoch
+    rewires ``frac`` of the vertices; ``source.values["nbrs"]`` tracks the
+    fully-updated graph for oracle checks."""
+    from repro_torch.stream.source import SyntheticSource
+    spec, struct = make_job(nbrs)
+    source = SyntheticSource({"nbrs": np.asarray(nbrs, np.int32)},
+                             frac=frac, seed=seed, epochs=epochs,
+                             mutator=graph_mutator(nbrs.shape[0], p_edge))
+    return spec, struct, source
+
+
 def oracle(nbrs: np.ndarray, valid_rows=None, iters: int = 200,
            tol: float = 1e-12) -> np.ndarray:
     """Dense float64 power iteration with identical semantics, one

@@ -48,6 +48,20 @@ def doc_mutator(vocab: int):
     return mut
 
 
+def make_stream(docs: np.ndarray, vocab: int, frac: float = 0.05,
+                seed: int = 0, epochs: int = 5):
+    """Streaming app entry: ``(spec, data, source)`` ready for
+    ``repro_torch.stream.StreamSession`` — one synthetic delta epoch
+    rewrites ``frac`` of the corpus; ``source.values["w"]`` tracks the
+    fully-updated corpus for oracle checks."""
+    from repro_torch.stream.source import SyntheticSource
+    spec, data = make_job(docs, vocab)
+    source = SyntheticSource({"w": np.asarray(docs, np.int32)}, frac=frac,
+                             seed=seed, epochs=epochs,
+                             mutator=doc_mutator(vocab))
+    return spec, data, source
+
+
 def oracle(docs: np.ndarray, vocab: int, valid=None) -> np.ndarray:
     """Word counts of the valid documents (float64, as the reference)."""
     docs = np.asarray(docs)

@@ -85,21 +85,30 @@ def pad_delta(delta: DeltaKV, capacity: int) -> DeltaKV:
 def apply_delta_host(keys: np.ndarray, values: Dict[str, np.ndarray],
                      valid: np.ndarray, delta: DeltaKV) -> None:
     """Apply a signed delta to a host-side record mirror, in place: '-'
-    rows invalidate a record slot, '+' rows (re)write it."""
+    rows invalidate a record slot, '+' rows (re)write it, in row order.
+
+    Vectorised: a record's last row decides whether its slot is valid, and
+    its last '+' row what the slot holds (a later '-' leaves it written).
+    """
     rid = delta.record_ids.cpu().numpy()
     sgn = delta.sign.cpu().numpy()
-    dvalid = delta.valid.cpu().numpy()
-    dkeys = delta.keys.cpu().numpy()
-    dvals = {n: a.cpu().numpy() for n, a in delta.values.items()}
-    for i in np.nonzero(dvalid)[0]:
-        r = int(rid[i])
-        if sgn[i] < 0:
-            valid[r] = False
-        else:
-            valid[r] = True
-            keys[r] = int(dkeys[i])
-            for n, a in values.items():
-                a[r] = dvals[n][i]
+    idx = np.nonzero(delta.valid.cpu().numpy())[0]
+
+    def last_of_each_record(rows):
+        _, at = np.unique(rid[rows][::-1], return_index=True)
+        return rows[::-1][at]
+
+    if idx.size == 0:
+        return
+    last = last_of_each_record(idx)
+    valid[rid[last]] = sgn[last] > 0
+    plus = idx[sgn[idx] > 0]
+    if plus.size:
+        last = last_of_each_record(plus)
+        r = rid[last]
+        keys[r] = delta.keys.cpu().numpy()[last]
+        for n, a in values.items():
+            a[r] = delta.values[n].cpu().numpy()[last]
 
 
 def pad_mirror(keys: np.ndarray, values: Dict[str, np.ndarray],
@@ -169,6 +178,12 @@ class IncrementalJob:
         assert self.view is not None, "initial_run first"
         incremental_onestep(self.spec, delta, self.store, self.view)
         return self.view
+
+    def refresh_stats(self) -> Dict[str, Any]:
+        return {"store_batches": self.store.n_batches,
+                "store_bytes": self.store.file_bytes(),
+                "live_bytes": self.store.live_bytes(),
+                "io": self.store.stats}
 
 
 def _v2_dict(v2) -> Dict[str, Any]:

@@ -11,6 +11,9 @@ plain integers (``c_void_p``).  Headers under ``csrc/`` (``common.cuh``,
 hash.  The flash kernel's TMA descriptors come from libcuda's
 ``cuTensorMapEncodeTiled``, which it looks up through the CUDA runtime's
 entry-point query at its first launch, so no library links ``-lcuda``.
+Each nvcc run counts as a compile and each load of a library as a trace
+in ``jitcache``.  One lock covers building and loading, so a first launch
+from a worker thread (``repro_torch.stream``) builds once.
 
 Nothing here runs at import: the CPU tests import every module, and the
 loader only touches ``nvcc`` when a CUDA tensor asks for a kernel.
@@ -28,6 +31,8 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+
+from repro_torch.kernels import jitcache
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -130,6 +135,7 @@ def build_all() -> float:
                 failed.append(f"--- {name}.cu (rc {proc.returncode})\n{out}")
                 continue
             os.replace(tmp, final)
+        jitcache.count_compile(len(todo), time.perf_counter() - t0)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     build_seconds = time.perf_counter() - t0
@@ -151,7 +157,19 @@ def library(name: str) -> ctypes.CDLL:
         lib.repro_error_string.argtypes = [_I]
         lib.repro_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
+        jitcache.count_trace(f"build:{name}")
         return lib
+
+
+def reset(build_dir=None) -> None:
+    """Forget the loaded libraries, and with ``build_dir`` build into that
+    directory from now on: the next use of each kernel loads it again (and
+    builds it, in an empty directory), as in a fresh process."""
+    global BUILD_DIR
+    with _lock:
+        _libs.clear()
+        if build_dir is not None:
+            BUILD_DIR = Path(build_dir)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -488,3 +488,99 @@ def test_lm_on_card_launches_flash_and_matches_cpu(cuda, arch):
         scale = max(1.0, float(want.abs().max()))
         assert float((got.cpu() - want).abs().max()) / scale < 2e-4, t
     assert flash_attention.launches == before       # decode: plain code
+
+
+# ---------------------------------------------------------------------------
+# the streaming layer on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [64, 1000, 4096, 8192])
+def test_coalesce_on_card_equals_cpu_route(cuda, n):
+    """The coalescer's device part and its result, bitwise against the CPU
+    tensors' route; one sort and one segment sum a call."""
+    from repro_torch.stream.coalesce import (
+        _coalesce_kernel, coalesce_rows, pad_rows,
+    )
+    from repro_torch.core.kvstore import next_bucket
+    rng = np.random.default_rng(n)
+    rid = rng.integers(0, max(n // 3, 1), n).astype(np.int32)
+    sign = rng.choice(np.int8([-1, 1]), n)
+    cap = next_bucket(n, 64)
+    inputs = pad_rows(rid, sign, cap, cuda)
+    reset_launch_counts()
+    got = _coalesce_kernel(*inputs)
+    assert (launch_counts()["sort_lex"], launch_counts()["segment_sum"]) \
+        == (1, 1)
+    want = _coalesce_kernel(*(t.cpu() for t in inputs))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    vals = {"w": rng.integers(0, 9, (n, 3)).astype(np.int32)}
+    a = coalesce_rows(rid, vals, sign, device=cuda)
+    b = coalesce_rows(rid, vals, sign, device="cpu")
+    assert tuple(a[1:]) == tuple(b[1:])
+    for x, y in ((a.delta.record_ids, b.delta.record_ids),
+                 (a.delta.sign, b.delta.sign),
+                 (a.delta.values["w"], b.delta.values["w"])):
+        assert torch.equal(x, y)
+
+
+def _stream_case(epochs=6):
+    from repro_torch.stream import StreamConfig, StreamSession
+    rng = np.random.default_rng(1)
+    docs = rng.integers(0, 500, (3000, 16)).astype(np.int32)
+    spec, data, source = wc.make_stream(docs, 500, frac=0.01, seed=2,
+                                        epochs=epochs)
+    ss = StreamSession(spec, data, source=source, config=RunConfig(),
+                       stream=StreamConfig(max_batch_records=128))
+    return ss, source
+
+
+def test_stream_session_on_card_equals_oracle(cuda):
+    """A background StreamSession of a few epochs on the card equals the
+    oracle; every batch went through the coalescer's kernels, with a
+    producer thread submitting beside the worker."""
+    import threading
+    from repro_torch.stream import DeltaRecord
+    ss, source = _stream_case()
+    reset_launch_counts()
+    extra = np.arange(3000, 3010, dtype=np.int32)   # past the corpus
+    words = np.random.default_rng(3).integers(0, 500, (10, 16)).astype(
+        np.int32)
+
+    def produce():
+        # insert new documents, then delete them: a net no-op
+        ss.submit_record(DeltaRecord(extra, {"w": words},
+                                     np.ones(10, np.int8)))
+        ss.submit_record(DeltaRecord(extra, {"w": words},
+                                     -np.ones(10, np.int8)))
+    with ss:
+        t = threading.Thread(target=produce)
+        t.start()
+        t.join()
+        ss.drain(timeout=300)
+    np.testing.assert_array_equal(ss.result["c"],
+                                  wc.oracle(source.values["w"], 500))
+    counts = launch_counts()
+    assert counts["sort_lex"] >= ss.metrics.batches >= 2
+    assert counts["segment_sum"] >= ss.metrics.batches
+
+
+def test_kernel_build_in_worker_marks_batch_retraced(cuda, tmp_path):
+    """The worker's first batch builds the kernels into an empty build
+    directory: that batch, and only it, is marked retraced."""
+    from repro_torch.kernels import _build, jitcache
+    ss, source = _stream_case(epochs=4)
+    ss.start(background=False)
+    old = _build.BUILD_DIR
+    compiles = jitcache.compiles_total()
+    _build.reset(tmp_path)
+    try:
+        with ss:
+            ss.drain(timeout=600)
+    finally:
+        _build.reset(old)
+    assert jitcache.compiles_total() == compiles + len(_build.SOURCES)
+    assert ss.metrics.retrace_batches == 1 < ss.metrics.batches
+    assert ss.scheduler.compile_skips == 1
+    np.testing.assert_array_equal(ss.result["c"],
+                                  wc.oracle(source.values["w"], 500))

@@ -51,7 +51,9 @@ def test_import_leaves_jax_out():
             "repro_torch.apps.gimv, repro_torch.apps.kmeans, "
             "repro_torch.apps.apriori, repro_torch.models.lm, "
             "repro_torch.models.transfer, repro_torch.configs.gemma2_9b, "
-            "repro_torch.launch.steps, repro_torch.kernels.flash_attention; "
+            "repro_torch.launch.steps, repro_torch.kernels.flash_attention, "
+            "repro_torch.stream, repro_torch.api.ckpt, repro_torch.core.ft, "
+            "repro_torch.kernels.jitcache, repro_torch.data; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -41,6 +41,26 @@ Runs on one CUDA card, from the root of a checkout:
      coalescer's device part at 64, 4,096 and 2^20 rows, exactly equal to
      its plain route, timed.  Phase 2 holds the sort and the int32
      segment sum at the coalescer's sizes.
+  7. drives the serving tier — ``repro_torch.serve.ServeTier`` over
+     wordcount tenants on the MRBG path: (a) ``benchmarks/serve_load.py``'s
+     largest throughput cell, 1,000 tenants (vocab 64, 8 documents of 4
+     words), 128 a batched launch, 2 warm and 3 timed rounds, batched and
+     sequential, plus one profiled sweep; (b) 64 wide tenants of 2^20
+     edges each (vocab 2^15, 2^14 documents of 64 words), 3 rounds of 16
+     documents a tenant, batched and sequential; (c) one latency tenant
+     and 32 best-effort ones open loop at twice the measured capacity for
+     15 s; (d) (b)'s fleet under half its store bytes (compaction, then
+     spill to the git-ignored ``build/``, then reload); (e)
+     ``MultiSessionServer`` (the deprecated shim) is (a)'s sequential leg.
+     Every tenant equals ``np.bincount`` of its mirror after every round,
+     and batched equals sequential bitwise, tenant by tenant.
+  8. drives delta queries — ``repro_torch.dql``: (a) ``wordcount_query``
+     on phase 3's corpus and updates, bitwise equal to ``np.bincount``
+     and to phase 3's ``apps.wordcount`` Session; (b) ``join_query`` at
+     2^22 users, exactly ``join_oracle``; (c) ``windowed_query`` on 2^22
+     events, 2^12 keys, 32 windows, within 1e-5 of each window's sum of
+     |terms|; (d) ``group_by(agg="min")`` and ``"max"``, exactly; each
+     run, updated, then rerun.
 
 The kernels' launch counts are set to 0 before each path and read after
 it.  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
@@ -59,6 +79,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1338,7 +1359,9 @@ def shapes_line() -> str:
                      for name, sh in launch_shapes().items() if sh) or "none"
 
 
-def drive_path(path: str, docs: np.ndarray, steps) -> dict:
+def drive_path(path: str, docs: np.ndarray, steps, keep=None) -> dict:
+    """Wordcount's Session on ``path``: run, then ``steps``, each checked
+    against np.bincount; ``keep`` (a list) receives each step's result."""
     import torch
     from repro_torch.api import RunConfig, Session, make_delta
     from repro_torch.apps import wordcount as wc
@@ -1360,6 +1383,8 @@ def drive_path(path: str, docs: np.ndarray, steps) -> dict:
     sess = Session(spec, RunConfig(onestep_path=path))
     rep = sess.run(data)
     check(sess, docs, np.ones(docs.shape[0], bool), "run")
+    if keep is not None:
+        keep.append(sess.result["c"].copy())
     log(f"  [{path}] run: {time.perf_counter() - t0:.3f} s, "
         f"{docs.size} edges, mode {rep.mode}, launches {launch_counts()}; "
         f"shapes {shapes_line()}")
@@ -1368,6 +1393,8 @@ def drive_path(path: str, docs: np.ndarray, steps) -> dict:
         rep = sess.update(make_delta(rid, {"w": words}, sign))
         dt = time.perf_counter() - t0
         check(sess, cur, valid, label)
+        if keep is not None:
+            keep.append(sess.result["c"].copy())
         log(f"  [{path}] {label}: {dt:.3f} s, {int((words >= 0).sum())} "
             f"delta edges, affected keys {rep.affected_keys}, mode "
             f"{rep.mode}, launches {launch_counts()}; shapes {shapes_line()}")
@@ -1663,38 +1690,45 @@ MATMUL_KERNELS = re.compile(r"gemm|gemv|xmma|nvjet|cutlass|cublas|splitk",
 
 
 def device_shares(fn, dev, top: int = 5) -> dict:
-    """Runs ``fn`` once under ``torch.profiler`` and splits the device time
-    of its kernels into the flash kernel, matrix products (cuBLAS's and
-    CUTLASS's kernels) and the rest (elementwise passes, reductions,
-    copies, memsets).  ``busy_ms`` is the union of the kernels' intervals,
-    ``wall_ms`` the host clock of the profiled call (which the profiler
-    slows); ``top`` the ``top`` kernels that took the most device time."""
+    """Runs ``fn`` once under ``torch.profiler`` (device activity only)
+    and splits the device time of its kernels into the flash kernel,
+    matrix products (cuBLAS's and CUTLASS's kernels) and the rest
+    (elementwise passes, reductions, copies, memsets).  ``busy_ms`` is the
+    union of the kernels' intervals, ``wall_ms`` the host clock of the
+    profiled call (which the profiler slows); ``top`` the ``top`` kernels
+    that took the most device time.  The profiler's raw events are read
+    (``kineto_results``), not its Python event tree, whose build takes
+    tens of seconds for the ~10^5 kernels of a serving sweep."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA if dev.type == "cuda"
+            else ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         sync(dev)
         wall = time.perf_counter() - t0
     ms = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
             continue
-        lo, hi = e.time_range.start, e.time_range.end
+        lo = e.start_ns()
+        hi = lo + e.duration_ns()
+        name = e.name()
         spans.append((lo, hi))
-        kind = "flash" if "flash" in e.name else \
-            "matmul" if MATMUL_KERNELS.search(e.name) else "other"
-        ms[kind] += (hi - lo) / 1e3
-        by_name[e.name] = by_name.get(e.name, 0.0) + (hi - lo) / 1e3
+        kind = "flash" if "flash" in name else \
+            "matmul" if MATMUL_KERNELS.search(name) else "other"
+        ms[kind] += (hi - lo) / 1e6
+        by_name[name] = by_name.get(name, 0.0) + (hi - lo) / 1e6
     busy, end = 0.0, -math.inf
     for lo, hi in sorted(spans):
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return dict(kernels=len(spans), busy_ms=busy / 1e3, wall_ms=wall * 1e3,
+    return dict(kernels=len(spans), busy_ms=busy / 1e6, wall_ms=wall * 1e3,
                 top=[(n[:60], round(t, 3)) for n, t in ranked], **ms)
 
 
@@ -2209,6 +2243,499 @@ def drive_stream(dev, rng, docs: np.ndarray, seed: int, vertices: int):
     return counts, parts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving tier (repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+# (a) benchmarks/serve_load.py's largest throughput cell
+FLEET_TENANTS, FLEET_VOCAB, FLEET_DOCS, FLEET_DOC_LEN = 1000, 64, 8, 4
+FLEET_BATCH = 128                 # max_batch_tenants
+FLEET_WARM, FLEET_ROUNDS = 2, 3
+# (b) wide tenants: 2^20 edges each, 2^26 in the fleet (phase 3's corpus)
+WIDE_TENANTS, WIDE_VOCAB, WIDE_DOCS, WIDE_DOC_LEN = 64, 2**15, 2**14, 64
+WIDE_ROWS, WIDE_ROUNDS = 16, 3    # documents rewritten a tenant a round
+# (c) serve_load.py's overload cell
+OVER_BEST_EFFORT, OVER_VOCAB, OVER_DOCS, OVER_DOC_LEN = 32, 512, 64, 128
+OVER_ROWS, OVER_SECONDS, OVER_P95_MS = 8, 15.0, 500.0
+
+
+def serve_check(label: str, tier, mirrors: dict, vocab: int) -> None:
+    """Every tenant's counts equal np.bincount of its mirror exactly."""
+    for name, docs in mirrors.items():
+        got = tier[name].result["c"]
+        want = np.bincount(docs[docs >= 0].ravel(), minlength=vocab)
+        if got.shape != (vocab,) or not np.isfinite(got).all() \
+                or not np.array_equal(got, want.astype(got.dtype)):
+            raise AssertionError(f"serve {label}: tenant {name} differs "
+                                 f"from np.bincount")
+
+
+def serve_same(label: str, got: dict, want: dict) -> None:
+    """Batched and sequential results bitwise equal, tenant by tenant."""
+    for name, w in want.items():
+        g = got[name]
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"serve {label}: tenant {name} batched "
+                                 f"differs from sequential")
+
+
+def fused_paths() -> dict:
+    """Fused merge launches by path since the last reset."""
+    from repro_torch.kernels import launch_shapes
+    out = {}
+    for (_, _, _, path), k in launch_shapes()["fused_shuffle_reduce"].items():
+        out[path] = out.get(path, 0) + k
+    return out
+
+
+def profiled_round(tier, mirrors: dict, dev, vocab: int, seed: int,
+                   rows: int = 1) -> dict:
+    """One more round (one update a tenant), its sweep under
+    ``torch.profiler`` (``device_shares``)."""
+    from repro_torch.serve import loadgen
+    rng = np.random.default_rng(seed)
+    for name in mirrors:
+        loadgen.submit_update(tier, mirrors, name, rng, vocab, rows)
+    return device_shares(lambda: tier.drain(timeout=1800), dev, top=8)
+
+
+def fleet_cell(dev, mode: str):
+    """(a) 1,000 small tenants: 2 warm rounds, 3 timed, one profiled.  The
+    sequential leg runs through MultiSessionServer, which is (e)."""
+    import warnings
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ServeTier, SLOClass, loadgen
+    if mode == "batched":
+        tier = ServeTier(max_batch_tenants=FLEET_BATCH)
+    else:
+        from repro_torch.stream import MultiSessionServer
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tier = MultiSessionServer()
+        if not any(issubclass(w.category, DeprecationWarning)
+                   for w in caught):
+            raise AssertionError("serve (e): MultiSessionServer did not "
+                                 "warn DeprecationWarning")
+        if not isinstance(tier, ServeTier) or tier.batch_refresh:
+            raise AssertionError("serve (e): the shim is not a per-tenant "
+                                 "ServeTier")
+    t0 = time.perf_counter()
+    # throughput class: never shed, so both legs refresh the same updates
+    mirrors = loadgen.make_fleet(
+        tier, FLEET_TENANTS, vocab=FLEET_VOCAB, n_docs=FLEET_DOCS,
+        doc_len=FLEET_DOC_LEN, seed=FLEET_TENANTS, device=dev.type,
+        slo_of=lambda i: SLOClass.throughput())
+    t_admit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loadgen.run_rounds(tier, mirrors, FLEET_WARM, vocab=FLEET_VOCAB)
+    t_warm = time.perf_counter() - t0
+    reset_launch_counts()
+    n_log = len(tier.launch_log)
+    res = loadgen.run_rounds(tier, mirrors, FLEET_ROUNDS, vocab=FLEET_VOCAB,
+                             seed=9)
+    counts, paths = launch_counts(), fused_paths()
+    serve_check(f"(a) {mode}", tier, mirrors, FLEET_VOCAB)
+    stats = tier.stats()
+    p95 = float(np.median([t["latency_p95_ms"]
+                           for t in stats["tenants"].values()]))
+    launches = [(e["tenants"], e["combined"], e["affected"], e["key_cap"])
+                for e in list(tier.launch_log)[n_log:]]
+    t0 = time.perf_counter()
+    p = profiled_round(tier, mirrors, dev, FLEET_VOCAB, 10)
+    t_prof = time.perf_counter() - t0
+    serve_check(f"(a) {mode}, profiled round", tier, mirrors, FLEET_VOCAB)
+    round_ms = res["wall_s"] / FLEET_ROUNDS * 1e3
+    log(f"  [serve] (a) {mode}: {FLEET_TENANTS} tenants admitted in "
+        f"{t_admit:.3f} s; {FLEET_WARM} warm rounds {t_warm:.3f} s; "
+        f"{FLEET_ROUNDS} rounds {res['wall_s']:.3f} s, "
+        f"{res['updates_per_sec']:.1f} updates/s; batched launches "
+        f"{stats['batched_launches']}, refreshes "
+        f"{stats['batched_refreshes']}; median p95 latency {p95:.3f} ms; "
+        f"retrace batches {stats['retrace_batches']}; launches {counts}; "
+        f"fused paths {paths}; timed batched launches (tenants, combined "
+        f"rows, affected keys, key_cap) "
+        f"{launches}")
+    log(f"  [serve] (a) {mode}, one profiled sweep ({t_prof:.3f} s with "
+        f"the profile's processing): {p['kernels']} kernels, "
+        f"device busy {p['busy_ms']:.3f} ms of {p['wall_ms']:.3f} ms "
+        f"profiled (idle {1 - p['busy_ms'] / p['wall_ms']:.1%}; "
+        f"{1 - p['busy_ms'] / round_ms:.1%} of an unprofiled round's "
+        f"{round_ms:.3f} ms); by kernel {p['top']}")
+    out = {n: tier[n].result["c"].copy() for n in mirrors}
+    return out, res["updates_per_sec"], counts
+
+
+def wide_cell(dev, mode: str, spill_dir: Path):
+    """(b) 64 tenants of 2^20 edges: 3 timed rounds of 16 documents a
+    tenant, one profiled; (d), batched only: the store budget."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ServeTier, SLOClass, loadgen
+    tier = ServeTier(batch_refresh=(mode == "batched"),
+                     max_batch_tenants=WIDE_TENANTS,
+                     spill_dir=spill_dir if mode == "batched" else None)
+    t0 = time.perf_counter()
+    mirrors = loadgen.make_fleet(
+        tier, WIDE_TENANTS, vocab=WIDE_VOCAB, n_docs=WIDE_DOCS,
+        doc_len=WIDE_DOC_LEN, seed=WIDE_TENANTS, device=dev.type,
+        slo_of=lambda i: SLOClass.throughput())
+    log(f"  [serve] (b) {mode}: {WIDE_TENANTS} tenants x "
+        f"{WIDE_DOCS * WIDE_DOC_LEN} edges admitted in "
+        f"{time.perf_counter() - t0:.3f} s; store "
+        f"{tier.total_store_bytes()} bytes")
+    reset_launch_counts()
+    rounds = []
+    for r in range(WIDE_ROUNDS):
+        n_log = len(tier.launch_log)
+        res = loadgen.run_rounds(tier, mirrors, 1, vocab=WIDE_VOCAB,
+                                 seed=100 + r, rows_per_update=WIDE_ROWS)
+        rounds.append(res["wall_s"])
+        sizes = [(e["tenants"], e["combined"], e["affected"], e["key_cap"])
+                 for e in list(tier.launch_log)[n_log:]]
+        log(f"  [serve] (b) {mode} round {r}: {res['wall_s']:.3f} s; "
+            f"batched launches (tenants, combined rows, affected keys, "
+            f"key_cap) {sizes}")
+    counts, paths = launch_counts(), fused_paths()
+    serve_check(f"(b) {mode}", tier, mirrors, WIDE_VOCAB)
+    p = profiled_round(tier, mirrors, dev, WIDE_VOCAB, 200, WIDE_ROWS)
+    serve_check(f"(b) {mode}, profiled round", tier, mirrors, WIDE_VOCAB)
+    stats = tier.stats()
+    log(f"  [serve] (b) {mode}: {np.mean(rounds):.3f} s a round "
+        f"({', '.join(f'{s:.3f}' for s in rounds)}); merge paths "
+        f"{paths}; launches {counts}; retrace batches "
+        f"{stats['retrace_batches']}; one profiled round: {p['kernels']} "
+        f"kernels, device busy {p['busy_ms']:.3f} ms of "
+        f"{p['wall_ms']:.3f} ms profiled (idle "
+        f"{1 - p['busy_ms'] / p['wall_ms']:.1%}); by kernel {p['top']}")
+    out = {n: tier[n].result["c"].copy() for n in mirrors}
+    if mode == "batched":
+        budget_cell(tier, mirrors, spill_dir)
+    return out, float(np.mean(rounds)), counts
+
+
+def budget_cell(tier, mirrors: dict, spill_dir: Path) -> None:
+    """(d) half the fleet's store bytes as the budget: every tenant
+    compacted first, then the least recently active spilled until the
+    fleet fits; the next round reloads them, still exact."""
+    from repro_torch.serve import loadgen
+    total = tier.total_store_bytes()
+    obsolete = {n: h.ss.session.store_obsolete_bytes()
+                for n, h in tier.handles.items()}
+    tier.store_budget_bytes = total // 2
+    t0 = time.perf_counter()
+    tier.sweep()                   # nothing due: the sweep enforces
+    t_enforce = time.perf_counter() - t0
+    stats = tier.stats()
+    spilled = [n for n, h in tier.handles.items() if h.spilled]
+    left = {n: h.ss.session.store_obsolete_bytes()
+            for n, h in tier.handles.items() if not h.spilled}
+    if any(left.values()) or not spilled or stats["over_budget"]:
+        raise AssertionError(f"serve (d): compaction then spill did not "
+                             f"bring {total} bytes under {total // 2}")
+    if sum(stats["reclaimed_bytes"].values()) != sum(obsolete.values()):
+        raise AssertionError("serve (d): compaction did not reclaim every "
+                             "tenant's obsolete bytes first")
+    t0 = time.perf_counter()
+    loadgen.run_rounds(tier, mirrors, 1, vocab=WIDE_VOCAB, seed=300,
+                       rows_per_update=WIDE_ROWS)
+    t_round = time.perf_counter() - t0
+    snap = tier.stats()["spill"]
+    serve_check("(d) after reload", tier, mirrors, WIDE_VOCAB)
+    if snap["reloads"] < len(spilled):
+        raise AssertionError("serve (d): spilled tenants did not reload")
+    log(f"  [serve] (d) budget {total // 2} of {total} bytes: compacted "
+        f"{sum(obsolete.values())} obsolete bytes, then spilled "
+        f"{len(spilled)} tenants ({snap['bytes_spilled']} bytes) in "
+        f"{t_enforce:.3f} s; the next round reloaded {snap['reloads']} in "
+        f"{t_round:.3f} s, every tenant equal to np.bincount; spills "
+        f"{snap['spills']} in all")
+    tier.store_budget_bytes = None
+    for h in list(tier.handles.values()):
+        if h.spilled:
+            tier.spill.reload(h)
+    shutil.rmtree(spill_dir, ignore_errors=True)
+
+
+def overload_cell(dev) -> None:
+    """(c) one latency tenant among 32 best-effort ones, open loop at twice
+    the measured capacity for 15 s, through the tier's own thread."""
+    from repro_torch.serve import ServeTier, SLOClass, loadgen
+    lat_slo = SLOClass.latency(target_p95_ms=OVER_P95_MS,
+                               deadline_ms=OVER_P95_MS)
+    tier = ServeTier()
+    mirrors = loadgen.make_fleet(
+        tier, OVER_BEST_EFFORT + 1, vocab=OVER_VOCAB, n_docs=OVER_DOCS,
+        doc_len=OVER_DOC_LEN, seed=7, device=dev.type,
+        slo_of=lambda i: lat_slo if i == 0 else SLOClass.best_effort(),
+        group_of=lambda i: "latency" if i == 0 else None)
+    lat = "t0000"
+    kw = dict(vocab=OVER_VOCAB, rows_per_update=OVER_ROWS)
+    with tier:                                   # the sweep thread runs
+        loadgen.run_rounds(tier, mirrors, 2, **kw)
+        loadgen.open_loop_rate(tier, mirrors,
+                               updates=8 * (OVER_BEST_EFFORT + 1), **kw)
+        capacity = loadgen.open_loop_rate(
+            tier, mirrors, updates=8 * (OVER_BEST_EFFORT + 1), seed=4, **kw)
+        for h in tier.handles.values():
+            h.reset_window()
+        res = loadgen.overload_run(
+            tier, mirrors, latency_tenant=lat, duration_s=OVER_SECONDS,
+            offered_per_sec=2.0 * capacity, **kw)
+    stats = tier.stats()
+    serve_check("(c)", tier, mirrors, OVER_VOCAB)
+    c = stats["classes"][lat]
+    be_shed = sum(v["shed_submits"] for n, v in stats["classes"].items()
+                  if n != lat)
+    log(f"  [serve] (c) capacity {capacity:.1f} updates/s, offered "
+        f"{2 * capacity:.1f}/s for {res['duration_s']:.3f} s: "
+        f"{res['offered']} offered, {res['admitted']} admitted, shed "
+        f"fraction {res['shed_fraction']:.4f}; latency tenant: "
+        f"{res['latency_updates']} updates, {c['shed_submits']} shed, p95 "
+        f"{c['latency_p95_ms']} ms (target {OVER_P95_MS}), breach rate "
+        f"{c['breach_rate']:.4f} over {c['observed']} refreshes; batched "
+        f"launches {stats['batched_launches']}")
+    if c["shed_submits"] != 0:
+        raise AssertionError("serve (c): a latency-class submit was shed")
+    if be_shed == 0:
+        raise AssertionError("serve (c): no best-effort submit was shed at "
+                             "twice the capacity")
+
+
+def drive_serve(dev, root: Path) -> dict:
+    from repro_torch.kernels import launch_counts
+    counts = {k: 0 for k in launch_counts()}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+    t0 = time.perf_counter()
+    got, batched, c = fleet_cell(dev, "batched")
+    add(c)
+    release(dev)
+    want, seq, c = fleet_cell(dev, "sequential")
+    add(c)
+    serve_same("(a)", got, want)
+    log(f"  [serve] (a)+(e) {time.perf_counter() - t0:.1f} s: batched "
+        f"{batched:.1f} updates/s against sequential (MultiSessionServer) "
+        f"{seq:.1f}, {batched / seq:.3f}x; every tenant bitwise equal")
+    del got, want
+    release(dev)
+    t0 = time.perf_counter()
+    got, wb, c = wide_cell(dev, "batched", root / "spill")
+    add(c)
+    release(dev)
+    want, ws, c = wide_cell(dev, "sequential", root / "spill")
+    add(c)
+    serve_same("(b)", got, want)
+    log(f"  [serve] (b)+(d) {time.perf_counter() - t0:.1f} s: batched "
+        f"{wb:.3f} s a round against sequential {ws:.3f}; every tenant "
+        f"bitwise equal")
+    del got, want
+    release(dev)
+    t0 = time.perf_counter()
+    overload_cell(dev)
+    log(f"  [serve] (c) {time.perf_counter() - t0:.1f} s")
+    for name in ("sort_lex", "segment_sum", "fused_shuffle_reduce"):
+        if dev.type == "cuda" and counts[name] == 0:
+            raise AssertionError(f"serve path launched no {name}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: delta queries (repro_torch.dql)
+# ---------------------------------------------------------------------------
+
+JOIN_USERS, JOIN_FRAC = 2**22, 0.005
+WIN_EVENTS, WIN_KEYS, WIN_COUNT, WIN_SLIDE, WIN_SIZE = 2**22, 2**12, 32, 4, 8
+WIN_FRAC = 0.005
+MINMAX_ROWS, MINMAX_KEYS, MINMAX_CHANGED = 2**22, 2**20, 2**12
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def mutated(datas: dict, deltas: dict) -> dict:
+    """Host copies of the sources with their deltas applied."""
+    from repro_torch.core.incremental import apply_delta_host
+    from repro_torch.core.kvstore import make_kv
+    out = {}
+    for name, kv in datas.items():
+        k, ok = kv.keys.numpy().copy(), kv.valid.numpy().copy()
+        v = {c: a.numpy().copy() for c, a in kv.values.items()}
+        if name in deltas:
+            apply_delta_host(k, v, ok, deltas[name])
+        out[name] = make_kv(k, v, ok)
+    return out
+
+
+def dql_wordcount(dev, docs: np.ndarray, steps, app_results: list) -> str:
+    """(a) wordcount_query on phase 3's corpus and updates: bitwise equal
+    to np.bincount and to phase 3's apps.wordcount Session (auto)."""
+    from repro_torch.api import RunConfig, make_delta
+    from repro_torch.apps import wordcount as wc
+    from repro_torch.dql import workloads as wl
+    q = wl.wordcount_query(VOCAB).compile(RunConfig(device=dev.type))
+    rep, t_run = timed(lambda: q.run(wc.make_input(np.arange(len(docs)),
+                                                   docs)))
+    got = [q.result["c"].copy()]
+    times = []
+    for _, (rid, words, sign), cur, valid in steps:
+        _, dt = timed(lambda: q.update(make_delta(rid, {"w": words}, sign)))
+        times.append(dt)
+        got.append(q.result["c"].copy())
+        want = np.bincount(cur[valid].ravel(), minlength=VOCAB)
+        if not np.array_equal(got[-1], want.astype(got[-1].dtype)):
+            raise AssertionError("dql (a): differs from np.bincount")
+    for i, (g, a) in enumerate(zip(got, app_results)):
+        if g.dtype != a.dtype or not np.array_equal(g, a):
+            raise AssertionError(f"dql (a): step {i} differs from "
+                                 f"apps.wordcount's Session")
+    _, t_rerun = timed(q.rerun)
+    if not np.array_equal(q.result["c"], got[-1]):
+        raise AssertionError("dql (a): rerun differs from the refresh")
+    return (f"(a) wordcount_query ({rep.mode}, {docs.size} edges): run "
+            f"{t_run:.3f} s; update (a) {times[0]:.3f} s, update (b) "
+            f"{times[1]:.3f} s against rerun {t_rerun:.3f} s; bitwise equal "
+            f"to np.bincount and to apps.wordcount")
+
+
+def relation_equal(label: str, got, want) -> None:
+    (vals, ok), (wvals, wok) = got, want
+    if not np.array_equal(ok, wok):
+        raise AssertionError(f"dql {label}: relation rows differ")
+    for c in wvals:
+        if not np.array_equal(np.where(ok, vals[c], 0), wvals[c]):
+            raise AssertionError(f"dql {label}: column {c} differs")
+
+
+def dql_join(dev) -> str:
+    """(b) join_query at 2^22 users, update at frac 0.005: exactly
+    join_oracle of the mirrored sources."""
+    from repro_torch.api import RunConfig
+    from repro_torch.dql import workloads as wl
+    datas = wl.join_data(JOIN_USERS, seed=11)
+    q = wl.join_query(JOIN_USERS).compile(RunConfig(device=dev.type))
+    _, t_run = timed(lambda: q.run(datas))
+    relation_equal("(b) run", q.relation(), wl.join_oracle(datas))
+    d = wl.join_delta(datas, JOIN_FRAC, seed=12)
+    rep, t_up = timed(lambda: q.update(d))
+    relation_equal("(b) update", q.relation(),
+                   wl.join_oracle(mutated(datas, d)))
+    _, t_rerun = timed(q.rerun)
+    relation_equal("(b) rerun", q.relation(),
+                   wl.join_oracle(mutated(datas, d)))
+    return (f"(b) join_query, {JOIN_USERS} users ({rep.mode}, affected "
+            f"keys {rep.affected_keys}): run {t_run:.3f} s; update of "
+            f"{JOIN_FRAC:g} {t_up:.3f} s against rerun {t_rerun:.3f} s; "
+            f"exactly join_oracle")
+
+
+def windowed_check(label: str, got: np.ndarray, kv, oracle) -> float:
+    """|got - oracle| within 1e-5 of each cell's sum of |terms|."""
+    from repro_torch.dql import workloads as wl
+    terms = wl.windowed_oracle(
+        kv._replace(values={**kv.values, "v": kv.values["v"].abs()}),
+        WIN_KEYS, size=WIN_SIZE, slide=WIN_SLIDE, num_windows=WIN_COUNT)
+    err = np.abs(got.astype(np.float64) - oracle)
+    if not (np.isfinite(got).all() and (err <= 1e-5 * terms).all()):
+        raise AssertionError(f"dql {label}: a window's sum is off by more "
+                             f"than 1e-5 of its sum of |terms|")
+    return float((err / np.maximum(terms, 1e-30)).max())
+
+
+def dql_windowed(dev) -> str:
+    """(c) windowed_query: 2^22 events, 2^12 keys, 32 windows (slide 4,
+    size 8), update at frac 0.005, against the vectorised oracle."""
+    from repro_torch.api import RunConfig
+    from repro_torch.dql import workloads as wl
+    t_max = WIN_COUNT * WIN_SLIDE
+    kw = dict(size=WIN_SIZE, slide=WIN_SLIDE, num_windows=WIN_COUNT)
+    kv = wl.events_data(WIN_EVENTS, WIN_KEYS, t_max=t_max, seed=13)
+    q = wl.windowed_query(WIN_KEYS, **kw).compile(RunConfig(device=dev.type))
+    rep, t_run = timed(lambda: q.run(kv))
+    e0 = windowed_check("(c) run", q.result["v"].ravel(), kv,
+                        wl.windowed_oracle(kv, WIN_KEYS, **kw))
+    d = wl.events_delta(kv, WIN_FRAC, t_max=t_max, seed=14)
+    rep, t_up = timed(lambda: q.update(d))
+    kv2 = mutated({"e": kv}, {"e": d})["e"]
+    e1 = windowed_check("(c) update", q.result["v"].ravel(), kv2,
+                        wl.windowed_oracle(kv2, WIN_KEYS, **kw))
+    _, t_rerun = timed(q.rerun)
+    windowed_check("(c) rerun", q.result["v"].ravel(), kv2,
+                   wl.windowed_oracle(kv2, WIN_KEYS, **kw))
+    return (f"(c) windowed_query, {WIN_EVENTS} events, {WIN_KEYS} keys x "
+            f"{WIN_COUNT} windows ({rep.mode}): run {t_run:.3f} s; update "
+            f"of {WIN_FRAC:g} {t_up:.3f} s against rerun {t_rerun:.3f} s; "
+            f"largest error / sum|terms| {e0:.3g} (run), {e1:.3g} (update)")
+
+
+def dql_minmax(dev, rng, agg: str) -> str:
+    """(d) group_by(agg=min|max) over 2^22 rows and 2^20 keys, 4,096 rows
+    rewritten: exactly np.minimum.at / np.maximum.at."""
+    from repro_torch import dql
+    from repro_torch.api import RunConfig, make_delta
+    from repro_torch.core.kvstore import make_kv
+    k = rng.integers(0, MINMAX_KEYS, MINMAX_ROWS).astype(np.int32)
+    v = rng.normal(size=MINMAX_ROWS).astype(np.float32)
+    kv = make_kv(np.arange(MINMAX_ROWS, dtype=np.int32), {"k": k, "v": v})
+    q = (dql.scan("x").group_by("k", num_keys=MINMAX_KEYS, value="v",
+                                agg=agg)
+         .compile(RunConfig(device=dev.type)))
+    ufunc = np.minimum if agg == "min" else np.maximum
+
+    def check(label, k, v):
+        fill = np.inf if agg == "min" else -np.inf
+        want = np.full(MINMAX_KEYS, fill, np.float32)
+        ufunc.at(want, k, v)
+        hit = np.bincount(k, minlength=MINMAX_KEYS) > 0
+        got = q.result["v"].ravel()
+        if not np.array_equal(got, np.where(hit, want, 0)):
+            raise AssertionError(f"dql (d) {agg} {label}: differs from "
+                                 f"np.{ufunc.__name__}.at")
+    rep, t_run = timed(lambda: q.run(kv))
+    check("run", k, v)
+    rows = rng.choice(MINMAX_ROWS, MINMAX_CHANGED, replace=False)
+    new = rng.normal(size=MINMAX_CHANGED).astype(np.float32) * 4
+    vb = np.empty(2 * MINMAX_CHANGED, np.float32)
+    vb[0::2], vb[1::2] = v[rows], new
+    d = make_delta(np.repeat(rows, 2).astype(np.int32),
+                   {"k": np.repeat(k[rows], 2), "v": vb},
+                   np.tile(np.int8([-1, 1]), MINMAX_CHANGED))
+    v[rows] = new
+    rep, t_up = timed(lambda: q.update(d))
+    check("update", k, v)
+    _, t_rerun = timed(q.rerun)
+    check("rerun", k, v)
+    return (f"(d) group_by(agg={agg!r}), {MINMAX_ROWS} rows, {MINMAX_KEYS} "
+            f"keys ({rep.mode}, affected keys {rep.affected_keys}): run "
+            f"{t_run:.3f} s; update of {MINMAX_CHANGED} rows {t_up:.3f} s "
+            f"against rerun {t_rerun:.3f} s; exactly np.{ufunc.__name__}.at")
+
+
+def drive_dql(dev, rng, docs: np.ndarray, steps, app_results: list):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    counts = {k: 0 for k in launch_counts()}
+    parts = [lambda: dql_wordcount(dev, docs, steps, app_results),
+             lambda: dql_join(dev), lambda: dql_windowed(dev),
+             lambda: dql_minmax(dev, rng, "min"),
+             lambda: dql_minmax(dev, rng, "max")]
+    for part in parts:
+        reset_launch_counts()
+        line, dt = timed(part)
+        c = launch_counts()
+        for k, v in c.items():
+            counts[k] += v
+        log(f"  [dql] {line} ({dt:.1f} s; launches {c}; shapes "
+            f"{shapes_line()})")
+        release(dev)
+    for name in ("sort_lex", "segment_sum", "segment_minmax"):
+        if dev.type == "cuda" and counts[name] == 0:
+            raise AssertionError(f"dql path launched no {name}")
+    return counts
+
+
 def sync(dev) -> None:
     import torch
     if dev.type == "cuda":
@@ -2320,7 +2847,8 @@ def main(argv=None) -> int:
     docs = rng.integers(0, VOCAB, (args.docs, DOC_LEN)).astype(np.int32)
     steps = make_deltas(rng, docs)
     mrbg = drive_path("mrbg", docs, steps)
-    acc = drive_path("auto", docs, steps)
+    acc_results = []                 # phase 8 (a) holds its query to them
+    acc = drive_path("auto", docs, steps, acc_results)
     for name in ("sort_lex", "segment_sum", "fused_shuffle_reduce"):
         if mrbg[name] == 0:
             raise AssertionError(f"mrbg path launched no {name}")
@@ -2343,7 +2871,22 @@ def main(argv=None) -> int:
     t6 = time.perf_counter()
     st, stream_parts = drive_stream(dev, rng, docs, args.seed, args.vertices)
     log(f"  phase 6 {time.perf_counter() - t6:.1f} s; launches {st}")
-    paths = (mrbg, acc, pr, sp, lmc, st)
+
+    log("phase 7: the serving tier (ServeTier: 1,000 small tenants, 64 "
+        "wide ones, a budget, overload; MultiSessionServer)")
+    t7 = time.perf_counter()
+    root = ROOT / "build" / f"serve-{os.getpid()}"
+    try:
+        sv = drive_serve(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  phase 7 {time.perf_counter() - t7:.1f} s; launches {sv}")
+
+    log("phase 8: delta queries (dql: wordcount, join, windowed, min/max)")
+    t8 = time.perf_counter()
+    dq = drive_dql(dev, rng, docs, steps, acc_results)
+    log(f"  phase 8 {time.perf_counter() - t8:.1f} s; launches {dq}")
+    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -2432,7 +2975,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
-        f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}")
+        f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}, "
+        f"serve {sv}, dql {dq}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

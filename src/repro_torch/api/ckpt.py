@@ -8,7 +8,8 @@ written by either package restores in the other:
   <root>/ep_NNNNNN/            every other driver's epochs (atomic rename)
 
 The kinds ported are ``onestep-mrbg``, ``onestep-accumulator``,
-``incr-iter`` and ``plain-iter``.  Device tensors are saved as host numpy
+``incr-iter``, ``plain-iter`` and ``query`` (a delta query's per-stage
+views, stores and input schemas).  Device tensors are saved as host numpy
 arrays of the reference's dtypes; a restored session puts its state back
 on ``config.device``.  ``Session.restore`` rebuilds the newest epoch; the
 next ``update(delta)`` continues exactly where the snapshot left off.
@@ -35,7 +36,6 @@ from repro_torch.core.mrbg_store import (
 _NOT_PORTED = {
     "distributed": "ROADMAP Queue 1 item 11 (distributed execution)",
     "distributed-onestep": "ROADMAP Queue 1 item 11 (distributed execution)",
-    "query": "ROADMAP Queue 1 item 15 (delta queries)",
 }
 
 
@@ -137,6 +137,17 @@ def save_session(session, root: str) -> Path:
                  **{f"sv_{n}": a for n, a in drv.result().items()},
                  **{f"st_{n}": a for n, a in drv._values.items()})
         out = commit()
+    elif drv.kind == "query":
+        tmp, commit = _atomic_epoch_dir(rootp, session.epoch)
+        metas = []
+        for i, st in enumerate(drv.stages):
+            np.savez(tmp / f"stage{i:02d}_view.npz", **_view_arrays(st.view))
+            metas.append(_store_to_npz(st.store, tmp / f"stage{i:02d}.npz"))
+        (tmp / "query.json").write_text(json.dumps(
+            {"n_stages": len(drv.stages), "stores": metas,
+             "affected": drv._affected,
+             "schemas": [st.schemas for st in drv.stages]}))
+        out = commit()
     else:                                 # pragma: no cover
         raise ValueError(f"unknown driver kind {drv.kind!r}")
 
@@ -169,7 +180,7 @@ def load_session(cls, spec, root: str, config: Optional[RunConfig]):
         cfg = cfg.replace(plain_shuffle=True)
     elif kind == "incr-iter":
         cfg = cfg.replace(plain_shuffle=False)
-    else:
+    elif kind != "query":
         raise ValueError(f"unknown snapshot kind {kind!r}")
 
     session = cls(spec, cfg)
@@ -199,6 +210,28 @@ def load_session(cls, spec, root: str, config: Optional[RunConfig]):
         drv.job.view = _load_view(spec.num_keys, az)
         drv.job.raw_acc = {k[2:]: az[k].copy() for k in az.files
                            if k.startswith("a_")}
+    elif kind == "query":
+        from repro_torch.dql.driver import RecordingView
+        d = _latest_epoch_dir(rootp)
+        qmeta = json.loads((d / "query.json").read_text())
+        if qmeta["n_stages"] != len(drv.stages):
+            raise ValueError(
+                f"snapshot has {qmeta['n_stages']} stages but the spec "
+                f"lowered to {len(drv.stages)}; restore with the same plan")
+        for i, st in enumerate(drv.stages):
+            vz = np.load(d / f"stage{i:02d}_view.npz")
+            v = _load_view(st.plan.num_keys, vz)
+            st.view = RecordingView(st.plan.num_keys, v.values, v.valid,
+                                    v.counts)
+            st.store = _store_from_npz(st.plan.num_keys,
+                                       d / f"stage{i:02d}.npz",
+                                       qmeta["stores"][i], cfg)
+            # json turns the (shape, dtype) tuples into lists — restore them
+            st.schemas = [
+                None if sch is None else
+                {c: (tuple(shape), dt) for c, (shape, dt) in sch.items()}
+                for sch in qmeta["schemas"][i]]
+        drv._affected = qmeta.get("affected", -1)
     else:                                 # plain-iter
         d = _latest_epoch_dir(rootp)
         sz = np.load(d / "state.npz")

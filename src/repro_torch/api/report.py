@@ -1,7 +1,7 @@
 """RunReport: the one result/telemetry surface of a Session epoch.
 
-Counterpart of ``repro.api.report`` for the single-device paths;
-``device`` replaces ``backend``.
+Counterpart of ``repro.api.report`` for the single-device paths and
+delta queries; ``device`` replaces ``backend``.
 """
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ MODES = (
     "plainMR",            # plain-shuffle cost-model baseline (Algorithm 5)
     "i2",                 # incremental iterative refresh (§5)
     "iterMR-fallback",    # auto MRBG-off recomputation (§5.2)
+    "query",              # full evaluation of a compiled delta query (dql)
+    "query-incremental",  # per-stage preserved-state query refresh (dql)
 )
 
 

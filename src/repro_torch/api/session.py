@@ -17,9 +17,10 @@ Counterpart of ``repro.api.session.Session`` on one device: a
                          package restores the other's snapshots.
 
 Data and deltas may be given on the host; the session moves them to
-``config.device`` (``cuda`` unless the caller asks for the CPU).  Delta
-queries (``QuerySpec``) are not ported yet (ROADMAP Queue 1 item 15) and
-raise ``NotImplementedError`` here.
+``config.device`` (``cuda`` unless the caller asks for the CPU).  A
+lowered delta query (``repro_torch.dql.QuerySpec``) is one more kind,
+driven by ``repro_torch.dql.driver._QueryDriver``; its multi-source data
+and deltas arrive as ``{source: KV}`` / ``{source: DeltaKV}``.
 """
 from __future__ import annotations
 
@@ -45,8 +46,6 @@ from repro_torch.core.mrbg_store import IOStats, MRBGStore
 from repro_torch.tree import tree_map
 
 Spec = Union[JobSpec, IterSpec]
-
-_NOT_PORTED = {"QuerySpec": "ROADMAP Queue 1 item 15 (delta queries)"}
 
 
 def _to(tree, device: torch.device):
@@ -77,12 +76,12 @@ class Session:
             return (_PlainIter(spec, config, self.device)
                     if config.plain_shuffle
                     else _IncrIter(spec, config, self.device))
-        later = _NOT_PORTED.get(type(spec).__name__)
-        if later is not None:
-            raise NotImplementedError(
-                f"{type(spec).__name__} is not ported yet: it is {later}")
-        raise TypeError(f"spec must be a JobSpec or IterSpec, got "
-                        f"{type(spec).__name__}")
+        from repro_torch.dql.driver import _QueryDriver
+        from repro_torch.dql.lower import QuerySpec
+        if isinstance(spec, QuerySpec):
+            return _QueryDriver(spec, config, self.device)
+        raise TypeError(f"spec must be JobSpec, IterSpec or QuerySpec, "
+                        f"got {type(spec).__name__}")
 
     # -- lifecycle ---------------------------------------------------------
     def run(self, data: KV) -> RunReport:
@@ -102,10 +101,12 @@ class Session:
                                "job first")
         t0 = time.perf_counter()
         # bucket the delta's row capacity, as the reference does, so that
-        # shapes (and therefore results) follow the same ladder
-        cap = next_bucket(delta.capacity, self.config.delta_bucket_min)
-        if cap != delta.capacity:
-            delta = pad_delta(delta, cap)
+        # shapes (and therefore results) follow the same ladder (the query
+        # driver buckets the feeds of a multi-source {source: DeltaKV})
+        if isinstance(delta, DeltaKV):
+            cap = next_bucket(delta.capacity, self.config.delta_bucket_min)
+            if cap != delta.capacity:
+                delta = pad_delta(delta, cap)
         self._driver.update(_to(delta, self.device))
         self.epoch += 1
         return self._finish(t0)
@@ -219,8 +220,12 @@ class Session:
 
     @property
     def stores(self) -> list:
-        """Every MRBG-Store this session preserves: ``[store]`` or ``[]``
-        (one device: no per-shard slices)."""
+        """Every MRBG-Store this session preserves: a query's per-stage
+        stores, or ``[store]`` / ``[]`` (one device: no per-shard
+        slices)."""
+        sts = getattr(self._driver, "stores", None)
+        if sts:
+            return list(sts)
         st = self.store
         return [st] if st is not None else []
 

@@ -13,11 +13,10 @@ Counterpart of ``repro.stream``, with the same modules and names:
   * :mod:`repro_torch.stream.session`   — ``StreamSession``: async driver
     with a bounded ingest queue (backpressure), ``drain``/``stop``/
     ``snapshot``.
+  * :mod:`repro_torch.stream.server`    — ``MultiSessionServer``: a
+    deprecated shim over :class:`repro_torch.serve.ServeTier`.
   * :mod:`repro_torch.stream.metrics`   — counters, sustained updates/sec,
     refresh-latency percentiles.
-
-``MultiSessionServer`` is a shim over the serving tier, which is not
-ported yet (ROADMAP Queue 1 item 14); asking for it raises.
 
     from repro_torch.stream import StreamSession
     from repro_torch.apps import wordcount as wc
@@ -42,14 +41,15 @@ __all__ = [
     "SyntheticSource",
     "CoalesceResult", "coalesce", "coalesce_rows",
     "RefreshScheduler", "RefreshDecision",
-    "StreamSession", "PreparedBatch",
+    "StreamSession", "PreparedBatch", "MultiSessionServer",
     "StreamMetrics",
 ]
 
 
 def __getattr__(name):
+    # lazy: repro_torch.stream.server shims onto repro_torch.serve, which
+    # itself imports repro_torch.stream.session — a cycle at package init
     if name == "MultiSessionServer":
-        raise NotImplementedError(
-            "MultiSessionServer is not ported yet: it is a shim over the "
-            "serving tier, ROADMAP Queue 1 item 14 (serve/)")
+        from repro_torch.stream.server import MultiSessionServer
+        return MultiSessionServer
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -107,6 +107,7 @@ class StreamSession:
         self._flush = False
         self._busy = False
         self._starved = False                # last ingest found nothing
+        self._managed = False                # scheduled by a serving tier
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._prewarmed = False
@@ -120,7 +121,9 @@ class StreamSession:
         """Run the initial job, then (optionally) start the worker thread.
 
         ``background=False`` leaves batch processing to explicit
-        :meth:`step` calls (one thread drives ingestion and refreshes).
+        :meth:`step` calls (one thread drives ingestion and refreshes) —
+        the mode a :class:`repro_torch.serve.ServeTier` uses to time-slice
+        many tenants over its own thread.
         """
         with self._lock:
             if self.session.epoch < 0:
@@ -481,7 +484,7 @@ class StreamSession:
         try:
             while True:
                 self._check_error()
-                if self._thread is None:
+                if self._thread is None and not self._managed:
                     self.step()              # sync mode: we are the consumer
                 if self.idle:
                     return
@@ -490,7 +493,7 @@ class StreamSession:
                         f"drain() exceeded {timeout}s "
                         f"(inbox={self._inbox.qsize()}, "
                         f"pending={self._pending_rows} rows)")
-                if self._thread is not None:
+                if self._thread is not None or self._managed:
                     time.sleep(min(self.sconfig.poll_interval, 0.005))
         finally:
             self._flush = False

@@ -584,3 +584,67 @@ def test_kernel_build_in_worker_marks_batch_retraced(cuda, tmp_path):
     assert ss.scheduler.compile_skips == 1
     np.testing.assert_array_equal(ss.result["c"],
                                   wc.oracle(source.values["w"], 500))
+
+
+@pytest.mark.parametrize("n_docs,rows", [(8, 1), (256, 64)],
+                         ids=["one-block merge", "runs merge"])
+def test_serve_batched_equals_solo_on_card(cuda, n_docs, rows):
+    """A batched cross-tenant refresh on the card: one launch of the sort
+    and of the fused merge for the group, each tenant bitwise equal to its
+    solo refresh on the card and to np.bincount."""
+    from repro_torch.serve import ServeTier, loadgen
+    vocab, out = 512, {}
+    for mode in ("batched", "solo"):
+        tier = ServeTier(batch_refresh=(mode == "batched"))
+        mirrors = loadgen.make_fleet(tier, 6, vocab=vocab, n_docs=n_docs,
+                                     doc_len=16, seed=3)
+        rng = np.random.default_rng(4)
+        for _ in range(2):
+            reset_launch_counts()
+            for name in mirrors:
+                loadgen.submit_update(tier, mirrors, name, rng, vocab,
+                                      rows_per_update=rows)
+            tier.drain(timeout=300)
+            counts = launch_counts()
+        for name, docs in mirrors.items():
+            np.testing.assert_array_equal(tier[name].result["c"],
+                                          wc.oracle(docs, vocab))
+        out[mode] = {n: tier[n].result["c"] for n in mirrors}
+        if mode == "batched":
+            assert tier.stats()["batched_launches"] == 2
+            # the round's one batched launch: its delta sort and its merge
+            assert counts["fused_shuffle_reduce"] == 1
+            assert counts["sort_lex"] >= 1
+    for name, got in out["batched"].items():
+        np.testing.assert_array_equal(got, out["solo"][name])
+
+
+@pytest.mark.parametrize("agg", ["min", "max"])
+def test_dql_min_max_query_on_card_equals_cpu(cuda, agg):
+    """group_by(agg=min|max) reaches the min/max kernel on the card and
+    equals the CPU's plain route exactly, run and refresh."""
+    from repro_torch import dql
+    from repro_torch.core.kvstore import make_kv
+    rng = np.random.default_rng(5)
+    n, nk = 50_000, 4096
+    k = rng.integers(0, nk, n).astype(np.int32)
+    v = rng.normal(size=n).astype(np.float32)
+    kv = make_kv(np.arange(n, dtype=np.int32), {"k": k, "v": v})
+    rows = rng.choice(n, 300, replace=False).astype(np.int32)
+    kb, vb = np.repeat(k[rows], 2), np.empty(600, np.float32)
+    vb[0::2], vb[1::2] = v[rows], rng.normal(size=300)
+    delta = make_delta(np.repeat(rows, 2), {"k": kb, "v": vb},
+                       np.tile(np.int8([-1, 1]), 300))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        q = dql.scan("x").group_by("k", num_keys=nk, value="v",
+                                   agg=agg).compile(RunConfig(device=dev))
+        reset_launch_counts()
+        q.run(kv)
+        run = q.result["v"].copy()
+        q.update(delta)
+        res[dev] = (run, q.result["v"], launch_counts())
+    np.testing.assert_array_equal(res["cuda"][0], res["cpu"][0])
+    np.testing.assert_array_equal(res["cuda"][1], res["cpu"][1])
+    assert res["cuda"][2]["segment_minmax"] >= 1
+    assert res["cpu"][2]["segment_minmax"] == 0

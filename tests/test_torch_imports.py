@@ -53,7 +53,10 @@ def test_import_leaves_jax_out():
             "repro_torch.models.transfer, repro_torch.configs.gemma2_9b, "
             "repro_torch.launch.steps, repro_torch.kernels.flash_attention, "
             "repro_torch.stream, repro_torch.api.ckpt, repro_torch.core.ft, "
-            "repro_torch.kernels.jitcache, repro_torch.data; "
+            "repro_torch.kernels.jitcache, repro_torch.data, "
+            "repro_torch.serve, repro_torch.serve.loadgen, "
+            "repro_torch.stream.server, repro_torch.dql, "
+            "repro_torch.dql.derived, repro_torch.dql.workloads; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -143,3 +146,25 @@ def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
                              timeout=120)
         assert res.returncode != 0
         assert '"ok": true' not in res.stdout
+
+
+def test_serve_and_dql_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch import dql
+    from repro_torch.core.kvstore import make_kv
+    from repro_torch.dql import workloads as wl
+    from repro_torch.dql.derived import coalesce_rows_dql
+    from repro_torch.serve import ServeTier, loadgen
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kv = make_kv(np.arange(4, dtype=np.int32),
+                 {"w": np.zeros((4, 2), np.int32)})
+    for make in (lambda: loadgen.make_fleet(ServeTier(), 1),
+                 lambda: wl.wordcount_query(4).compile(),
+                 lambda: dql.evaluate(wl.wordcount_query(4), kv),
+                 lambda: coalesce_rows_dql(np.zeros(2, np.int32), {},
+                                           np.int8([1, -1]))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    # the only way onto the CPU
+    vals, valid = dql.evaluate(wl.wordcount_query(4), kv, device="cpu")
+    assert valid.tolist() == [True, False, False, False]
+    assert vals["c"][0] == 8

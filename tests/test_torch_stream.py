@@ -252,8 +252,23 @@ def test_stream_background_worker_and_snapshot(tmp_path):
     meta = json.loads((tmp_path / "stream.json").read_text())
     assert meta == {"watermark": 5, "epoch": ss.session.epoch,
                     "name": "session"}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        stream_pkg.MultiSessionServer
+    # the deprecated shim: a per-tenant ServeTier; the session refreshes
+    # under it as it did on its own
+    with pytest.warns(DeprecationWarning, match="ServeTier"):
+        server = stream_pkg.MultiSessionServer()
+    assert not server.batch_refresh
+    twin = StreamSession(*wc.make_job(docs, VOCAB), config=CPU,
+                         stream=StreamConfig(max_batch_delay=0.0))
+    server.add(twin)
+    new = source.values["w"]
+    rows = np.nonzero((new != docs).any(axis=1))[0].astype(np.int32)
+    buf = np.empty((2 * rows.size, L), np.int32)
+    buf[0::2], buf[1::2] = docs[rows], new[rows]
+    assert server.submit("session", np.repeat(rows, 2), {"w": buf},
+                         np.tile(np.int8([-1, 1]), rows.size))
+    server.drain(timeout=120)
+    np.testing.assert_array_equal(server["session"].result["c"],
+                                  ss.result["c"])
 
 
 @pytest.mark.parametrize("path", ["mrbg", "auto"])

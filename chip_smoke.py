@@ -61,6 +61,20 @@ Runs on one CUDA card, from the root of a checkout:
      events, 2^12 keys, 32 windows, within 1e-5 of each window's sum of
      |terms|; (d) ``group_by(agg="min")`` and ``"max"``, exactly; each
      run, updated, then rerun.
+  9. drives distributed execution — ``RunConfig(mesh=MeshConfig(
+     LocalMesh({"data": 8})))``, 8 logical shards of the card: (a)
+     wordcount on phase 3's corpus (``_DistOneStep``), run and phase 3's
+     updates, bitwise equal to ``np.bincount`` and to phase 3's MRBG
+     session; (b) SSSP on phase 4's graph, run and phase 4's deletion
+     update, bitwise equal to phase 4 and within 1e-5 of Dijkstra; (c)
+     PageRank on 2^20 vertices (cut from 2^22), run and a 0.1% rewire at
+     CPC 1e-3, within ``pagerank_bound``; (d) a (pod 2, data 4) mesh on
+     (a)'s run and update (a), bitwise equal to (a); (e) (c)'s rewire
+     through ``refresh="warm"`` and past ``pdelta_threshold`` (both
+     ``distributed-warm``), within the bound.  Each of (a)-(c) logs its
+     seconds beside phases 3-4's, the exchange apart from the rest,
+     edges and bytes exchanged, the shuffle capacity and regrows, and one
+     profiled no-op refresh of the update's size (device busy, idle).
 
 The kernels' launch counts are set to 0 before each path and read after
 it.  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
@@ -1359,9 +1373,11 @@ def shapes_line() -> str:
                      for name, sh in launch_shapes().items() if sh) or "none"
 
 
-def drive_path(path: str, docs: np.ndarray, steps, keep=None) -> dict:
+def drive_path(path: str, docs: np.ndarray, steps, keep=None,
+               seconds=None) -> dict:
     """Wordcount's Session on ``path``: run, then ``steps``, each checked
-    against np.bincount; ``keep`` (a list) receives each step's result."""
+    against np.bincount; ``keep`` (a list) receives each step's result and
+    ``seconds`` (a list) each step's wall seconds."""
     import torch
     from repro_torch.api import RunConfig, Session, make_delta
     from repro_torch.apps import wordcount as wc
@@ -1385,6 +1401,8 @@ def drive_path(path: str, docs: np.ndarray, steps, keep=None) -> dict:
     check(sess, docs, np.ones(docs.shape[0], bool), "run")
     if keep is not None:
         keep.append(sess.result["c"].copy())
+    if seconds is not None:
+        seconds.append(time.perf_counter() - t0)
     log(f"  [{path}] run: {time.perf_counter() - t0:.3f} s, "
         f"{docs.size} edges, mode {rep.mode}, launches {launch_counts()}; "
         f"shapes {shapes_line()}")
@@ -1395,6 +1413,8 @@ def drive_path(path: str, docs: np.ndarray, steps, keep=None) -> dict:
         check(sess, cur, valid, label)
         if keep is not None:
             keep.append(sess.result["c"].copy())
+        if seconds is not None:
+            seconds.append(dt)
         log(f"  [{path}] {label}: {dt:.3f} s, {int((words >= 0).sum())} "
             f"delta edges, affected keys {rep.affected_keys}, mode "
             f"{rep.mode}, launches {launch_counts()}; shapes {shapes_line()}")
@@ -1470,7 +1490,9 @@ def rewire_delta(rng, nbrs: np.ndarray, frac: float):
             np.tile(np.int8([-1, 1]), rows.size)), after
 
 
-def drive_pagerank(dev, rng, vertices: int) -> dict:
+def drive_pagerank(dev, rng, vertices: int, keep=None) -> dict:
+    """PageRank's run and 0.1% rewire; ``keep`` (a dict) receives the
+    run's and the update's wall seconds."""
     import torch
     from repro_torch.api import RunConfig, Session, make_delta
     from repro_torch.apps import pagerank
@@ -1522,6 +1544,8 @@ def drive_pagerank(dev, rng, vertices: int) -> dict:
     else:
         held = vertices * cfg.refresh_tol_
     lim = pagerank_bound(vertices, held, ch2)
+    if keep is not None:
+        keep.update(run_s=t_run, update_s=t_upd, vertices=vertices)
     log(f"  [pagerank] update ({rid.size // 2} vertices rewired): "
         f"{t_upd:.3f} s, mode {rep.mode}, {rep.iters} iterations, "
         f"L1 error {err:.6g} <= bound {lim:.6g} and < stale error "
@@ -1579,7 +1603,10 @@ def check_sssp(label: str, d: np.ndarray, want: np.ndarray) -> None:
         raise AssertionError(f"sssp {label}: disagrees with dijkstra")
 
 
-def drive_sssp(dev, rng, vertices: int) -> dict:
+def drive_sssp(dev, rng, vertices: int, keep=None) -> dict:
+    """SSSP's run and deletion update, each checked against Dijkstra;
+    ``keep`` (a dict) receives the graph, the delta, both results, both
+    Dijkstra distances and both wall seconds (phase 9 replays them)."""
     import torch
     from repro_torch.api import RunConfig, Session, make_delta
     from repro_torch.apps import sssp
@@ -1599,7 +1626,11 @@ def drive_sssp(dev, rng, vertices: int) -> dict:
     t_run = time.perf_counter() - t0
     log(f"  [sssp] run: {t_run:.3f} s, mode {rep.mode}, {rep.iters} "
         f"iterations; launches {launch_counts()}; shapes {shapes_line()}")
-    check_sssp("run", sess.result["d"], dijkstra(nbrs, w, 0))
+    dij = dijkstra(nbrs, w, 0)
+    check_sssp("run", sess.result["d"], dij)
+    if keep is not None:
+        keep.update(nbrs=nbrs.copy(), w=w, run=sess.result["d"].copy(),
+                    dij_run=dij, run_s=t_run)
 
     # the update of benchmarks/fig8_overall.py: 30% of the slots of 0.1%
     # of the rows deleted
@@ -1609,11 +1640,11 @@ def drive_sssp(dev, rng, vertices: int) -> dict:
     new[rng.random(new.shape) < 0.3] = -1
     nb = np.empty((2 * rows.size, OUT_SLOTS), np.int32)
     nb[0::2], nb[1::2] = nbrs[rows], new
+    delta = (np.repeat(rows + 1, 2).astype(np.int32),
+             {"nbrs": nb, "w": np.repeat(w[rows], 2, axis=0)},
+             np.tile(np.int8([-1, 1]), rows.size))
     t0 = time.perf_counter()
-    rep = sess.update(make_delta(
-        np.repeat(rows + 1, 2).astype(np.int32),
-        {"nbrs": nb, "w": np.repeat(w[rows], 2, axis=0)},
-        np.tile(np.int8([-1, 1]), rows.size)))
+    rep = sess.update(make_delta(*delta))
     t_upd = time.perf_counter() - t0
     nbrs[rows] = new
     log(f"  [sssp] update ({rows.size} rows, 30% of slots deleted): "
@@ -1622,7 +1653,11 @@ def drive_sssp(dev, rng, vertices: int) -> dict:
         log(f"    {l}")
     if rep.mode != "i2":
         raise AssertionError(f"sssp update ran in mode {rep.mode}, not i2")
-    check_sssp("update", sess.result["d"], dijkstra(nbrs, w, 0))
+    dij = dijkstra(nbrs, w, 0)
+    check_sssp("update", sess.result["d"], dij)
+    if keep is not None:
+        keep.update(delta=delta, rows=rows, update=sess.result["d"].copy(),
+                    dij_update=dij, update_s=t_upd)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" \
         else float("nan")
@@ -2736,6 +2771,267 @@ def drive_dql(dev, rng, docs: np.ndarray, steps, app_results: list):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: distributed execution on 8 logical shards (core.distributed)
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 8
+# (c), (e): PageRank's graph, cut from phase 4's 2^22 vertices: a
+# single-device refresh there takes 69-91 s (ROADMAP item 18)
+DIST_PR_VERTICES = 2**20
+# (e): a threshold the 0.1% rewire's first iteration already trips
+PDELTA_TRIP = 1e-6
+
+
+def mesh_config(**kw):
+    from repro_torch.api import LocalMesh, MeshConfig
+    shape = kw.pop("shape", {"data": MESH_SHARDS})
+    return MeshConfig(LocalMesh(shape), **kw)
+
+
+def shuffle_line(rep) -> str:
+    """An epoch's exchange telemetry, and its seconds apart from it (the
+    partitioning, the host copies and the per-shard merges)."""
+    sh = rep.shuffle
+    ex = sum(sh.exchange_seconds)
+    return (f"{rep.seconds:.3f} s (exchange {ex:.3f} s in "
+            f"{len(sh.exchange_seconds)} steps, the rest {rep.seconds - ex:.3f}"
+            f" s), edges_exchanged {sh.edges_exchanged}, bytes_moved "
+            f"{sh.bytes_moved}, shuffle_cap {sh.shuffle_cap}, regrows "
+            f"{sh.regrows}")
+
+
+def noop_rows(rid: np.ndarray, sign: np.ndarray, valid: np.ndarray):
+    """The records an update rewrote that are valid now (each record's
+    '-' and '+' rows), for a no-op delta of the same size."""
+    rows = np.unique(rid[sign > 0])
+    return rows[valid[rows]]
+
+
+def noop_delta(rows: np.ndarray, values: dict, keys=None):
+    """'-' then '+' of each row's current value: a refresh of the same size
+    as an update, which leaves every result as it is."""
+    from repro_torch.api import make_delta
+    rid = np.repeat(rows, 2).astype(np.int32)
+    vals = {n: np.repeat(a[rows], 2, axis=0) for n, a in values.items()}
+    k = None if keys is None else np.repeat(keys[rows], 2).astype(np.int32)
+    return make_delta(rid, vals, np.tile(np.int8([-1, 1]), rows.size),
+                      keys=k)
+
+
+def profiled_noop(label: str, sess, delta, dev) -> None:
+    """One no-op refresh under ``torch.profiler``: device busy time and
+    the device's idle share of the profiled call."""
+    box = {}
+    p = device_shares(lambda: box.update(rep=sess.update(delta)), dev,
+                      top=6)
+    idle = (1 - p["busy_ms"] / p["wall_ms"]) if p["wall_ms"] else 0.0
+    log(f"  [{label}] profiled no-op refresh ({delta.capacity} delta rows): "
+        f"mode {box['rep'].mode}, {p['kernels']} kernels, device busy "
+        f"{p['busy_ms']:.3f} ms of {p['wall_ms']:.3f} ms, device idle "
+        f"{idle:.1%}; exchange {sum(box['rep'].shuffle.exchange_seconds):.3f}"
+        f" s; top {p['top']}")
+
+
+def dist_wordcount(dev, docs, steps, want: list, single_s: list,
+                   shape: dict, only_first: bool = False):
+    """(a) / (d): wordcount through ``_DistOneStep``: run, then phase 3's
+    updates, each equal to np.bincount and to phase 3's MRBG session."""
+    import torch
+    from repro_torch.api import RunConfig, Session, make_delta
+    from repro_torch.apps import wordcount as wc
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    tag = "dist-wc" if "pod" not in shape else "dist-wc-pod"
+    kw = {"pod_axis": "pod"} if "pod" in shape else {}
+    spec, data = wc.make_job(docs, VOCAB)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    sess = Session(spec, RunConfig(device=dev.type,
+                                   mesh=mesh_config(shape=shape, **kw)))
+    todo = steps[:1] if only_first else steps
+    results = []
+    for i, step in enumerate([None] + list(todo)):
+        if step is None:
+            rep = sess.run(data)
+            label, cur, valid = "run", docs, np.ones(docs.shape[0], bool)
+        else:
+            label, (rid, words, sign), cur, valid = step
+            rep = sess.update(make_delta(rid, {"w": words}, sign))
+        got = sess.result["c"]
+        oracle = np.bincount(cur[valid].ravel(), minlength=VOCAB)
+        if not (got.shape == (VOCAB,) and np.array_equal(got, oracle)
+                and np.array_equal(got, want[i])):
+            raise AssertionError(f"{tag} {label}: differs from np.bincount "
+                                 f"or phase 3's mrbg session")
+        results.append(got.copy())
+        log(f"  [{tag}] {label}: mode {rep.mode}, {shuffle_line(rep)}; "
+            f"single device (phase 3, mrbg) {single_s[i]:.3f} s; equal to "
+            f"np.bincount and to phase 3 bitwise; launches {launch_counts()}")
+    counts = launch_counts()
+    if not only_first:
+        label, (rid, words, sign), cur, valid = steps[-1]
+        rows = noop_rows(rid, sign, valid)
+        profiled_noop(tag, sess, noop_delta(rows, {"w": cur}), dev)
+        if not np.array_equal(sess.result["c"], results[-1]):
+            raise AssertionError(f"{tag}: the no-op refresh changed counts")
+    log(f"  [{tag}] peak device memory {memory_gib(dev, peak=True):.2f} GiB, "
+        f"{len(sess.stores)} shard stores, {sess.store_bytes()} bytes")
+    del sess, data
+    release(dev)
+    return counts, results
+
+
+def dist_sssp(dev, kept: dict):
+    """(b) SSSP at phase 4's size: run and phase 4's deletion update,
+    equal to phase 4's single-device results bitwise and to Dijkstra."""
+    import torch
+    from repro_torch.api import RunConfig, Session, make_delta
+    from repro_torch.apps import sssp
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    spec, data = sssp.make_job(kept["nbrs"], kept["w"], src=0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    sess = Session(spec, RunConfig(device=dev.type, mesh=mesh_config()))
+    for label in ("run", "update"):
+        rep = sess.run(data) if label == "run" else \
+            sess.update(make_delta(*kept["delta"]))
+        d = sess.result["d"]
+        check_sssp(f"distributed {label}", d, kept[f"dij_{label}"])
+        if not np.array_equal(d, kept[label]):
+            raise AssertionError(f"dist-sssp {label}: differs from phase "
+                                 f"4's single-device result")
+        log(f"  [dist-sssp] {label}: mode {rep.mode}, {rep.iters} "
+            f"iterations, {shuffle_line(rep)}; single device (phase 4) "
+            f"{kept[f'{label}_s']:.3f} s; equal to phase 4 bitwise; "
+            f"launches {launch_counts()}")
+    if rep.mode != "distributed-i2":
+        raise AssertionError(f"dist-sssp update ran in mode {rep.mode}")
+    counts = launch_counts()
+    after = kept["nbrs"].copy()
+    after[kept["rows"]] = kept["delta"][1]["nbrs"][1::2]
+    rows = kept["rows"] + 1
+    values = {"nbrs": np.concatenate([np.zeros((1, OUT_SLOTS), np.int32),
+                                      after]),
+              "w": np.concatenate([np.zeros((1, OUT_SLOTS), np.float32),
+                                   kept["w"]])}
+    profiled_noop("dist-sssp", sess, noop_delta(rows, values), dev)
+    check_sssp("distributed no-op refresh", sess.result["d"],
+               kept["dij_update"])
+    log(f"  [dist-sssp] peak device memory {memory_gib(dev, peak=True):.2f} "
+        f"GiB")
+    del sess, data
+    release(dev)
+    return counts
+
+
+def check_pagerank(label: str, r: np.ndarray, ref: np.ndarray, held: float,
+                   oracle_change: float) -> str:
+    v = ref.shape[0]
+    err = float(np.abs(r.astype(np.float64) - ref).sum())
+    lim = pagerank_bound(v, held, oracle_change)
+    if not (np.isfinite(r).all() and err <= lim):
+        raise AssertionError(f"dist-pagerank {label}: L1 error {err} > {lim}")
+    return f"L1 error {err:.6g} <= bound {lim:.6g}"
+
+
+def dist_pagerank(dev, rng, vertices: int, single: dict):
+    """(c) PageRank run and a 0.1% rewire at CPC 1e-3, then (e) the same
+    rewire through refresh="warm" and past ``pdelta_threshold``."""
+    import torch
+    from repro_torch.api import RunConfig, Session, make_delta
+    from repro_torch.apps import pagerank
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    nbrs = pagerank.random_graph(vertices, OUT_SLOTS, seed=int(rng.integers(
+        2**31)), p_edge=P_EDGE)
+    spec, data = pagerank.make_job(nbrs)
+    cfg = RunConfig(device=dev.type, cpc_threshold=PR_CPC,
+                    mesh=mesh_config())
+    ref, ch = pagerank_fixpoint(nbrs)
+    (rid, vals, sign), after = rewire_delta(rng, nbrs, 0.001)
+    ref2, ch2 = pagerank_fixpoint(after, r0=ref)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    sess = Session(spec, cfg)
+    rep = sess.run(data)
+    run_change = rep.max_change[-1]
+    line = check_pagerank("run", sess.result["r"], ref,
+                          vertices * run_change, ch)
+    log(f"  [dist-pagerank] {vertices} vertices (CUT from {FULL_VERTICES}): "
+        f"run: mode {rep.mode}, {rep.iters} iterations, {shuffle_line(rep)};"
+        f" {line}; single device (phase 4, {single['vertices']} vertices) "
+        f"{single['run_s']:.3f} s; launches {launch_counts()}")
+    rep = sess.update(make_delta(rid, vals, sign))
+    if rep.mode != "distributed-i2" or rep.iters >= cfg.refresh_iters_:
+        raise AssertionError(f"dist-pagerank update: mode {rep.mode}, "
+                             f"{rep.iters} iterations")
+    held = vertices * max(run_change, cfg.cpc_threshold + cfg.refresh_tol_)
+    line = check_pagerank("update", sess.result["r"], ref2, held, ch2)
+    stale = float(np.abs(ref - ref2).sum())
+    err = float(np.abs(sess.result["r"].astype(np.float64) - ref2).sum())
+    if not err < stale / 10:
+        raise AssertionError(f"dist-pagerank update: L1 error {err} is not "
+                             f"below a tenth of the stale ranks' {stale}")
+    log(f"  [dist-pagerank] update ({rid.size // 2} vertices rewired): mode "
+        f"{rep.mode}, {rep.iters} iterations, {shuffle_line(rep)}; {line}; "
+        f"single device (phase 4, {single['vertices']} vertices) "
+        f"{single['update_s']:.3f} s; launches {launch_counts()}")
+    counts = launch_counts()
+    profiled_noop("dist-pagerank", sess,
+                  noop_delta(np.unique(rid), {"nbrs": after}), dev)
+    check_pagerank("no-op refresh", sess.result["r"], ref2, held, ch2)
+    del sess
+    release(dev)
+
+    # (e) the same rewire, warm and past the P_delta threshold
+    for label, mc, extra in (
+            ("warm", mesh_config(refresh="warm"), {}),
+            ("pdelta", mesh_config(), {"pdelta_threshold": PDELTA_TRIP})):
+        reset_launch_counts()
+        s = Session(spec, cfg.replace(mesh=mc, **extra))
+        s.run(data)
+        rep = s.update(make_delta(rid, vals, sign))
+        if rep.mode != "distributed-warm":
+            raise AssertionError(f"dist-pagerank {label}: mode {rep.mode}")
+        line = check_pagerank(label, s.result["r"], ref2,
+                              vertices * cfg.refresh_tol_, ch2)
+        log(f"  [dist-pagerank] (e) {label} update: mode {rep.mode}, "
+            f"{rep.iters} iterations, {shuffle_line(rep)}; {line}; "
+            f"launches {launch_counts()}")
+        counts = {n: counts[n] + k for n, k in launch_counts().items()}
+        del s
+        release(dev)
+    log(f"  [dist-pagerank] peak device memory "
+        f"{memory_gib(dev, peak=True):.2f} GiB")
+    return counts
+
+
+def drive_distributed(dev, rng, docs, steps, mrbg_results, mrbg_s,
+                      sssp_kept, pr_single):
+    """Phase 9: (a) wordcount, (b) SSSP, (c) PageRank on 8 shards, (d) a
+    (pod 2, data 4) mesh on (a)'s update (a), (e) PageRank warm and past
+    ``pdelta_threshold``.  Returns the launches of all of it."""
+    a, a_res = dist_wordcount(dev, docs, steps, mrbg_results, mrbg_s,
+                              {"data": MESH_SHARDS})
+    d, d_res = dist_wordcount(dev, docs, steps, mrbg_results, mrbg_s,
+                              {"pod": 2, "data": MESH_SHARDS // 2},
+                              only_first=True)
+    for x, y in zip(d_res, a_res):
+        if not np.array_equal(x, y):
+            raise AssertionError("(d): the pod mesh differs from (a)")
+    log("  [dist-wc-pod] (d) run and update (a) bitwise equal to (a)")
+    b = dist_sssp(dev, sssp_kept)
+    c = dist_pagerank(dev, rng, DIST_PR_VERTICES, pr_single)
+    counts = {n: a[n] + b[n] + c[n] + d[n] for n in a}
+    for name in ("sort_lex", "segment_sum", "segment_minmax",
+                 "fused_shuffle_reduce"):
+        if counts[name] == 0:
+            raise AssertionError(f"phase 9 launched no {name}")
+    return counts
+
+
 def sync(dev) -> None:
     import torch
     if dev.type == "cuda":
@@ -2846,7 +3142,8 @@ def main(argv=None) -> int:
         f"documents, {args.docs * DOC_LEN} intermediate edges")
     docs = rng.integers(0, VOCAB, (args.docs, DOC_LEN)).astype(np.int32)
     steps = make_deltas(rng, docs)
-    mrbg = drive_path("mrbg", docs, steps)
+    mrbg_results, mrbg_s = [], []   # phase 9 (a) holds its runs to them
+    mrbg = drive_path("mrbg", docs, steps, mrbg_results, mrbg_s)
     acc_results = []                 # phase 8 (a) holds its query to them
     acc = drive_path("auto", docs, steps, acc_results)
     for name in ("sort_lex", "segment_sum", "fused_shuffle_reduce"):
@@ -2859,8 +3156,9 @@ def main(argv=None) -> int:
         "iterative update)")
     if args.vertices != FULL_VERTICES:
         log(f"  CUT: {args.vertices} vertices instead of {FULL_VERTICES}")
-    pr = drive_pagerank(dev, rng, args.vertices)
-    sp = drive_sssp(dev, rng, args.vertices)
+    pr_single, sssp_kept = {}, {}    # phase 9 replays and compares
+    pr = drive_pagerank(dev, rng, args.vertices, pr_single)
+    sp = drive_sssp(dev, rng, args.vertices, sssp_kept)
 
     log("phase 5: LM serving (Gemma 2 9B at full width: prefill, decode, "
         "decode-versus-prefill parity)")
@@ -2886,7 +3184,15 @@ def main(argv=None) -> int:
     t8 = time.perf_counter()
     dq = drive_dql(dev, rng, docs, steps, acc_results)
     log(f"  phase 8 {time.perf_counter() - t8:.1f} s; launches {dq}")
-    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq)
+
+    log(f"phase 9: distributed execution ({MESH_SHARDS} logical shards of "
+        f"one card: wordcount, SSSP, PageRank; a (pod, data) mesh; warm and "
+        f"MRBG-off refresh)")
+    t9 = time.perf_counter()
+    ds = drive_distributed(dev, rng, docs, steps, mrbg_results, mrbg_s,
+                           sssp_kept, pr_single)
+    log(f"  phase 9 {time.perf_counter() - t9:.1f} s; launches {ds}")
+    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -2976,7 +3282,7 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
         f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}, "
-        f"serve {sv}, dql {dq}")
+        f"serve {sv}, dql {dq}, distributed {ds}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,17 @@
     session.result
 
 ``RunConfig(device="cpu")`` runs the kernels' plain versions on the CPU.
+``RunConfig(mesh=MeshConfig(LocalMesh({"data": 8})))`` runs the same spec
+on 8 logical shards of the device.
 """
-from repro_torch.api.config import STREAM_POLICIES, RunConfig, StreamConfig
+from repro_torch.api.config import (
+    STREAM_POLICIES, MeshConfig, RunConfig, StreamConfig,
+)
 from repro_torch.api.report import MODES, RunReport, ShuffleStats
 from repro_torch.api.session import Session
 
 # the declaration vocabulary, re-exported so callers need only this module
+from repro_torch.core.distributed import LocalMesh
 from repro_torch.core.engine import JobSpec, emit_multi, emit_single
 from repro_torch.core.incremental import DeltaKV, make_delta
 from repro_torch.core.iterative import IterSpec, State, default_difference
@@ -25,7 +30,8 @@ from repro_torch.core.kvstore import (
 )
 
 __all__ = [
-    "Session", "RunConfig", "StreamConfig", "STREAM_POLICIES",
+    "Session", "RunConfig", "MeshConfig", "LocalMesh", "StreamConfig",
+    "STREAM_POLICIES",
     "RunReport", "ShuffleStats", "MODES",
     "JobSpec", "IterSpec", "State", "default_difference",
     "DeltaKV", "make_delta",

@@ -7,11 +7,14 @@ written by either package restores in the other:
   <root>/it_NNNNNN/            incr-iter epochs (``repro_torch.core.ft``)
   <root>/ep_NNNNNN/            every other driver's epochs (atomic rename)
 
-The kinds ported are ``onestep-mrbg``, ``onestep-accumulator``,
-``incr-iter``, ``plain-iter`` and ``query`` (a delta query's per-stage
-views, stores and input schemas).  Device tensors are saved as host numpy
-arrays of the reference's dtypes; a restored session puts its state back
-on ``config.device``.  ``Session.restore`` rebuilds the newest epoch; the
+Every kind the reference writes is handled: ``onestep-mrbg``,
+``onestep-accumulator``, ``incr-iter``, ``plain-iter``, ``query`` (a delta
+query's per-stage views, stores and input schemas), and the meshed
+``distributed`` (dense state with ``cpc`` in ``state.npz``) and
+``distributed-onestep`` (``view.npz``) kinds, whose per-shard MRBG slices
+go to ``shards.json`` plus ``mrbg_{p:03d}.npz``.  Device tensors are saved
+as host numpy arrays of the reference's dtypes; a restored session puts
+its state back on ``config.device``.  ``Session.restore`` rebuilds the newest epoch; the
 next ``update(delta)`` continues exactly where the snapshot left off.
 """
 from __future__ import annotations
@@ -32,13 +35,6 @@ from repro_torch.core.mrbg_store import (
     MRBGStore, load_store_state, store_blobs, store_meta,
 )
 
-# snapshot kinds the reference writes that the port cannot restore yet
-_NOT_PORTED = {
-    "distributed": "ROADMAP Queue 1 item 11 (distributed execution)",
-    "distributed-onestep": "ROADMAP Queue 1 item 11 (distributed execution)",
-}
-
-
 # ---------------------------------------------------------------------------
 # MRBG-Store blobs (one layout, shared with repro_torch.core.ft via
 # repro_torch.core.mrbg_store.{store_blobs,store_meta,load_store_state})
@@ -55,6 +51,33 @@ def _store_from_npz(num_keys: int, path: Path, meta: Dict,
                       **cfg.store_kw())
     load_store_state(store, np.load(path), meta)
     return store
+
+
+def _save_shard_stores(drv, tmp: Path) -> None:
+    """Per-shard MRBG slices of a meshed driver (local-key space, so only
+    a mesh of the same part count can reuse them)."""
+    metas = None
+    if drv.stores is not None:
+        metas = [_store_to_npz(s, tmp / f"mrbg_{p:03d}.npz")
+                 for p, s in enumerate(drv.stores)]
+    (tmp / "shards.json").write_text(json.dumps(
+        {"n_parts": drv.n_parts, "mrbg_on": drv.mrbg_on, "stores": metas}))
+
+
+def _load_shard_stores(drv, d: Path, cfg: RunConfig) -> bool:
+    """Rebuild ``drv.stores`` from a snapshot; False when the snapshot was
+    taken with a different part count (local keys do not transfer)."""
+    sj = d / "shards.json"
+    if not sj.exists():
+        return False
+    meta = json.loads(sj.read_text())
+    if meta["stores"] is None or meta["n_parts"] != drv.n_parts:
+        return False
+    drv.stores = [
+        _store_from_npz(drv.rows, d / f"mrbg_{p:03d}.npz", m, cfg)
+        for p, m in enumerate(meta["stores"])]
+    drv.mrbg_on = meta["mrbg_on"]
+    return True
 
 
 def _atomic_epoch_dir(root: Path, epoch: int):
@@ -130,12 +153,21 @@ def save_session(session, root: str) -> Path:
         np.savez(tmp / "acc.npz", **_view_arrays(drv.job.view),
                  **{f"a_{n}": a for n, a in drv.job.raw_acc.items()})
         out = commit()
-    elif drv.kind == "plain-iter":
+    elif drv.kind in ("plain-iter", "distributed"):
         tmp, commit = _atomic_epoch_dir(rootp, session.epoch)
+        extra = ({"cpc": drv.cpc_accum} if drv.kind == "distributed" else {})
         np.savez(tmp / "state.npz",
                  struct_keys=drv._keys, struct_valid=drv._valid,
                  **{f"sv_{n}": a for n, a in drv.result().items()},
-                 **{f"st_{n}": a for n, a in drv._values.items()})
+                 **{f"st_{n}": a for n, a in drv._values.items()},
+                 **extra)
+        if drv.kind == "distributed":
+            _save_shard_stores(drv, tmp)
+        out = commit()
+    elif drv.kind == "distributed-onestep":
+        tmp, commit = _atomic_epoch_dir(rootp, session.epoch)
+        np.savez(tmp / "view.npz", **_view_arrays(drv.view))
+        _save_shard_stores(drv, tmp)
         out = commit()
     elif drv.kind == "query":
         tmp, commit = _atomic_epoch_dir(rootp, session.epoch)
@@ -166,10 +198,6 @@ def load_session(cls, spec, root: str, config: Optional[RunConfig]):
     meta = json.loads((rootp / "session.json").read_text())
     cfg = config or RunConfig()
     kind = meta["kind"]
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"restoring a {kind!r} snapshot is not ported yet: it is "
-            f"{_NOT_PORTED[kind]}")
 
     # the driver is chosen by config; pin the config to the snapshot's kind
     if kind == "onestep-mrbg":
@@ -177,9 +205,14 @@ def load_session(cls, spec, root: str, config: Optional[RunConfig]):
     elif kind == "onestep-accumulator":
         cfg = cfg.replace(onestep_path="accumulator")
     elif kind == "plain-iter":
-        cfg = cfg.replace(plain_shuffle=True)
+        cfg = cfg.replace(plain_shuffle=True, mesh=None)
     elif kind == "incr-iter":
-        cfg = cfg.replace(plain_shuffle=False)
+        cfg = cfg.replace(plain_shuffle=False, mesh=None)
+    elif kind in ("distributed", "distributed-onestep"):
+        if cfg.mesh is None:
+            raise ValueError("restoring a distributed session requires "
+                             "RunConfig(mesh=...): meshes are not "
+                             "serializable")
     elif kind != "query":
         raise ValueError(f"unknown snapshot kind {kind!r}")
 
@@ -232,16 +265,35 @@ def load_session(cls, spec, root: str, config: Optional[RunConfig]):
                 {c: (tuple(shape), dt) for c, (shape, dt) in sch.items()}
                 for sch in qmeta["schemas"][i]]
         drv._affected = qmeta.get("affected", -1)
-    else:                                 # plain-iter
+    elif kind == "distributed-onestep":
+        d = _latest_epoch_dir(rootp)
+        drv.view = _load_view(spec.num_keys, np.load(d / "view.npz"))
+        if not _load_shard_stores(drv, d, cfg):
+            raise ValueError(
+                "distributed one-step snapshots store per-shard MRBG slices "
+                "in local-key space; restore with a mesh of the same part "
+                "count as the one that wrote the checkpoint")
+    else:                                 # plain-iter, distributed
         d = _latest_epoch_dir(rootp)
         sz = np.load(d / "state.npz")
         drv._keys = sz["struct_keys"].copy()
         drv._valid = sz["struct_valid"].copy()
         drv._values = {k[3:]: sz[k].copy() for k in sz.files
                        if k.startswith("st_")}
-        drv.state = State(
-            {k[3:]: torch.from_numpy(sz[k].copy()).to(session.device)
-             for k in sz.files if k.startswith("sv_")},
-            torch.ones(spec.num_state, dtype=torch.bool,
-                       device=session.device))
+        state = {k[3:]: torch.from_numpy(sz[k].copy()).to(session.device)
+                 for k in sz.files if k.startswith("sv_")}
+        if kind == "distributed":
+            from repro_torch.core.distributed import partition_state
+            drv.state_parts = partition_state(state, spec.num_state,
+                                              drv.n_parts)
+            if "cpc" in sz.files:
+                drv.cpc_accum = sz["cpc"].copy()
+            drv._rebuild_rev()
+            # per-shard MRBG slices transfer only onto an equal part count;
+            # otherwise the next update() warm-converges and re-seeds them
+            if not _load_shard_stores(drv, d, cfg):
+                drv.stores = None
+        else:
+            drv.state = State(state, torch.ones(
+                spec.num_state, dtype=torch.bool, device=session.device))
     return session

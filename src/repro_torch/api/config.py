@@ -1,9 +1,9 @@
 """RunConfig: the engine's knobs, declared once.
 
-Counterpart of ``repro.api.config`` for the paths the port runs so far
-(one-step MRBG and accumulator, iterative and incremental iterative, and
-the streaming layer's :class:`StreamConfig`), with the reference's names
-and defaults.  ``device`` takes the
+Counterpart of ``repro.api.config``, with the reference's names and
+defaults: :class:`MeshConfig` (distributed execution over the logical
+shards of a ``repro_torch.core.distributed.LocalMesh``), :class:`RunConfig`
+and the streaming layer's :class:`StreamConfig`.  ``device`` takes the
 place of the reference's ``backend``: ``"cuda"`` (the default) runs the
 hand-written kernels and raises when there is no card; ``"cpu"`` runs
 their plain versions.  Nothing else selects the plain versions.  The
@@ -25,6 +25,75 @@ from repro_torch.core.mrbg_store import (
 
 ONESTEP_PATHS = ("auto", "mrbg", "accumulator")
 DEVICES = ("cuda", "cpu")
+REFRESH_MODES = ("fine", "warm")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Validated distributed-execution knobs (§4.3), one object per mesh.
+
+    ``RunConfig(mesh=MeshConfig(LocalMesh({"data": 8}), ...))`` runs the
+    job as 8 logical shards, all on ``RunConfig.device``.
+    """
+
+    # the mesh; duck-typed: anything with a ``.shape`` mapping from axis
+    # name to size (repro_torch.core.distributed.LocalMesh)
+    mesh: Any
+
+    # partition axis (+ optional pod axis flattened into one exchange axis)
+    axis: str = "data"
+    pod_axis: Optional[str] = None
+
+    # per (src, dst) shard edge capacity of the converge-loop all_to_all;
+    # overflow auto-regrows up the bucket ladder unless auto_grow=False
+    shuffle_cap: int = 4096
+    auto_grow: bool = True
+
+    # host-side structure-partition row capacity (None -> sized from data)
+    partition_cap: Optional[int] = None
+
+    # update() semantics under the mesh:
+    #   'fine' -> kv-pair-level delta refresh against per-shard MRBG slices
+    #   'warm' -> re-partition the host mirror and warm re-converge (the
+    #             Fig. 8 rerun-side baseline)
+    refresh: str = "fine"
+
+    # host threads for the fine-grain per-shard MRBG merges (disjoint
+    # stores): 0 = auto (min(8, cpus, shards)), 1 = sequential, n = n
+    merge_workers: int = 0
+
+    def __post_init__(self):
+        shape = getattr(self.mesh, "shape", None)
+        if shape is None:
+            raise ValueError("MeshConfig.mesh must be a LocalMesh (or "
+                             "expose .shape like one)")
+        if self.axis not in shape:
+            raise ValueError(f"mesh has no axis {self.axis!r} "
+                             f"(axes: {tuple(shape)})")
+        if self.pod_axis is not None:
+            if self.pod_axis not in shape:
+                raise ValueError(f"mesh has no pod axis {self.pod_axis!r} "
+                                 f"(axes: {tuple(shape)})")
+            if self.pod_axis == self.axis:
+                raise ValueError("pod_axis must differ from axis")
+        if self.shuffle_cap < 1:
+            raise ValueError("shuffle_cap must be >= 1")
+        if self.partition_cap is not None and self.partition_cap < 1:
+            raise ValueError("partition_cap must be >= 1")
+        if self.refresh not in REFRESH_MODES:
+            raise ValueError(f"refresh must be one of {REFRESH_MODES}, "
+                             f"got {self.refresh!r}")
+        if self.merge_workers < 0:
+            raise ValueError("merge_workers must be >= 0 (0 = auto)")
+
+    @property
+    def n_parts(self) -> int:
+        shape = self.mesh.shape
+        return shape[self.axis] * (shape[self.pod_axis]
+                                   if self.pod_axis else 1)
+
+    def replace(self, **kw) -> "MeshConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)
@@ -58,8 +127,9 @@ class RunConfig:
     #    structure data every iteration instead of keeping the loop warm
     plain_shuffle: bool = False
 
-    # -- distributed execution is not ported yet (ROADMAP Queue 1 item 11)
-    mesh: Optional[Any] = None
+    # -- distributed execution: a MeshConfig turns the same spec into the
+    #    sharded engine (§4.3); no separate entry point
+    mesh: Optional[MeshConfig] = None
 
     # -- checkpointing (§6): directory + cadence in epochs (0 = manual via
     #    Session.checkpoint only)
@@ -85,10 +155,9 @@ class RunConfig:
             raise ValueError(
                 f"store_policy must be one of {POLICIES}, "
                 f"got {self.store_policy!r}")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "RunConfig(mesh=...) is not ported yet: distributed "
-                "execution is ROADMAP Queue 1 item 11")
+        if self.mesh is not None and not isinstance(self.mesh, MeshConfig):
+            raise TypeError("RunConfig(mesh=...) takes a MeshConfig: "
+                            "RunConfig(mesh=MeshConfig(mesh, axis=..., ...))")
         if self.report_history < 1:
             raise ValueError("report_history must be >= 1")
         if self.delta_bucket_min < 1:

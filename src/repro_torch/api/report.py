@@ -1,7 +1,6 @@
 """RunReport: the one result/telemetry surface of a Session epoch.
 
-Counterpart of ``repro.api.report`` for the single-device paths and
-delta queries; ``device`` replaces ``backend``.
+Counterpart of ``repro.api.report``; ``device`` replaces ``backend``.
 """
 from __future__ import annotations
 
@@ -13,7 +12,7 @@ import numpy as np
 from repro_torch.core.incr_iter import IterationLog
 from repro_torch.core.mrbg_store import IOStats
 
-# engine paths a report can come from (the single-device paths)
+# engine paths a report can come from
 MODES = (
     "onestep",            # full one-step run (JobSpec)
     "incremental",        # fine-grain one-step refresh (§3.3)
@@ -22,6 +21,10 @@ MODES = (
     "plainMR",            # plain-shuffle cost-model baseline (Algorithm 5)
     "i2",                 # incremental iterative refresh (§5)
     "iterMR-fallback",    # auto MRBG-off recomputation (§5.2)
+    "distributed",        # sharded prime loop / one-step run (§4.3)
+    "distributed-incr",   # per-shard delta refresh, one-step (§3.3 on mesh)
+    "distributed-i2",     # per-shard delta refresh, iterative CPC (§5 on mesh)
+    "distributed-warm",   # mirror re-partition + warm re-converge fallback
     "query",              # full evaluation of a compiled delta query (dql)
     "query-incremental",  # per-stage preserved-state query refresh (dql)
 )
@@ -29,14 +32,20 @@ MODES = (
 
 @dataclass
 class ShuffleStats:
-    """Network-exchange telemetry of one epoch; zeros on one device."""
+    """Exchange telemetry of one epoch, uniform across modes.
 
-    edges_exchanged: int = 0
-    bytes_moved: int = 0
-    dropped: int = 0
+    Single-device paths report zeros; meshed paths fill in the all_to_all
+    traffic between shards.  ``exchange_seconds`` is the wall-clock of each
+    exchange-bearing step (host-observed, to its first sync, so it
+    includes the step's Map, sorts and, in the converge loop, Reduce).
+    """
+
+    edges_exchanged: int = 0       # valid edges through all_to_all this epoch
+    bytes_moved: int = 0           # edges * per-edge record bytes
+    dropped: int = 0               # edges lost to shuffle_cap (0 post-regrow)
     exchange_seconds: List[float] = field(default_factory=list)
-    shuffle_cap: int = 0
-    regrows: int = 0
+    shuffle_cap: int = 0           # per (src, dst) capacity actually used
+    regrows: int = 0               # times the cap auto-regrew this epoch
 
 
 @dataclass
@@ -79,4 +88,9 @@ class RunReport:
                          f"(live {self.live_bytes}B)")
         if self.coalesce and self.coalesce.get("n_cancelled"):
             parts.append(f"coalesced=-{self.coalesce['n_cancelled']}rows")
+        if self.shuffle.edges_exchanged or self.shuffle.dropped:
+            parts.append(f"shuffle={self.shuffle.edges_exchanged}e/"
+                         f"{self.shuffle.bytes_moved}B"
+                         + (f" dropped={self.shuffle.dropped}"
+                            if self.shuffle.dropped else ""))
         return " ".join(parts)

@@ -4,12 +4,26 @@ Each kernel wrapper keeps a launch count (``<wrapper>.launches``), which
 adds one where the wrapper launches its kernel and nowhere else, so that a
 run can show that its main path went through the kernels.  The wrappers
 of ``segment_minmax`` and ``fused_shuffle_reduce`` also count their
-launches by shape (``<wrapper>.shapes``, a ``Counter``).  Kernel modules
-build nothing at import; see ``_build``.
+launches by shape (``<wrapper>.shapes``, a ``Counter``).  The counts
+move under one lock (:func:`count_launch`), so that launches from several
+threads (the per-shard merges of ``core.distributed``) add up exactly.
+Kernel modules build nothing at import; see ``_build``.
 """
 from __future__ import annotations
 
-from typing import Dict
+import threading
+from typing import Dict, Optional
+
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper, shape: Optional[tuple] = None) -> None:
+    """Add one launch to ``wrapper``'s count (and to ``shape``'s, where the
+    wrapper keeps counts by shape)."""
+    with _launch_lock:
+        wrapper.launches += 1
+        if shape is not None:
+            wrapper.shapes[shape] += 1
 
 
 def _wrappers():
@@ -37,7 +51,8 @@ def launch_shapes() -> Dict[str, dict]:
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
-        if hasattr(fn, "shapes"):
-            fn.shapes.clear()
+    with _launch_lock:
+        for fn in _wrappers().values():
+            fn.launches = 0
+            if hasattr(fn, "shapes"):
+                fn.shapes.clear()

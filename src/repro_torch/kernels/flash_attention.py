@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -80,7 +80,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             max(int(window), 0), float(softcap),
             _build.stream_ptr(q.device))
         _build.check(lib, rc, "flash_attention")
-        flash_attention.launches += 1
+        count_launch(flash_attention)
     return out
 
 

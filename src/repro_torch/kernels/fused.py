@@ -36,7 +36,7 @@ from collections import Counter
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.ref import fused_shuffle_reduce_ref
 from repro_torch.kernels.sort_u32 import sort_lex_cuda
 
@@ -119,9 +119,8 @@ def fused_shuffle_reduce(k2, mk, vals, valid, sign, affected_keys, *,
             live.data_ptr(), perm.data_ptr(), acc.data_ptr(),
             counts.data_ptr(), stream)
     _build.check(lib, rc, "fused_shuffle_reduce")
-    fused_shuffle_reduce.launches += 1
-    fused_shuffle_reduce.shapes[
-        (n, key_cap, d, "sort + runs" if large else "one block")] += 1
+    count_launch(fused_shuffle_reduce,
+                 (n, key_cap, d, "sort + runs" if large else "one block"))
     return k2_s, mk_s, vals_s.to(vals.dtype), live, perm, acc, counts
 
 

@@ -44,7 +44,7 @@ from collections import Counter
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.ref import segment_minmax_ref, segment_sum_ref
 
 OUT_DTYPES = (torch.int32, torch.float32)
@@ -99,7 +99,7 @@ def segment_sum(seg: torch.Tensor, vals: torch.Tensor, num_segments: int, *,
             int(out_dtype == torch.float32), ws.data_ptr(), ws.numel(),
             _build.stream_ptr(vals.device))
         _build.check(lib, rc, "segment_sum")
-        segment_sum.launches += 1
+        count_launch(segment_sum)
     return (out, cnt) if counts else out
 
 
@@ -143,8 +143,7 @@ def segment_minmax(kind: str, seg: torch.Tensor, vals: torch.Tensor,
             int(vals.dtype == torch.float32), int(kind == "min"),
             _build.stream_ptr(vals.device))
         _build.check(lib, rc, "segment_minmax")
-        segment_minmax.launches += 1
-        segment_minmax.shapes[(n, k, d)] += 1
+        count_launch(segment_minmax, (n, k, d))
     return out
 
 

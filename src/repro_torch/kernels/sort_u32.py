@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.ref import sort_lex_ref
 
 _MAX_ROWS = 2**31 - 1
@@ -81,7 +81,7 @@ def sort_lex(hi: torch.Tensor, lo: torch.Tensor):
         raise ValueError(f"sort_lex runs on cuda or cpu, not {hi.device}")
     out = sort_lex_cuda(hi, lo)
     if hi.shape[0]:
-        sort_lex.launches += 1
+        count_launch(sort_lex)
     return out
 
 

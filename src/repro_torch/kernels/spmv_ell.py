@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.ref import spmv_ell_ref
 from repro_torch.kernels.segment_reduce import MAX_ROWS, MAX_SEGMENTS
 
@@ -61,7 +61,7 @@ def spmv_ell(nbrs: torch.Tensor, contrib: torch.Tensor,
                                  ws.data_ptr(), ws.numel(),
                                  _build.stream_ptr(nbrs.device))
         _build.check(lib, rc, "spmv_ell")
-        spmv_ell.launches += 1
+        count_launch(spmv_ell)
     return y
 
 

@@ -2,9 +2,10 @@
 
 A snapshot written by ``repro`` (backend="xla") at epoch 1 restores in
 ``repro_torch`` (on the CPU, the kernels' plain versions), and the
-reverse, for every kind the port has: ``onestep-mrbg`` and
-``onestep-accumulator`` (wordcount), ``incr-iter`` (SSSP and PageRank)
-and ``plain-iter`` (SSSP).  The restored session equals the writer, and
+reverse, for every kind: ``onestep-mrbg`` and ``onestep-accumulator``
+(wordcount), ``incr-iter`` (SSSP and PageRank), ``plain-iter`` (SSSP),
+the meshed ``distributed`` (PageRank) and ``distributed-onestep``
+(wordcount), and ``query``.  The restored session equals the writer, and
 its next ``update`` equals the writer's next ``update``: bitwise for
 wordcount and SSSP, within 1e-5 for PageRank (the packages may add floats
 in another order, as ``tests/test_torch_iterative.py`` holds it).  Then
@@ -17,6 +18,7 @@ import json
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from repro.api import RunConfig as JConfig, Session as JSession
 from repro.api import make_delta as jmake_delta
@@ -171,14 +173,84 @@ def test_auto_checkpoint_cadence_and_restore(tmp_path):
         Session(spec, RunConfig(device="cpu")).checkpoint()
 
 
-def test_restore_of_kinds_not_ported_raises(tmp_path):
-    spec, _ = wc.make_job(np.zeros((2, 3), np.int32), 4)
-    for kind in ("distributed", "distributed-onestep"):
-        (tmp_path / "session.json").write_text(json.dumps(
-            {"kind": kind, "epoch": 0, "mode": "x", "name": "x"}))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            Session.restore(spec, str(tmp_path), RunConfig(device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
+@pytest.fixture
+def one_intra_op_thread():
+    """Meshed sessions run many small ops a shard; with the test workers
+    sharing the cores, one intra-op thread (restored after) keeps them
+    from fanning each op out over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_restore_of_kinds_not_ported_raises(tmp_path, one_intra_op_thread):
+    # every kind is ported now.  The distributed kinds restore across
+    # packages: the reference on an in-process mesh of one device (P = 1)
+    # into the port and back; the port at P = 8 into the port
+    import jax
+    from jax.sharding import Mesh
+    from repro.api import MeshConfig as JMesh
+    from repro_torch.api import LocalMesh, MeshConfig
+    jmesh = JMesh(Mesh(np.array(jax.devices()[:1]), ("data",)),
+                  shuffle_cap=512)
+    port_mesh = lambda p: MeshConfig(LocalMesh({"data": p}), shuffle_cap=512,
+                                     merge_workers=1)
+    for kind, case in (("distributed", "incr-iter-pagerank"),
+                       ("distributed-onestep", "onestep-mrbg")):
+        make, knobs, tol = CASES[case]
+        (spec, data), (jspec, jdata), deltas = make(np.random.default_rng(0))
+        jside, pside = _Side(False, knobs), _Side(True, knobs)
+        ref = JSession(jspec, jside.config(mesh=jmesh))
+        ref.run(jdata)
+        ref.update(jside.delta(*deltas[0]))
+        ref.checkpoint(str(tmp_path / kind / "ref"))
+        assert json.loads((tmp_path / kind / "ref" / "session.json")
+                          .read_text())["kind"] == kind
+        got = Session.restore(spec, str(tmp_path / kind / "ref"),
+                              pside.config(mesh=port_mesh(1)))
+        assert got.epoch == 1 and len(got.stores) == 1
+        _same(got.result, ref.result, tol)
+        g = got.update(pside.delta(*deltas[1]))
+        w = ref.update(jside.delta(*deltas[1]))
+        assert g.mode == w.mode
+        _same(got.result, ref.result, tol)
+        got.checkpoint(str(tmp_path / kind / "port1"))
+        back = JSession.restore(jspec, str(tmp_path / kind / "port1"),
+                                jside.config(mesh=jmesh))
+        assert back.epoch == 2 and len(back.stores) == 1
+        _same(back.result, got.result, 0)
+
+        # the port at P = 8, restored at P = 8: bitwise, stores included
+        w8 = Session(spec, pside.config(mesh=port_mesh(8)))
+        w8.run(data)
+        w8.update(pside.delta(*deltas[0]))
+        w8.checkpoint(str(tmp_path / kind / "port8"))
+        r8 = Session.restore(spec, str(tmp_path / kind / "port8"),
+                             pside.config(mesh=port_mesh(8)))
+        assert r8.store_bytes() == w8.store_bytes()
+        _same(r8.result, w8.result, 0)
+        g, w = (s.update(pside.delta(*deltas[1])) for s in (r8, w8))
+        assert g.mode == w.mode and g.mode.startswith("distributed-")
+        _same(r8.result, w8.result, 0)
+        with pytest.raises(ValueError, match="RunConfig\\(mesh"):
+            Session.restore(spec, str(tmp_path / kind / "port8"),
+                            pside.config())
+
+    # another part count: a one-step snapshot cannot re-key its slices
+    # and raises; an iterative one drops them and re-converges warm
+    spec = wc.make_spec(VOCAB)
+    with pytest.raises(ValueError, match="same part count"):
+        Session.restore(spec, str(tmp_path / "distributed-onestep" / "port8"),
+                        RunConfig(device="cpu", mesh=port_mesh(4)))
+    make, knobs, tol = CASES["incr-iter-pagerank"]
+    (spec, _), _, deltas = make(np.random.default_rng(0))
+    r4 = Session.restore(spec, str(tmp_path / "distributed" / "port8"),
+                         RunConfig(device="cpu", mesh=port_mesh(4), **knobs))
+    assert r4.stores == []
+    assert r4.update(make_delta(*deltas[1])).mode == "distributed-warm"
+    assert len(r4.stores) == 4
+    with pytest.raises(TypeError, match="MeshConfig"):
         RunConfig(mesh=object())
 
     # the query kind is ported: a reference snapshot restores here, and a

@@ -648,3 +648,56 @@ def test_dql_min_max_query_on_card_equals_cpu(cuda, agg):
     np.testing.assert_array_equal(res["cuda"][1], res["cpu"][1])
     assert res["cuda"][2]["segment_minmax"] >= 1
     assert res["cpu"][2]["segment_minmax"] == 0
+
+
+@pytest.mark.parametrize("workers", [1, 8])
+def test_meshed_sessions_on_card_equal_cpu(cuda, workers):
+    """8 logical shards on the card: wordcount and SSSP equal the CPU's
+    meshed session bit for bit, run and update, through the sort, the
+    segment sum / min-max and the fused merge; the per-shard merges on
+    ``workers`` threads, and every kernel of the path launches."""
+    from repro_torch.api import LocalMesh, MeshConfig
+    rng = np.random.default_rng(3)
+    vocab, n_docs, width = 4096, 2048, 16
+    docs = rng.integers(0, vocab, (n_docs, width)).astype(np.int32)
+    rows = rng.choice(n_docs, 64, replace=False)
+    new = rng.integers(0, vocab, (64, width)).astype(np.int32)
+    buf = np.empty((128, width), np.int32)
+    buf[0::2], buf[1::2] = docs[rows], new
+    wc_delta = (np.repeat(rows.astype(np.int32), 2), {"w": buf},
+                np.tile(np.int8([-1, 1]), 64))
+    v = 20_000
+    nbrs, w = sssp.random_weighted_graph(v, 8, seed=4)
+    srows = rng.choice(v, 50, replace=False)
+    snew = nbrs[srows].copy()
+    snew[rng.random(snew.shape) < 0.4] = -1
+    nb = np.empty((100, 8), np.int32)
+    nb[0::2], nb[1::2] = nbrs[srows], snew
+    sssp_delta = (np.repeat(srows + 1, 2).astype(np.int32),
+                  {"nbrs": nb, "w": np.repeat(w[srows], 2, axis=0)},
+                  np.tile(np.int8([-1, 1]), 50))
+    mc = MeshConfig(LocalMesh({"data": 8}), merge_workers=workers)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        reset_launch_counts()
+        out = []
+        for spec, data, delta, key in (
+                (*wc.make_job(docs, vocab), wc_delta, "c"),
+                (*sssp.make_job(nbrs, w, 0), sssp_delta, "d")):
+            s = Session(spec, RunConfig(device=dev, mesh=mc))
+            s.run(data)
+            run = s.result[key].copy()
+            rep = s.update(make_delta(*delta))
+            assert rep.mode in ("distributed-incr", "distributed-i2")
+            out.append((run, s.result[key], rep.iters))
+        res[dev] = (out, launch_counts())
+    for (r_gpu, u_gpu, i_gpu), (r_cpu, u_cpu, i_cpu) in zip(
+            res["cuda"][0], res["cpu"][0]):
+        np.testing.assert_array_equal(r_gpu, r_cpu)
+        np.testing.assert_array_equal(u_gpu, u_cpu)
+        assert i_gpu == i_cpu
+    counts = res["cuda"][1]
+    for name in ("sort_lex", "segment_sum", "segment_minmax",
+                 "fused_shuffle_reduce"):
+        assert counts[name] >= 1, counts
+    assert not any(res["cpu"][1].values())

@@ -56,7 +56,8 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.jitcache, repro_torch.data, "
             "repro_torch.serve, repro_torch.serve.loadgen, "
             "repro_torch.stream.server, repro_torch.dql, "
-            "repro_torch.dql.derived, repro_torch.dql.workloads; "
+            "repro_torch.dql.derived, repro_torch.dql.workloads, "
+            "repro_torch.core.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -73,7 +74,12 @@ def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
     spec, _ = wc.make_job(np.zeros((2, 3), np.int32), 4)
     with pytest.raises(RuntimeError, match="cuda"):
         Session(spec, RunConfig())
+    from repro_torch.api import LocalMesh, MeshConfig
+    mesh = MeshConfig(LocalMesh({"data": 2}))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Session(spec, RunConfig(mesh=mesh))      # shards live on the card
     Session(spec, RunConfig(device="cpu"))       # the only way onto the CPU
+    Session(spec, RunConfig(device="cpu", mesh=mesh))
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_card(

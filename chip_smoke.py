@@ -75,6 +75,22 @@ Runs on one CUDA card, from the root of a checkout:
      seconds beside phases 3-4's, the exchange apart from the rest,
      edges and bytes exchanged, the shuffle capacity and regrows, and one
      profiled no-op refresh of the update's size (device busy, idle).
+ 10. drives LM training — ``repro_torch.launch.steps.make_train_step`` and
+     ``launch.train.train``: (a) the attention gradient
+     (``blocks.FlashAttend``: flash forward, the dense formula's autograd
+     backward) on the card against the CPU in float32, Gemma 2's softcap
+     50 at hd 256 (global and a window) and Qwen3's hd 128, S 512, one
+     flash launch a forward; (b) 3 train steps of Qwen3 and Gemma 2 smoke
+     configs (float32, remat full, chunked loss) on the card against the
+     CPU; (c) Qwen3-1.7B at full width (1,720,574,976 parameters, bf16,
+     AdamW moments in float32, remat full, loss_chunk 512), B 2 x S 4096:
+     1 warm-up and 4 timed steps (ms a step, tokens/s, peak memory, every
+     loss finite, 56 flash launches a step: forward and recompute), one
+     more step under ``torch.profiler`` (device ms of flash, the attention
+     backward's recompute, the other matrix products and the rest; idle
+     share), the model FLOPs' bound at the bf16 peak; (d) ``train(...,
+     fail_at=3)`` at ``--preset 100m`` then resumed: the resumed losses
+     equal an uninterrupted run's bit for bit.
 
 The kernels' launch counts are set to 0 before each path and read after
 it.  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
@@ -1921,6 +1937,394 @@ def drive_lm(dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: LM training (attention gradient, steps against the CPU, Qwen3-1.7B
+# at full width, restart)
+# ---------------------------------------------------------------------------
+
+# (a) the attention gradient (``blocks.FlashAttend``: flash forward, the
+# dense formula's autograd backward) on the card against the CPU, float32
+# (the flash kernel's FMA path, TF32 off), B 1, H 16, KH 8, S 512; q at std
+# 8, k and v at 1, so that the scores reach Gemma 2's softcap.  Gemma 2's
+# window (4096) is cut to 128 so that it acts within 512 positions.  The
+# gradient does not read the forward's output: both sides run the same
+# formula, float32 products summed in another order (cuBLAS, the CPU's
+# BLAS), gaps near 1e-6 of the largest gradient; the bound allows 100x.
+GRAD_CASES = (("gemma2 global, softcap 50, hd 256", "gemma2_9b", 0),
+              ("gemma2 window 128, softcap 50, hd 256", "gemma2_9b", 128),
+              ("qwen3 hd 128", "qwen3_1_7b", 0))
+GRAD_SHAPE = (1, 512)                 # B, S
+GRAD_Q_STD = 8.0
+GRAD_REL = 1e-4
+# (b) train steps on the card against the CPU: smoke configs in float32,
+# remat full, loss_chunk 16 of S 64, B 2, 3 steps of AdamW at lr 3e-4 from
+# step 1.  The losses within 1e-5 and the grad norm within 1e-5 of itself
+# (tests/test_torch_train.py's train-step bounds; measured under 1e-6).
+# The parameters within a tenth of one step, lr / 10: AdamW scales each
+# element's step to about lr whatever its gradient's size, so an element
+# whose gradient sits near the rounding floor of its sum steps a little
+# differently on two devices (measured 9.6e-6 for Gemma 2, NVIDIA H100
+# 80GB HBM3, 700 W); the losses of steps 2 and 3 read the updated
+# parameters, and a wrong update moves them far past 1e-5.
+STEP_SHAPE, STEP_CHUNK, STEP_COUNT = (2, 64), 16, 3
+STEP_OPT = dict(lr=3e-4, warmup=1, total_steps=10)
+STEP_TOL = 1e-5
+STEP_PARAM_TOL = STEP_OPT["lr"] / 10
+# (c) Qwen3-1.7B at full width (configs/qwen3_1_7b.py), bf16, remat full,
+# loss_chunk 512, B 2 x S 4096 (8,192 tokens a step): 1 warm-up step, 4
+# timed, 1 profiled
+TRAIN_ARCH = "qwen3_1_7b"
+TRAIN_PARAMS = 1_720_574_976
+TRAIN_BATCH, TRAIN_LEN = 2, 4096
+TRAIN_WARMUP, TRAIN_TIMED = 1, 4
+# (d) restart at --preset 100m (launch/train.py's default batch and
+# length): 6 steps uninterrupted, then failed before step 3 with a
+# checkpoint every 2 steps, then resumed; the resumed losses (steps 2-5)
+# must equal the uninterrupted ones bit for bit
+RESTART = dict(steps=6, global_batch=8, seq_len=256, log_every=1)
+RESTART_FAIL_AT, RESTART_EVERY = 3, 2
+
+
+def grad_check(dev, rng) -> list:
+    """(a): q, k, v gradients through ``blocks.attend`` on the card and on
+    the CPU; flash launches rise by one a forward."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import blocks
+    out = []
+    b, s = GRAD_SHAPE
+    for label, arch, window in GRAD_CASES:
+        cfg = C.get(arch).replace(param_dtype="float32",
+                                  compute_dtype="float32")
+        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        host = [torch.from_numpy(rng.normal(0, std, (b, s, n, hd)).astype(
+            np.float32)) for std, n in ((GRAD_Q_STD, h), (1.0, kh),
+                                        (1.0, kh), (1.0, h))]
+        grads = {}
+        for where in (dev, torch.device("cpu")):
+            q, k, v = (t.to(where).requires_grad_() for t in host[:3])
+            before = flash_attention.launches
+            o = blocks.attend(cfg, q, k, v, window)
+            launched = flash_attention.launches - before
+            grads[where.type] = torch.autograd.grad(
+                o, (q, k, v), host[3].to(where))
+            if launched != (1 if where.type == "cuda" else 0):
+                raise AssertionError(f"{label}: {launched} flash launches "
+                                     f"for one forward on {where}")
+        errs = []
+        for name, got, want in zip("qkv", grads[dev.type], grads["cpu"]):
+            err = float((got.cpu() - want).abs().max()) / float(
+                want.abs().max())
+            errs.append(err)
+            if not err <= GRAD_REL:
+                raise AssertionError(f"{label}: d{name} on the card "
+                                     f"{err:.3g} of its max from the CPU's "
+                                     f"(bound {GRAD_REL})")
+        log(f"  [train] (a) attention gradient, {label}, B {b} S {s} H "
+            f"{h}/{kh}: max |card - cpu| / max |cpu| dq {errs[0]:.3g}, dk "
+            f"{errs[1]:.3g}, dv {errs[2]:.3g} (bound {GRAD_REL}); one flash "
+            f"launch a forward, none in the backward")
+        out.append(max(errs))
+    return out
+
+
+def step_check(dev, seed: int) -> None:
+    """(b): 3 train steps of a smoke config on the card and on the CPU from
+    the same weights (Gemma 2's at 1/sqrt(input width), ``parity_model``:
+    its reference draw makes the smoke network chaotic)."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.config import smoke_config
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cpu = torch.device("cpu")
+    b, s = STEP_SHAPE
+    for arch in ("qwen3_1_7b", "gemma2_9b"):
+        cfg = smoke_config(C.get(arch)).replace(
+            param_dtype="float32", compute_dtype="float32", remat="full",
+            loss_chunk=STEP_CHUNK)
+        gen = torch.Generator().manual_seed(seed)
+        host = (parity_model(cfg, gen, cpu) if arch == "gemma2_9b" else
+                lm.init_params(cfg, gen, cpu))
+        rng = np.random.default_rng(seed)
+        batches = []
+        for _ in range(STEP_COUNT):
+            toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+            batches.append({"inputs": toks[:, :-1], "targets": toks[:, 1:],
+                            "mask": rng.random((b, s)) < 0.9})
+        runs = {}
+        for where in (dev, cpu):
+            model = lm.LM(cfg, {n: p.detach().to(where).clone() for n, p in
+                                host.named_parameters()}, trainable=True)
+            opt_cfg = AdamWConfig(**STEP_OPT)
+            opt = adamw_init(dict(model.named_parameters()), opt_cfg)
+            step = make_train_step(cfg, opt_cfg, where)
+            metrics = []
+            for batch in batches:
+                model, opt, m = step(model, opt, batch)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[where.type] = (metrics, {n: p.detach().cpu() for n, p in
+                                          model.named_parameters()})
+        (got, gp), (want, wp) = runs[dev.type], runs["cpu"]
+        loss_gap = max(abs(g[0] - w[0]) for g, w in zip(got, want))
+        norm_gap = max(abs(g[1] - w[1]) / w[1] for g, w in zip(got, want))
+        param_gap = max(float((gp[n] - wp[n]).abs().max()) for n in wp)
+        log(f"  [train] (b) {cfg.name} smoke, float32, remat full, "
+            f"loss_chunk {STEP_CHUNK} of S {s}, {STEP_COUNT} steps: losses "
+            f"card {[round(g[0], 6) for g in got]} cpu "
+            f"{[round(w[0], 6) for w in want]}; max |loss gap| "
+            f"{loss_gap:.3g}, grad norm {norm_gap:.3g} of itself, params "
+            f"{param_gap:.3g} (bounds {STEP_TOL}, {STEP_TOL}, "
+            f"{STEP_PARAM_TOL:.3g})")
+        if not (loss_gap <= STEP_TOL and norm_gap <= STEP_TOL
+                and param_gap <= STEP_PARAM_TOL):
+            raise AssertionError(f"{cfg.name}: train steps on the card "
+                                 f"differ from the CPU's past the bounds")
+
+
+def train_shares(fn, dev) -> dict:
+    """Runs ``fn`` once under ``torch.profiler`` (host and device) and
+    splits the device time of its kernels into the flash kernel, the
+    attention backward's recompute (every kernel launched inside
+    ``blocks.ATTN_BWD_RANGE``, its products included), the other matrix
+    products, and the rest; ``busy_ms`` is the union of the kernels'
+    intervals, ``wall_ms`` the profiled call's host clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.blocks import ATTN_BWD_RANGE
+    sync(dev)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    events = list(prof.profiler.kineto_results.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = {}
+    for e in events:
+        if e.device_type() != cuda and e.name() == ATTN_BWD_RANGE:
+            ranges.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns()))
+    inside = set()
+    for e in events:
+        if e.device_type() == cuda or not e.correlation_id():
+            continue
+        for lo, hi in ranges.get(e.start_thread_id(), ()):
+            if lo <= e.start_ns() <= hi:
+                inside.add(e.correlation_id())
+                break
+    ms = {"flash": 0.0, "recompute": 0.0, "matmul": 0.0, "other": 0.0}
+    spans = []
+    for e in events:
+        # the profiler mirrors the record_function range on the device
+        # timeline as a span over its kernels: not a kernel
+        if e.device_type() != cuda or e.name() == ATTN_BWD_RANGE:
+            continue
+        lo = e.start_ns()
+        hi = lo + e.duration_ns()
+        spans.append((lo, hi))
+        name = e.name()
+        kind = "flash" if "flash" in name else \
+            "recompute" if e.correlation_id() in inside else \
+            "matmul" if MATMUL_KERNELS.search(name) else "other"
+        ms[kind] += (hi - lo) / 1e6
+    busy, end = 0.0, -math.inf
+    for lo, hi in sorted(spans):
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return dict(kernels=len(spans), ranges=sum(map(len, ranges.values())),
+                busy_ms=busy / 1e6, wall_ms=wall * 1e3, **ms)
+
+
+def train_flash_check(cfg, dev, seed: int) -> dict:
+    """(c) first: the flash kernel at the training step's own shape (B 2,
+    S 4096, Qwen3-1.7B's heads: H 16, KH 8, hd 128; bf16, causal, no
+    window, no softcap), called as the step calls it, ``blocks.attend`` on
+    [B, S, H, hd] tensors, against its plain version on the same inputs
+    within ``flash_bound`` at FLASH_REL["bfloat16"]; q at each of
+    FLASH_Q_SCALES.  These launches precede the main path's counts."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.blocks import attend
+    b, s, h, kh, hd = (TRAIN_BATCH, TRAIN_LEN, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    opt = dict(causal=cfg.causal, window=0, softcap=cfg.attn_softcap)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    errs, shares = [], []
+    for sd in FLASH_Q_SCALES:
+        q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev)
+                   .mul_(scale).to(cfg.dtype("compute"))
+                   for n, scale in ((h, sd), (kh, 1), (kh, 1)))
+        before = flash_attention.launches
+        with torch.no_grad():
+            got = attend(cfg, q, k, v).transpose(1, 2)
+        if flash_attention.launches != before + (dev.type == "cuda"):
+            raise AssertionError("blocks.attend did not launch the flash "
+                                 "kernel once")
+        want, tol = flash_bound(*(t.transpose(1, 2) for t in (q, k, v)), opt,
+                                FLASH_REL["bfloat16"])
+        err, share = flash_share(got, want, tol)
+        del q, k, v, got, want, tol
+        if not share <= 1:
+            raise AssertionError(f"flash_attention at the training shape, q "
+                                 f"std {sd:g}: max abs err {err}, "
+                                 f"{share:.3g} of the bound")
+        errs.append(err)
+        shares.append(share)
+    release(dev)
+    log(f"  [train] (c) flash at the step's shape (B {b}, H {h}/{kh}, S {s},"
+        f" hd {hd}, {cfg.compute_dtype}, causal, softcap "
+        f"{cfg.attn_softcap:g}) through blocks.attend against its plain "
+        f"version: max abs err {errs} at q std {list(FLASH_Q_SCALES)}, "
+        f"{max(shares):.3g} of the bound (rel {FLASH_REL['bfloat16']:g})")
+    return dict(max_abs_err=max(errs), share_of_bound=max(shares))
+
+
+def train_full(dev, seed: int) -> tuple:
+    """(c): Qwen3-1.7B at full width, the main path of the phase: the
+    launch counts are set to 0 before its steps and read after them.
+    Returns the counts and ``train_flash_check``'s result."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.data import LMDataConfig, lm_batch_at_step
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = C.get(TRAIN_ARCH).replace(remat="full", loss_chunk=512)
+    flash = train_flash_check(cfg, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = lm.init_params(cfg, gen, dev, trainable=True)
+    n_params = lm.count_params(model)
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, not "
+                             f"{TRAIN_PARAMS}")
+    opt_cfg = AdamWConfig()
+    opt = adamw_init(dict(model.named_parameters()), opt_cfg)
+    step = make_train_step(cfg, opt_cfg, dev)
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=TRAIN_LEN,
+                        global_batch=TRAIN_BATCH, seed=seed)
+    log(f"  [train] (c) {cfg.name}: {n_params} parameters ({cfg.n_layers} "
+        f"layers, d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+        f"{cfg.head_dim}, vocab {cfg.vocab}, tied), {cfg.param_dtype}, "
+        f"AdamW moments {opt_cfg.opt_dtype}; remat {cfg.remat}, loss_chunk "
+        f"{cfg.loss_chunk}; B {TRAIN_BATCH} x S {TRAIN_LEN}; state "
+        f"{memory_gib(dev):.2f} GiB")
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    losses, secs = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        batch = lm_batch_at_step(data, i)
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    peak = memory_gib(dev, peak=True)
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    want_flash = n_steps * 2 * cfg.n_layers      # forward + remat recompute
+    if dev.type == "cuda" and counts["flash_attention"] != want_flash:
+        raise AssertionError(f"{n_steps} steps launched the flash kernel "
+                             f"{counts['flash_attention']} times, not "
+                             f"{want_flash}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses not finite: {losses}")
+    timed = np.array(secs[TRAIN_WARMUP:])
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    flops = 6 * n_params * tokens + 6 * cfg.n_layers * TRAIN_BATCH \
+        * TRAIN_LEN ** 2 * cfg.n_heads * cfg.head_dim
+    bound_s = flops / TENSOR_BF16_FLOPS_PER_S
+    mean = float(timed.mean())
+    log(f"  [train] (c) losses {losses}; warm-up step {secs[0]:.3f} s, "
+        f"timed steps {[round(float(x) * 1e3, 1) for x in timed]} ms: mean "
+        f"{mean * 1e3:.1f} ms a step, {tokens / mean:.0f} tokens/s; peak "
+        f"device memory {peak:.2f} GiB; flash launches {want_flash} "
+        f"({2 * cfg.n_layers} a step: forward + remat recompute)")
+    log(f"  [train] (c) model FLOPs a step 6*N*T + 6*L*B*S^2*H*hd = "
+        f"{flops:.4g}; bound at {TENSOR_BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s "
+        f"bf16 {bound_s * 1e3:.1f} ms; share of it reached "
+        f"{bound_s / mean:.1%} ({flops / mean / 1e12:.1f} TFLOP/s)")
+    batch = lm_batch_at_step(data, n_steps)
+    p = train_shares(lambda: step(model, opt, batch), dev)
+    if not p["kernels"]:
+        log("  [train] (c) profile: the profiler saw no device kernels; "
+            "split not measured")
+    else:
+        busy = p["busy_ms"]
+        log(f"  [train] (c) profile of one more step: {p['kernels']} "
+            f"kernels, device busy {busy:.1f} ms: flash {p['flash']:.1f} ms "
+            f"({p['flash'] / busy:.1%}), attention backward recompute "
+            f"{p['recompute']:.1f} ms ({p['recompute'] / busy:.1%}, "
+            f"{p['ranges']} ranges), other matrix products "
+            f"{p['matmul']:.1f} ms ({p['matmul'] / busy:.1%}), rest "
+            f"{p['other']:.1f} ms ({p['other'] / busy:.1%}); device idle "
+            f"{1 - busy / (mean * 1e3):.1%} of the unprofiled {mean * 1e3:.1f}"
+            f" ms ({1 - busy / p['wall_ms']:.1%} of the profiled "
+            f"{p['wall_ms']:.1f} ms)")
+    del model, opt
+    release(dev)
+    return counts, flash
+
+
+def restart_check(dev, seed: int) -> None:
+    """(d): ``train(..., fail_at=k)`` then the same run again resumes from
+    its checkpoint; the resumed losses equal an uninterrupted run's bit for
+    bit.  Checkpoints go under the git-ignored ``build/`` and are removed."""
+    import contextlib
+    import io
+    import repro_torch.configs as C
+    from repro_torch.launch.train import preset_config, train
+    cfg = preset_config(C.get(TRAIN_ARCH), "100m")
+    root = ROOT / "build" / f"train-{os.getpid()}"
+    try:
+        t0 = time.perf_counter()
+        whole = train(cfg, out=str(root / "whole"), ckpt_every=10**9,
+                      seed=seed, device=dev, **RESTART)
+        t_whole = time.perf_counter() - t0
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            try:
+                train(cfg, out=str(root / "failed"), ckpt_every=RESTART_EVERY,
+                      fail_at=RESTART_FAIL_AT, seed=seed, device=dev,
+                      **RESTART)
+            except RuntimeError as e:
+                if "injected failure" not in str(e):
+                    raise
+            else:
+                raise AssertionError("fail_at did not stop the run")
+            rest = train(cfg, out=str(root / "failed"),
+                         ckpt_every=RESTART_EVERY, seed=seed, device=dev,
+                         **RESTART)
+        resumed = [ln for ln in printed.getvalue().splitlines()
+                   if "resumed" in ln]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    start = RESTART["steps"] - len(rest)
+    log(f"  [train] (d) {cfg.name} --preset 100m, {RESTART['steps']} steps "
+        f"of {RESTART['global_batch']} x {RESTART['seq_len']} "
+        f"({t_whole:.1f} s uninterrupted): failed before step "
+        f"{RESTART_FAIL_AT}, {resumed}; losses from step {start}: resumed "
+        f"{rest}, uninterrupted {whole[start:]}")
+    if rest != whole[start:] or start != RESTART_FAIL_AT \
+            - RESTART_FAIL_AT % RESTART_EVERY:
+        raise AssertionError("the resumed trajectory is not the "
+                             "uninterrupted one bit for bit")
+
+
+def drive_train(dev, rng, seed: int) -> dict:
+    errs = grad_check(dev, rng)
+    step_check(dev, seed)
+    counts, flash = train_full(dev, seed)
+    restart_check(dev, seed)
+    return counts, max(errs), flash
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the streaming refresh path (repro_torch.stream.StreamSession)
 # ---------------------------------------------------------------------------
 
@@ -3068,6 +3472,9 @@ def main(argv=None) -> int:
                     help="seed of the data and of phase 5's random weights")
     args = ap.parse_args(argv)
 
+    # cuBLAS's deterministic workspace, for the train steps' deterministic
+    # algorithms (phase 10 (d)); read when cuBLAS first runs
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3192,7 +3599,13 @@ def main(argv=None) -> int:
     ds = drive_distributed(dev, rng, docs, steps, mrbg_results, mrbg_s,
                            sssp_kept, pr_single)
     log(f"  phase 9 {time.perf_counter() - t9:.1f} s; launches {ds}")
-    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds)
+
+    log("phase 10: LM training (attention gradient and train steps against "
+        "the CPU; Qwen3-1.7B at full width; restart at --preset 100m)")
+    t10 = time.perf_counter()
+    tr, grad_err, train_flash = drive_train(dev, rng, args.seed)
+    log(f"  phase 10 {time.perf_counter() - t10:.1f} s; launches {tr}")
+    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -3269,12 +3682,22 @@ def main(argv=None) -> int:
                              "package's); held against its plain version "
                              "at PageRank's shapes")
         if name == "flash_attention":
+            entry["grad_rel_err_train"] = grad_err
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       train_flash["max_abs_err"])
+            entry["max_abs_err_train"] = train_flash["max_abs_err"]
+            entry["share_of_bound_train"] = train_flash["share_of_bound"]
             entry.update({n: t[n] for n in (
                 "shape", "share_of_bound", "moved_without_window",
                 "moved_without_softcap", "ms_local", "plain_ms_local",
                 "bound_ms_local", "ms_softcap0", "bound_ms_softcap0",
                 "ms_hd128", "library_ms_hd128", "bound_ms_hd128", "tflops",
                 "note")})
+            entry["note"] += (
+                "; *_train: phase 10 (c), the train step's own shape (B 2, "
+                "S 4096, H 16/8, hd 128, bf16, causal) through "
+                "blocks.attend, q std 1 and 20; max_abs_err: the largest of "
+                "phase 2's and these")
         kernels.append(entry)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3282,7 +3705,7 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
         f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}, "
-        f"serve {sv}, dql {dq}, distributed {ds}")
+        f"serve {sv}, dql {dq}, distributed {ds}, train {tr}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,5 @@
-"""repro_torch.data — the MapReduce engine's delta streams (the LM data
-helpers of ``repro.data`` are ROADMAP Queue 1 item 16b)."""
-from repro_torch.data.pipeline import DeltaStream  # noqa
+"""repro_torch.data — the LM's deterministic token batches and the
+MapReduce engine's delta streams."""
+from repro_torch.data.pipeline import (  # noqa
+    DeltaStream, LMDataConfig, lm_batch_at_step, lm_batches, synthetic_tokens,
+)

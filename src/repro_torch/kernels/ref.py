@@ -118,13 +118,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contract: q [B, H, S, hd], k/v [B, KH, S, hd] (GQA, H % KH == 0) at
     positions 0..S-1; scale 1/sqrt(hd), tanh softcap before the mask,
     masked scores at -2e38; the output in q's dtype.  Counterpart of
-    ``repro.kernels.ref.mha_ref``.  It holds the [B, H, S, S] scores."""
+    ``repro.kernels.ref.mha_ref``.  It holds the [B, H, S, S] scores (twice
+    while they are scaled: the product's output stays unchanged, as a
+    checkpoint that keeps matrix products, ``remat="dots"``, requires)."""
     b, h, sq, hd = q.shape
     kh, sk = k.shape[1], k.shape[2]
     rep = h // kh
     kx = k.float().repeat_interleave(rep, dim=1)
     vx = v.float().repeat_interleave(rep, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx).div_(hd ** 0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) / (hd ** 0.5)
     if softcap > 0:
         s.div_(softcap).tanh_().mul_(softcap)
     qp = torch.arange(sq, device=q.device)[:, None]

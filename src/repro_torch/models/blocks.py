@@ -6,12 +6,14 @@ and ``apply_<kind>(cfg, p, x, ...)`` on a :class:`Params` module holding
 those parameters.  Layout as the reference: activations [B, S, ...], q/k/v
 [B, S, heads, hd], ``wq`` [d, H, hd], ``wo`` [H, hd, d].
 
-``cache=None`` is a prefill over the whole sequence: queries and keys sit
-at positions 0..S-1 and attention runs the flash kernel
-(:func:`attend`).  A cache dict is a one-token decode step at the
-cache's position, attending over the cache with plain tensor code
-(:func:`_attend`), as the reference does with XLA.  The cache is updated
-in place.
+``cache=None`` is a prefill or a training pass over the whole sequence:
+queries and keys sit at positions 0..S-1 and attention runs the flash
+kernel (:func:`attend`); its gradient is that of the dense formula
+:func:`_attend`, recomputed from the saved q, k and v, which is what
+``jax.grad`` differentiates in the reference's train step.  A cache dict
+is a one-token decode step at the cache's position, attending over the
+cache with :func:`_attend`, as the reference does with XLA.  The cache is
+updated in place.
 
 Not ported yet: MLA, MoE, RG-LRU, mLSTM and sLSTM (ROADMAP.md Queue 1).
 """
@@ -32,14 +34,25 @@ from repro_torch.models.config import ModelConfig
 NEG = -2.0e38
 
 
-class Params(nn.Module):
-    """A block's parameters, one ``nn.Parameter`` per plan leaf (no
-    gradients: the port serves)."""
+# the largest float32 score block of the attention backward's recompute,
+# in bytes: a layer's kv heads go through it in groups whose [B, group, rep,
+# S, S] scores stay under this (a whole layer's take 1.07 GB a sequence at
+# S 4096, H 16)
+ATTN_BWD_SCORE_BYTES = 2**30
+# the profiler range around that recompute (``chip_smoke.py`` reads it)
+ATTN_BWD_RANGE = "attention_backward_recompute"
 
-    def __init__(self, tensors: Dict[str, torch.Tensor]):
+
+class Params(nn.Module):
+    """A block's parameters, one ``nn.Parameter`` per plan leaf; they take
+    gradients only when ``trainable`` (serving builds them without)."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor],
+                 trainable: bool = False):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name,
+                                    nn.Parameter(t, requires_grad=trainable))
 
 
 # ---------------------------------------------------------------------------
@@ -86,17 +99,55 @@ def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, window: int = 0):
     return out.reshape(b, s, h, v.shape[-1])
 
 
+class FlashAttend(torch.autograd.Function):
+    """Attention of a whole sequence whose forward is the flash kernel (its
+    plain version for CPU tensors) and whose gradient is the autograd of
+    the dense formula :func:`_attend` at positions 0..S-1, re-run on the
+    saved q, k and v (the reference has no backward kernel; ``jax.grad``
+    differentiates ``_attend``).  The recompute takes the kv heads in
+    groups (``ATTN_BWD_SCORE_BYTES``); heads are independent, so the
+    gradient is the whole formula's.  Under ``inference_mode`` nothing is
+    saved or recorded."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg: ModelConfig, window: int):
+        ctx.cfg, ctx.window = cfg, window
+        ctx.save_for_backward(q, k, v)
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=cfg.causal,
+                              window=window, softcap=cfg.attn_softcap)
+        return out.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        b, s, h, _ = q.shape
+        kh = k.shape[2]
+        rep = h // kh
+        group = max(1, min(kh, ATTN_BWD_SCORE_BYTES // (b * rep * s * s * 4)))
+        pos = torch.arange(s, dtype=torch.int32, device=q.device).expand(b, s)
+        grads = []
+        with torch.profiler.record_function(ATTN_BWD_RANGE), \
+                torch.enable_grad():
+            for j in range(0, kh, group):
+                heads = slice(j * rep, (j + group) * rep)
+                qkv = [t.detach().requires_grad_() for t in (
+                    q[:, :, heads], k[:, :, j:j + group], v[:, :, j:j + group])]
+                out = _attend(ctx.cfg, *qkv, pos, pos, ctx.window)
+                grads.append(torch.autograd.grad(out, qkv, dout[:, :, heads]))
+        dq, dk, dv = (torch.cat(g, dim=2) for g in zip(*grads))
+        return dq, dk, dv, None, None
+
+
 def attend(cfg: ModelConfig, q, k, v, window: int = 0):
     """Attention of a whole sequence, queries and keys at 0..S-1:
     q [B,S,H,hd], k/v [B,S,K,hd] -> [B,S,H,hd], through the flash kernel
-    (its plain version for CPU tensors) whatever ``cfg.attn_impl`` says."""
+    (its plain version for CPU tensors) whatever ``cfg.attn_impl`` says,
+    differentiable by :class:`FlashAttend`."""
     if q.shape[1] != k.shape[1]:
         raise ValueError(f"attend takes queries and keys of one sequence, "
                          f"got {q.shape[1]} and {k.shape[1]} positions")
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=cfg.causal, window=window,
-                          softcap=cfg.attn_softcap)
-    return out.transpose(1, 2)
+    return FlashAttend.apply(q, k, v, cfg, window)
 
 
 def prefill_positions(pos: Optional[torch.Tensor], b: int, s: int,

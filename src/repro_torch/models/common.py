@@ -117,3 +117,20 @@ def swiglu(x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     if kind == "geglu":
         return F.gelu(gate, approximate="tanh") * up
     return F.silu(gate) * up
+
+
+def masked_nll(logits: torch.Tensor, targets: torch.Tensor,
+               mask: torch.Tensor, logit_cap: float = 0.0) -> torch.Tensor:
+    """Summed negative log-likelihood in float32 after the logit softcap:
+    logits [..., V], targets int [...], mask [...] (weights, 0 or 1)."""
+    logits = softcap(logits.float(), logit_cap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return ((logz - gold) * mask.float()).sum()
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor, logit_cap: float = 0.0) -> torch.Tensor:
+    """Token-mean cross-entropy in float32 after the logit softcap."""
+    return masked_nll(logits, targets, mask, logit_cap) / torch.clamp(
+        mask.float().sum(), min=1.0)

@@ -7,12 +7,11 @@ fields keep the reference's names and defaults, so that ``cfg.replace``
 takes the same keywords; ``dtype()`` returns torch dtypes.
 
 Not carried over: ``ShardingRules`` and the ``sharding`` field (one card,
-no mesh), and the MoE, MLA and RG-LRU sub-configs, which come with their
-blocks.  ``attn_impl``, ``attn_block`` and ``loss_chunk`` are kept so
-that ``replace`` takes the reference's keywords, and nothing reads them:
-every cache-less attention runs the flash kernel whatever they say
-(``repro_torch.models.blocks.attend``), and the loss waits for the
-training slice.
+no mesh), ``scan_layers`` and ``moe_impl``, and the MoE, MLA and RG-LRU
+sub-configs, which come with their blocks.  ``attn_impl`` and
+``attn_block`` are kept so that ``replace`` takes the reference's
+keywords, and nothing reads them: every cache-less attention runs the
+flash kernel whatever they say (``repro_torch.models.blocks.attend``).
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
+REMATS = ("none", "full", "dots")
 
 
 @dataclass(frozen=True)
@@ -48,21 +48,28 @@ class ModelConfig:
     logit_softcap: float = 0.0              # gemma2
     local_window: int = 4096                # for "attn_local" blocks
     rope_theta: float = 10000.0
+    mtp: bool = False                       # DeepSeek multi-token prediction
     embed_inputs: bool = True
     # numerics
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    opt_dtype: str = "float32"              # read nowhere, as in the
+    #                                         reference: AdamWConfig decides
+    remat: str = "full"                     # full | dots | none
     attn_impl: str = "dense"                # inert (see above)
     attn_block: int = 1024                  # inert
-    loss_chunk: int = 0                     # inert
+    loss_chunk: int = 0                     # 0 = unchunked cross-entropy
     norm_eps: float = 1e-6
     post_norms: bool = False                # gemma2 pre+post norms
 
     def __post_init__(self):
-        for which in ("param", "compute"):
+        for which in ("param", "compute", "opt"):
             if getattr(self, which + "_dtype") not in DTYPES:
                 raise ValueError(f"{which}_dtype must be one of "
                                  f"{tuple(DTYPES)}")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got "
+                             f"{self.remat!r}")
 
     # ---- derived -------------------------------------------------------
     @property
@@ -116,4 +123,4 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     return cfg.replace(
         n_layers=max(len(cfg.block_pattern) + len(cfg.prefix_blocks), 2),
         d_model=64, n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2) or 1,
-        d_ff=128, vocab=256, head_dim=16, local_window=32)
+        d_ff=128, vocab=256, head_dim=16, local_window=32, remat="none")

@@ -1,31 +1,46 @@
-"""LM assembly: embedding, the layer stack, final norm, logits, decode.
+"""LM assembly: embedding, the layer stack, final norm, logits, the loss
+and decode.
 
-Counterpart of ``repro.models.lm`` for serving.  The reference scans
-stacked super-blocks (``jax.lax.scan``); here the stack is an
-``nn.ModuleList`` of ``cfg.n_layers`` blocks (prefix, ``cycles`` times the
-pattern, remainder), and a parameter's name is ``layers.<i>.<path>``.
+Counterpart of ``repro.models.lm``.  The reference scans stacked
+super-blocks (``jax.lax.scan``); here the stack is an ``nn.ModuleList`` of
+``cfg.n_layers`` blocks (prefix, ``cycles`` times the pattern, remainder),
+and a parameter's name is ``layers.<i>.<path>``.  With ``cfg.mtp`` the
+model also holds ``mtp_proj``, ``mtp_block.<path>`` and ``mtp_norm``.
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
 Caches are tensors updated in place by each decode step (the reference
 returns new ones); :func:`serve_step` returns the same dict it was given.
+Training: :func:`lm_loss` (chunked cross-entropy, multi-token prediction)
+on a model built with ``trainable=True``; ``cfg.remat`` checkpoints each
+layer (the reference checkpoints each scanned super-block, which holds
+the same layers).
 
-Not ported: ``lm_loss``, multi-token prediction, ``_remat`` and the
-sharding helpers (``param_specs``, ``param_shardings``, ``cache_specs``).
+Not ported: the sharding helpers (``param_specs``, ``param_shardings``,
+``cache_specs``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
-    ParamSpec, resolve_device, rms_norm, softcap, tree_init,
+    ParamSpec, cross_entropy, masked_nll, resolve_device, rms_norm, softcap,
+    tree_init,
 )
 from repro_torch.models.config import ModelConfig
 
 KINDS = ("attn_dense", "attn_local")
+# the ops whose outputs remat="dots" keeps (jax's checkpoint_dots: every
+# matrix product); the rest of a layer is recomputed in the backward
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +83,11 @@ def plan_model(cfg: ModelConfig) -> Dict[str, ParamSpec]:
             if body and s.init == "normal":
                 s = s._replace(fan_in=cfg.cycles)
             plan[f"layers.{i}.{name}"] = s
+    if cfg.mtp:
+        plan["mtp_proj"] = ParamSpec((2 * d, d))
+        plan.update((f"mtp_block.{n}", s)
+                    for n, s in plan_block(cfg, "attn_dense").items())
+        plan["mtp_norm"] = ParamSpec((d,), "zeros")
     return plan
 
 
@@ -84,21 +104,24 @@ class Block(nn.Module):
     """One layer's parameters: ``attn`` then ``ffn``, and its ``kind``
     (``attn_local`` attends within the local window)."""
 
-    def __init__(self, kind: str, tensors: Dict[str, torch.Tensor]):
+    def __init__(self, kind: str, tensors: Dict[str, torch.Tensor],
+                 trainable: bool = False):
         super().__init__()
         _check_kind(kind)
         self.kind = kind
-        self.attn = B.Params(_sub(tensors, "attn."))
-        self.ffn = B.Params(_sub(tensors, "ffn."))
+        self.attn = B.Params(_sub(tensors, "attn."), trainable)
+        self.ffn = B.Params(_sub(tensors, "ffn."), trainable)
 
 
 class LM(nn.Module):
     """The model: ``embed``, ``layers``, ``final_norm`` (and ``head`` when
-    embeddings are not tied), built from tensors named as
-    :func:`plan_model` names them; any leaf missing, left over or of
-    another shape raises."""
+    embeddings are not tied; ``mtp_proj``, ``mtp_block``, ``mtp_norm``
+    with ``cfg.mtp``), built from tensors named as :func:`plan_model`
+    names them; any leaf missing, left over or of another shape raises.
+    The parameters take gradients only when ``trainable``."""
 
-    def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor]):
+    def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor],
+                 trainable: bool = False):
         super().__init__()
         plan = plan_model(cfg)
         missing = sorted(plan.keys() - tensors.keys())
@@ -112,13 +135,16 @@ class LM(nn.Module):
         if bad:
             raise ValueError(f"parameters of the wrong shape: {bad[:8]}")
         self.cfg = cfg
-        for name in ("embed", "final_norm", "head"):
+        for name in ("embed", "final_norm", "head", "mtp_proj", "mtp_norm"):
             if name in tensors:
                 self.register_parameter(
-                    name, nn.Parameter(tensors[name], requires_grad=False))
+                    name, nn.Parameter(tensors[name], requires_grad=trainable))
         self.layers = nn.ModuleList(
-            Block(kind, _sub(tensors, f"layers.{i}."))
+            Block(kind, _sub(tensors, f"layers.{i}."), trainable)
             for i, kind in enumerate(cfg.layer_kinds))
+        if cfg.mtp:
+            self.mtp_block = Block("attn_dense", _sub(tensors, "mtp_block."),
+                                   trainable)
 
     @property
     def device(self) -> torch.device:
@@ -141,15 +167,35 @@ def apply_block(cfg: ModelConfig, kind: str, p, x, pos, cache):
     return x, ({"attn": c} if cache else None)
 
 
+def _layer(cfg: ModelConfig, layer: Block, x: torch.Tensor) -> torch.Tensor:
+    return apply_block(cfg, layer.kind, layer, x, None, None)[0]
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``: ``none`` keeps every activation for the
+    backward; ``full`` keeps only the input and recomputes ``fn`` in the
+    backward; ``dots`` keeps the matrix products' outputs too and
+    recomputes the rest (``jax.checkpoint_policies.checkpoint_dots``)."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOTS)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
             pos: Optional[torch.Tensor] = None,
             caches: Optional[Dict[str, Any]] = None):
     """inputs: token ids [B, S].  Returns (hidden [B, S, d], caches).
 
-    Without caches this is a prefill: positions are 0..S-1 (``pos`` None,
-    or exactly that) and every attention layer runs the flash kernel.  With
-    caches, one decode step at ``caches["pos"]`` (or ``pos``); the caches
-    are updated in place and ``caches["pos"]`` advances by one.
+    Without caches this is a prefill or a training pass: positions are
+    0..S-1 (``pos`` None, or exactly that), every attention layer runs the
+    flash kernel, and, where autograd records, each layer runs under
+    ``cfg.remat``.  With caches, one decode step at ``caches["pos"]`` (or
+    ``pos``); the caches are updated in place and ``caches["pos"]``
+    advances by one.
     """
     b, s = inputs.shape[:2]
     x = params.embed[inputs.long()].to(cfg.dtype("compute"))
@@ -157,12 +203,14 @@ def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
     if caches is None:
         B.prefill_positions(pos, b, s, x.device)
         pos = None                         # checked once, not per layer
-    elif pos is None:
-        pos = caches["pos"].expand(b, s)
-    for i, layer in enumerate(params.layers):
-        c = caches["layers"][i] if caches is not None else None
-        x, _ = apply_block(cfg, layer.kind, layer, x, pos, c)
-    if caches is not None:
+        run = _remat(cfg, _layer) if torch.is_grad_enabled() else _layer
+        for layer in params.layers:
+            x = run(cfg, layer, x)
+    else:
+        if pos is None:
+            pos = caches["pos"].expand(b, s)
+        for layer, c in zip(params.layers, caches["layers"]):
+            x, _ = apply_block(cfg, layer.kind, layer, x, pos, c)
         caches["pos"].add_(1)
     return rms_norm(x, params.final_norm, cfg.norm_eps), caches
 
@@ -171,6 +219,56 @@ def logits_fn(cfg: ModelConfig, params: LM, hidden: torch.Tensor):
     if cfg.tie_embeddings:
         return hidden @ params.embed.to(hidden.dtype).t()
     return hidden @ params.head.to(hidden.dtype)
+
+
+def _chunk_nll(cfg: ModelConfig, params: LM, h: torch.Tensor,
+               t: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Summed NLL of one chunk from its logits in the compute dtype."""
+    return masked_nll(logits_fn(cfg, params, h), t, m, cfg.logit_softcap)
+
+
+def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]):
+    """The training loss of ``batch`` ({"inputs", "targets", "mask"} [B, S],
+    optional "pos", which must be None or 0..S-1): the token-mean
+    cross-entropy, float32.
+
+    When ``cfg.loss_chunk`` divides S and is smaller, the cross-entropy
+    goes ``loss_chunk`` positions at a time and the [B, S, V] logits are
+    never materialised: each chunk's logits are recomputed in the backward
+    (a checkpoint around the chunk).  With ``cfg.mtp``, one more
+    ``attn_dense`` block predicts token t+2 from [h_t ; emb(tok_{t+1})]
+    and adds 0.3 times its cross-entropy (DeepSeek-V3).
+    """
+    inputs, targets, mask = batch["inputs"], batch["targets"], batch["mask"]
+    hidden, _ = forward(cfg, params, inputs, batch.get("pos"))
+    s, chunk = hidden.shape[1], cfg.loss_chunk
+    if chunk and s % chunk == 0 and s > chunk:
+        nll = functools.partial(checkpoint, _chunk_nll, use_reentrant=False) \
+            if torch.is_grad_enabled() else _chunk_nll
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c in range(0, s, chunk):
+            m = mask[:, c:c + chunk].float()
+            tot = tot + nll(cfg, params, hidden[:, c:c + chunk],
+                            targets[:, c:c + chunk], m)
+            cnt = cnt + m.sum()
+        loss = tot / torch.clamp(cnt, min=1.0)
+    else:
+        loss = cross_entropy(logits_fn(cfg, params, hidden), targets, mask,
+                             cfg.logit_softcap)
+
+    if cfg.mtp:
+        nxt = params.embed[targets.long()].to(hidden.dtype)
+        h2 = torch.cat([hidden, nxt], dim=-1) @ params.mtp_proj.to(
+            hidden.dtype)
+        h2, _ = apply_block(cfg, "attn_dense", params.mtp_block, h2, None,
+                            None)
+        h2 = rms_norm(h2, params.mtp_norm, cfg.norm_eps)
+        t2 = torch.cat([targets[:, 1:], targets[:, -1:]], dim=1)
+        m2 = torch.cat([mask[:, :-1], torch.zeros_like(mask[:, :1])],
+                       dim=1).float()
+        loss = loss + 0.3 * cross_entropy(logits_fn(cfg, params, h2), t2, m2,
+                                          cfg.logit_softcap)
+    return loss
 
 
 def serve_step(cfg: ModelConfig, params: LM, caches: Dict[str, Any],
@@ -188,13 +286,13 @@ def serve_step(cfg: ModelConfig, params: LM, caches: Dict[str, Any],
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> LM:
+                device="cuda", trainable: bool = False) -> LM:
     """Random weights with the reference's distribution, drawn from
     ``generator`` (on its own device; pass one on the target device to
     draw there).  ``device="meta"`` gives the shapes without drawing."""
     dev = resolve_device(device)
     return LM(cfg, tree_init(plan_model(cfg), generator, cfg.dtype("param"),
-                             dev))
+                             dev), trainable)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,0 +1,95 @@
+"""AdamW with gradient clipping and the warm-up + cosine schedule.
+
+Counterpart of ``repro.optim.adamw``, with the reference's formula (not
+``torch.optim.AdamW``, which decays the weights by ``p *= 1 - lr * wd``
+and has no schedule): the update in float32, weight decay added to the
+step before ``lr`` multiplies it, bias correction with the step as a
+float32, the clip by the global norm, the cast back to each leaf's dtype.
+
+Parameters, gradients and moments are dicts keyed by the port's parameter
+names (``layers.3.attn.wq``); the state is ``{"m", "v", "step"}`` with
+``step`` an int32 scalar tensor.  :func:`adamw_update` writes the new
+parameters and moments in place, leaf by leaf (the reference returns new
+trees), so a step holds one leaf's float32 temporaries, not a second copy
+of the state.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict
+
+import torch
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup: int = 100
+    total_steps: int = 10000
+    opt_dtype: torch.dtype = torch.float32
+
+
+def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """The learning rate at ``step`` (an int or an integer tensor), float32:
+    a linear warm-up to ``lr`` over ``warmup`` steps, then half a cosine
+    down to 0 at ``total_steps``."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup) / max(cfg.total_steps - cfg.warmup, 1),
+                    0.0, 1.0)
+    return cfg.lr * warm * (0.5 * (1.0 + torch.cos(math.pi * t)))
+
+
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32."""
+    sums = [leaf.float().square().sum() for leaf in tree.values()]
+    return torch.sqrt(sum(sums[1:], sums[0]))
+
+
+def adamw_init(params: Dict[str, torch.Tensor], cfg: AdamWConfig):
+    """Zero moments in ``cfg.opt_dtype`` beside each parameter, step 0."""
+    dev = next(iter(params.values())).device if params else None
+    return {
+        "m": {n: torch.zeros(p.shape, dtype=cfg.opt_dtype, device=p.device)
+              for n, p in params.items()},
+        "v": {n: torch.zeros(p.shape, dtype=cfg.opt_dtype, device=p.device)
+              for n, p in params.items()},
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+@torch.no_grad()
+def adamw_update(grads: Dict[str, torch.Tensor], opt_state,
+                 params: Dict[str, torch.Tensor], cfg: AdamWConfig):
+    """One AdamW step: ``params`` and the moments of ``opt_state`` are
+    updated in place.  Returns ``(params, opt_state, {"grad_norm", "lr"})``
+    with ``opt_state["step"]`` a new tensor one higher."""
+    step = opt_state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0) if cfg.clip_norm > 0 else 1.0
+    lr = cosine_schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(torch.float32)
+    corr1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                       device=stepf.device), stepf)
+    corr2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                       device=stepf.device), stepf)
+    for name, p in params.items():
+        m, v = opt_state["m"][name], opt_state["v"][name]
+        g = grads[name].float() * scale
+        m2 = b1 * m.float() + (1 - b1) * g
+        v2 = b2 * v.float() + (1 - b2) * g.square()
+        delta = (m2 / corr1) / ((v2 / corr2).sqrt() + cfg.eps) \
+            + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        m.copy_(m2)
+        v.copy_(v2)
+    return params, {"m": opt_state["m"], "v": opt_state["v"],
+                    "step": step}, {"grad_norm": gnorm, "lr": lr}

@@ -12,8 +12,17 @@ its plain version: rel 2^-7 in bf16 (P and the output rounded to bf16),
 2e-5 times the scores' scale in float32 (the same arithmetic in another
 order; chip_smoke.FLASH_REL gives the reasons).  The LM on the card holds
 within 2e-4 of the largest logit of the same weights on the CPU, in
-float32.
+float32.  Training, in float32: the attention's q, k, v gradients within
+1e-4 of their largest value of the CPU's (the same dense formula, sums in
+another order; chip_smoke.GRAD_REL), and a train step's loss and grad
+norm within 1e-5, its parameters within lr / 10 (chip_smoke.STEP_TOL,
+STEP_PARAM_TOL give the reasons).  The train step runs with PyTorch's
+deterministic algorithms, which refuse cuBLAS without
+``CUBLAS_WORKSPACE_CONFIG``: it is set here, before any test reaches
+cuBLAS.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -31,10 +40,14 @@ from repro_torch.kernels.segment_reduce import (
 from repro_torch.kernels import sort_u32
 from repro_torch.kernels.sort_u32 import sort_lex
 from repro_torch.kernels.spmv_ell import spmv_ell
-from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models import lm
+from repro_torch.launch.steps import (
+    make_prefill_step, make_serve_step, make_train_step,
+)
+from repro_torch.models import blocks, lm
+from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.models.config import smoke_config
 
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 INT32_MAX = 2**31 - 1
 pytestmark = pytest.mark.cuda
 
@@ -488,6 +501,72 @@ def test_lm_on_card_launches_flash_and_matches_cpu(cuda, arch):
         scale = max(1.0, float(want.abs().max()))
         assert float((got.cpu() - want).abs().max()) / scale < 2e-4, t
     assert flash_attention.launches == before       # decode: plain code
+
+
+@pytest.mark.parametrize("arch,window", [("gemma2_9b", 0), ("gemma2_9b", 32),
+                                         ("qwen3_1_7b", 0)])
+def test_attention_gradient_on_card_matches_cpu(cuda, arch, window):
+    """blocks.attend's gradient: one flash launch a forward, none in the
+    backward (the dense formula's autograd), equal to the CPU's."""
+    cfg = C.get(arch).replace(param_dtype="float32", compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    b, s, h, kh, hd = 1, 128, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    host = [torch.from_numpy(rng.normal(0, std, (b, s, n, hd)).astype(
+        np.float32)) for std, n in ((8.0, h), (1.0, kh), (1.0, kh),
+                                    (1.0, h))]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (t.to(dev).requires_grad_() for t in host[:3])
+        before = flash_attention.launches
+        out = blocks.attend(cfg, q, k, v, window)
+        grads[dev.type] = torch.autograd.grad(out, (q, k, v),
+                                              host[3].to(dev))
+        assert flash_attention.launches == before + (dev.type == "cuda")
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert float((got.cpu() - want).abs().max()) \
+            <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["gemma2_9b", "qwen3_1_7b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step (remat full, chunked loss): 2 flash launches a layer
+    (forward and recompute); loss, grad norm and parameters as the CPU's."""
+    cfg = smoke_config(C.get(arch)).replace(
+        param_dtype="float32", compute_dtype="float32", remat="full",
+        loss_chunk=16)
+    host = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if arch == "gemma2_9b":
+        # body matrices at 1/sqrt(input width), as chip_smoke.parity_model:
+        # the reference's draw makes the smoke Gemma 2 chaotic, and two
+        # devices' roundings part ways (an H100 80GB HBM3 and the CPU: grad
+        # norms 3.4e-5 of themselves apart)
+        with torch.no_grad():
+            for n, p in host.named_parameters():
+                if n.startswith("layers.") and p.ndim >= 2:
+                    p /= (p.shape[0] * p.shape[1] if n.endswith(".wo")
+                          else p.shape[0]) ** 0.5
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (2, 65)).astype(np.int32)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:],
+             "mask": rng.random((2, 64)) < 0.9}
+    opt_cfg = AdamWConfig(lr=3e-4, warmup=1, total_steps=10)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = lm.LM(cfg, {n: p.detach().to(dev).clone()
+                            for n, p in host.named_parameters()},
+                      trainable=True)
+        opt = adamw_init(dict(model.named_parameters()), opt_cfg)
+        before = flash_attention.launches
+        model, opt, m = make_train_step(cfg, opt_cfg, dev)(model, opt, batch)
+        launched = flash_attention.launches - before
+        assert launched == (2 * cfg.n_layers if dev.type == "cuda" else 0)
+        out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                         {n: p.detach().cpu()
+                          for n, p in model.named_parameters()})
+    (gl, gn, gp), (wl, wn, wp) = out["cuda"], out["cpu"]
+    assert abs(gl - wl) <= 1e-5 and abs(gn - wn) <= 1e-5 * wn
+    for n in wp:
+        assert float((gp[n] - wp[n]).abs().max()) <= opt_cfg.lr / 10, n
 
 
 # ---------------------------------------------------------------------------

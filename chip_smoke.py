@@ -91,6 +91,19 @@ Runs on one CUDA card, from the root of a checkout:
      share), the model FLOPs' bound at the bf16 peak; (d) ``train(...,
      fail_at=3)`` at ``--preset 100m`` then resumed: the resumed losses
      equal an uninterrupted run's bit for bit.
+ 11. drives the other attention-only archs at full width, bf16, one model
+     on the card at a time, weights from ``parity_model``: (a) Mistral
+     NeMo 12B and (b) StableLM 12B (hd 160: flash on the mma.sync
+     kernel), two prefills of 2 x 8192 tokens and the decode-versus-
+     prefill parity over 2 x 64 tokens (64 timed decode steps) within
+     ``parity_bound``; (c) Chameleon 34B (qk-norm, 68.6 GB of weights),
+     1 x 4096 and 1 x 16; (d) HuBERT X-Large (hd 80, not causal, frame
+     embeddings in): the forward over 2 x 4096 frames in bf16 against
+     float32 within ``parity_bound(48)``, the same run causal past that
+     bound, 3 train steps through ``launch.train.train`` and its frontend
+     stub (losses finite), and its smoke config at hd 80: loss and every
+     gradient on the card against the CPU.  Phase 2 also holds flash at
+     hd 80 and 160 and times HuBERT's and StableLM's layers beside SDPA.
 
 The kernels' launch counts are set to 0 before each path and read after
 it.  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
@@ -172,6 +185,21 @@ FLASH_MAIN = (2, 16, 8, 8192, 256)           # B, H, KH, S, hd
 # Qwen3-1.7B's attention (hd 128, H 16, KH 8, no softcap, global) at the
 # same prefill: the other head dim the serving path takes
 FLASH_QWEN = (2, 16, 8, 8192, 128)
+# the head dims that only the mma.sync kernel takes in bf16, and their
+# layers: HuBERT X-Large at train_4k's sequence (not causal, KH = H) and
+# StableLM 12B at phase 11's prefill (causal, GQA); no softcap, no window
+FLASH_NEW_HDS = (80, 160)
+FLASH_HUBERT = (2, 16, 16, 4096, 80)         # B, H, KH, S, hd
+FLASH_STABLELM = (2, 32, 8, 8192, 160)
+# the wgmma kernel at phase 11's other layers (hd 128, H / KH = 4 and 8):
+# Mistral NeMo 12B at its prefill and Chameleon 34B at its
+FLASH_MISTRAL = (2, 32, 8, 8192, 128)
+FLASH_CHAMELEON = (1, 64, 8, 4096, 128)
+# label, shape, causal: the layers timed after the main shape
+FLASH_LAYERS = (("hd128", FLASH_QWEN, True), ("hd80", FLASH_HUBERT, False),
+                ("hd160", FLASH_STABLELM, True),
+                ("hd128_mistral", FLASH_MISTRAL, True),
+                ("hd128_chameleon", FLASH_CHAMELEON, True))
 # LM serving: Gemma 2 9B at full width (arXiv:2408.00118), bf16; prefill
 # of 2 requests at its context length, decode as examples/serve_lm.py
 LM_ARCH = "gemma2_9b"
@@ -767,7 +795,11 @@ def check_flash_attention(dev, rng) -> None:
     on and off; q at std 1 and 20.  Then Qwen3-1.7B's heads (hd 128, H 16,
     KH 8) at S of 1, 127, 128, 129 (around the bf16 kernel's 128-row q
     tile and 128-key tile) and 200 (no multiple of 64), with windows of 20
-    and 50 keys (under one key tile) besides the options above."""
+    and 50 keys (under one key tile) besides the options above.  Then
+    HuBERT X-Large's hd 80 and StableLM 12B's hd 160 (bf16 on the mma.sync
+    kernel): KH 8, 4, 1 of H 8 at S of 1, 63, 64, 65 (around that
+    kernel's 64-row q tile and 64-key tile), 100 and 333, with the same
+    options."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     options = (dict(causal=True), dict(causal=True, window=20),
@@ -779,6 +811,8 @@ def check_flash_attention(dev, rng) -> None:
               for kh in (8, 4, 1) for s in (1, 100, 333)]
     qwen = options + (dict(causal=True, window=50),)
     shapes += [(16, 128, 8, s, qwen) for s in (1, 127, 128, 129, 200)]
+    shapes += [(8, hd, kh, s, options) for hd in FLASH_NEW_HDS
+               for kh in (8, 4, 1) for s in (1, 63, 64, 65, 100, 333)]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         worst, worst_share = 0.0, 0.0
@@ -804,7 +838,8 @@ def check_flash_attention(dev, rng) -> None:
         log(f"  flash_attention {dtype}: q std 1/20, hd 64/128/256, KH 8/4/1 "
             f"of H 8, S 1/100/333, causal or not, window 20/100, softcap "
             f"0/30/50; hd 128 H 16 KH 8 at S 1/127/128/129/200, window "
-            f"20/50: max abs err {worst:.3g}, at most {worst_share:.3g} of "
+            f"20/50; hd 80/160, KH 8/4/1 of H 8, S 1/63/64/65/100/333: max "
+            f"abs err {worst:.3g}, at most {worst_share:.3g} of "
             f"the bound {FLASH_REL[name]:.3g}"
             f"{' x q std' if dtype == torch.float32 else ''} (|plain| + A)")
 
@@ -823,7 +858,11 @@ def time_flash_attention(dev) -> dict:
     PyTorch call computes softcap 50).  q is drawn at std 20, so the
     softcap and the window act; each is shown to move most outputs past
     the bound the kernel is held to (the plain version without it).  Then
-    (d) Qwen3-1.7B's heads (``FLASH_QWEN``: hd 128, softcap 0) beside
+    (d) Qwen3-1.7B's heads (``FLASH_QWEN``: hd 128, softcap 0), HuBERT
+    X-Large's layer (``FLASH_HUBERT``: hd 80, not causal), StableLM
+    12B's (``FLASH_STABLELM``: hd 160), Mistral NeMo 12B's
+    (``FLASH_MISTRAL``) and Chameleon 34B's (``FLASH_CHAMELEON``), each
+    held within ``flash_bound`` and timed beside its plain version and
     SDPA."""
     import torch
     import torch.nn.functional as F
@@ -873,30 +912,38 @@ def time_flash_attention(dev) -> dict:
             res[label]["plain_ms"] = cuda_ms(plain)
         res[label]["tflops"] = flops / res[label]["ms"] / 1e9
         torch.cuda.empty_cache()
-    # Qwen3-1.7B's shape: hd 128, softcap 0, beside SDPA
     del q, k, v
-    b, h, kh, s, hd = FLASH_QWEN
-    q, k, v = (torch.randn((b, n, s, hd), generator=gen, device=dev).mul_(
-        sd).to(torch.bfloat16)
-        for n, sd in ((h, FLASH_Q_SCALES[-1]), (kh, 1), (kh, 1)))
-    fn = lambda: flash_attention(q, k, v)
-    want, tol = flash_bound(q, k, v, {}, FLASH_REL["bfloat16"])
-    err, share = flash_share(fn(), want, tol)
-    if not share <= 1:
-        raise AssertionError(f"flash_attention hd 128 shape: max abs err "
-                             f"{err}, {share:.3g} of the bound")
-    del want, tol
-    flops = 4 * b * h * hd * keys_in_range(s, 0)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    res["hd128"] = dict(
-        max_abs_err=err, share_of_bound=share, ms=cuda_ms(fn),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
-        **bound(nbytes, flops, TENSOR_BF16_FLOPS_PER_S))
-    res["hd128"]["tflops"] = flops / res["hd128"]["ms"] / 1e9
-    del q, k, v
-    torch.cuda.empty_cache()
-    a, g, c, d = (res[n] for n in ("local", "global", "softcap0", "hd128"))
+    # Qwen3-1.7B's heads, the mma.sync kernel's dims and phase 11's hd 128
+    # layers, each at its arch's layer, beside their plain version and
+    # SDPA (softcap 0, window 0: the layers' own options)
+    for label, (b, h, kh, s, hd), causal in FLASH_LAYERS:
+        q, k, v = (torch.randn((b, n, s, hd), generator=gen, device=dev)
+                   .mul_(sd).to(torch.bfloat16)
+                   for n, sd in ((h, FLASH_Q_SCALES[-1]), (kh, 1), (kh, 1)))
+        opt = dict(causal=causal)
+        fn = lambda: flash_attention(q, k, v, **opt)
+        want, tol = flash_bound(q, k, v, opt, FLASH_REL["bfloat16"])
+        err, share = flash_share(fn(), want, tol)
+        if not share <= 1:
+            raise AssertionError(f"flash_attention {label} shape: max abs "
+                                 f"err {err}, {share:.3g} of the bound")
+        del want, tol
+        keys = keys_in_range(s, 0) if causal else s * s
+        flops = 4 * b * h * hd * keys
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        res[label] = dict(
+            max_abs_err=err, share_of_bound=share, ms=cuda_ms(fn),
+            plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, **opt)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=kh != h)),
+            **bound(nbytes, flops, TENSOR_BF16_FLOPS_PER_S))
+        res[label]["tflops"] = flops / res[label]["ms"] / 1e9
+        del q, k, v
+        torch.cuda.empty_cache()
+    a, g, c = (res[n] for n in ("local", "global", "softcap0"))
+    dims = {f"{key}_{label}": res[label][key]
+            for label, _, _ in FLASH_LAYERS
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return dict(
         shape=("B={} H={} KH={} S={} hd={} bf16, causal, softcap 50, q std "
                "{:g}".format(*FLASH_MAIN, FLASH_Q_SCALES[-1])),
@@ -908,8 +955,7 @@ def time_flash_attention(dev) -> dict:
         bound_by=g["bound_by"], library_ms=c["library_ms"],
         ms_local=a["ms"], plain_ms_local=a["plain_ms"],
         bound_ms_local=a["bound_ms"], ms_softcap0=c["ms"],
-        bound_ms_softcap0=c["bound_ms"], ms_hd128=d["ms"],
-        library_ms_hd128=d["library_ms"], bound_ms_hd128=d["bound_ms"],
+        bound_ms_softcap0=c["bound_ms"], **dims,
         tflops={n: r["tflops"] for n, r in res.items()},
         note=("ms, plain_ms, bound_ms: a global layer (window 0, softcap "
               "50); *_local: a local layer (window 4096); library_ms: "
@@ -917,7 +963,14 @@ def time_flash_attention(dev) -> dict:
               "softcap 0, beside ms_softcap0 (the kernel there): no one "
               "PyTorch call computes softcap 50; *_hd128: Qwen3-1.7B's "
               "heads (hd 128, softcap 0) at the same B and S, SDPA beside; "
-              "share_of_bound: the largest |kernel - plain| / (2^-7 "
+              "*_hd80: HuBERT X-Large's layer (B 2, H = KH = 16, S 4096, "
+              "not causal), *_hd160: StableLM 12B's (B 2, H 32, KH 8, S "
+              "8192, causal), both on the mma.sync kernel; "
+              "*_hd128_mistral: Mistral NeMo 12B's layer (B 2, H 32, KH "
+              "8, S 8192, causal), *_hd128_chameleon: Chameleon 34B's (B "
+              "1, H 64, KH 8, S 4096, causal); softcap 0, library: SDPA; "
+              "share_of_bound: the largest |kernel - "
+              "plain| / (2^-7 "
               "(|plain| + A)); moved_*: share of the outputs the plain "
               "version without that option moves past the bound"))
 
@@ -2325,6 +2378,308 @@ def drive_train(dev, rng, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the other attention-only archs at full width (Mistral NeMo 12B,
+# StableLM 12B, Chameleon 34B, HuBERT X-Large)
+# ---------------------------------------------------------------------------
+
+# (a)-(c): arch, prefill (B, S), decode-versus-prefill parity (B, tokens:
+# one decode step a token).  Cuts: Mistral NeMo's 128k context and the
+# prefill_32k cell's 32,768 to 8,192 (phase 5's prefill); Chameleon's
+# weights (68.6 GB in bf16) leave about 10 GB of the card, so its prefill
+# is cut to 1 x 4,096 and its parity to 1 x 16 tokens.  The timed decode
+# is phase 5's (DECODE_BATCH requests, a PROMPT_LEN prompt stepped into the
+# cache, GEN_LEN greedy steps): decode_32k's batch of 128 and cache of
+# 32,768 cut to 4 and 40.
+ARCH_RUNS = (("mistral_nemo_12b", (2, 8192), (2, 64)),
+             ("stablelm_12b", (2, 8192), (2, 64)),
+             ("chameleon_34b", (1, 4096), (1, 16)))
+ARCH_PREFILL_CALLS = 2
+# (d) HuBERT X-Large: the forward over frame embeddings at train_4k's
+# sequence, its global batch of 256 cut to 2; 3 train steps at the same
+# shape through ``launch.train.train`` and its frontend stub; the gradient
+# of its smoke config at hd 80 (S 64) on the card against the CPU
+HUBERT_SHAPE = (2, 4096)
+HUBERT_TRAIN_STEPS = 3
+HUBERT_GRAD_SHAPE = (2, 64)
+
+
+def parity_bound(n_layers: int) -> float:
+    """Phase 5's bf16 bound at ``n_layers``: about 4 roundings to 8 bits a
+    layer in which two paths differ, adding up like a random walk to
+    sqrt(4 L) 2^-8 of the logit scale; twice that (0.099 at 40 layers,
+    0.108 at 48).  A wrong cache slot or mask moves the logits by their
+    whole scale."""
+    return 2 * math.sqrt(4 * n_layers) * 2.0**-8
+
+
+def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape) -> dict:
+    """(a)-(c): one decoder at full width, bf16, weights from
+    ``parity_model``.  The main path, with the counts set to 0 before it
+    and read after it: ``make_prefill_step`` twice on random tokens (one
+    flash launch a layer), then phase 5's decode (a prompt stepped into
+    the cache, greedy steps timed).  Then the decode-versus-prefill
+    parity, a check whose forward's flash launches are not counted."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import lm
+    cfg = C.get(arch)
+    t0 = time.perf_counter()
+    model = parity_model(cfg, gen, dev)
+    sync(dev)
+    log(f"  [arch] {cfg.name}: {lm.count_params(model)} parameters "
+        f"({cfg.n_layers} layers, d {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, qk-norm {cfg.qk_norm}, rope theta "
+        f"{cfg.rope_theta:g}), {cfg.param_dtype}, drawn in "
+        f"{time.perf_counter() - t0:.3f} s; {memory_gib(dev):.2f} GiB")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    b, s = prefill_shape
+    prefill = make_prefill_step(cfg, dev)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+    secs = []
+    for _ in range(ARCH_PREFILL_CALLS):
+        t0 = time.perf_counter()
+        logits = prefill(model, {"inputs": toks})
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+        if tuple(logits.shape) != (b, 1, cfg.vocab) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name} prefill logits "
+                                 f"{tuple(logits.shape)}: not [{b}, 1, "
+                                 f"{cfg.vocab}] finite values")
+    n_flash = launch_counts()["flash_attention"]
+    del logits, toks
+    serve = make_serve_step(cfg, dev)
+    caches = lm.init_caches(cfg, DECODE_BATCH, PROMPT_LEN + GEN_LEN,
+                            device=dev)
+    prompts = torch.randint(0, cfg.vocab, (DECODE_BATCH, PROMPT_LEN),
+                            generator=gen, device=dev, dtype=torch.int32)
+    for t in range(PROMPT_LEN):
+        logits, caches = serve(model, caches, prompts[:, t:t + 1])
+    steps = []
+    for _ in range(GEN_LEN):
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        t0 = time.perf_counter()
+        logits, caches = serve(model, caches, tok)
+        sync(dev)
+        steps.append(time.perf_counter() - t0)
+    if int(caches["pos"]) != PROMPT_LEN + GEN_LEN \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} decode: cache at "
+                             f"{int(caches['pos'])}, logits not finite")
+    counts = launch_counts()
+    peak = memory_gib(dev, peak=True)
+    del caches, logits
+    pb, pn = parity_shape
+    ptoks = torch.randint(0, cfg.vocab, (pb, pn), generator=gen, device=dev,
+                          dtype=torch.int32)
+    err = decode_vs_prefill(cfg, model, ptoks, dev)
+    tol = parity_bound(cfg.n_layers)
+    steps = np.array(steps)
+    log(f"  [arch] {cfg.name} prefill {b} x {s}: "
+        + ", ".join(f"{t:.3f} s ({b * s / t:.0f} tokens/s)" for t in secs)
+        + f"; flash launches {n_flash} ({cfg.n_layers} a prefill); decode "
+        f"{DECODE_BATCH} requests, prompt of {PROMPT_LEN} tokens, "
+        f"{GEN_LEN} greedy steps (cache at {PROMPT_LEN + 1}-"
+        f"{PROMPT_LEN + GEN_LEN}): median {np.median(steps) * 1e3:.2f} ms a "
+        f"step (min {steps.min() * 1e3:.2f}, max {steps.max() * 1e3:.2f});"
+        f" peak device memory {peak:.2f} GiB; launches {counts}; decode vs "
+        f"prefill over {pb} x {pn} tokens, bf16, {cfg.n_layers} layers: "
+        f"max |gap| / max |logit| {err:.3g} (bound {tol:.3g})")
+    if dev.type == "cuda" and counts["flash_attention"] != \
+            cfg.n_layers * ARCH_PREFILL_CALLS:
+        raise AssertionError(f"{cfg.name}: {ARCH_PREFILL_CALLS} prefills "
+                             f"and the decode launched the flash kernel "
+                             f"{counts['flash_attention']} times")
+    if not err <= tol:
+        raise AssertionError(f"{cfg.name} decode vs prefill: {err} > {tol}")
+    del model
+    release(dev)
+    return counts
+
+
+def hubert_grad_check(dev, seed: int) -> float:
+    """(d) last: HuBERT's smoke config at its hd 80, float32, remat full:
+    the loss and every parameter's gradient on the card against the CPU
+    from the same weights (``parity_model``) and frame embeddings; two
+    flash launches a layer on the card (forward and recompute)."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm
+    from repro_torch.models.config import smoke_config
+    cpu = torch.device("cpu")
+    cfg = smoke_config(C.get("hubert_xlarge")).replace(
+        head_dim=80, param_dtype="float32", compute_dtype="float32",
+        remat="full")
+    host = parity_model(cfg, torch.Generator().manual_seed(seed), cpu)
+    rng = np.random.default_rng(seed)
+    b, s = HUBERT_GRAD_SHAPE
+    batch = {"inputs": rng.normal(0, 1, (b, s, cfg.d_model)).astype(
+        np.float32), "targets": rng.integers(0, cfg.vocab, (b, s)),
+        "mask": rng.random((b, s)) < 0.3}
+    out = {}
+    for where in (dev, cpu):
+        model = lm.LM(cfg, {n: p.detach().to(where).clone() for n, p in
+                            host.named_parameters()}, trainable=True)
+        before = flash_attention.launches
+        loss = lm.lm_loss(cfg, model, {k: torch.as_tensor(v, device=where)
+                                       for k, v in batch.items()})
+        loss.backward()
+        launched = flash_attention.launches - before
+        if launched != (2 * cfg.n_layers if where.type == "cuda" else 0):
+            raise AssertionError(f"hubert gradient: {launched} flash "
+                                 f"launches on {where}")
+        out[where.type] = (float(loss.detach()), {
+            n: p.grad.cpu() for n, p in model.named_parameters()})
+    (gl, gg), (wl, wg) = out[dev.type], out["cpu"]
+    worst = max(float((gg[n] - wg[n]).abs().max())
+                / max(float(wg[n].abs().max()), 1e-30) for n in wg)
+    log(f"  [arch] (d) hubert smoke at hd 80 ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}), float32, "
+        f"B {b} x S {s}: loss card {gl:.6f} cpu {wl:.6f} (gap "
+        f"{abs(gl - wl):.3g}, bound {STEP_TOL}); gradients, largest gap "
+        f"over a leaf's max {worst:.3g} (bound {GRAD_REL}); "
+        f"{2 * cfg.n_layers} flash launches on the card")
+    if not (abs(gl - wl) <= STEP_TOL and worst <= GRAD_REL):
+        raise AssertionError("hubert gradients on the card differ from "
+                             "the CPU's past the bounds")
+    return worst
+
+
+def arch_hubert(dev, gen, seed: int) -> dict:
+    """(d): HuBERT X-Large at full width: the forward over random frame
+    embeddings [2, 4096, 1280] in float32 (TF32 off) and in bf16 from the
+    same weights (``parity_model``, bf16 rounded from float32), the bf16
+    logits within ``parity_bound(48)`` of the float32 ones; the same bf16
+    weights run causal must move them past that bound.  Then 3 train
+    steps through ``launch.train.train`` (its frontend stub, masked-frame
+    targets, bf16, remat full), losses finite.  The main path is the bf16
+    forwards and the train steps: the counts are set to 0 before each and
+    read after each, so the float32 reference and the causal run (checks)
+    are not counted."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    cfg = C.get("hubert_xlarge")
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    m32 = parity_model(cfg32, gen, dev)
+    m16 = lm.LM(cfg, {n: p.detach().to(torch.bfloat16)
+                      for n, p in m32.named_parameters()})
+    sync(dev)
+    log(f"  [arch] {cfg.name}: {lm.count_params(m16)} parameters "
+        f"({cfg.n_layers} layers, d {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff} "
+        f"{cfg.ffn_kind}, vocab {cfg.vocab}, causal {cfg.causal}, embedded "
+        f"inputs), float32 and bf16 copies drawn in "
+        f"{time.perf_counter() - t0:.3f} s; {memory_gib(dev):.2f} GiB")
+    b, s = HUBERT_SHAPE
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def logits(c, model):
+        with torch.inference_mode():
+            return lm.logits_fn(c, model, lm.forward(c, model, x)[0]).float()
+
+    want = logits(cfg32, m32)
+    reset_launch_counts()
+    secs = []
+    for _ in range(ARCH_PREFILL_CALLS):
+        t0 = time.perf_counter()
+        got = logits(cfg, m16)
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    n_flash = counts["flash_attention"]
+    causal = logits(cfg.replace(causal=True), m16)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    moved = float((causal - want).abs().max()) / scale
+    tol = parity_bound(cfg.n_layers)
+    log(f"  [arch] {cfg.name} forward {b} x {s} frames: bf16 "
+        + ", ".join(f"{t:.3f} s ({b * s / t:.0f} frames/s)" for t in secs)
+        + f"; flash launches {n_flash}; bf16 against float32 (TF32 off): "
+        f"max |gap| / max |logit| {err:.3g} (bound {tol:.3g}); run causal: "
+        f"{moved:.3g}, {moved / tol:.1f}x the bound")
+    if not bool(torch.isfinite(got).all()) or tuple(got.shape) != (
+            b, s, cfg.vocab):
+        raise AssertionError(f"{cfg.name} logits {tuple(got.shape)}: not "
+                             f"[{b}, {s}, {cfg.vocab}] finite values")
+    if not err <= tol:
+        raise AssertionError(f"{cfg.name}: bf16 {err} of the float32 "
+                             f"logits > {tol}")
+    if not moved > tol:
+        raise AssertionError(f"{cfg.name}: a causal mask moves the logits "
+                             f"only {moved} <= {tol}; the check cannot see "
+                             f"the mask")
+    if dev.type == "cuda" and n_flash != cfg.n_layers * ARCH_PREFILL_CALLS:
+        raise AssertionError(f"{cfg.name}: {n_flash} flash launches for "
+                             f"{ARCH_PREFILL_CALLS} forwards")
+    del m32, m16, x, want, got, causal
+    release(dev)
+
+    root = ROOT / "build" / f"arch-train-{os.getpid()}"
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        losses = train(cfg, steps=HUBERT_TRAIN_STEPS, global_batch=b,
+                       seq_len=s, out=str(root), ckpt_every=10**9,
+                       log_every=1, seed=seed, device=dev)
+        t_train = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    trained = launch_counts()
+    both = {k: v + trained[k] for k, v in counts.items()}
+    peak = memory_gib(dev, peak=True)
+    log(f"  [arch] {cfg.name} train, {HUBERT_TRAIN_STEPS} steps of {b} x "
+        f"{s} frames (frontend stub, mask 0.3, bf16, remat {cfg.remat}): "
+        f"losses {losses}, {t_train:.3f} s with the first step's set-up; "
+        f"flash launches {trained['flash_attention']}; peak device memory "
+        f"{peak:.2f} GiB; launches (forwards and train) {both}")
+    if not all(math.isfinite(v) for v in losses) \
+            or len(losses) != HUBERT_TRAIN_STEPS:
+        raise AssertionError(f"{cfg.name} train losses {losses}")
+    if dev.type == "cuda" and trained["flash_attention"] != \
+            2 * cfg.n_layers * HUBERT_TRAIN_STEPS:
+        raise AssertionError(f"{cfg.name}: {trained['flash_attention']} "
+                             f"flash launches in {HUBERT_TRAIN_STEPS} train "
+                             f"steps")
+    release(dev)
+    return both
+
+
+def drive_archs(dev, seed: int) -> tuple:
+    """Phase 11: (a)-(c) the decoders, (d) HuBERT, one model on the card
+    at a time; returns the launch counts of the four main paths added up
+    and the HuBERT gradient's gap."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    for arch, (b, s), (pb, pn) in ARCH_RUNS:
+        log(f"  CUT: {arch} prefill {b} x {s} (prefill_32k: 32 x 32768), "
+            f"decode {DECODE_BATCH} requests, cache {PROMPT_LEN} + "
+            f"{GEN_LEN} (decode_32k: 128 x 32768), parity {pb} x {pn}")
+    log(f"  CUT: hubert_xlarge {HUBERT_SHAPE[0]} x {HUBERT_SHAPE[1]} frames "
+        f"(train_4k: 256 x 4096), {HUBERT_TRAIN_STEPS} train steps")
+    total = {}
+    for arch, prefill_shape, parity_shape in ARCH_RUNS:
+        c = arch_decoder(dev, gen, arch, prefill_shape, parity_shape)
+        total = {k: total.get(k, 0) + v for k, v in c.items()}
+    c = arch_hubert(dev, gen, seed)
+    total = {k: total.get(k, 0) + v for k, v in c.items()}
+    grad_err = hubert_grad_check(dev, seed)
+    return total, grad_err
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the streaming refresh path (repro_torch.stream.StreamSession)
 # ---------------------------------------------------------------------------
 
@@ -3530,8 +3885,15 @@ def main(argv=None) -> int:
         f"{t['ms_softcap0']:.3f} ms, scaled_dot_product_attention "
         f"{t['library_ms']:.3f} ms, bound {t['bound_ms_softcap0']:.3f} ms"
         f"; hd 128 (Qwen3-1.7B heads, softcap 0): kernel "
-        f"{t['ms_hd128']:.3f} ms, scaled_dot_product_attention "
+        f"{t['ms_hd128']:.3f} ms, plain {t['plain_ms_hd128']:.3f} ms, "
+        f"scaled_dot_product_attention "
         f"{t['library_ms_hd128']:.3f} ms, bound {t['bound_ms_hd128']:.3f} ms"
+        f"; hd 80 (HuBERT X-Large's layer, not causal, mma.sync): kernel "
+        f"{t['ms_hd80']:.3f} ms, plain {t['plain_ms_hd80']:.3f} ms, SDPA "
+        f"{t['library_ms_hd80']:.3f} ms, bound {t['bound_ms_hd80']:.3f} ms"
+        f"; hd 160 (StableLM 12B's, causal, mma.sync): kernel "
+        f"{t['ms_hd160']:.3f} ms, plain {t['plain_ms_hd160']:.3f} ms, SDPA "
+        f"{t['library_ms_hd160']:.3f} ms, bound {t['bound_ms_hd160']:.3f} ms"
         f"; TFLOP/s {', '.join(f'{n} {v:.1f}' for n, v in t['tflops'].items())}"
         f"; q std {FLASH_Q_SCALES[-1]:g}: at most {t['share_of_bound']:.3g} "
         f"of the bound; without the window {t['moved_without_window']:.3g}, "
@@ -3605,7 +3967,16 @@ def main(argv=None) -> int:
     t10 = time.perf_counter()
     tr, grad_err, train_flash = drive_train(dev, rng, args.seed)
     log(f"  phase 10 {time.perf_counter() - t10:.1f} s; launches {tr}")
-    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr)
+
+    log("phase 11: the other attention-only archs at full width (Mistral "
+        "NeMo 12B, StableLM 12B, Chameleon 34B: prefill, decode, parity; "
+        "HuBERT X-Large: forward, mask, train steps, gradient)")
+    t11 = time.perf_counter()
+    ar, hubert_grad = drive_archs(dev, args.seed)
+    log(f"  phase 11 {time.perf_counter() - t11:.1f} s; launches {ar}")
+    if ar["flash_attention"] == 0:
+        raise AssertionError("phase 11 launched no flash_attention")
+    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -3683,6 +4054,7 @@ def main(argv=None) -> int:
                              "at PageRank's shapes")
         if name == "flash_attention":
             entry["grad_rel_err_train"] = grad_err
+            entry["grad_rel_err_hubert"] = hubert_grad
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        train_flash["max_abs_err"])
             entry["max_abs_err_train"] = train_flash["max_abs_err"]
@@ -3691,13 +4063,22 @@ def main(argv=None) -> int:
                 "shape", "share_of_bound", "moved_without_window",
                 "moved_without_softcap", "ms_local", "plain_ms_local",
                 "bound_ms_local", "ms_softcap0", "bound_ms_softcap0",
-                "ms_hd128", "library_ms_hd128", "bound_ms_hd128", "tflops",
-                "note")})
+                "ms_hd128", "plain_ms_hd128", "library_ms_hd128",
+                "bound_ms_hd128", "ms_hd80",
+                "plain_ms_hd80", "library_ms_hd80", "bound_ms_hd80",
+                "ms_hd160", "plain_ms_hd160", "library_ms_hd160",
+                "bound_ms_hd160", "tflops", "note")})
+            entry.update({f"{key}_{label}": t[f"{key}_{label}"]
+                          for label in ("hd128_mistral", "hd128_chameleon")
+                          for key in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms")})
             entry["note"] += (
                 "; *_train: phase 10 (c), the train step's own shape (B 2, "
                 "S 4096, H 16/8, hd 128, bf16, causal) through "
                 "blocks.attend, q std 1 and 20; max_abs_err: the largest of "
-                "phase 2's and these")
+                "phase 2's and these; grad_rel_err_hubert: phase 11 (d), "
+                "HuBERT's smoke config at hd 80, every gradient card vs "
+                "CPU over its leaf's max")
         kernels.append(entry)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3705,7 +4086,7 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
         f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}, "
-        f"serve {sv}, dql {dq}, distributed {ds}, train {tr}")
+        f"serve {sv}, dql {dq}, distributed {ds}, train {tr}, archs {ar}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,19 @@
 
 Counterpart of ``repro.configs``.  ``ARCHS`` and ``ALIASES`` name every
 architecture of the reference; the port has the configurations of the
-dense archs whose blocks it runs.  ``get`` of another one raises and says
-which part of ROADMAP.md brings it.
+archs built of attention blocks alone (``PORTED``).  ``get`` of another
+one raises and says which part of ROADMAP.md brings it.
+
+Each architecture declares which shape cells apply (:func:`shape_cells`):
+an encoder has no decode cell, and only the recurrent families take
+long_500k.
 """
 from __future__ import annotations
 
 import importlib
+from typing import List, Tuple
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeCell
 
 ARCHS = [
     "deepseek_v3_671b",
@@ -23,14 +28,16 @@ ARCHS = [
     "qwen3_1_7b",
     "xlstm_125m",
 ]
-PORTED = ("gemma2_9b", "qwen3_1_7b")
+PORTED = ("hubert_xlarge", "chameleon_34b", "stablelm_12b", "gemma2_9b",
+          "mistral_nemo_12b", "qwen3_1_7b")
 
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 ALIASES["qwen3-1.7b"] = "qwen3_1_7b"
 ALIASES["llama4-scout-17b-a16e"] = "llama4_scout_17b_a16e"
 
 _LATER = ("not ported yet: its blocks and config come with ROADMAP.md "
-          "Queue 1 item 16b (the remaining block kinds and their archs)")
+          "Queue 1 item 16b.3 (the recurrent blocks: RecurrentGemma, "
+          "xLSTM) or 16b.4 (MLA and MoE: DeepSeek-V3, Llama 4 Scout)")
 
 
 def get(name: str) -> ModelConfig:
@@ -40,3 +47,20 @@ def get(name: str) -> ModelConfig:
     if arch not in PORTED:
         raise NotImplementedError(f"{arch} is {_LATER}")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
+
+
+def shape_cells(cfg: ModelConfig) -> List[ShapeCell]:
+    """The applicable (arch x shape) cells for this architecture."""
+    cells = [SHAPES["train_4k"], SHAPES["prefill_32k"]]
+    if cfg.family != "encoder":
+        cells.append(SHAPES["decode_32k"])
+        if cfg.family in ("hybrid", "ssm", "xlstm"):
+            cells.append(SHAPES["long_500k"])
+    return cells
+
+
+def all_cells() -> List[Tuple[str, str]]:
+    """(arch, cell name) of every ported arch, in ``ARCHS`` order: the
+    reference's ``all_cells`` restricted to ``PORTED``."""
+    return [(a, cell.name) for a in ARCHS if a in PORTED
+            for cell in shape_cells(get(a))]

@@ -17,6 +17,11 @@
 // exp(-2e38 - m) = 0.  K and V rows past S are zeros and masked, so any
 // S runs.  Three kernels, chosen by dtype and head dim:
 //
+//   dtype    head dim             kernel
+//   bf16     64, 128, 256         flash_wgmma_kernel (wgmma + TMA)
+//   bf16     16, 32, 80, 160      flash_mma_kernel (mma.sync)
+//   float32  all seven            flash_f32_kernel (FMAs)
+//
 //   bf16, hd 64/128/256 (the serving path): wgmma with a TMA ring.  A
 //     block of 384 threads owns 128 q rows of one head: warpgroup 0 is
 //     the producer (its registers cut to 40 by setmaxnreg; one thread
@@ -45,13 +50,19 @@
 //     alignment and the barriers).  Registers a consumer thread: hd / 2
 //     float32 for O, BK / 2 for S and BK / 4 for P (128 + 40 + 20 at hd
 //     256).
-//   bf16, hd 16/32: mma.sync m16n8k16, 4 warps, 64 q rows x 64-key
-//     tiles loaded synchronously into shared memory (rows padded by 8
-//     elements so fragment loads hit 32 distinct banks); P goes from the
-//     S accumulators into A fragments.  Their rows are narrower than the
-//     128-byte swizzle row that the wgmma kernel's TMA boxes and
-//     descriptors assume, and no serving model uses them, so they keep
-//     this simpler kernel.
+//   bf16, hd 16, 32, 80, 160: mma.sync m16n8k16, 4 warps, 64 q rows x
+//     64-key tiles loaded synchronously into shared memory (rows padded
+//     by 8 elements so fragment loads hit 32 distinct banks: a row is
+//     an odd number of 16-byte chunks at every one of these dims); P
+//     goes from the S accumulators into A fragments.  Any hd that is a
+//     multiple of 16 fits m16n8k16.  The wgmma kernel reads every tile
+//     in 64-column TMA boxes of 128-byte swizzled rows, and 80 and 160
+//     are not multiples of 64: HuBERT X-Large (hd 80) and StableLM 12B
+//     (hd 160) run this kernel.  At hd 160 a thread holds 80 float32
+//     accumulators of O and 32 of S; shared memory is 3 tiles of 64 x
+//     (hd + 8) bf16, 64.5 KB at hd 160.  A wgmma design at these dims
+//     (a 16- or 32-column box, or a 64-column box and a remainder) is
+//     later work.
 //   float32: plain FMAs (the tensor cores' TF32 would break the float32
 //     contract), 256 threads, 32 q rows x 32-key tiles in shared
 //     memory, 8 threads a row.  It serves the float32 checks, not the
@@ -523,7 +534,7 @@ __global__ void __launch_bounds__(Wg<HD>::THREADS, 1)
   }
 }
 
-// ------------------------------------------ bf16, hd 16/32: mma.sync
+// ------------------------------ bf16, hd 16/32/80/160: mma.sync
 
 constexpr int BF_BQ = 64, BF_BK = 64, BF_THREADS = 128;
 
@@ -879,12 +890,13 @@ int launch_f32(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// bf16 goes to the wgmma kernel from hd 64 up and to the mma.sync kernel
-// for hd 16 and 32; float32 to the FMA kernel.
+// bf16 goes to the wgmma kernel at the multiples of 64 and to the
+// mma.sync kernel at the other multiples of 16; float32 to the FMA kernel.
 template <int HD>
 int launch_hd(const Params& p, int bf16, cudaStream_t stream) {
+  static_assert(HD % 16 == 0, "m16n8k16 steps 16 columns at a time");
   if (!bf16) return launch_f32<HD>(p, stream);
-  if constexpr (HD >= 64)
+  if constexpr (HD % 64 == 0)
     return launch_wgmma<HD>(p, stream);
   else
     return launch_mma<HD>(p, stream);
@@ -894,7 +906,7 @@ int launch_hd(const Params& p, int bf16, cudaStream_t stream) {
 
 // q [B, H, S, hd], k/v [B, KH, S, hd], o [B, H, S, hd], contiguous and
 // 16-byte aligned, all float32 (dtype 0) or all bf16 (dtype 1); hd in
-// {16, 32, 64, 128, 256}.
+// {16, 32, 64, 80, 128, 160, 256}.
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
                                         const void* v, void* o, int B, int H,
                                         int KH, int S, int hd, int dtype,
@@ -910,7 +922,9 @@ REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
     case 16: return launch_hd<16>(p, dtype, stream);
     case 32: return launch_hd<32>(p, dtype, stream);
     case 64: return launch_hd<64>(p, dtype, stream);
+    case 80: return launch_hd<80>(p, dtype, stream);
     case 128: return launch_hd<128>(p, dtype, stream);
+    case 160: return launch_hd<160>(p, dtype, stream);
     case 256: return launch_hd<256>(p, dtype, stream);
     default: return (int)cudaErrorInvalidValue;
   }

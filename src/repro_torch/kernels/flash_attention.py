@@ -11,18 +11,27 @@ On the H100 ``csrc/flash_attention.cu`` replaces the Pallas kernel (its
 ``pl.pallas_call`` walks the KV blocks of one q block with a fori_loop):
 a block walks the KV tiles of one (q tile, head, batch) with the
 streaming softmax in registers.  At the serving shape it is bounded by
-tensor-core operations, not bytes.  bf16 at hd 64, 128 and 256 (the
-serving path) runs the Hopper design: a producer warpgroup keeps Q and a
-2-stage ring of K and V tiles coming by TMA (mbarriers; its registers
-cut by ``setmaxnreg``), and two consumer warpgroups of 64 q rows each
-multiply with ``wgmma`` (S = Q.K^T from shared memory, O += P.V with P
-in registers; S of one tile and P.V of the one before issued together),
-the softcap's tanh from one exponential and one reciprocal.  Shared
-memory: 224 KB at hd 256 (80-key tiles), 160 KB at 128 and 80 KB at 64
-(128-key tiles).  bf16 at hd 16 and 32 runs a smaller ``mma.sync``
-kernel with synchronous loads, chosen by head dim in the launcher;
-float32 runs plain FMAs (TF32 would break its contract) and serves the
-checks.  The source note gives the bounds and what the design leaves.
+tensor-core operations, not bytes.  Which kernel serves which (dtype,
+hd):
+
+- bf16 at hd 64, 128 and 256 (Gemma 2, Qwen3, Mistral NeMo, Chameleon)
+  runs the Hopper design: a producer warpgroup keeps Q and a 2-stage
+  ring of K and V tiles coming by TMA (mbarriers; its registers cut by
+  ``setmaxnreg``), and two consumer warpgroups of 64 q rows each
+  multiply with ``wgmma`` (S = Q.K^T from shared memory, O += P.V with P
+  in registers; S of one tile and P.V of the one before issued
+  together), the softcap's tanh from one exponential and one
+  reciprocal.  Shared memory: 224 KB at hd 256 (80-key tiles), 160 KB at
+  128 and 80 KB at 64 (128-key tiles).
+- bf16 at hd 16, 32, 80 (HuBERT X-Large) and 160 (StableLM 12B) runs a
+  smaller ``mma.sync`` kernel with synchronous loads: its tiles take any
+  multiple of 16, where the wgmma kernel's 64-column TMA boxes need a
+  multiple of 64.
+- float32 at every dim runs plain FMAs (TF32 would break its contract)
+  and serves the checks and float32 models.
+
+The scale is 1/sqrt of the true hd.  The source note gives the bounds
+and what the design leaves.
 
 CUDA tensors launch the kernel or raise; CPU tensors take the plain
 version :func:`ref.flash_attention_ref`, and only they.
@@ -34,7 +43,7 @@ import torch
 from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

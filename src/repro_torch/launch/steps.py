@@ -13,8 +13,13 @@ uninterrupted one bit for bit (on CUDA the embedding gather's backward, a
 scatter-add, is otherwise nondeterministic).  An op without a
 deterministic version raises; so does every cuBLAS product on CUDA unless
 ``CUBLAS_WORKSPACE_CONFIG`` (``:4096:8``) was set before the process first
-used cuBLAS, as ``repro_torch.launch.train.main`` sets it.  The input specs are not
-ported (the reference's dry-run needs them, item 16b).
+used cuBLAS, as ``repro_torch.launch.train.main`` sets it.
+
+A batch's ``inputs`` are token ids [B, S], or embeddings [B, S, d] when
+``cfg.embed_inputs`` is False (HuBERT behind its frontend stub), as the
+reference's ``batch_specs`` gives them; another rank raises.  The input
+specs themselves are not ported (the reference's dry-run needs them,
+ROADMAP.md Queue 1 item 16b.5).
 """
 from __future__ import annotations
 
@@ -35,6 +40,21 @@ def _on(params: lm.LM, dev: torch.device, what: str) -> None:
                          f"{params.device}")
 
 
+def _inputs(cfg: ModelConfig, inputs, dev: torch.device) -> torch.Tensor:
+    """A batch's inputs on ``dev``: ids [B, S], or [B, S, d] embeddings
+    when the config takes them embedded."""
+    x = torch.as_tensor(inputs, device=dev)
+    if cfg.embed_inputs:
+        ok, what = x.ndim == 2, "token ids [B, S]"
+    else:
+        ok = x.ndim == 3 and x.shape[-1] == cfg.d_model
+        what = f"embeddings [B, S, {cfg.d_model}]"
+    if not ok:
+        raise ValueError(f"{cfg.name} takes {what} as inputs, got "
+                         f"{tuple(x.shape)}")
+    return x
+
+
 def make_serve_step(cfg: ModelConfig, device="cuda"):
     """serve_step(params, caches, tokens [B, 1]) -> (logits [B, V] float32
     with the logit softcap, caches updated in place)."""
@@ -49,22 +69,24 @@ def make_serve_step(cfg: ModelConfig, device="cuda"):
 
 
 def make_prefill_step(cfg: ModelConfig, device="cuda"):
-    """prefill_step(params, {"inputs": [B, S]}) -> last-token logits
-    [B, 1, V] in the compute dtype, without the logit softcap (as the
-    reference).  Every attention layer runs the flash kernel."""
+    """prefill_step(params, {"inputs": [B, S] ids or [B, S, d]
+    embeddings}) -> last-token logits [B, 1, V] in the compute dtype,
+    without the logit softcap (as the reference).  Every attention layer
+    runs the flash kernel."""
     dev = resolve_device(device)
 
     def prefill_step(params: lm.LM, batch: Dict[str, Any]):
         _on(params, dev, "prefill_step")
-        inputs = torch.as_tensor(batch["inputs"], device=dev)
+        inputs = _inputs(cfg, batch["inputs"], dev)
         with torch.inference_mode():
             hidden, _ = lm.forward(cfg, params, inputs)
             return lm.logits_fn(cfg, params, hidden[:, -1:, :])
     return prefill_step
 
 
-def _batch_on(batch: Dict[str, Any], dev: torch.device):
-    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+def _batch_on(cfg: ModelConfig, batch: Dict[str, Any], dev: torch.device):
+    return {k: _inputs(cfg, v, dev) if k == "inputs"
+            else torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
 @contextlib.contextmanager
@@ -99,7 +121,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                              f"trainable=True; {frozen[:4]} take no "
                              f"gradients")
         with deterministic():
-            loss = lm.lm_loss(cfg, params, _batch_on(batch, dev))
+            loss = lm.lm_loss(cfg, params, _batch_on(cfg, batch, dev))
             loss.backward()
             grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
                      for n, p in named.items()}
@@ -118,5 +140,5 @@ def make_eval_step(cfg: ModelConfig, device="cuda"):
     def eval_step(params: lm.LM, batch: Dict[str, Any]):
         _on(params, dev, "eval_step")
         with torch.inference_mode():
-            return lm.lm_loss(cfg, params, _batch_on(batch, dev))
+            return lm.lm_loss(cfg, params, _batch_on(cfg, batch, dev))
     return eval_step

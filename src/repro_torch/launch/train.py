@@ -13,6 +13,10 @@ says ``cpu``:
 
 Checkpoints are the reference's format (``repro_torch.ckpt``), so a run
 started by ``repro.launch.train`` resumes here and the other way round.
+An arch whose inputs come embedded (HuBERT) trains on the reference's
+frontend stub: each token id of the synthetic corpus becomes a row of a
+fixed random table (:func:`frontend_stub`), and its batches mask 30% of
+the targets (masked-frame prediction).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.ckpt import CheckpointManager
@@ -38,8 +43,8 @@ from repro_torch.optim import AdamWConfig, adamw_init
 def preset_config(cfg: ModelConfig, preset: str) -> ModelConfig:
     """``full`` (the architecture), ``smoke`` (``smoke_config``) or ``100m``
     (a ~100M-parameter member of the same family: 103M for the dense
-    ones).  The port runs dense archs only; ``configs.get`` refuses the
-    others."""
+    ones).  The port runs the archs built of attention blocks alone;
+    ``configs.get`` refuses the others."""
     if preset == "full":
         return cfg
     if preset == "smoke":
@@ -50,6 +55,17 @@ def preset_config(cfg: ModelConfig, preset: str) -> ModelConfig:
             n_kv_heads=min(cfg.n_kv_heads, 4), d_ff=2048, head_dim=64,
             vocab=32768, remat="none", local_window=256)
     raise ValueError(preset)
+
+
+STUB_ROWS = 256
+
+
+def frontend_stub(cfg: ModelConfig) -> np.ndarray:
+    """The reference trainer's stand-in for a conv or VQ frontend: a
+    float32 table [256, d] drawn from ``np.random.default_rng(1234)``;
+    token t's embedding is row ``t % 256``."""
+    rng = np.random.default_rng(1234)
+    return rng.normal(0, 1, (STUB_ROWS, cfg.d_model)).astype(np.float32)
 
 
 class StragglerWatchdog:
@@ -99,6 +115,7 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
     step_fn = make_train_step(cfg, opt_cfg, dev)
     mgr = CheckpointManager(out, keep=3, every=ckpt_every)
     watchdog = StragglerWatchdog()
+    table = None if cfg.embed_inputs else frontend_stub(cfg)
 
     start = 0
     s, tree, meta = mgr.resume(dev)
@@ -118,6 +135,8 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
         if fail_at is not None and step == fail_at:
             raise RuntimeError(f"injected failure at step {step}")
         batch = lm_batch_at_step(data_cfg, step)
+        if table is not None:
+            batch["inputs"] = table[batch["inputs"] % STUB_ROWS]
         t0 = time.perf_counter()
         params, opt, metrics = step_fn(params, opt, batch)
         loss = float(metrics["loss"])

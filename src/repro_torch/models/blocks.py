@@ -15,7 +15,13 @@ is a one-token decode step at the cache's position, attending over the
 cache with :func:`_attend`, as the reference does with XLA.  The cache is
 updated in place.
 
-Not ported yet: MLA, MoE, RG-LRU, mLSTM and sLSTM (ROADMAP.md Queue 1).
+``cfg.causal`` False (an encoder, HuBERT) masks nothing but the window:
+the flash kernel and :func:`_attend` take it alike.  The FFN kinds are
+SwiGLU, GeGLU and GELU (tanh approximation, as ``jax.nn.gelu``'s
+default).
+
+Not ported yet: RG-LRU, mLSTM and sLSTM (ROADMAP.md Queue 1 item 16b.3),
+MLA and MoE (16b.4).
 """
 from __future__ import annotations
 

@@ -29,7 +29,9 @@ REMATS = ("none", "full", "dots")
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | vlm | encoder (the ported
+    #                                archs'; moe, hybrid and xlstm come with
+    #                                ROADMAP.md Queue 1 items 16b.3-16b.4)
     n_layers: int
     d_model: int
     n_heads: int

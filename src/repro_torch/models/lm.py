@@ -6,6 +6,11 @@ super-blocks (``jax.lax.scan``); here the stack is an ``nn.ModuleList`` of
 ``cfg.n_layers`` blocks (prefix, ``cycles`` times the pattern, remainder),
 and a parameter's name is ``layers.<i>.<path>``.  With ``cfg.mtp`` the
 model also holds ``mtp_proj``, ``mtp_block.<path>`` and ``mtp_norm``.
+Inputs are token ids [B, S], or, with ``cfg.embed_inputs`` False (an
+encoder behind a frontend stub, HuBERT), embeddings [B, S, d]: the model
+then has no ``embed`` and always a ``head``.  A model that is not causal
+has no decode: :func:`init_caches` and :func:`serve_step` refuse it, as
+the reference's ``shape_cells`` gives an encoder no decode cell.
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
 Caches are tensors updated in place by each decode step (the reference
@@ -51,7 +56,16 @@ def _check_kind(kind: str) -> None:
     if kind not in KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP.md Queue 1 "
-            f"item 16b); the port runs {KINDS}")
+            f"item 16b.3 for rec, mlstm and slstm, 16b.4 for mla_dense and "
+            f"attn_moe); the port runs {KINDS}")
+
+
+def _check_decoder(cfg: ModelConfig) -> None:
+    if not cfg.causal:
+        raise ValueError(
+            f"{cfg.name} is not causal (an encoder): it has no decode, as "
+            f"repro_torch.configs.shape_cells gives it no decode cell; run "
+            f"it through forward, the prefill or the train step")
 
 
 def plan_block(cfg: ModelConfig, kind: str) -> Dict[str, ParamSpec]:
@@ -66,15 +80,12 @@ def plan_model(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     """Every parameter, by name.  Body layers carry the reference's fan-in
     for its stacked leaves (the cycle count), so that :func:`init_params`
     draws from the reference's distribution."""
-    if not cfg.embed_inputs:
-        raise NotImplementedError("frontend-embedded inputs come with their "
-                                  "archs (ROADMAP.md Queue 1 item 16b)")
     d = cfg.d_model
-    plan: Dict[str, ParamSpec] = {
-        "embed": ParamSpec((cfg.vocab, d)),
-        "final_norm": ParamSpec((d,), "zeros"),
-    }
-    if not cfg.tie_embeddings:
+    plan: Dict[str, ParamSpec] = {}
+    if cfg.embed_inputs:
+        plan["embed"] = ParamSpec((cfg.vocab, d))
+    plan["final_norm"] = ParamSpec((d,), "zeros")
+    if not cfg.tie_embeddings or not cfg.embed_inputs:
         plan["head"] = ParamSpec((d, cfg.vocab))
     n_pre, n_body = len(cfg.prefix_blocks), cfg.cycles * len(cfg.block_pattern)
     for i, kind in enumerate(cfg.layer_kinds):
@@ -114,9 +125,10 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """The model: ``embed``, ``layers``, ``final_norm`` (and ``head`` when
-    embeddings are not tied; ``mtp_proj``, ``mtp_block``, ``mtp_norm``
-    with ``cfg.mtp``), built from tensors named as :func:`plan_model`
+    """The model: ``embed`` (unless the inputs come embedded), ``layers``,
+    ``final_norm`` (and ``head`` when embeddings are not tied or the
+    inputs come embedded; ``mtp_proj``, ``mtp_block``, ``mtp_norm`` with
+    ``cfg.mtp``), built from tensors named as :func:`plan_model`
     names them; any leaf missing, left over or of another shape raises.
     The parameters take gradients only when ``trainable``."""
 
@@ -148,7 +160,7 @@ class LM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm.device
 
     def forward(self, inputs, pos=None, caches=None):
         return forward(self.cfg, self, inputs, pos, caches)
@@ -188,7 +200,10 @@ def _remat(cfg: ModelConfig, fn):
 def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
             pos: Optional[torch.Tensor] = None,
             caches: Optional[Dict[str, Any]] = None):
-    """inputs: token ids [B, S].  Returns (hidden [B, S, d], caches).
+    """inputs: token ids [B, S], or embeddings [B, S, d] when
+    ``cfg.embed_inputs`` is False (cast to the compute dtype, without the
+    sqrt(d) scale of embedded tokens).  Returns (hidden [B, S, d],
+    caches).
 
     Without caches this is a prefill or a training pass: positions are
     0..S-1 (``pos`` None, or exactly that), every attention layer runs the
@@ -198,8 +213,11 @@ def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
     advances by one.
     """
     b, s = inputs.shape[:2]
-    x = params.embed[inputs.long()].to(cfg.dtype("compute"))
-    x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
+    if cfg.embed_inputs:
+        x = params.embed[inputs.long()].to(cfg.dtype("compute"))
+        x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
+    else:
+        x = inputs.to(cfg.dtype("compute"))
     if caches is None:
         B.prefill_positions(pos, b, s, x.device)
         pos = None                         # checked once, not per layer
@@ -216,7 +234,7 @@ def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
 
 
 def logits_fn(cfg: ModelConfig, params: LM, hidden: torch.Tensor):
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and cfg.embed_inputs:
         return hidden @ params.embed.to(hidden.dtype).t()
     return hidden @ params.head.to(hidden.dtype)
 
@@ -237,7 +255,9 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]):
     never materialised: each chunk's logits are recomputed in the backward
     (a checkpoint around the chunk).  With ``cfg.mtp``, one more
     ``attn_dense`` block predicts token t+2 from [h_t ; emb(tok_{t+1})]
-    and adds 0.3 times its cross-entropy (DeepSeek-V3).
+    and adds 0.3 times its cross-entropy (DeepSeek-V3); inputs that come
+    embedded have no embedding table to read, and skip it, as the
+    reference does.
     """
     inputs, targets, mask = batch["inputs"], batch["targets"], batch["mask"]
     hidden, _ = forward(cfg, params, inputs, batch.get("pos"))
@@ -256,7 +276,7 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]):
         loss = cross_entropy(logits_fn(cfg, params, hidden), targets, mask,
                              cfg.logit_softcap)
 
-    if cfg.mtp:
+    if cfg.mtp and cfg.embed_inputs:
         nxt = params.embed[targets.long()].to(hidden.dtype)
         h2 = torch.cat([hidden, nxt], dim=-1) @ params.mtp_proj.to(
             hidden.dtype)
@@ -274,7 +294,9 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]):
 def serve_step(cfg: ModelConfig, params: LM, caches: Dict[str, Any],
                tokens: torch.Tensor):
     """One decode step: tokens [B, 1] -> (logits [B, vocab] float32 with the
-    logit softcap, caches updated in place)."""
+    logit softcap, caches updated in place).  A config that is not causal
+    raises."""
+    _check_decoder(cfg)
     hidden, caches = forward(cfg, params, tokens, None, caches)
     logits = logits_fn(cfg, params, hidden[:, -1:, :])
     logits = softcap(logits.float(), cfg.logit_softcap)
@@ -299,7 +321,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cuda") -> Dict[str, Any]:
     """Zero caches in the compute dtype: ``pos`` (an int32 scalar) and one
     ``{"attn": {"k", "v"}}`` per layer (local layers hold a rotating
-    buffer of min(window, max_len) slots)."""
+    buffer of min(window, max_len) slots).  A config that is not causal
+    raises: it has no decode."""
+    _check_decoder(cfg)
     dev = resolve_device(device)
     layers = []
     for kind in cfg.layer_kinds:

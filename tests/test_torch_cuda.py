@@ -447,7 +447,13 @@ def test_apps_on_card_match_cpu(cuda, name):
     # Qwen3-1.7B's heads around the bf16 kernel's 128-row q tile and
     # 128-key tile, and at an S that is no multiple of 64
     *(pytest.param(128, 16, 8, s, id=f"qwen3-{s}")
-      for s in (1, 127, 128, 129, 200))])
+      for s in (1, 127, 128, 129, 200)),
+    # the mma.sync kernel's dims beyond 32, around its 64-row q tile and
+    # 64-key tile: HuBERT X-Large's heads (hd 80, KH = H) and StableLM
+    # 12B's (hd 160, GQA)
+    *(pytest.param(80, 16, 16, s, id=f"hubert-{s}") for s in (63, 64, 65)),
+    *(pytest.param(160, 8, 2, s, id=f"stablelm-{s}")
+      for s in (1, 63, 64, 65, 129))])
 def test_flash_attention(cuda, dtype, rel, q_std, hd, h, kh, s):
     """q at std 20 puts the scores in the softcaps' range; windows of 20
     and 50 lie under one key tile."""
@@ -460,6 +466,7 @@ def test_flash_attention(cuda, dtype, rel, q_std, hd, h, kh, s):
     for opts in (dict(causal=True), dict(causal=True, window=20),
                  dict(causal=True, window=50),
                  dict(causal=True, window=20, softcap=50.0),
+                 dict(causal=False),
                  dict(causal=False, window=100, softcap=30.0)):
         before = flash_attention.launches
         got = flash_attention(q, k, v, **opts)
@@ -501,6 +508,45 @@ def test_lm_on_card_launches_flash_and_matches_cpu(cuda, arch):
         scale = max(1.0, float(want.abs().max()))
         assert float((got.cpu() - want).abs().max()) / scale < 2e-4, t
     assert flash_attention.launches == before       # decode: plain code
+
+
+@pytest.mark.parametrize("case", ["stablelm_12b@160", "hubert_xlarge@80"])
+def test_new_head_dims_on_card_launch_flash_and_match_cpu(cuda, case):
+    """StableLM at its hd 160 (prefill and 40 decode steps) and HuBERT at
+    its hd 80 (not causal: every position's logits) at smoke width, in
+    float32: one flash launch a layer, within 2e-4 of the CPU."""
+    arch, hd = case.split("@")
+    cfg = smoke_config(C.get(arch)).replace(
+        param_dtype="float32", compute_dtype="float32", head_dim=int(hd))
+    model = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    on_cpu = lm.LM(cfg, {n: p.detach().cpu()
+                         for n, p in model.named_parameters()})
+    rng = np.random.default_rng(0)
+    if cfg.embed_inputs:
+        inputs = rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32)
+    else:
+        inputs = rng.normal(0, 1, (2, 40, cfg.d_model)).astype(np.float32)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        got = lm.logits_fn(cfg, model, lm.forward(
+            cfg, model, torch.as_tensor(inputs, device=cuda))[0])
+    assert flash_attention.launches == before + cfg.n_layers
+    with torch.inference_mode():
+        want = lm.logits_fn(cfg, on_cpu, lm.forward(
+            cfg, on_cpu, torch.as_tensor(inputs))[0])
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) / scale < 2e-4
+    if not cfg.causal:
+        return
+    serve, serve_cpu = make_serve_step(cfg, cuda), make_serve_step(cfg, "cpu")
+    caches = lm.init_caches(cfg, 2, 40, device=cuda)
+    caches_cpu = lm.init_caches(cfg, 2, 40, device="cpu")
+    for t in range(40):
+        got, caches = serve(model, caches, inputs[:, t:t + 1])
+        want, caches_cpu = serve_cpu(on_cpu, caches_cpu, inputs[:, t:t + 1])
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) / scale < 2e-4, t
 
 
 @pytest.mark.parametrize("arch,window", [("gemma2_9b", 0), ("gemma2_9b", 32),

@@ -107,12 +107,15 @@ def models():
 # -- (a) the flash kernel's plain version against the reference oracle -----
 
 @pytest.mark.parametrize("b,h,kh,s,hd", [
-    (1, 2, 2, 128, 32), (2, 4, 2, 256, 32), (1, 8, 1, 128, 64)])
+    (1, 2, 2, 128, 32), (2, 4, 2, 256, 32), (1, 8, 1, 128, 64),
+    # HuBERT X-Large's and StableLM 12B's head dims
+    (1, 4, 4, 100, 80), (1, 4, 1, 100, 160)])
 @pytest.mark.parametrize("opts", [
     dict(causal=True), dict(causal=False),
     dict(causal=True, window=64), dict(causal=True, softcap=50.0)])
 def test_flash_ref_matches_mha_ref(b, h, kh, s, hd, opts):
-    """The grid of the reference's TestFlashAttention, within its 2e-5."""
+    """The grid of the reference's TestFlashAttention, within its 2e-5,
+    and hd 80 and 160 at an S that is no multiple of 64."""
     rng = np.random.default_rng(b * 100 + h)
     q, k, v = (rng.normal(0, 1, shape).astype(np.float32) for shape in
                ((b, h, s, hd), (b, kh, s, hd), (b, kh, s, hd)))

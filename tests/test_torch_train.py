@@ -556,7 +556,7 @@ def test_main_sets_the_cublas_workspace_and_resumes(monkeypatch, tmp_path,
 
 
 def test_preset_config_matches_reference():
-    for arch in ("qwen3_1_7b", "gemma2_9b"):
+    for arch in TC.PORTED:
         for preset in ("smoke", "100m", "full"):
             jcfg = jtrain.preset_config(JC.get(arch), preset)
             tcfg = ttrain.preset_config(TC.get(arch), preset)
@@ -566,7 +566,7 @@ def test_preset_config_matches_reference():
             assert tlm.count_params(model) == jn, (arch, preset)
             assert tcfg.remat == jcfg.remat
     with pytest.raises(NotImplementedError):
-        ttrain.preset_config(TC.get("stablelm_12b"), "100m")
+        ttrain.preset_config(TC.get("xlstm_125m"), "100m")
     with pytest.raises(ValueError):
         ttrain.preset_config(TC.get("qwen3_1_7b"), "1b")
 

@@ -93,8 +93,8 @@ Runs on one CUDA card, from the root of a checkout:
      equal an uninterrupted run's bit for bit.
  11. drives the other attention-only archs at full width, bf16, one model
      on the card at a time, weights from ``parity_model``: (a) Mistral
-     NeMo 12B and (b) StableLM 12B (hd 160: flash on the mma.sync
-     kernel), two prefills of 2 x 8192 tokens and the decode-versus-
+     NeMo 12B and (b) StableLM 12B (hd 160: flash on the wgmma kernel's
+     32-column boxes), two prefills of 2 x 8192 tokens and the decode-versus-
      prefill parity over 2 x 64 tokens (64 timed decode steps) within
      ``parity_bound``; (c) Chameleon 34B (qk-norm, 68.6 GB of weights),
      1 x 4096 and 1 x 16; (d) HuBERT X-Large (hd 80, not causal, frame
@@ -185,9 +185,10 @@ FLASH_MAIN = (2, 16, 8, 8192, 256)           # B, H, KH, S, hd
 # Qwen3-1.7B's attention (hd 128, H 16, KH 8, no softcap, global) at the
 # same prefill: the other head dim the serving path takes
 FLASH_QWEN = (2, 16, 8, 8192, 128)
-# the head dims that only the mma.sync kernel takes in bf16, and their
-# layers: HuBERT X-Large at train_4k's sequence (not causal, KH = H) and
-# StableLM 12B at phase 11's prefill (causal, GQA); no softcap, no window
+# the head dims whose bf16 wgmma tiles are narrower TMA boxes (16 and 32
+# columns in the 32- and 64-byte swizzles), and their layers: HuBERT
+# X-Large at train_4k's sequence (not causal, KH = H) and StableLM 12B at
+# phase 11's prefill (causal, GQA); no softcap, no window
 FLASH_NEW_HDS = (80, 160)
 FLASH_HUBERT = (2, 16, 16, 4096, 80)         # B, H, KH, S, hd
 FLASH_STABLELM = (2, 32, 8, 8192, 160)
@@ -796,10 +797,10 @@ def check_flash_attention(dev, rng) -> None:
     KH 8) at S of 1, 127, 128, 129 (around the bf16 kernel's 128-row q
     tile and 128-key tile) and 200 (no multiple of 64), with windows of 20
     and 50 keys (under one key tile) besides the options above.  Then
-    HuBERT X-Large's hd 80 and StableLM 12B's hd 160 (bf16 on the mma.sync
-    kernel): KH 8, 4, 1 of H 8 at S of 1, 63, 64, 65 (around that
-    kernel's 64-row q tile and 64-key tile), 100 and 333, with the same
-    options."""
+    HuBERT X-Large's hd 80 and StableLM 12B's hd 160 (bf16 on the wgmma
+    kernel's 16- and 32-column boxes): KH 8, 4, 1 of H 8 at S of 1, 63,
+    64, 65, 100, 127, 128, 129 (around the 128-row q tile and 128-key
+    tile), 200 and 333, with every option above."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     options = (dict(causal=True), dict(causal=True, window=20),
@@ -811,8 +812,9 @@ def check_flash_attention(dev, rng) -> None:
               for kh in (8, 4, 1) for s in (1, 100, 333)]
     qwen = options + (dict(causal=True, window=50),)
     shapes += [(16, 128, 8, s, qwen) for s in (1, 127, 128, 129, 200)]
-    shapes += [(8, hd, kh, s, options) for hd in FLASH_NEW_HDS
-               for kh in (8, 4, 1) for s in (1, 63, 64, 65, 100, 333)]
+    shapes += [(8, hd, kh, s, qwen) for hd in FLASH_NEW_HDS
+               for kh in (8, 4, 1)
+               for s in (1, 63, 64, 65, 100, 127, 128, 129, 200, 333)]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         worst, worst_share = 0.0, 0.0
@@ -838,7 +840,8 @@ def check_flash_attention(dev, rng) -> None:
         log(f"  flash_attention {dtype}: q std 1/20, hd 64/128/256, KH 8/4/1 "
             f"of H 8, S 1/100/333, causal or not, window 20/100, softcap "
             f"0/30/50; hd 128 H 16 KH 8 at S 1/127/128/129/200, window "
-            f"20/50; hd 80/160, KH 8/4/1 of H 8, S 1/63/64/65/100/333: max "
+            f"20/50; hd 80/160, KH 8/4/1 of H 8, S 1/63/64/65/100/127/128/129/"
+            f"200/333, window 20/50/100: max "
             f"abs err {worst:.3g}, at most {worst_share:.3g} of "
             f"the bound {FLASH_REL[name]:.3g}"
             f"{' x q std' if dtype == torch.float32 else ''} (|plain| + A)")
@@ -913,7 +916,7 @@ def time_flash_attention(dev) -> dict:
         res[label]["tflops"] = flops / res[label]["ms"] / 1e9
         torch.cuda.empty_cache()
     del q, k, v
-    # Qwen3-1.7B's heads, the mma.sync kernel's dims and phase 11's hd 128
+    # Qwen3-1.7B's heads, HuBERT's and StableLM's dims and phase 11's hd 128
     # layers, each at its arch's layer, beside their plain version and
     # SDPA (softcap 0, window 0: the layers' own options)
     for label, (b, h, kh, s, hd), causal in FLASH_LAYERS:
@@ -965,7 +968,8 @@ def time_flash_attention(dev) -> dict:
               "heads (hd 128, softcap 0) at the same B and S, SDPA beside; "
               "*_hd80: HuBERT X-Large's layer (B 2, H = KH = 16, S 4096, "
               "not causal), *_hd160: StableLM 12B's (B 2, H 32, KH 8, S "
-              "8192, causal), both on the mma.sync kernel; "
+              "8192, causal), both on the wgmma kernel (16- and 32-column "
+              "boxes); "
               "*_hd128_mistral: Mistral NeMo 12B's layer (B 2, H 32, KH "
               "8, S 8192, causal), *_hd128_chameleon: Chameleon 34B's (B "
               "1, H 64, KH 8, S 4096, causal); softcap 0, library: SDPA; "
@@ -3888,10 +3892,11 @@ def main(argv=None) -> int:
         f"{t['ms_hd128']:.3f} ms, plain {t['plain_ms_hd128']:.3f} ms, "
         f"scaled_dot_product_attention "
         f"{t['library_ms_hd128']:.3f} ms, bound {t['bound_ms_hd128']:.3f} ms"
-        f"; hd 80 (HuBERT X-Large's layer, not causal, mma.sync): kernel "
+        f"; hd 80 (HuBERT X-Large's layer, not causal, wgmma, 16-column "
+        f"boxes): kernel "
         f"{t['ms_hd80']:.3f} ms, plain {t['plain_ms_hd80']:.3f} ms, SDPA "
         f"{t['library_ms_hd80']:.3f} ms, bound {t['bound_ms_hd80']:.3f} ms"
-        f"; hd 160 (StableLM 12B's, causal, mma.sync): kernel "
+        f"; hd 160 (StableLM 12B's, causal, wgmma, 32-column boxes): kernel "
         f"{t['ms_hd160']:.3f} ms, plain {t['plain_ms_hd160']:.3f} ms, SDPA "
         f"{t['library_ms_hd160']:.3f} ms, bound {t['bound_ms_hd160']:.3f} ms"
         f"; TFLOP/s {', '.join(f'{n} {v:.1f}' for n, v in t['tflops'].items())}"

@@ -17,52 +17,53 @@
 // exp(-2e38 - m) = 0.  K and V rows past S are zeros and masked, so any
 // S runs.  Three kernels, chosen by dtype and head dim:
 //
-//   dtype    head dim             kernel
-//   bf16     64, 128, 256         flash_wgmma_kernel (wgmma + TMA)
-//   bf16     16, 32, 80, 160      flash_mma_kernel (mma.sync)
-//   float32  all seven            flash_f32_kernel (FMAs)
+//   dtype    head dim                 kernel
+//   bf16     64, 80, 128, 160, 256    flash_wgmma_kernel (wgmma + TMA)
+//   bf16     16, 32                   flash_mma_kernel (mma.sync)
+//   float32  all seven                flash_f32_kernel (FMAs)
 //
-//   bf16, hd 64/128/256 (the serving path): wgmma with a TMA ring.  A
-//     block of 384 threads owns 128 q rows of one head: warpgroup 0 is
-//     the producer (its registers cut to 40 by setmaxnreg; one thread
-//     issues every TMA copy), warpgroups 1 and 2 the consumers (232
-//     registers), 64 q rows each.  Q comes in once by TMA; K and V
-//     tiles of BK keys (80 at hd 256, 128 below) go through a 2-stage
-//     ring in shared memory, each with its own full and empty mbarriers,
-//     so the next K lands while this tile's P.V still reads V.  Every
-//     tile is 64-column boxes of 128-byte rows in the 128-byte swizzle
-//     (the widest a TMA box row may be), so hd 256 is 4 boxes; rows past
-//     S arrive as zeros.  S = Q.K^T is wgmma with A and B from shared
-//     memory (both K-major); the streaming softmax runs on the float32
-//     accumulators in registers, in base 2, with the softcap's tanh as
-//     1 - 2 / (2^(2 y log2 e) + 1) (two special-function ops, about
-//     1e-7 absolute, where tanhf is a long software sequence) and the
-//     softcap and masks as compile-time variants; P is rounded to bf16 in
-//     registers and O += P.V is wgmma with A from registers and V as an
-//     MN-major (transposed) B from shared memory.  Within a consumer,
-//     S of tile t and P.V of tile t-1 are issued together and the
-//     softmax of tile t runs while P.V does.  Each consumer skips the
-//     tiles that only the other one's rows need.  Not done: a persistent
-//     grid, a TMA store of O, and sharing one K/V tile between the two q
-//     heads of a KV head (each block loads its own; L2 serves the
-//     second).  Shared memory: Q 128 x hd + 2 stages x (K + V) of BK x
-//     hd, bf16: 224 KB at hd 256, 160 KB at 128, 80 KB at 64 (plus 1 KB
-//     alignment and the barriers).  Registers a consumer thread: hd / 2
-//     float32 for O, BK / 2 for S and BK / 4 for P (128 + 40 + 20 at hd
-//     256).
-//   bf16, hd 16, 32, 80, 160: mma.sync m16n8k16, 4 warps, 64 q rows x
-//     64-key tiles loaded synchronously into shared memory (rows padded
-//     by 8 elements so fragment loads hit 32 distinct banks: a row is
-//     an odd number of 16-byte chunks at every one of these dims); P
-//     goes from the S accumulators into A fragments.  Any hd that is a
-//     multiple of 16 fits m16n8k16.  The wgmma kernel reads every tile
-//     in 64-column TMA boxes of 128-byte swizzled rows, and 80 and 160
-//     are not multiples of 64: HuBERT X-Large (hd 80) and StableLM 12B
-//     (hd 160) run this kernel.  At hd 160 a thread holds 80 float32
-//     accumulators of O and 32 of S; shared memory is 3 tiles of 64 x
-//     (hd + 8) bf16, 64.5 KB at hd 160.  A wgmma design at these dims
-//     (a 16- or 32-column box, or a 64-column box and a remainder) is
-//     later work.
+//   bf16, hd 64/80/128/160/256 (the serving path): wgmma with a TMA ring.  A
+//     block of 384 threads owns 128 q rows of one head: warpgroup 0 is the
+//     producer (its registers cut to 40 by setmaxnreg; one thread issues
+//     every TMA copy), warpgroups 1 and 2 the consumers (232 registers), 64 q
+//     rows each.  Q comes in once by TMA; K and V tiles of BK keys (80 at hd
+//     256, 128 below) go through a ring of 2 stages (4 at hd 80) in shared
+//     memory, each with its own full and empty mbarriers, so later tiles land
+//     while this tile's P.V still reads V.  A tile is a row of TMA boxes,
+//     each BOX columns wide and swizzled across its own rows (rows past S
+//     arrive as zeros): 64 columns (128-byte rows, the 128-byte swizzle) at
+//     the multiples of 64, so hd 256 is 4 boxes; 32 columns (the 64-byte
+//     swizzle) at hd 160 and 16 (the 32-byte swizzle) at hd 80, 5 boxes
+//     each.  Narrow boxes cost TMA time: read in 16-column boxes through 2
+//     stages, hd 128 took 1.3x as long (in 32-column ones no longer); at hd
+//     80, 4 stages make 16-column boxes as fast as a 64- and a 16-column box
+//     (tools/flash_probes.py).  In every mode the 8 rows of a core matrix
+//     fall on distinct banks, and the wgmma descriptors name the box's
+//     swizzle, with 8 of its rows as the stride of 8-row groups.  S = Q.K^T
+//     is wgmma with A and B from shared memory (both K-major), a k16 step
+//     within one box; the streaming softmax runs on the float32 accumulators
+//     in registers, in base 2, with the softcap's tanh as 1 - 2 / (2^(2 y
+//     log2 e) + 1) (two special-function ops, about 1e-7 absolute, where
+//     tanhf is a long software sequence) and the softcap and masks as
+//     compile-time variants; P is rounded to bf16 in registers and O += P.V
+//     is wgmma with A from registers and V as an MN-major (transposed) B from
+//     shared memory: one wgmma of N = hd a k16 step, the boxes BK x 2 BOX
+//     bytes apart.  Within a consumer, S of tile t and P.V of tile t-1 are
+//     issued together and the softmax of tile t runs while P.V does.  Each
+//     consumer skips the tiles that only the other one's rows need.  Not
+//     done: a persistent grid, a TMA store of O, and sharing one K/V tile
+//     between the two q heads of a KV head (each block loads its own; L2
+//     serves the second).  Shared memory: Q 128 x hd + the stages x (K + V)
+//     of BK x hd, bf16: 224 KB at hd 256, 200 KB at 160, 180 KB at 80, 160 KB
+//     at 128, 80 KB at 64 (plus 1 KB alignment and the barriers).  Registers
+//     a consumer thread: hd / 2 float32 for O, BK / 2 for S and BK / 4 for P
+//     (128 + 40 + 20 at hd 256, 80 + 64 + 32 at 160).
+//   bf16, hd 16, 32: mma.sync m16n8k16, 4 warps, 64 q rows x 64-key
+//     tiles loaded synchronously into shared memory (rows padded by 8
+//     elements so fragment loads hit 32 distinct banks: a row is an odd
+//     number of 16-byte chunks at both dims); P goes from the S
+//     accumulators into A fragments.  These are the smoke configs' heads
+//     (hd 16); no full-width arch has them.
 //   float32: plain FMAs (the tensor cores' TF32 would break the float32
 //     contract), 256 threads, 32 q rows x 32-key tiles in shared
 //     memory, 8 threads a row.  It serves the float32 checks, not the
@@ -71,11 +72,15 @@
 // What bounds it: at the main shape (B 2, H 16, KH 8, S 8192, hd 256,
 // bf16) tensor-core operations: about 1.1e12 FLOP for a global layer
 // (4 B H hd x the keys in range) against 0.4 GB of q, k, v and o (0.12 ms
-// at 3.35 TB/s); 1.1 ms at 989 TFLOP/s.  What the design still leaves: the softmax of a tile takes about as long
-// as its two products (the special-function unit does 16 exponentials
-// or reciprocals a cycle an SM, and the softcap needs three a score),
-// the two consumers are not scheduled against each other (a ping-pong
-// of named barriers measured no faster), and O is stored from registers.
+// at 3.35 TB/s); 1.1 ms at 989 TFLOP/s.  What the design still leaves:
+// the softmax of a tile takes about as long as its two products (the
+// special-function unit does 16 exponentials or reciprocals a cycle an
+// SM, and the softcap needs three a score), the two consumers are not
+// scheduled against each other (a ping-pong of named barriers measured no
+// faster), and O is stored from registers.  At hd 80 (HuBERT's
+// layer, 0.17 ms of operations) a tile's products are short beside its
+// softmax: without the softmax the layer takes about two thirds of the
+// time, without its exponentials seven eighths (tools/flash_probes.py).
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -175,13 +180,16 @@ __device__ inline void tma_load_3d(void* dst, const CUtensorMap* map,
       "r"(smem_addr(bar)) : "memory");
 }
 
-// wgmma shared-memory descriptor of a tile in the 128-byte swizzle: start
-// address, leading and stride byte offsets (16-byte units), layout 1.
-__device__ inline uint64_t sw128_desc(const void* p, uint32_t lbo,
-                                      uint32_t sbo) {
+// wgmma shared-memory descriptor of a tile of BOX-column boxes in their
+// swizzle: start address, leading and stride byte offsets (16-byte
+// units), layout 1 (128-byte swizzle), 2 (64-byte) or 3 (32-byte).
+template <int BOX>
+__device__ inline uint64_t smem_desc(const void* p, uint32_t lbo,
+                                     uint32_t sbo) {
+  constexpr uint64_t layout = BOX == 64 ? 1 : BOX == 32 ? 2 : 3;
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
          ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
+         (layout << 62);
 }
 
 // Keep the compiler from moving accumulator registers across the async
@@ -213,15 +221,23 @@ struct Wg {
   static constexpr int BQ = 128;                 // q rows a block
   // keys a tile: at hd 256 the widest that fits two stages beside Q
   static constexpr int BK = HD == 256 ? 80 : 128;
-  static constexpr int STAGES = 2;
+  // K/V stages in the ring: at hd 80 a tile is short work, and 4 stages
+  // (180 KB) keep more loads in flight than 2 (h80s2 in
+  // tools/flash_probes.py)
+  static constexpr int STAGES = HD == 80 ? 4 : 2;
   static constexpr int THREADS = 384;            // producer + 2 consumers
-  static constexpr int BOX = 64;                 // columns a TMA box
+  // columns a TMA box: the widest swizzle row that tiles hd
+  static constexpr int BOX = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
+  static constexpr uint32_t GROUP = 8 * BOX * 2; // 8 rows of a box, bytes
   static constexpr int Q_ELEMS = BQ * HD;
   static constexpr int KV_ELEMS = BK * HD;       // one K or V tile
   static constexpr uint32_t Q_BYTES = Q_ELEMS * 2;
   static constexpr uint32_t KV_BYTES = KV_ELEMS * 2;
+  // the tiles, 1 KB to align them to the 128-byte swizzle's period, and
+  // the 1 + 4 STAGES barriers
   static constexpr int SMEM =
-      (Q_ELEMS + 2 * STAGES * KV_ELEMS) * 2 + 1024 + 128;
+      (Q_ELEMS + 2 * STAGES * KV_ELEMS) * 2 + 1024 + 256;
+  static_assert((1 + 4 * STAGES) * 8 <= 256, "barriers overflow");
 };
 
 // S (BK/2 accumulators) for the 64 rows of consumer `c`: Q.K^T over hd.
@@ -229,13 +245,15 @@ template <int HD>
 __device__ inline void qk_product(float* s, const __nv_bfloat16* Qs,
                                   const __nv_bfloat16* Kst, int c) {
   using W = Wg<HD>;
+  constexpr int SUBS = W::BOX / 16;              // k16 steps a box
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const int box = kk / 4, sub = kk % 4;        // 4 k16 steps a box
-    const uint64_t a = sw128_desc(
-        Qs + box * W::BQ * W::BOX + c * 64 * W::BOX + sub * 16, 16, 1024);
-    const uint64_t b =
-        sw128_desc(Kst + box * W::BK * W::BOX + sub * 16, 16, 1024);
+    const int box = kk / SUBS, sub = kk % SUBS;
+    const uint64_t a = smem_desc<W::BOX>(
+        Qs + box * W::BQ * W::BOX + c * 64 * W::BOX + sub * 16, 16,
+        W::GROUP);
+    const uint64_t b = smem_desc<W::BOX>(
+        Kst + box * W::BK * W::BOX + sub * 16, 16, W::GROUP);
     if constexpr (W::BK == 80)
       repro::wgmma_ss_m64n80k16(s, a, b, kk > 0);
     else
@@ -250,13 +268,18 @@ __device__ inline void pv_product(float* o, uint32_t (*pa)[4],
   using W = Wg<HD>;
 #pragma unroll
   for (int kk = 0; kk < W::BK / 16; ++kk) {
-    // MN-major B: 16 key rows of 128 bytes (8-row groups 1024 bytes
-    // apart), the hd columns in boxes of 64 BK * 128 bytes apart
-    const uint64_t b = sw128_desc(Vst + kk * 16 * W::BOX, W::BK * 128, 1024);
+    // MN-major B: 16 key rows of 2 BOX bytes (8-row groups GROUP bytes
+    // apart), the hd columns in boxes of BOX BK * 2 BOX bytes apart
+    const uint64_t b = smem_desc<W::BOX>(Vst + kk * 16 * W::BOX,
+                                         W::BK * W::BOX * 2, W::GROUP);
     if constexpr (HD == 256)
       repro::wgmma_rs_m64n256k16(o, pa[kk], b);
+    else if constexpr (HD == 160)
+      repro::wgmma_rs_m64n160k16(o, pa[kk], b);
     else if constexpr (HD == 128)
       repro::wgmma_rs_m64n128k16(o, pa[kk], b);
+    else if constexpr (HD == 80)
+      repro::wgmma_rs_m64n80k16(o, pa[kk], b);
     else
       repro::wgmma_rs_m64n64k16(o, pa[kk], b);
   }
@@ -534,7 +557,7 @@ __global__ void __launch_bounds__(Wg<HD>::THREADS, 1)
   }
 }
 
-// ------------------------------ bf16, hd 16/32/80/160: mma.sync
+// --------------------------------------------- bf16, hd 16/32: mma.sync
 
 constexpr int BF_BQ = 64, BF_BK = 64, BF_THREADS = 128;
 
@@ -833,21 +856,25 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [heads, S, hd] bf16 as a 3-d tensor map of boxes [1, rows, 64] in the
-// 128-byte swizzle; rows past S read as zeros.
+// [heads, S, hd] bf16 as a 3-d tensor map of boxes [1, rows, box] in the
+// swizzle of box-column (2 box-byte) rows; rows past S read as zeros.
 bool tensor_map(CUtensorMap* map, const void* ptr, int heads, int S, int hd,
-                int rows) {
+                int rows, int box) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)S,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)S * hd * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t boxes[3] = {(cuuint32_t)box, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : box == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                const_cast<void*>(ptr), dims, strides, boxes, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -856,9 +883,9 @@ template <int HD>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
   using W = Wg<HD>;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, p.q, p.B * p.H, p.S, HD, W::BQ) ||
-      !tensor_map(&tk, p.k, p.B * p.KH, p.S, HD, W::BK) ||
-      !tensor_map(&tv, p.v, p.B * p.KH, p.S, HD, W::BK))
+  if (!tensor_map(&tq, p.q, p.B * p.H, p.S, HD, W::BQ, W::BOX) ||
+      !tensor_map(&tk, p.k, p.B * p.KH, p.S, HD, W::BK, W::BOX) ||
+      !tensor_map(&tv, p.v, p.B * p.KH, p.S, HD, W::BK, W::BOX))
     return (int)cudaErrorInvalidValue;
   auto kernel = p.softcap > 0.f ? flash_wgmma_kernel<HD, true>
                                 : flash_wgmma_kernel<HD, false>;
@@ -890,13 +917,15 @@ int launch_f32(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// bf16 goes to the wgmma kernel at the multiples of 64 and to the
-// mma.sync kernel at the other multiples of 16; float32 to the FMA kernel.
+// bf16 goes to the wgmma kernel from hd 64 up (boxes of 16, 32 or 64
+// columns) and to the mma.sync kernel at 16 and 32; float32 to the FMA
+// kernel.  A tensor map that fails to encode or a refused launch returns
+// its error: nothing falls back to another kernel.
 template <int HD>
 int launch_hd(const Params& p, int bf16, cudaStream_t stream) {
-  static_assert(HD % 16 == 0, "m16n8k16 steps 16 columns at a time");
+  static_assert(HD % 16 == 0, "wgmma and m16n8k16 step 16 columns");
   if (!bf16) return launch_f32<HD>(p, stream);
-  if constexpr (HD % 64 == 0)
+  if constexpr (HD >= 64)
     return launch_wgmma<HD>(p, stream);
   else
     return launch_mma<HD>(p, stream);

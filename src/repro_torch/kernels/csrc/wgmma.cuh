@@ -19,6 +19,7 @@
 #define REPRO_F32(d, i) REPRO_F16(d, i), REPRO_F16(d, i + 16)
 #define REPRO_F40(d, i) REPRO_F32(d, i), REPRO_F4(d, i + 32), REPRO_F4(d, i + 36)
 #define REPRO_F64(d, i) REPRO_F32(d, i), REPRO_F32(d, i + 32)
+#define REPRO_F80(d, i) REPRO_F64(d, i), REPRO_F16(d, i + 64)
 #define REPRO_F128(d, i) REPRO_F64(d, i), REPRO_F64(d, i + 64)
 
 namespace repro {
@@ -70,6 +71,21 @@ __device__ inline void wgmma_rs_m64n64k16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ inline void wgmma_rs_m64n80k16(float* d, const uint32_t* a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : REPRO_F40(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ inline void wgmma_rs_m64n128k16(float* d, const uint32_t* a,
                                           uint64_t b) {
   asm volatile(
@@ -85,6 +101,26 @@ __device__ inline void wgmma_rs_m64n128k16(float* d, const uint32_t* a,
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : REPRO_F64(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ inline void wgmma_rs_m64n160k16(float* d, const uint32_t* a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : REPRO_F80(d, 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -14,19 +14,21 @@ streaming softmax in registers.  At the serving shape it is bounded by
 tensor-core operations, not bytes.  Which kernel serves which (dtype,
 hd):
 
-- bf16 at hd 64, 128 and 256 (Gemma 2, Qwen3, Mistral NeMo, Chameleon)
-  runs the Hopper design: a producer warpgroup keeps Q and a 2-stage
-  ring of K and V tiles coming by TMA (mbarriers; its registers cut by
+- bf16 at hd 64, 80, 128, 160 and 256 (Gemma 2, Qwen3, Mistral NeMo,
+  Chameleon; HuBERT X-Large at 80, StableLM 12B at 160) runs the Hopper
+  design: a producer warpgroup keeps Q and a ring of K and V tiles (2
+  stages, 4 at hd 80) coming by TMA (mbarriers; its registers cut by
   ``setmaxnreg``), and two consumer warpgroups of 64 q rows each
   multiply with ``wgmma`` (S = Q.K^T from shared memory, O += P.V with P
   in registers; S of one tile and P.V of the one before issued
   together), the softcap's tanh from one exponential and one
-  reciprocal.  Shared memory: 224 KB at hd 256 (80-key tiles), 160 KB at
-  128 and 80 KB at 64 (128-key tiles).
-- bf16 at hd 16, 32, 80 (HuBERT X-Large) and 160 (StableLM 12B) runs a
-  smaller ``mma.sync`` kernel with synchronous loads: its tiles take any
-  multiple of 16, where the wgmma kernel's 64-column TMA boxes need a
-  multiple of 64.
+  reciprocal.  A tile is a row of TMA boxes
+  in the swizzle of their width: 64 columns at the multiples of 64, 32 at
+  hd 160 and 16 at hd 80.  Shared memory: 224 KB at hd 256 (80-key
+  tiles), 200 KB at 160, 180 KB at 80, 160 KB at 128 and 80 KB at 64
+  (128-key tiles).
+- bf16 at hd 16 and 32 (the smoke configs' heads) runs a smaller
+  ``mma.sync`` kernel with synchronous loads.
 - float32 at every dim runs plain FMAs (TF32 would break its contract)
   and serves the checks and float32 models.
 

@@ -448,12 +448,17 @@ def test_apps_on_card_match_cpu(cuda, name):
     # 128-key tile, and at an S that is no multiple of 64
     *(pytest.param(128, 16, 8, s, id=f"qwen3-{s}")
       for s in (1, 127, 128, 129, 200)),
-    # the mma.sync kernel's dims beyond 32, around its 64-row q tile and
-    # 64-key tile: HuBERT X-Large's heads (hd 80, KH = H) and StableLM
-    # 12B's (hd 160, GQA)
-    *(pytest.param(80, 16, 16, s, id=f"hubert-{s}") for s in (63, 64, 65)),
+    # HuBERT X-Large's heads (hd 80, KH = H: 16-column boxes) and
+    # StableLM 12B's (hd 160: 32-column boxes) at an S around 64, and
+    # around the wgmma kernel's 128-row q tile and 128-key tile (hd 80 also
+    # over 9 tiles: its ring of 4 stages wraps twice); hd 160 at KH = H,
+    # H/4 and 1
+    *(pytest.param(80, 16, 16, s, id=f"hubert-{s}")
+      for s in (1, 63, 64, 65, 127, 128, 129, 200, 333, 1100)),
     *(pytest.param(160, 8, 2, s, id=f"stablelm-{s}")
-      for s in (1, 63, 64, 65, 129))])
+      for s in (1, 63, 64, 65, 127, 128, 129, 200, 333)),
+    *(pytest.param(160, 8, kh, s, id=f"stablelm-kh{kh}-{s}")
+      for kh in (8, 1) for s in (1, 127, 128, 129, 200, 333))])
 def test_flash_attention(cuda, dtype, rel, q_std, hd, h, kh, s):
     """q at std 20 puts the scores in the softcaps' range; windows of 20
     and 50 lie under one key tile."""
@@ -477,6 +482,30 @@ def test_flash_attention(cuda, dtype, rel, q_std, hd, h, kh, s):
         assert got.dtype == dtype
         assert bool(((got.float() - want).abs()
                      <= rel * (want.abs() + a)).all()), opts
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd,h,kh", [(80, 16, 16), (160, 8, 2)])
+def test_flash_attention_capped_window(cuda, hd, h, kh, causal):
+    """hd 80 and 160 at q std 20 with softcap 50 and a window of 40 keys
+    (under one 128-key tile) over 3 tiles and a ragged last one: the
+    outputs stay within the bound, and the window and the softcap each
+    move most of them past it when dropped."""
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.as_tensor(rng.normal(0, sd, (2, n, 333, hd)).astype(
+        np.float32), device=cuda).to(torch.bfloat16)
+        for n, sd in ((h, 20.0), (kh, 1), (kh, 1)))
+    opts = dict(causal=causal, window=40, softcap=50.0)
+    got = flash_attention(q, k, v, **opts).float()
+    want = ref.flash_attention_ref(q, k, v, **opts).float()
+    a = ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                **opts)
+    tol = 2**-7 * (want.abs() + a)
+    assert bool(((got - want).abs() <= tol).all())
+    for dropped in (dict(window=0), dict(softcap=0.0)):
+        wrong = ref.flash_attention_ref(q, k, v, **{**opts, **dropped})
+        assert float(((wrong.float() - want).abs() > tol).float().mean()) \
+            > 0.1, dropped
 
 
 @pytest.mark.parametrize("arch", ["gemma2_9b", "qwen3_1_7b"])

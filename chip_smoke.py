@@ -8,7 +8,9 @@ Runs on one CUDA card, from the root of a checkout:
   1. builds the kernel libraries from ``src/repro_torch/kernels/csrc``;
   2. holds every kernel against its plain PyTorch version on the card
      (edge cases, then the main paths' shapes, with kernel, plain and
-     library times and the least time the card could take);
+     library times and the least time the card could take; the fused
+     merge on both of its routes at the one-block path's shapes,
+     ``ONE_BLOCK_SHAPES``);
   3. drives the one-step path — wordcount's ``Session.run`` then two
      ``update``s, on the MRBG path and on ``auto`` (the accumulator) — at
      vocab 2^18, 64 words a document, 2^20 documents, and checks every
@@ -53,7 +55,8 @@ Runs on one CUDA card, from the root of a checkout:
      spill to the git-ignored ``build/``, then reload); (e)
      ``MultiSessionServer`` (the deprecated shim) is (a)'s sequential leg.
      Every tenant equals ``np.bincount`` of its mirror after every round,
-     and batched equals sequential bitwise, tenant by tenant.
+     and batched equals sequential bitwise, tenant by tenant; (a) logs its
+     fused merges' one-block launches by (N, key_cap).
   8. drives delta queries — ``repro_torch.dql``: (a) ``wordcount_query``
      on phase 3's corpus and updates, bitwise equal to ``np.bincount``
      and to phase 3's ``apps.wordcount`` Session; (b) ``join_query`` at
@@ -164,6 +167,40 @@ SSSP_REFRESH_MINMAX = (2**17, 16384, 1)
 # (N, key_cap) of the one-block fused launches of PageRank's refresh
 # (phase 4's launch log: 3 of its 5 fused launches; this is the largest)
 PR_REFRESH_ONE_BLOCK = (4096, 256)
+# The fused merge's one-block shapes, timed on both routes: (label, N,
+# key_cap, affected keys, the keys' universe (None: the graph's
+# vertices), rows a key, rewrites, tombstones, inserts, mk's range (None:
+# 2^26)) as merge_rows takes them.  The serving tier's launches as phase 7
+# (a) logs them: sequential, (64, 64) for every tenant (vocab 64, one
+# update of one 4-word document: ~8 affected keys, 4 tombstones and 4
+# inserts; mk = rid * 4 + slot); batched, (2,048, 1,024) (128 tenants'
+# keys side by side: 1,927-1,988 combined rows, 952-985 affected keys).
+# PageRank's refresh at PR_REFRESH_ONE_BLOCK, and 8,192 and 16,384 rows
+# (PageRank's refresh launches at (8,192, 1,024) and (16,384, 1,024)),
+# where the route (fused.SMALL_MAX_ROWS) is set by these times.
+ONE_BLOCK_SHAPES = (
+    ("tenant", 64, 64, 8, 64, 1, 0, 4, 4, 64),
+    ("batched tenants", 2048, 1024, 970, 8192, 1, 0, 490, 490, 64),
+    ("PageRank's refresh", 4096, 256, 256, None, 8, 1024, 128, 128, None),
+    ("8,192 rows", 8192, 512, 512, None, 8, 2048, 256, 256, None),
+    ("16,384 rows", 16384, 1024, 1024, None, 8, 4096, 512, 512, None),
+)
+# the same shapes on the one-block design before this one (a bitonic
+# network in a block of 1,024 threads, atomics into acc and counts zeroed
+# by two memsets; route "sort + runs" above 4,096 rows): events ms and
+# device us a call of tools/scatter_probes.py --one-block on that package
+# and these rows, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6)
+ONE_BLOCK_BEFORE = {
+    "tenant": "events 0.0908-0.1026 ms, device 10.29-10.33 us, 3 kernels",
+    "batched tenants": "events 0.0638-0.0940 ms, device 48.72-49.04 us, "
+                       "3 kernels",
+    "PageRank's refresh": "events 0.1002-0.1252 ms, device 93.74-94.03 us, "
+                          "3 kernels",
+    "8,192 rows": "sort + runs: events 0.1213-0.2651 ms, device "
+                  "92.68-92.87 us, 21 kernels",
+    "16,384 rows": "sort + runs: events 0.1957-0.1960 ms, device "
+                   "93.53-93.56 us, 21 kernels",
+}
 # flash attention, held elementwise: |kernel - plain| <= rel * (|plain| + A)
 # with A = sum_j p_j |v_j| (the plain version on |v|), the size every
 # rounding of an output is proportional to.  bf16, rel 2^-7: the kernel
@@ -485,7 +522,7 @@ def check_small_sizes(dev, rng) -> dict:
     sizes, against their plain versions bit for bit, on the coalescer's own
     inputs: record ids with a padded tail of INT32_MAX, lo = the row index;
     ascending segment ids of the signs, the padded tail dropped (id K).
-    Returns {n: kernel and plain ms of each}."""
+    Returns {n: kernel, plain and library ms and the bound of each}."""
     import torch
     from repro_torch.kernels.ref import segment_sum_ref, sort_lex_ref
     from repro_torch.kernels.segment_reduce import segment_sum
@@ -511,29 +548,55 @@ def check_small_sizes(dev, rng) -> dict:
         for part, g, w in zip(("sums", "counts"), got, want):
             require_equal(f"segment_sum n={n} int32 counts (coalescer) "
                           f"{part}", g, w)
+        # the library calls: torch.sort of the packed (hi, lo) key, stable;
+        # index_add_ + bincount on the rows in range (compacted beforehand,
+        # untimed), as at the main path's shapes
+        packed = (hi.to(torch.int64) << 32) | (lo.to(torch.int64) + 2**31)
+        in_range = (seg >= 0) & (seg < n)
+        lsid = seg[in_range].to(torch.int64)
+        lvals = vals[in_range]
+
+        def library_sum():
+            torch.zeros((n, 1), dtype=torch.int32, device=dev).index_add_(
+                0, lsid, lvals)
+            torch.bincount(lsid, minlength=n)
+
         t = dict(
             sort_ms=cuda_ms(lambda: sort_lex(hi, lo)),
             sort_plain_ms=cuda_ms(lambda: sort_lex_ref(hi, lo)),
+            sort_library_ms=cuda_ms(lambda: torch.sort(packed, stable=True)),
+            # the sort: hi, lo read, the three lanes written; n log2 n
+            # compares
+            sort_bound_ms=bound(n * 8 + n * 12, n * math.log2(n))["bound_ms"],
             sum_ms=cuda_ms(lambda: segment_sum(
                 seg, vals, n, out_dtype=torch.int32, counts=True)),
             sum_plain_ms=cuda_ms(lambda: segment_sum_ref(
-                seg, vals, n, out_dtype=torch.int32, counts=True)))
+                seg, vals, n, out_dtype=torch.int32, counts=True)),
+            sum_library_ms=cuda_ms(library_sum),
+            # seg and vals read, sums and counts written; a value and a
+            # count added a row in range
+            sum_bound_ms=bound(n * 8 + n * 8, 2 * lsid.numel())["bound_ms"])
         out[n] = t
         log(f"  coalescer sizes n={n}: sort_lex and segment_sum (int32, "
             f"counts) equal to their plain versions; sort {t['sort_ms']:.4f}"
-            f" ms (plain {t['sort_plain_ms']:.4f}), segment_sum "
-            f"{t['sum_ms']:.4f} ms (plain {t['sum_plain_ms']:.4f})")
+            f" ms (plain {t['sort_plain_ms']:.4f}, torch.sort stable on the "
+            f"packed key {t['sort_library_ms']:.4f}, bound "
+            f"{t['sort_bound_ms']:.3g}), segment_sum {t['sum_ms']:.4f} ms "
+            f"(plain {t['sum_plain_ms']:.4f}, index_add_ + bincount on the "
+            f"rows in range {t['sum_library_ms']:.4f}, bound "
+            f"{t['sum_bound_ms']:.3g})")
     return out
 
 
 def fused_rows(dev, rng, n, d, dtype, nkeys, *, absent=0, tomb=0.25,
-               hot=False, float_vals=False, routed=1.0):
+               hot=False, float_vals=False, routed=1.0, cap=None):
     """Rows with duplicate (k2, mk) runs, tombstones, invalid rows and k2
     values outside the affected set: ``nkeys`` distinct k2 (one key owning
     every row when ``hot``), a share ``tomb`` of tombstones, 10% invalid
     rows; the affected keys are a share ``routed`` of the present k2 plus
     ``absent`` keys with no rows (empty slots), padded with INT32_MAX to a
-    power of two; values integer-valued unless ``float_vals``."""
+    power of two, or to ``cap`` slots (a random ``cap`` of them where
+    there are more); values integer-valued unless ``float_vals``."""
     import torch
     k2 = np.full(n, 7) if hot else rng.integers(0, nkeys, n)
     mk = rng.integers(0, 8, n).astype(np.int32)
@@ -544,7 +607,10 @@ def fused_rows(dev, rng, n, d, dtype, nkeys, *, absent=0, tomb=0.25,
     present = np.unique(k2[valid])
     aff = np.union1d(present[rng.random(present.size) < routed],
                      nkeys + 3 * np.arange(absent)).astype(np.int32)
-    cap = 1 << max(int(np.ceil(np.log2(aff.size + 1))), 3)
+    if cap is None:
+        cap = 1 << max(int(np.ceil(np.log2(aff.size + 1))), 3)
+    elif aff.size > cap:
+        aff = np.sort(rng.choice(aff, cap, replace=False))
     keys = np.full(cap, INT32_MAX, np.int32)
     keys[:aff.size] = aff
     t = lambda a: torch.as_tensor(a, device=dev)
@@ -558,8 +624,9 @@ def check_fused_runs(dev, rng) -> None:
     and the composed path on integer data: runs longer than a tile that
     cross its edges, one key owning every row, every row tombstoned,
     affected keys with no rows, key_cap 4096 at D = 8.  Then non-integer
-    float32: acc within 1e-5 of the sum of |v|, and equal bit for bit
-    from one call to the next (the runs add in a fixed order)."""
+    float32, on this path and on the one-block path: acc within 1e-5 of
+    the sum of |v|, and equal bit for bit from one call to the next (both
+    add in a fixed order)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused import fused_shuffle_reduce
@@ -598,7 +665,9 @@ def check_fused_runs(dev, rng) -> None:
     for label, n, d, nkeys, opt in (
             ("runs across tile edges", 20_000, 1, 3, {}),
             ("one key owning every row", 2**20, 1, 1, dict(hot=True)),
-            ("key_cap 4096", 100_000, 8, 4000, {})):
+            ("key_cap 4096", 100_000, 8, 4000, {}),
+            ("one block, runs across its threads and warps", 4091, 1, 3, {}),
+            ("one block, D = 8", 4091, 8, 3, {})):
         args = fused_rows(dev, rng, n, d, torch.float32, nkeys,
                           float_vals=True, **opt)
         got = fused_shuffle_reduce(*args, out_dtype=torch.float32)
@@ -615,40 +684,66 @@ def check_fused_runs(dev, rng) -> None:
             if name != "acc":
                 require_equal(f"fused {label} float {name}", g, w)
     log(f"  fused_shuffle_reduce non-integer float32 (runs across tiles, "
-        f"one hot key, key_cap 4096 at D = 8): acc equal from call to "
-        f"call, relative error {worst:.3g} (tolerance 1e-5 of sum|v|)")
+        f"one hot key, key_cap 4096 at D = 8; the one-block path at 4,091 "
+        f"rows, D 1 and 8): acc equal from call to call, relative error "
+        f"{worst:.3g} (tolerance 1e-5 of sum|v|)")
 
 
 def check_fused(dev, rng) -> None:
+    """The fused merge on both routes, bit for bit against its plain version
+    and the composed path on int32 and integer-valued float32: sizes from
+    one row through the serving tier's tenants (12, 40) and the one-block
+    limit (``SMALL_MAX_ROWS`` and one row either side) to the large path,
+    D 1, 8 and 512 (512 up to one row past the limit); then the one-block
+    path's edges at every size up to the limit and one past it: key_cap 8
+    (a few of the present keys routed) and 4096, every row a tombstone,
+    one key owning every row, affected keys with no rows."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused import fused_shuffle_reduce
+    from repro_torch.kernels.fused import SMALL_MAX_ROWS, fused_shuffle_reduce
     from repro_torch.kernels.ref import fused_shuffle_reduce_ref
     names = ("k2", "mk", "vals", "live", "perm", "acc", "counts")
-    for n in (5, 1000, 4095, 4096, 4097, 9000, 70_000):
-        for d in (1, 8):
+    lim = SMALL_MAX_ROWS
+
+    def check(label, n, d, dtype, nkeys, **opt):
+        args = fused_rows(dev, rng, n, d, dtype, nkeys, **opt)
+        got = fused_shuffle_reduce(*args, out_dtype=dtype)
+        want = fused_shuffle_reduce_ref(*args, out_dtype=dtype)
+        for name, g, w in zip(names, got, want):
+            require_equal(f"fused {label} n={n} d={d} {dtype} {name}", g, w)
+        # the port's composed path on the card gives the same bits
+        k2m, mk, vals, valid, sign, keys = args
+        fz = ops.shuffle_reduce("sum", k2m, mk, vals, valid, sign, keys,
+                                fused=True)
+        cp = ops.shuffle_reduce("sum", k2m, mk, vals, valid, sign, keys,
+                                fused=False)
+        for name in ("k2", "mk", "values", "live", "perm", "acc", "counts"):
+            require_equal(f"fused vs composed {label} n={n} d={d} {name}",
+                          getattr(fz, name), getattr(cp, name))
+
+    for n in (1, 2, 5, 12, 31, 32, 33, 40, 64, 1000, lim - 1, lim, lim + 1,
+              9000, 70_000):
+        ds = (1, 8, 512) if n <= lim + 1 else (1, 8)
+        for d in ds:
             for dtype in (torch.float32, torch.int32):
-                # few distinct keys: long (k2, mk) runs straddle every
-                # 4096-row boundary of the sorted order
-                args = fused_rows(dev, rng, n, d, dtype, max(n // 64, 2),
-                                  routed=0.8)
-                got = fused_shuffle_reduce(*args, out_dtype=dtype)
-                want = fused_shuffle_reduce_ref(*args, out_dtype=dtype)
-                for name, g, w in zip(names, got, want):
-                    require_equal(f"fused n={n} d={d} {dtype} {name}", g, w)
-                # the port's composed path on the card gives the same bits
-                k2m, mk, vals, valid, sign, keys = args
-                fz = ops.shuffle_reduce("sum", k2m, mk, vals, valid, sign,
-                                        keys, fused=True)
-                cp = ops.shuffle_reduce("sum", k2m, mk, vals, valid, sign,
-                                        keys, fused=False)
-                for name in ("k2", "mk", "values", "live", "perm", "acc",
-                             "counts"):
-                    require_equal(f"fused vs composed n={n} d={d} {name}",
-                                  getattr(fz, name), getattr(cp, name))
+                # few distinct keys: long (k2, mk) runs straddle the
+                # threads, warps and tiles of the sorted order
+                check("", n, d, dtype, max(n // 64, 2), routed=0.8)
         log(f"  fused_shuffle_reduce n={n} "
-            f"({'one block' if n <= 4096 else 'sort + runs'}), "
-            f"D in (1, 8), int32/float32: equal to plain and to composed")
+            f"({'one block' if n <= lim else 'sort + runs'}), "
+            f"D in {ds}, int32/float32: equal to plain and to composed")
+    for label, opt in (("key_cap 8", dict(cap=8)),
+                       ("key_cap 4096", dict(cap=4096)),
+                       ("every row a tombstone", dict(tomb=1.0)),
+                       ("one key owning every row", dict(hot=True)),
+                       ("40 affected keys with no rows", dict(absent=40))):
+        for n in (1, 2, 31, 32, 33, 64, 1000, lim, lim + 1):
+            for d in (1, 8, 512):
+                for dtype in (torch.float32, torch.int32):
+                    check(label, n, d, dtype, max(n // 8, 2), **opt)
+        log(f"  fused_shuffle_reduce one-block edges, {label}: n 1 to "
+            f"{lim + 1}, D 1/8/512, int32/float32: equal to plain and to "
+            f"composed")
 
 
 def check_segment_minmax(dev, rng) -> None:
@@ -984,30 +1079,39 @@ def time_flash_attention(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def merge_rows(rng, dev, m: int, universe: int, key_cap: int, per_key: int,
-               redo: int, tomb: int, new: int, ones: bool = False):
+               redo: int, tomb: int, new: int, ones: bool = False,
+               mk_range=None, key_pad=None):
     """A shuffle-reduce merge's rows as the main paths give it: ``key_cap``
     affected keys (sorted, unique, from [0, universe)) of ``per_key``
     preserved rows each, then a delta of ``redo`` rewrites and ``tomb``
     tombstones of preserved rows and ``new`` rows on affected keys, padded
-    to ``m`` rows at k2 = mk = INT32_MAX.  Values of width 1: ones, or
-    uniform in [0, 0.25) float32 (PageRank's rank shares).  Returns the six
-    arguments of ``fused_shuffle_reduce`` and the count of valid rows."""
+    to ``m`` rows at k2 = mk = INT32_MAX.  mk (rid * fanout + slot) unique
+    in [0, 2^26) for the preserved rows, or drawn from [0, ``mk_range``).
+    The keys padded with INT32_MAX to ``key_pad`` slots where given.
+    Values of width 1: ones, or uniform in [0, 0.25) float32 (PageRank's
+    rank shares).  Returns the six arguments of ``fused_shuffle_reduce``
+    and the count of valid rows."""
     import torch
     keys = np.sort(rng.choice(universe, key_cap, replace=False)).astype(
         np.int32)
     pk2 = np.repeat(keys, per_key)
-    pmk = rng.choice(2**26, pk2.size, replace=False)
+    pmk = rng.choice(2**26, pk2.size, replace=False) if mk_range is None \
+        else rng.integers(0, mk_range, pk2.size)
     pick = rng.choice(pk2.size, redo + tomb, replace=False)
     nv = pk2.size + redo + tomb + new
     k2 = np.full(m, INT32_MAX, np.int32)
     k2[:nv] = np.concatenate([pk2, pk2[pick], rng.choice(keys, new)])
     mk = np.full(m, INT32_MAX, np.int32)
-    mk[:nv] = np.concatenate([pmk, pmk[pick], rng.integers(0, 2**26, new)])
+    mk[:nv] = np.concatenate([pmk, pmk[pick],
+                              rng.integers(0, mk_range or 2**26, new)])
     sign = np.zeros(m, np.int8)
     sign[:nv] = np.concatenate([np.ones(pk2.size + redo), -np.ones(tomb),
                                 np.ones(new)])
     vals = (np.ones((m, 1), np.float32) if ones
             else (rng.random((m, 1)) * 0.25).astype(np.float32))
+    if key_pad is not None:
+        keys = np.concatenate([keys, np.full(key_pad - key_cap, INT32_MAX,
+                                             np.int32)])
     t = lambda a: torch.as_tensor(a, device=dev)
     return [t(k2), t(mk), t(vals), t(np.arange(m) < nv), t(sign), t(keys)], nv
 
@@ -1044,6 +1148,16 @@ def sssp_refresh_rows(rng, dev, n: int, k: int):
     return torch.as_tensor(ids, device=dev), vals, ids
 
 
+def fused_bound(m: int, key_cap: int, nv: int) -> dict:
+    """The fused merge's bound at N = m, D = 1: read k2, mk, vals, valid,
+    sign and the keys; written k2_s, mk_s, vals_s, perm, live, acc and
+    counts; the sort's m log2 m compares, then one value and one count add
+    a valid row."""
+    read = m * (4 + 4 + 4 + 1 + 1) + key_cap * 4
+    written = m * (4 + 4 + 4 + 4 + 1) + key_cap * (4 + 4)
+    return bound(read + written, m * math.log2(max(m, 2)) + 2 * nv)
+
+
 def time_fused(label: str, args, nv: int, dev) -> dict:
     """The fused kernel's time (CUDA events), its plain version's, the port's
     composed path's on the same rows (``ops.shuffle_reduce(..., fused=
@@ -1059,17 +1173,12 @@ def time_fused(label: str, args, nv: int, dev) -> dict:
     fn = lambda: fused_shuffle_reduce(*args, out_dtype=torch.float32)
     composed = lambda: ops.shuffle_reduce("sum", k2m, mk, vals, valid, sign,
                                           keys, fused=False)
-    # read: k2, mk, vals, valid, sign, keys; written: k2_s, mk_s, vals_s,
-    # perm, live, acc, counts
-    read = m * (4 + 4 + 4 + 1 + 1) + key_cap * 4
-    written = m * (4 + 4 + 4 + 4 + 1) + key_cap * (4 + 4)
     res = dict(
         ms=cuda_ms(fn),
         plain_ms=cuda_ms(lambda: fused_shuffle_reduce_ref(
             *args, out_dtype=torch.float32)),
         composed_ms=cuda_ms(composed),
-        # compares of the sort, then one value and one count add per row
-        **bound(read + written, m * math.log2(m) + 2 * nv))
+        **fused_bound(m, key_cap, nv))
     log(f"  fused_shuffle_reduce at {label} [N={m} D=1 key_cap={key_cap}, "
         f"{nv} valid rows]: composed path {res['composed_ms']:.3f} ms, bound "
         f"{res['bound_ms']:.4f} ms; kernel "
@@ -1077,6 +1186,71 @@ def time_fused(label: str, args, nv: int, dev) -> dict:
     log(f"    composed path split: " + split_line(composed, dev,
                                                    res["composed_ms"]))
     return res
+
+def time_one_block(dev, rng, vertices: int) -> dict:
+    """The fused merge at ONE_BLOCK_SHAPES, float32 rows of width 1 from
+    ``merge_rows``, on the route ``SMALL_MAX_ROWS`` picks and, where the
+    package exposes both (``fused._fused_cuda``), on each route at the same
+    rows.  Each route is held against the plain version (acc within 1e-5
+    of the sum of |v|, the rest bit for bit) and timed: events ms (mean of
+    20 calls after a warm-up, the wrapper's host work included), device ms
+    a call and kernels a call (20 calls under torch.profiler: the union of
+    their kernels' intervals, over 20).  Also the plain version's and the
+    composed path's events ms and the bound.  Logs each shape beside
+    ONE_BLOCK_BEFORE.  Returns {label: {...}}."""
+    import torch
+    from repro_torch.kernels import fused as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import fused_shuffle_reduce_ref
+    names = ("k2", "mk", "vals", "live", "perm", "acc", "counts")
+    out = {}
+    for (label, m, cap, nkeys, universe, per_key, redo, tomb, new,
+         mk_range) in ONE_BLOCK_SHAPES:
+        args, nv = merge_rows(rng, dev, m, universe or vertices, nkeys,
+                              per_key, redo, tomb, new, mk_range=mk_range,
+                              key_pad=cap)
+        k2m, mk, vals, valid, sign, keys = args
+        want = fused_shuffle_reduce_ref(*args, out_dtype=torch.float32)
+        route = "one block" if m <= F.SMALL_MAX_ROWS else "sort + runs"
+        routes = {route: lambda: F.fused_shuffle_reduce(
+            *args, out_dtype=torch.float32)}
+        if hasattr(F, "_fused_cuda"):
+            routes = {r: (lambda one: lambda: F._fused_cuda(
+                *args, out_dtype=torch.float32, one_block=one))(
+                    r == "one block") for r in ("one block", "sort + runs")}
+        res = dict(n=m, key_cap=cap, valid_rows=nv, route=route,
+                   plain_ms=cuda_ms(lambda: fused_shuffle_reduce_ref(
+                       *args, out_dtype=torch.float32), reps=20),
+                   composed_ms=cuda_ms(lambda: ops.shuffle_reduce(
+                       "sum", k2m, mk, vals, valid, sign, keys, fused=False),
+                       reps=20),
+                   **fused_bound(m, cap, nv))
+        parts = []
+        for r, fn in routes.items():
+            got = fn()
+            for name, g, w in zip(names, got, want):
+                if name != "acc":
+                    require_equal(f"fused {label} ({r}) {name}", g, w)
+            # the values are non-negative: the sums are the sums of |v|
+            sum_rel_err(f"fused {label} ({r}) acc", got[5], want[5], want[5])
+            p = device_shares(lambda: [fn() for _ in range(20)], dev, top=3)
+            res[r] = dict(ms=cuda_ms(fn, reps=20),
+                          device_ms=p["busy_ms"] / 20,
+                          kernels=p["kernels"] / 20)
+            parts.append(f"{r}{' (taken)' if r == route else ''}: events "
+                         f"{res[r]['ms']:.4f} ms, device "
+                         f"{res[r]['device_ms'] * 1e3:.2f} us and "
+                         f"{res[r]['kernels']:g} kernels a call "
+                         f"{p['top']}")
+        out[label] = res
+        log(f"  fused_shuffle_reduce at {label} [N={m} D=1 key_cap={cap}, "
+            f"{nv} valid rows]: " + "; ".join(parts) + f"; plain "
+            f"{res['plain_ms']:.4f} ms, composed path "
+            f"{res['composed_ms']:.4f} ms, bound {res['bound_ms']:.3g} ms "
+            f"({res['bound_by']}); the design before: "
+            f"{ONE_BLOCK_BEFORE[label]}")
+    return out
+
 
 def time_kernels(dev, rng, n_edges: int, vertices: int) -> dict:
     import torch
@@ -1806,13 +1980,19 @@ def device_shares(fn, dev, top: int = 5) -> dict:
     profiled call (which the profiler slows); ``top`` the ``top`` kernels
     that took the most device time.  The profiler's raw events are read
     (``kineto_results``), not its Python event tree, whose build takes
-    tens of seconds for the ~10^5 kernels of a serving sweep."""
+    tens of seconds for the ~10^5 kernels of a serving sweep.  A short
+    spin kernel runs first in the window and is left out: in a process
+    that has profiled before, the profiler can drop the window's first
+    device event (one call of a one-kernel path then read as 0 kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     sync(dev)
     acts = [ProfilerActivity.CUDA if dev.type == "cuda"
             else ProfilerActivity.CPU]
     with profile(activities=acts) as prof:
+        if dev.type == "cuda":
+            torch.cuda._sleep(1000)
+            sync(dev)
         t0 = time.perf_counter()
         fn()
         sync(dev)
@@ -1821,7 +2001,7 @@ def device_shares(fn, dev, top: int = 5) -> dict:
     spans, by_name = [], {}
     cuda = torch.autograd.DeviceType.CUDA
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != cuda:
+        if e.device_type() != cuda or "spin_kernel" in e.name():
             continue
         lo = e.start_ns()
         hi = lo + e.duration_ns()
@@ -3086,6 +3266,26 @@ def fused_paths() -> dict:
     return out
 
 
+def one_block_line() -> str:
+    """The one-block fused launches since the last reset by (N, key_cap):
+    their count, N's range and median, the launches at each key_cap and
+    the commonest shapes."""
+    from collections import Counter
+    from repro_torch.kernels import launch_shapes
+    by, caps = Counter(), Counter()
+    for (n, cap, _, path), k in launch_shapes()[
+            "fused_shuffle_reduce"].items():
+        if path == "one block":
+            by[(n, cap)] += k
+            caps[cap] += k
+    if not by:
+        return "no one-block launches"
+    ns = np.repeat([n for n, _ in by], list(by.values()))
+    return (f"{ns.size} one-block launches, N {ns.min()}-{ns.max()} (median "
+            f"{np.median(ns):g}), by key_cap {dict(sorted(caps.items()))}, "
+            f"commonest (N, key_cap) {by.most_common(10)}")
+
+
 def profiled_round(tier, mirrors: dict, dev, vocab: int, seed: int,
                    rows: int = 1) -> dict:
     """One more round (one update a tenant), its sweep under
@@ -3131,7 +3331,8 @@ def fleet_cell(dev, mode: str):
     n_log = len(tier.launch_log)
     res = loadgen.run_rounds(tier, mirrors, FLEET_ROUNDS, vocab=FLEET_VOCAB,
                              seed=9)
-    counts, paths = launch_counts(), fused_paths()
+    counts, paths, one_block = launch_counts(), fused_paths(), \
+        one_block_line()
     serve_check(f"(a) {mode}", tier, mirrors, FLEET_VOCAB)
     stats = tier.stats()
     p95 = float(np.median([t["latency_p95_ms"]
@@ -3153,6 +3354,8 @@ def fleet_cell(dev, mode: str):
         f"fused paths {paths}; timed batched launches (tenants, combined "
         f"rows, affected keys, key_cap) "
         f"{launches}")
+    log(f"  [serve] (a) {mode}, the timed rounds' fused merges: "
+        f"{one_block}")
     log(f"  [serve] (a) {mode}, one profiled sweep ({t_prof:.3f} s with "
         f"the profile's processing): {p['kernels']} kernels, "
         f"device busy {p['busy_ms']:.3f} ms of {p['wall_ms']:.3f} ms "
@@ -3907,6 +4110,8 @@ def main(argv=None) -> int:
     sums, fused = check_iterative_shapes(dev, rng, args.vertices)
     timed["segment_sum"].update(sums)
     timed["fused_shuffle_reduce"].update(fused)
+    timed["fused_shuffle_reduce"]["one_block_shapes"] = time_one_block(
+        dev, rng, args.vertices)
     torch.cuda.empty_cache()
 
     log("phase 3: main path (wordcount, one-step incremental)")
@@ -4008,13 +4213,14 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         if name in ("sort_lex", "segment_sum"):
             key = "sort" if name == "sort_lex" else "sum"
-            entry["ms_coalescer"] = {n: small[n][f"{key}_ms"] for n in small}
-            entry["plain_ms_coalescer"] = {
-                n: small[n][f"{key}_plain_ms"] for n in small}
+            for part in ("", "plain_", "library_", "bound_"):
+                entry[f"{part}ms_coalescer"] = {
+                    n: small[n][f"{key}_{part}ms"] for n in small}
             entry["note_coalescer"] = (
-                "ms_coalescer, plain_ms_coalescer: by N at the stream "
-                "coalescer's sizes (phase 2: sort by (record id, row); "
-                "int32 sum of the signs with counts)")
+                "*ms_coalescer: by N at the stream coalescer's sizes (phase "
+                "2: sort by (record id, row), library torch.sort stable on "
+                "the packed key; int32 sum of the signs with counts, library "
+                "index_add_ + bincount on the rows in range)")
         if name == "segment_sum":
             entry.update({n: t[n] for n in (
                 "shape", "ms_pagerank", "plain_ms_pagerank",
@@ -4032,7 +4238,7 @@ def main(argv=None) -> int:
                 "shape", "composed_ms", "ms_pagerank", "plain_ms_pagerank",
                 "composed_ms_pagerank", "bound_ms_pagerank", "ms_one_block",
                 "plain_ms_one_block", "composed_ms_one_block",
-                "bound_ms_one_block")})
+                "bound_ms_one_block", "one_block_shapes")})
             entry["note"] = (
                 "ms, plain_ms, bound_ms: wordcount's update (a) merge; "
                 "*_pagerank: PageRank's refresh merge (N 2^16, key_cap "
@@ -4040,7 +4246,10 @@ def main(argv=None) -> int:
                 "refresh (N 4096, key_cap 256); composed_ms*: the port's "
                 "composed path (shuffle_reduce(fused=False)) on the same "
                 "rows, the yardstick, since no one PyTorch call computes "
-                "the function (library_ms null)")
+                "the function (library_ms null); one_block_shapes: "
+                "ONE_BLOCK_SHAPES on each route (events ms, device ms and "
+                "kernels a call over 20 profiled calls), route: the one "
+                "SMALL_MAX_ROWS takes")
         if name == "segment_minmax":
             entry.update({n: t[n] for n in (
                 "shape", "ms_refresh", "plain_ms_refresh",

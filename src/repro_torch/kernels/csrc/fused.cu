@@ -8,37 +8,54 @@
 // key equals their k2, and counted per slot.
 //
 // Two launchers:
-//   * fused_small_launch (n <= 4096): ONE block sorts the three int lanes
-//     (k2, mk, row) with a bitonic network in dynamic shared memory
-//     (12 bytes a row, 48 KB at 4096 rows), then gathers the payload, marks
-//     the last writers and routes live rows with atomics into the zeroed
-//     acc and counts, all in the same launch.
-//   * fused_runs_launch (n > 4096): runs after the sort kernel (sort.cu)
-//     has written k2_s, mk_s and perm.  The rows arrive sorted by k2, so
-//     an affected key's rows are one contiguous run and the Reduce is a
-//     segmented sum over sorted runs, not a scatter.  A block stages the
-//     keys in shared memory and takes tiles of sorted rows (1024 at D = 1:
-//     4 a thread, loaded 16 bytes at a time; a warp's 32 rows at D > 1,
-//     lanes over the columns).  It gathers each row's payload, marks the
-//     last writers by comparing with the next sorted row, and sums each
-//     run's live rows and counts in a fixed order: in the thread, then a
-//     segmented scan across the warp and the block.  The run's last row
-//     in the tile routes it once (a binary search in shared memory) and
-//     stores its slot's sums and count, so no output is added to twice and
-//     nothing is zeroed first.  A run that crosses tiles leaves a partial
-//     in each tile it touches, and a combine kernel adds them in tile
-//     order into the slot.  Each slot whose key has no rows is written as
-//     zero by the one tile where its key would sort in.
+//   * fused_small_launch (n <= ONE_BLOCK_MAX): ONE block, one launch, no
+//     memset.  The block is sized to n: a warp up to 128 rows, then 4 rows a
+//     thread up to 1,024 threads (m = n rounded up to a power of two, at
+//     least 32; R = m / threads rows a thread).  It loads each row's (k2, mk)
+//     and its valid/sign bit into registers, and meanwhile copies the
+//     affected keys and (D = 1) the values into shared memory with cp.async,
+//     so every global load is issued before the sort.  A stable LSD radix
+//     sort orders (k2, mk) with the row breaking ties: 8-bit digits over only
+//     the bits that vary across the rows (INT32_MAX, the invalid and padding
+//     rows, squeezed to just above the largest other key), each pass ranking
+//     a warp's rows with __match_any_sync, one exclusive scan of the block's
+//     histogram, and a scatter in shared memory (five barriers a pass, one
+//     pass a byte of varying bits).  Then the block marks the last writers
+//     against the next sorted row, writes the sorted rows, and sums each k2
+//     run's live rows in a fixed order: in the thread, then a segmented scan
+//     across the warp and the block (D = 1); or a thread a (slot, column)
+//     over the slot's run (D > 1; the payload is copied a warp a row, lanes
+//     over the columns).  The run's last row routes it (a binary search of
+//     the keys in shared memory) and stores its slot's sums and count once; a
+//     slot whose key has no row, or repeats the key before it (the INT32_MAX
+//     padding), is written as zero.
+//   * fused_runs_launch (n above the one-block route): runs after the sort
+//     kernel (sort.cu) has written k2_s, mk_s and perm.  The rows arrive
+//     sorted by k2, so an affected key's rows are one contiguous run and the
+//     Reduce is a segmented sum over sorted runs, not a scatter.  A block
+//     stages the keys in shared memory and takes tiles of sorted rows (1024
+//     at D = 1: 4 a thread, loaded 16 bytes at a time; a warp's 32 rows at D
+//     > 1, lanes over the columns).  It gathers each row's payload, marks the
+//     last writers by comparing with the next sorted row, and sums each run's
+//     live rows and counts in a fixed order: in the thread, then a segmented
+//     scan across the warp and the block.  The run's last row in the tile
+//     routes it once (a binary search in shared memory) and stores its slot's
+//     sums and count, so no output is added to twice and nothing is zeroed
+//     first.  A run that crosses tiles leaves a partial in each tile it
+//     touches, and a combine kernel adds them in tile order into the slot.
+//     Each slot whose key has no rows is written as zero by the one tile
+//     where its key would sort in.
 //
-// Numbers: int32 sums are exact.  The large path adds float32 in a fixed
-// order, so its acc is the same from run to run (and equals any order's
-// sum on integer-valued data); the small path adds with atomics, in a
-// run-dependent order (exact on integer-valued data).
+// Numbers: int32 sums are exact.  Both paths add float32 in a fixed order,
+// so acc is the same from run to run (and equals any order's sum on
+// integer-valued data).
 //
 // What bounds it: device-memory bytes for the large path (each row's lanes,
 // payload, validity and sign read once, the sorted outputs written once);
 // the sort before it makes one pass a digit that is not constant.  The
-// small path is one block and bounded by its own latency.
+// one-block path is bounded by its latency: one round trip to device
+// memory for its inputs, then the radix passes on one SM (each a few
+// barriers and m / 32 warp-wide steps a digit), and the stores.
 #include <algorithm>
 #include <type_traits>
 
@@ -46,91 +63,431 @@
 
 namespace {
 
-constexpr int SMALL_MAX = 4096;
-constexpr int SMALL_THREADS = 1024;
 constexpr int32_t KEY_MAX = 0x7fffffff;
+constexpr int MAX_D = 512;
+constexpr int MAX_KEYS = 4096;                   // affected-key slots (ops' cap)
+constexpr int MAX_COLS = MAX_D / 32;             // columns a lane, D > 1
+constexpr int ONE_BLOCK_MAX = 16384;   // rows the one-block kernel takes
+constexpr int ONE_ROWS = 4;            // rows a thread once a warp is full
+constexpr int ONE_THREADS = 1024;
+// dynamic shared memory a block may take: the H100's 227 KB less room for
+// the kernel's static arrays (1.5 KB)
+constexpr int ONE_SMEM = 227 * 1024 - 2048;
 
-__device__ inline bool lex_lt(int32_t ah, int32_t al, int32_t ai, int32_t bh,
-                              int32_t bl, int32_t bi) {
-  if (ah != bh) return ah < bh;
-  if (al != bl) return al < bl;
-  return ai < bi;
+// 4 bytes from global into shared memory, asynchronously (sm_80+)
+__device__ inline void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
 }
 
-// Payload gather, live test and routing of sorted row p (source row r).
-template <typename T>
-__device__ inline void emit_row(int p, int r, int32_t h, bool last,
-                                const T* __restrict__ vals,
-                                const uint8_t* __restrict__ valid,
-                                const int8_t* __restrict__ sign,
-                                const int32_t* __restrict__ keys, int key_cap,
-                                int d, T* __restrict__ vals_out,
-                                uint8_t* __restrict__ live_out,
-                                T* __restrict__ acc,
-                                int32_t* __restrict__ counts) {
-  const T* src = vals + (long long)r * d;
-  T* dst = vals_out + (long long)p * d;
-  for (int c = 0; c < d; ++c) dst[c] = src[c];
-  const bool live = last && valid[r] != 0 && sign[r] > 0;
-  live_out[p] = live ? 1 : 0;
-  if (!live) return;
-  const int slot = repro::find_slot(keys, key_cap, h);
-  if (slot < 0) return;
-  T* a = acc + (long long)slot * d;
-  for (int c = 0; c < d; ++c) atomicAdd(&a[c], src[c]);
-  atomicAdd(&counts[slot], 1);
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <typename T>
-__global__ void __launch_bounds__(SMALL_THREADS)
-sort_lww_reduce_kernel(const int32_t* __restrict__ k2,
-                       const int32_t* __restrict__ mk,
-                       const T* __restrict__ vals,
-                       const uint8_t* __restrict__ valid,
-                       const int8_t* __restrict__ sign,
-                       const int32_t* __restrict__ keys, int key_cap, int n,
-                       int m, int d, int32_t* __restrict__ k2_out,
-                       int32_t* __restrict__ mk_out, T* __restrict__ vals_out,
-                       uint8_t* __restrict__ live_out,
-                       int32_t* __restrict__ perm, T* __restrict__ acc,
-                       int32_t* __restrict__ counts) {
-  extern __shared__ int32_t lanes[];
-  int32_t* sh = lanes;
-  int32_t* sl = lanes + m;
-  int32_t* si = lanes + 2 * m;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < m; i += blockDim.x) {
-    // padding rows sort after every real row: max keys, indices >= n
-    sh[i] = i < n ? k2[i] : KEY_MAX;
-    sl[i] = i < n ? mk[i] : KEY_MAX;
-    si[i] = i;
+// A key lane as an unsigned digit source: the sign bit flipped (so that
+// unsigned order is int32 order), and its all-ones value (INT32_MAX, the
+// invalid and padding rows) moved to just above the largest other value
+// `top`, so that the bits that vary over the rows are the real keys'.
+// The map keeps the order of the values present.
+__device__ inline uint32_t squeeze(int32_t v, uint32_t top) {
+  const uint32_t u = static_cast<uint32_t>(v) ^ 0x80000000u;
+  return (u == 0xffffffffu && top < 0xfffffffeu) ? top + 1 : u;
+}
+
+// The radix histogram: a counter a (digit, warp), digit-major, each
+// digit's row of `warps` counters padded by one so that a warp's lanes,
+// counting different digits, fall in different shared-memory banks.
+__device__ inline int hist_at(int digit, int warp, int warps) {
+  return digit * (warps + 1) + warp;
+}
+
+// Exclusive prefix sums, in place, of the radix histogram read digit-major
+// (digit, warp): where each warp's rows of each digit start in the pass's
+// output.  8 consecutive counters a thread; each warp scans the warps'
+// totals itself; two barriers.
+__device__ inline void scan_hist(uint32_t* hist, uint32_t* wtot) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5, lw = __ffs(warps) - 1;
+  uint32_t v[8], sum = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int f = tid * 8 + k;         // (f >> lw, f & (warps - 1))
+    v[k] = hist[f + (f >> lw)];
+    sum += v[k];
+  }
+  uint32_t inc = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t o = __shfl_up_sync(repro::FULL_MASK, inc, off);
+    if (lane >= off) inc += o;
+  }
+  if (lane == 31) wtot[warp] = inc;
+  __syncthreads();
+  uint32_t w = lane < warps ? wtot[lane] : 0u;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t o = __shfl_up_sync(repro::FULL_MASK, w, off);
+    if (lane >= off) w += o;
+  }
+  // the warps before this one, then the threads before this one
+  const uint32_t before = __shfl_sync(repro::FULL_MASK, w, (warp + 31) & 31);
+  uint32_t run = (warp > 0 ? before : 0u) + inc - sum;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int f = tid * 8 + k;
+    hist[f + (f >> lw)] = run;
+    run += v[k];
   }
   __syncthreads();
-  for (int k = 2; k <= m; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < m; i += blockDim.x) {
-        const int p = i ^ j;
-        if (p <= i) continue;
-        const bool up = (i & k) == 0;
-        const bool partner_lt = lex_lt(sh[p], sl[p], si[p], sh[i], sl[i], si[i]);
-        if (partner_lt == up) {
-          int32_t t;
-          t = sh[i]; sh[i] = sh[p]; sh[p] = t;
-          t = sl[i]; sl[i] = sl[p]; sl[p] = t;
-          t = si[i]; si[i] = si[p]; si[p] = t;
-        }
+}
+
+// What the run open at this thread's first row brings from the threads
+// before it: an exclusive segmented scan, in thread order, of each
+// thread's (sum and count since its last run start, start seen), across
+// the warp with shuffles and across the warps through shared memory.
+template <typename T>
+__device__ inline void run_carry(T run, int runc, bool any, T& carry,
+                                 int& carryc) {
+  __shared__ T wsum[32], wcarry[32];
+  __shared__ int wcnt[32], wflag[32], wccarry[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  T sx = run;
+  int sc = runc, sf = any;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T ox = __shfl_up_sync(repro::FULL_MASK, sx, off);
+    const int oc = __shfl_up_sync(repro::FULL_MASK, sc, off);
+    const int of = __shfl_up_sync(repro::FULL_MASK, sf, off);
+    if (lane >= off) {
+      if (!sf) {
+        sx = ox + sx;
+        sc = oc + sc;
       }
-      __syncthreads();
+      sf |= of;
     }
   }
-  for (int p = tid; p < n; p += blockDim.x) {
-    const int32_t h = sh[p], l = sl[p];
-    const bool last = p == n - 1 || sh[p + 1] != h || sl[p + 1] != l;
-    k2_out[p] = h;
-    mk_out[p] = l;
-    perm[p] = si[p];
-    emit_row<T>(p, si[p], h, last, vals, valid, sign, keys, key_cap, d,
-                vals_out, live_out, acc, counts);
+  T ex = __shfl_up_sync(repro::FULL_MASK, sx, 1);
+  int exc = __shfl_up_sync(repro::FULL_MASK, sc, 1);
+  int exf = __shfl_up_sync(repro::FULL_MASK, sf, 1);
+  if (lane == 0) {
+    ex = 0;
+    exc = exf = 0;
+  }
+  if (lane == 31) {
+    wsum[warp] = sx;
+    wcnt[warp] = sc;
+    wflag[warp] = sf;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    T ax = lane < warps ? wsum[lane] : (T)0;
+    int ac = lane < warps ? wcnt[lane] : 0;
+    int af = lane < warps ? wflag[lane] : 1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const T ox = __shfl_up_sync(repro::FULL_MASK, ax, off);
+      const int oc = __shfl_up_sync(repro::FULL_MASK, ac, off);
+      const int of = __shfl_up_sync(repro::FULL_MASK, af, off);
+      if (lane >= off) {
+        if (!af) {
+          ax = ox + ax;
+          ac = oc + ac;
+        }
+        af |= of;
+      }
+    }
+    const T px = __shfl_up_sync(repro::FULL_MASK, ax, 1);
+    const int pc = __shfl_up_sync(repro::FULL_MASK, ac, 1);
+    if (lane < warps) {
+      wcarry[lane] = lane ? px : (T)0;
+      wccarry[lane] = lane ? pc : 0;
+    }
+  }
+  __syncthreads();
+  carry = exf ? ex : wcarry[warp] + ex;
+  carryc = exf ? exc : wccarry[warp] + exc;
+}
+
+// The one-block path: m = R blockDim.x >= n rows, R rows a thread.
+// Dynamic shared memory: the sorted lanes sh, sl [m] int32 and si [m]
+// uint16 (2 row + a bit: below 2^15), the keys [key_cap], a scratch (the
+// radix histogram during the sort; after it, at D > 1, each slot's run
+// [lo, hi) of sorted rows, 16-bit), then at D = 1 the values [n] when
+// `stage`.
+template <typename T, int R>
+__global__ void __launch_bounds__(ONE_THREADS)
+one_block_kernel(const int32_t* __restrict__ k2,
+                 const int32_t* __restrict__ mk, const T* __restrict__ vals,
+                 const uint8_t* __restrict__ valid,
+                 const int8_t* __restrict__ sign,
+                 const int32_t* __restrict__ keys, int key_cap, int n, int d,
+                 int scratch, int stage, int32_t* __restrict__ k2_out,
+                 int32_t* __restrict__ mk_out, T* __restrict__ vals_out,
+                 uint8_t* __restrict__ live_out, int32_t* __restrict__ perm,
+                 T* __restrict__ acc, int32_t* __restrict__ counts) {
+  extern __shared__ __align__(16) int32_t sm[];
+  __shared__ uint32_t red[6][32], wtot[32];
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, warps = threads >> 5;
+  const int m = R * threads;
+  int32_t* sh = sm;
+  int32_t* sl = sm + m;
+  uint16_t* si = reinterpret_cast<uint16_t*>(sm + 2 * m);
+  int32_t* skeys = sm + 2 * m + m / 2;
+  uint32_t* hist = reinterpret_cast<uint32_t*>(skeys + key_cap);
+  uint16_t* slo = reinterpret_cast<uint16_t*>(hist);          // D > 1
+  uint16_t* shi = slo + key_cap;
+  T* svals = reinterpret_cast<T*>(skeys + key_cap + scratch);  // D = 1
+
+  // every global load first: the keys and the values copied into shared
+  // memory asynchronously, this thread's rows into registers.  The rows
+  // are warp-striped: warp w holds rows w 32 R + 32 r + lane.
+  for (int i = tid; i < key_cap; i += threads) cp_async4(skeys + i, keys + i);
+  if (d == 1 && stage)
+    for (int i = tid; i < n; i += threads) cp_async4(svals + i, vals + i);
+  const int base = warp * 32 * R + lane;
+  int32_t h[R], l[R], x[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    // padding rows sort after every real row: max keys, rows >= n; x is
+    // 2 row + the row's valid-and-positive bit
+    const int i = base + 32 * r;
+    const bool in = i < n;
+    h[r] = in ? k2[i] : KEY_MAX;
+    l[r] = in ? mk[i] : KEY_MAX;
+    x[r] = (i << 1) | (in && valid[i] != 0 && sign[i] > 0);
+  }
+
+  // the bits of k2 and mk that vary over the rows (squeezed), from the
+  // largest values below INT32_MAX, then their OR and AND; each warp's
+  // part in red, read back by every warp
+  const auto in_warps = [&](int row, uint32_t none) {
+    return lane < warps ? red[row][lane] : none;
+  };
+  uint32_t th = 0, tl = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const uint32_t uh = static_cast<uint32_t>(h[r]) ^ 0x80000000u;
+    const uint32_t ul = static_cast<uint32_t>(l[r]) ^ 0x80000000u;
+    if (uh != 0xffffffffu) th = max(th, uh);
+    if (ul != 0xffffffffu) tl = max(tl, ul);
+  }
+  th = __reduce_max_sync(repro::FULL_MASK, th);
+  tl = __reduce_max_sync(repro::FULL_MASK, tl);
+  if (lane == 0) {
+    red[0][warp] = th;
+    red[1][warp] = tl;
+  }
+  __syncthreads();
+  th = __reduce_max_sync(repro::FULL_MASK, in_warps(0, 0u));
+  tl = __reduce_max_sync(repro::FULL_MASK, in_warps(1, 0u));
+  uint32_t oh = 0, ah = ~0u, ol = 0, al = ~0u;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const uint32_t uh = squeeze(h[r], th), ul = squeeze(l[r], tl);
+    oh |= uh;
+    ah &= uh;
+    ol |= ul;
+    al &= ul;
+  }
+  oh = __reduce_or_sync(repro::FULL_MASK, oh);
+  ah = __reduce_and_sync(repro::FULL_MASK, ah);
+  ol = __reduce_or_sync(repro::FULL_MASK, ol);
+  al = __reduce_and_sync(repro::FULL_MASK, al);
+  if (lane == 0) {
+    red[2][warp] = oh;
+    red[3][warp] = ah;
+    red[4][warp] = ol;
+    red[5][warp] = al;
+  }
+  __syncthreads();
+  // the bits that vary, of mk then of k2
+  const uint32_t vary[2] = {
+      __reduce_or_sync(repro::FULL_MASK, in_warps(4, 0u)) ^
+          __reduce_and_sync(repro::FULL_MASK, in_warps(5, ~0u)),
+      __reduce_or_sync(repro::FULL_MASK, in_warps(2, 0u)) ^
+          __reduce_and_sync(repro::FULL_MASK, in_warps(3, ~0u))};
+  const uint32_t top[2] = {tl, th};
+  int left = 0;                        // radix passes still to run
+  for (int k = 0; k < 2; ++k)
+    if (vary[k]) left += (31 - __clz(vary[k]) - (__ffs(vary[k]) - 1)) / 8 + 1;
+
+  // stable LSD radix sort, 8-bit digits over the varying bits of mk, then
+  // of k2: the row order breaks ties.  A pass ranks each warp's rows in
+  // row order (__match_any_sync, a running count a digit in the warp's
+  // column of the histogram), scans the histogram, and scatters the rows
+  // to their place in shared memory.
+  if (left == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      sh[base + 32 * r] = h[r];
+      sl[base + 32 * r] = l[r];
+      si[base + 32 * r] = static_cast<uint16_t>(x[r]);
+    }
+  }
+  for (int k = 0; k < 2; ++k) {
+    if (!vary[k]) continue;
+    const int hi_bit = 31 - __clz(vary[k]);
+    for (int shift = __ffs(vary[k]) - 1; shift <= hi_bit; shift += 8) {
+      --left;
+      for (int dg = lane; dg < 256; dg += 32)
+        hist[hist_at(dg, warp, warps)] = 0;
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const uint32_t dg = (squeeze(k ? h[r] : l[r], top[k]) >> shift) & 0xff;
+        const unsigned peers = __match_any_sync(repro::FULL_MASK, dg);
+        const int first = __ffs(peers) - 1;
+        uint32_t had = 0;
+        if (lane == first)
+          had = atomicAdd(hist + hist_at(dg, warp, warps), __popc(peers));
+        had = __shfl_sync(repro::FULL_MASK, had, first);
+        // the row's rank among its warp's rows of this digit, kept in the
+        // high half of x until the scatter
+        x[r] = (x[r] & 0xffff) |
+               static_cast<int32_t>((had + __popc(peers & ((1u << lane) - 1)))
+                                    << 16);
+      }
+      __syncthreads();
+      scan_hist(hist, wtot);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const uint32_t dg = (squeeze(k ? h[r] : l[r], top[k]) >> shift) & 0xff;
+        const int pos = hist[hist_at(dg, warp, warps)] + (x[r] >> 16);
+        sh[pos] = h[r];
+        sl[pos] = l[r];
+        si[pos] = static_cast<uint16_t>(x[r]);
+      }
+      __syncthreads();
+      if (left > 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          h[r] = sh[base + 32 * r];
+          l[r] = sl[base + 32 * r];
+          x[r] = si[base + 32 * r];
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  if (d > 1)
+    for (int s = tid; s < key_cap; s += threads) slo[s] = shi[s] = 0;
+  __syncthreads();
+
+  // the sorted rows out, a thread a row in turn (coalesced stores): the
+  // last writers, and the live bit in place of si's valid-and-positive
+  // bit; at D > 1 each run's first and last row mark its slot's run
+  for (int p = tid; p < n; p += threads) {
+    const int32_t hp = sh[p], lp = sl[p];
+    const int xp = si[p], src = xp >> 1;
+    const bool ends = p + 1 == n || sh[p + 1] != hp;
+    const bool live = (xp & 1) && (ends || sl[p + 1] != lp);
+    k2_out[p] = hp;
+    mk_out[p] = lp;
+    perm[p] = src;
+    live_out[p] = live;
+    si[p] = static_cast<uint16_t>((src << 1) | live);
+    if (d == 1) {
+      vals_out[p] = stage ? svals[src] : vals[src];
+    } else {
+      const bool starts = p == 0 || sh[p - 1] != hp;
+      if (starts || ends) {
+        const int slot = repro::find_slot(skeys, key_cap, hp);
+        if (slot >= 0) {
+          if (starts) slo[slot] = static_cast<uint16_t>(p);
+          if (ends) shi[slot] = static_cast<uint16_t>(p + 1);
+        }
+      }
+    }
+  }
+  __syncthreads();                     // si's live bits, the slots' runs
+
+  if (d == 1) {
+    // each run's share of this thread's R consecutive rows, the carry from
+    // the threads before, then each run's sum in row order; its last row
+    // stores it
+    T run = 0;
+    int runc = 0;
+    bool any = false;
+    for (int r = 0; r < R; ++r) {
+      const int p = tid * R + r;
+      if (p >= n) break;
+      const int xp = si[p];
+      if (p == 0 || sh[p - 1] != sh[p]) {
+        run = 0;
+        runc = 0;
+        any = true;
+      }
+      if (xp & 1) {
+        run += stage ? svals[xp >> 1] : vals[xp >> 1];
+        ++runc;
+      }
+    }
+    T sum;
+    int cnt;
+    run_carry<T>(run, runc, any, sum, cnt);        // two barriers
+    for (int r = 0; r < R; ++r) {
+      const int p = tid * R + r;
+      if (p >= n) break;
+      const int32_t hp = sh[p];
+      const int xp = si[p];
+      if (p > 0 && sh[p - 1] != hp) {
+        sum = 0;
+        cnt = 0;
+      }
+      if (xp & 1) {
+        sum += stage ? svals[xp >> 1] : vals[xp >> 1];
+        ++cnt;
+      }
+      if (p + 1 == n || sh[p + 1] != hp) {
+        const int slot = repro::find_slot(skeys, key_cap, hp);
+        if (slot >= 0) {
+          acc[slot] = sum;
+          counts[slot] = cnt;
+        }
+      }
+    }
+    // the slots no run stores: keys with no row, repeated keys
+    for (int s = tid; s < key_cap; s += threads) {
+      const int32_t key = skeys[s];
+      if ((s > 0 && skeys[s - 1] == key) || repro::find_slot(sh, n, key) < 0) {
+        acc[s] = 0;
+        counts[s] = 0;
+      }
+    }
+    return;
+  }
+
+  // the payload through perm: a warp a row, lanes over the columns
+  for (int p = warp; p < n; p += warps) {
+    const T* src = vals + (long long)(si[p] >> 1) * d;
+    T* dst = vals_out + (long long)p * d;
+    T buf[MAX_COLS];
+#pragma unroll
+    for (int c = 0; c < MAX_COLS; ++c)
+      if (lane + 32 * c < d) buf[c] = src[lane + 32 * c];
+#pragma unroll
+    for (int c = 0; c < MAX_COLS; ++c)
+      if (lane + 32 * c < d) dst[lane + 32 * c] = buf[c];
+  }
+  // every slot's sums, a thread a (slot, column), in row order over the
+  // slot's run (empty for keys with no row and repeated keys)
+  for (int e = tid; e < key_cap * d; e += threads) {
+    const int s = e / d, c = e - s * d;
+    const int hi = shi[s];
+    T sum = 0;
+    int cnt = 0;
+    for (int p = slo[s]; p < hi; ++p) {
+      const int xp = si[p];
+      if (xp & 1) {
+        sum += vals[(long long)(xp >> 1) * d + c];
+        ++cnt;
+      }
+    }
+    acc[e] = sum;
+    if (c == 0) counts[s] = cnt;
   }
 }
 
@@ -145,9 +502,6 @@ constexpr int RUN_ROWS = 4;                      // rows a thread at D = 1
 constexpr int TILE = RUN_THREADS * RUN_ROWS;     // rows a tile at D = 1
 constexpr int WIDE_THREADS = 256;
 constexpr int WIDE_ROWS = 32;                    // rows a warp's tile, D > 1
-constexpr int MAX_D = 512;
-constexpr int MAX_KEYS = 4096;                   // affected-key slots (ops' cap)
-constexpr int MAX_COLS = MAX_D / 32;             // columns a lane, D > 1
 constexpr int OPEN_START = 1;   // the tile's first run began in an earlier tile
 constexpr int OPEN_END = 2;     // its last run goes on past the tile
 constexpr int ONE_RUN = 4;      // its first run is its last
@@ -586,50 +940,92 @@ inline int run_tiles(int n, int d) {
   return (n + rows - 1) / rows;
 }
 
-void zero_outputs(void* acc, void* counts, int key_cap, int d,
-                  cudaStream_t stream) {
-  cudaMemsetAsync(acc, 0, (size_t)key_cap * d * 4, stream);
-  cudaMemsetAsync(counts, 0, (size_t)key_cap * 4, stream);
+
+// The one-block launch of one instantiation; the shared-memory limit is
+// raised once for it, not at every launch.
+template <typename T, int R>
+int launch_one_block(const void* k2, const void* mk, const void* vals,
+                     const void* valid, const void* sign, const void* keys,
+                     int key_cap, int n, int d, int scratch, int stage,
+                     int threads, size_t smem, void* k2_out, void* mk_out,
+                     void* vals_out,
+                     void* live, void* perm, void* acc, void* counts,
+                     cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      one_block_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ONE_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  one_block_kernel<T, R><<<1, threads, smem, stream>>>(
+      (const int32_t*)k2, (const int32_t*)mk, (const T*)vals,
+      (const uint8_t*)valid, (const int8_t*)sign, (const int32_t*)keys,
+      key_cap, n, d, scratch, stage, (int32_t*)k2_out, (int32_t*)mk_out,
+      (T*)vals_out, (uint8_t*)live, (int32_t*)perm, (T*)acc, (int32_t*)counts);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_one_block_rows(int rows, const void* k2, const void* mk,
+                          const void* vals, const void* valid,
+                          const void* sign, const void* keys, int key_cap,
+                          int n, int d, int scratch, int stage, int threads,
+                          size_t smem,
+                          void* k2_out, void* mk_out, void* vals_out,
+                          void* live, void* perm, void* acc, void* counts,
+                          cudaStream_t stream) {
+  switch (rows) {
+#define REPRO_ONE_BLOCK(R)                                                    \
+  case R:                                                                     \
+    return launch_one_block<T, R>(k2, mk, vals, valid, sign, keys, key_cap,   \
+                                  n, d, scratch, stage, threads, smem,        \
+                                  k2_out, mk_out, vals_out, live, perm, acc,  \
+                                  counts, stream);
+    REPRO_ONE_BLOCK(1)
+    REPRO_ONE_BLOCK(2)
+    REPRO_ONE_BLOCK(4)
+    REPRO_ONE_BLOCK(8)
+    REPRO_ONE_BLOCK(16)
+#undef REPRO_ONE_BLOCK
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// n <= 4096 rows.  k2 (invalid rows already at INT32_MAX), mk: [n] int32;
-// vals: [n, d] float32 (is_float) or int32; valid: [n] uint8; sign: [n]
-// int8; keys: [key_cap] int32.  Outputs: k2_out, mk_out, perm [n] int32,
-// vals_out [n, d], live [n] uint8, acc [key_cap, d], counts [key_cap] int32.
+// n <= ONE_BLOCK_MAX rows, one block, one launch.  k2 (invalid rows already
+// at INT32_MAX), mk: [n] int32; vals: [n, d] float32 (is_float) or int32;
+// valid: [n] uint8; sign: [n] int8; keys: [key_cap] int32.  Outputs:
+// k2_out, mk_out, perm [n] int32, vals_out [n, d], live [n] uint8, acc
+// [key_cap, d], counts [key_cap] int32, every element written once.
 REPRO_EXPORT int fused_small_launch(
     const void* k2, const void* mk, const void* vals, const void* valid,
     const void* sign, const void* keys, int key_cap, int n, int d,
     int is_float, void* k2_out, void* mk_out, void* vals_out, void* live,
     void* perm, void* acc, void* counts, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (n <= 0 || n > SMALL_MAX || key_cap <= 0) return (int)cudaErrorInvalidValue;
-  zero_outputs(acc, counts, key_cap, d, stream);
-  int m = 1;
+  if (n <= 0 || n > ONE_BLOCK_MAX || key_cap <= 0 || key_cap > MAX_KEYS ||
+      d <= 0 || d > MAX_D)
+    return (int)cudaErrorInvalidValue;
+  int m = 32;
   while (m < n) m <<= 1;
-  const size_t smem = (size_t)3 * m * sizeof(int32_t);
-  if (is_float) {
-    cudaFuncSetAttribute(sort_lww_reduce_kernel<float>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    sort_lww_reduce_kernel<float><<<1, SMALL_THREADS, smem, stream>>>(
-        (const int32_t*)k2, (const int32_t*)mk, (const float*)vals,
-        (const uint8_t*)valid, (const int8_t*)sign, (const int32_t*)keys,
-        key_cap, n, m, d, (int32_t*)k2_out, (int32_t*)mk_out,
-        (float*)vals_out, (uint8_t*)live, (int32_t*)perm, (float*)acc,
-        (int32_t*)counts);
-  } else {
-    cudaFuncSetAttribute(sort_lww_reduce_kernel<int>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    sort_lww_reduce_kernel<int><<<1, SMALL_THREADS, smem, stream>>>(
-        (const int32_t*)k2, (const int32_t*)mk, (const int*)vals,
-        (const uint8_t*)valid, (const int8_t*)sign, (const int32_t*)keys,
-        key_cap, n, m, d, (int32_t*)k2_out, (int32_t*)mk_out, (int*)vals_out,
-        (uint8_t*)live, (int32_t*)perm, (int*)acc, (int32_t*)counts);
-  }
-  return (int)cudaGetLastError();
+  const int threads = std::min(std::max(m / ONE_ROWS, 32), ONE_THREADS);
+  // 32-bit words of scratch: the histogram's 256 (warps + 1) counters,
+  // or at D > 1 the slots' runs (2 key_cap 16-bit words)
+  const int scratch = std::max(256 * (threads / 32 + 1), d > 1 ? key_cap : 0);
+  size_t words = (size_t)2 * m + m / 2 + key_cap + scratch;
+  // the values go into shared memory while the rows sort, where they fit
+  const int stage = d == 1 && (words + n) * 4 <= (size_t)ONE_SMEM;
+  if (stage) words += n;
+  if (words * 4 > (size_t)ONE_SMEM) return (int)cudaErrorInvalidValue;
+  return is_float
+      ? launch_one_block_rows<float>(m / threads, k2, mk, vals, valid, sign,
+                                     keys, key_cap, n, d, scratch, stage,
+                                     threads, words * 4, k2_out, mk_out,
+                                     vals_out, live, perm, acc, counts,
+                                     stream)
+      : launch_one_block_rows<int>(m / threads, k2, mk, vals, valid, sign,
+                                   keys, key_cap, n, d, scratch, stage,
+                                   threads, words * 4, k2_out, mk_out,
+                                   vals_out, live, perm, acc, counts, stream);
 }
 
 // Workspace of fused_runs_launch: the tiles' records and partial sums.

@@ -3,11 +3,14 @@
 Counterpart of ``repro.kernels.fused.fused_shuffle_reduce``, on the
 H100 as ``csrc/fused.cu``:
 
-  * n <= 4096 rows: one block sorts (k2, mk, row) with a bitonic network
-    in dynamic shared memory, gathers the payload, marks last writers and
-    routes live rows to their affected-key slot with atomics, in one
-    launch;
-  * n > 4096 rows: the radix sort of ``csrc/sort.cu`` writes the sorted
+  * n <= ``SMALL_MAX_ROWS`` rows: one launch of one block, sized to n.  It
+    issues all its loads first (the keys and, at D = 1, the values go to
+    shared memory while it sorts), sorts (k2, mk) stably with a radix
+    sort in shared memory over only the bits that vary across the rows,
+    then marks the last writers, writes the sorted rows, and sums each
+    affected key's run of live rows in a fixed order, writing each slot of
+    ``acc``/``counts`` once (zeros where a key has no rows);
+  * larger n: the radix sort of ``csrc/sort.cu`` writes the sorted
     lanes and the permutation; then, the rows being sorted by k2, each
     affected key's rows are one run, and one kernel reduces the runs: it
     gathers the payload, marks the last writers, sums each run's live
@@ -15,11 +18,10 @@ H100 as ``csrc/fused.cu``:
     (zeros where a key has no rows); a run that crosses the kernel's
     tiles leaves partials that a combine kernel adds in tile order.
 
-int32 sums are exact.  The large path's float32 ``acc`` comes out the same
-from run to run (a fixed order); the small path's float32 atomics add in a
-run-dependent order (exact on integer-valued data).  The large path is
-bounded by device-memory bytes and its sort's passes; the small path is
-one block and bounded by its latency.
+int32 sums are exact.  On both paths float32 ``acc`` comes out the same
+from call to call (a fixed order of adds).  The large path is bounded by
+device-memory bytes and its sort's passes; the one-block path by its
+latency.
 
 The kernel moves 32-bit payloads: ``vals`` is carried in ``out_dtype``
 (int32 or float32) and cast back, which is lossless for the 8-, 16- and
@@ -40,7 +42,11 @@ from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.ref import fused_shuffle_reduce_ref
 from repro_torch.kernels.sort_u32 import sort_lex_cuda
 
-SMALL_MAX_ROWS = 4096     # rows the single-block path sorts in shared memory
+# rows up to which one block is faster than "sort + runs" on the H100 in
+# device time and in events (chip_smoke.time_one_block: 0.063 against
+# 0.093 ms of device at 8,192 rows, 0.138 against 0.093 at 16,384); the
+# block itself takes up to 16,384
+SMALL_MAX_ROWS = 8192
 RUN_TILE_ROWS = 1024      # sorted rows a tile of the runs kernel at D = 1
 MAX_KEYS = 4096           # affected-key slots (ops' cap)
 MAX_D = 512               # payload width (ops' cap)
@@ -79,6 +85,17 @@ def fused_shuffle_reduce(k2, mk, vals, valid, sign, affected_keys, *,
     if key_cap > MAX_KEYS or not 0 < d <= MAX_D:
         raise ValueError(f"the fused kernel takes key_cap <= {MAX_KEYS} and "
                          f"0 < D <= {MAX_D}, got {key_cap}, {d}")
+    return _fused_cuda(k2, mk, vals, valid, sign, affected_keys,
+                       out_dtype=out_dtype, one_block=n <= SMALL_MAX_ROWS)
+
+
+def _fused_cuda(k2, mk, vals, valid, sign, affected_keys, *, out_dtype,
+                one_block: bool):
+    """The CUDA launch on the route given: one block, or "sort + runs".
+    :func:`fused_shuffle_reduce` takes the faster route for n; phase 2 of
+    ``chip_smoke.py`` times both at the same n."""
+    n, d = vals.shape
+    key_cap = affected_keys.shape[0]
     dev = vals.device
     k2 = k2.to(torch.int32).contiguous()
     mk = mk.to(torch.int32).contiguous()
@@ -89,11 +106,10 @@ def fused_shuffle_reduce(k2, mk, vals, valid, sign, affected_keys, *,
     sign = sign.to(torch.int8).contiguous()
     keys = affected_keys.to(torch.int32).contiguous()
     lib = _build.library("fused")
-    large = n > SMALL_MAX_ROWS
     # one int32 allocation: k2_s, mk_s, perm (each 16-byte aligned), counts,
     # then the large path's workspace
     n4 = -(-n // 4) * 4
-    ws_words = lib.fused_runs_workspace_bytes(n, d) // 4 if large else 0
+    ws_words = 0 if one_block else lib.fused_runs_workspace_bytes(n, d) // 4
     buf = torch.empty(3 * n4 + key_cap + ws_words, dtype=torch.int32,
                       device=dev)
     k2_s, mk_s, perm = (buf[i * n4:i * n4 + n] for i in range(3))
@@ -103,7 +119,14 @@ def fused_shuffle_reduce(k2, mk, vals, valid, sign, affected_keys, *,
     acc = torch.empty((key_cap, d), dtype=out_dtype, device=dev)
     is_float = int(out_dtype == torch.float32)
     stream = _build.stream_ptr(dev)
-    if large:
+    if one_block:
+        rc = lib.fused_small_launch(
+            k2.data_ptr(), mk.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            sign.data_ptr(), keys.data_ptr(), key_cap, n, d, is_float,
+            k2_s.data_ptr(), mk_s.data_ptr(), vals_s.data_ptr(),
+            live.data_ptr(), perm.data_ptr(), acc.data_ptr(),
+            counts.data_ptr(), stream)
+    else:
         sort_lex_cuda(k2, mk, out=(k2_s, mk_s, perm))
         ws = buf[3 * n4 + key_cap:]
         rc = lib.fused_runs_launch(
@@ -111,18 +134,10 @@ def fused_shuffle_reduce(k2, mk, vals, valid, sign, affected_keys, *,
             valid.data_ptr(), sign.data_ptr(), keys.data_ptr(), key_cap, n,
             d, is_float, vals_s.data_ptr(), live.data_ptr(), acc.data_ptr(),
             counts.data_ptr(), ws.data_ptr(), 4 * ws_words, stream)
-    else:
-        rc = lib.fused_small_launch(
-            k2.data_ptr(), mk.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            sign.data_ptr(), keys.data_ptr(), key_cap, n, d, is_float,
-            k2_s.data_ptr(), mk_s.data_ptr(), vals_s.data_ptr(),
-            live.data_ptr(), perm.data_ptr(), acc.data_ptr(),
-            counts.data_ptr(), stream)
     _build.check(lib, rc, "fused_shuffle_reduce")
     count_launch(fused_shuffle_reduce,
-                 (n, key_cap, d, "sort + runs" if large else "one block"))
+                 (n, key_cap, d, "one block" if one_block else "sort + runs"))
     return k2_s, mk_s, vals_s.to(vals.dtype), live, perm, acc, counts
-
 
 fused_shuffle_reduce.launches = 0
 # (N, key_cap, D, path) -> launches

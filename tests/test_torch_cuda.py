@@ -4,9 +4,10 @@ Every test here needs a card and skips without one; the file imports no
 JAX, so the machine with the card runs it alone:
 ``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py``.  Results
 must be exactly equal: the sort is a total order, min and max are exact,
-and the sums are of integer data or integer-valued floats (float atomics
-add in a run-dependent order, which is exact there).  The SpMV's sums of
-non-integer floats hold within 1e-5 of sum|contrib| per vertex.  The
+and the sums are of integer data or integer-valued floats (the segment
+sum's float atomics add in a run-dependent order, which is exact there).
+The SpMV's sums of non-integer floats hold within 1e-5 of sum|contrib|
+per vertex.  The
 flash kernel holds elementwise within rel * (|plain| + sum_j p_j |v_j|) of
 its plain version: rel 2^-7 in bf16 (P and the output rounded to bf16),
 2e-5 times the scores' scale in float32 (the same arithmetic in another
@@ -33,7 +34,9 @@ from repro_torch.apps import wordcount as wc
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
 import repro_torch.configs as C
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.fused import RUN_TILE_ROWS, fused_shuffle_reduce
+from repro_torch.kernels.fused import (
+    RUN_TILE_ROWS, SMALL_MAX_ROWS, fused_shuffle_reduce,
+)
 from repro_torch.kernels.segment_reduce import (
     SLAB_WORDS, segment_minmax, segment_sum,
 )
@@ -155,7 +158,7 @@ def test_segment_sum(cuda, case):
                            want[0])
 
 
-@pytest.mark.parametrize("n", [100, 4096, 20_000])
+@pytest.mark.parametrize("n", [100, SMALL_MAX_ROWS, 20_000])
 def test_fused(cuda, n):
     rng = np.random.default_rng(n)
     k2 = rng.integers(0, max(n // 16, 2), n).astype(np.int32)
@@ -215,12 +218,75 @@ def test_fused_runs(cuda, case, d):
             assert torch.equal(g, w)
 
 
+def _one_block_rows(case, n, d, rng, float_vals=False, nkeys=None):
+    """Rows of one case of the one-block path (csrc/fused.cu: one block of
+    up to 1,024 threads, R rows a thread): key_cap 8 (a few of the present
+    keys routed) or 4096, every row a tombstone, one key owning every row,
+    40 affected keys with no rows; else key_cap the next power of two of
+    the present keys."""
+    if nkeys is None:
+        nkeys = 1 if case == "one key owns every row" else max(n // 8, 2)
+    k2 = rng.integers(0, nkeys, n)
+    valid = rng.random(n) < 0.9
+    sign = np.where(rng.random(n) < 0.75, 1, -1).astype(np.int8)
+    if case == "every row a tombstone":
+        sign[:] = -1
+    aff = np.unique(k2[valid])
+    if case == "affected keys with no rows":
+        aff = np.union1d(aff, nkeys + 3 * np.arange(40))
+    cap = {"key_cap 8": 8, "key_cap 4096": 4096}.get(
+        case, 1 << max(int(np.ceil(np.log2(aff.size + 1))), 3))
+    aff = np.sort(rng.choice(aff, min(cap, aff.size), replace=False))
+    keys = np.full(cap, INT32_MAX, np.int32)
+    keys[:aff.size] = aff
+    vals = rng.normal(0, 1, (n, d)) if float_vals \
+        else rng.integers(-20, 20, (n, d))
+    return [torch.as_tensor(a, device="cuda") for a in (
+        np.where(valid, k2, INT32_MAX).astype(np.int32),
+        rng.integers(0, 8, n).astype(np.int32), vals.astype(np.float32),
+        valid, sign, keys)]
+
+
+@pytest.mark.parametrize("case", ["key_cap 8", "key_cap 4096",
+                                  "every row a tombstone",
+                                  "one key owns every row",
+                                  "affected keys with no rows"])
+@pytest.mark.parametrize("d", [1, 8, 512])
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 64, 1000, SMALL_MAX_ROWS,
+                               SMALL_MAX_ROWS + 1])
+def test_fused_one_block(cuda, n, d, case):
+    """The one-block path up to SMALL_MAX_ROWS rows, and the first size past
+    it, bit for bit against the plain version on int32 and integer-valued
+    float32, one launch a call on the route its n takes."""
+    args = _one_block_rows(case, n, d, np.random.default_rng(n + d))
+    path = "one block" if n <= SMALL_MAX_ROWS else "sort + runs"
+    shape = (n, args[5].numel(), d, path)
+    for dtype in (torch.int32, torch.float32):
+        a = list(args)
+        a[2] = a[2].to(dtype)
+        before = fused_shuffle_reduce.launches
+        on_shape = fused_shuffle_reduce.shapes[shape]
+        got = fused_shuffle_reduce(*a, out_dtype=dtype)
+        assert fused_shuffle_reduce.launches == before + 1
+        assert fused_shuffle_reduce.shapes[shape] == on_shape + 1
+        for g, w in zip(got, ref.fused_shuffle_reduce_ref(*a,
+                                                          out_dtype=dtype)):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("d", [1, 8])
-def test_fused_float_acc_same_every_call(cuda, d):
-    """The runs add in a fixed order: non-integer float32 acc is equal from
-    one call to the next, and within 1e-5 of sum|v| of the plain version."""
-    args = _fused_rows("run longer than a tile", np.random.default_rng(3), d,
-                       float_vals=True)
+@pytest.mark.parametrize("rows", ["run longer than a tile", "one block"])
+def test_fused_float_acc_same_every_call(cuda, rows, d):
+    """Both routes add in a fixed order: non-integer float32 acc is equal
+    from one call to the next, and within 1e-5 of sum|v| of the plain
+    version.  The one-block case has three keys, so each run spans many
+    threads and warps."""
+    rng = np.random.default_rng(3)
+    if rows == "one block":
+        args = _one_block_rows(rows, SMALL_MAX_ROWS - 5, d, rng,
+                               float_vals=True, nkeys=3)
+    else:
+        args = _fused_rows(rows, rng, d, float_vals=True)
     acc = fused_shuffle_reduce(*args, out_dtype=torch.float32)[5]
     assert torch.equal(acc, fused_shuffle_reduce(
         *args, out_dtype=torch.float32)[5])

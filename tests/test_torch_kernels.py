@@ -246,8 +246,10 @@ def _fused_case(n, nkeys, d, seed):
     return k2m, mk, vals, valid, sign, keys
 
 
-# n <= 128: the Pallas single-tile kernel; n > 128: its multi-tile path
-@pytest.mark.parametrize("n,d", [(5, 1), (128, 3), (129, 1), (300, 2)])
+# n <= 128: the Pallas single-tile kernel; n > 128: its multi-tile path;
+# n 12 and 40 at key_cap 8 and D 1 are the serving tier's tenant merges
+@pytest.mark.parametrize("n,d", [(5, 1), (12, 1), (40, 1), (128, 3), (129, 1),
+                                 (300, 2)])
 def test_fused_matches_pallas(n, d):
     args = _fused_case(n, max(n // 4, 2), d, n + 99)
     want = jax_fused(*(jnp.asarray(a) for a in args), out_dtype=jnp.float32,
@@ -258,6 +260,8 @@ def test_fused_matches_pallas(n, d):
     for name, g, w in zip(names, got, want):
         _eq(g, w, name)
     assert got[3].dtype == torch.bool
+    if n in (12, 40):
+        assert args[5].size == 8
 
 
 def test_fused_last_writer_wins():

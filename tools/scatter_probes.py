@@ -51,6 +51,13 @@ the same data: CUDA events (mean of 20 after a warm-up) beside the device
 busy time and the kernels of one call under ``torch.profiler``
 (``chip_smoke.device_shares``).  Every line starts with [LABEL]; run
 parent, change, change, parent in one call to compare two commits.
+
+With ``--one-block SRC LABEL`` it imports the package under SRC the same
+way and runs ``chip_smoke.time_one_block`` on it: the fused merge at the
+one-block path's shapes (``chip_smoke.ONE_BLOCK_SHAPES``: the serving
+tier's tenants and batched launches, PageRank's refresh at 4,096, 8,192
+and 16,384 rows), on each route where the package exposes both; every
+line starts with [LABEL].
 """
 from __future__ import annotations
 
@@ -468,12 +475,28 @@ def time_kernels(src: str, label: str) -> None:
             lambda: ops.shuffle_reduce("sum", *a, fused=False))
 
 
+def time_one_block(src: str, label: str) -> None:
+    """The --one-block mode: see the module's docstring."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import numpy as np
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    _build.build_all()
+    cs.log = lambda msg: print(f"[{label}] {msg.strip()}", flush=True)
+    cs.time_one_block(torch.device("cuda"), np.random.default_rng(0),
+                      cs.FULL_VERTICES)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("scatter_probes: needs a CUDA card", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--kernels"]:
         time_kernels(*sys.argv[2:4])
+        return 0
+    if sys.argv[1:2] == ["--one-block"]:
+        time_one_block(*sys.argv[2:4])
         return 0
     so = build()
     dev = torch.device("cuda")

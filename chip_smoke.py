@@ -107,6 +107,16 @@ Runs on one CUDA card, from the root of a checkout:
      stub (losses finite), and its smoke config at hd 80: loss and every
      gradient on the card against the CPU.  Phase 2 also holds flash at
      hd 80 and 160 and times HuBERT's and StableLM's layers beside SDPA.
+ 12. drives the recurrent archs at full width, bf16, weights from
+     ``parity_model``: RecurrentGemma 2B (RG-LRU, local MQA attention at
+     hd 256: 8 flash launches a prefill) two prefills of 2 x 8192 tokens,
+     xLSTM 125M (mLSTM and sLSTM stepped a token at a time) two of 2 x
+     4096, each then phase 5's decode; one more prefill and decode step
+     profiled for the kernels each launches; the decode-versus-prefill
+     parity in bf16 at full depth within ``parity_bound`` and in float32
+     at one cycle plus the remainder within ``REC_F32_BOUND``.  Phase 2
+     holds flash at RecurrentGemma's layer (H 10, KH 1, window 2048) and
+     times it beside SDPA.
 
 The kernels' launch counts are set to 0 before each path and read after
 it.  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
@@ -233,6 +243,14 @@ FLASH_STABLELM = (2, 32, 8, 8192, 160)
 # Mistral NeMo 12B at its prefill and Chameleon 34B at its
 FLASH_MISTRAL = (2, 32, 8, 8192, 128)
 FLASH_CHAMELEON = (1, 64, 8, 4096, 128)
+# RecurrentGemma 2B's attn_local layer at phase 12's prefill: MQA (KH 1,
+# H / KH = 10), hd 256, causal, window 2048, no softcap; held at q std 1
+# and 20, timed beside its plain version and SDPA with the window as a
+# boolean mask (the one PyTorch call that computes the same function).
+# Bound: 4 B H hd (sum of keys in the window) = 3.01e11 FLOP at 989
+# TFLOP/s, 0.304 ms; bytes give 0.055 ms
+FLASH_RECURRENTGEMMA = (2, 10, 1, 8192, 256)     # B, H, KH, S, hd
+FLASH_RECURRENTGEMMA_WINDOW = 2048
 # label, shape, causal: the layers timed after the main shape
 FLASH_LAYERS = (("hd128", FLASH_QWEN, True), ("hd80", FLASH_HUBERT, False),
                 ("hd160", FLASH_STABLELM, True),
@@ -884,6 +902,56 @@ def flash_share(got, want, bound) -> tuple:
     return float(d.max()), float(d.div_(bound).max())
 
 
+def time_flash_recurrentgemma(dev, gen) -> dict:
+    """RecurrentGemma 2B's attn_local layer (``FLASH_RECURRENTGEMMA``, the
+    first shape with KH 1 and H / KH 10): held within ``flash_bound`` at q
+    std 1 and 20, the window shown to act (the plain version without it
+    moves most outputs past the bound), timed beside its plain version
+    and SDPA with the window as a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, h, kh, s, hd = FLASH_RECURRENTGEMMA
+    opt = dict(causal=True, window=FLASH_RECURRENTGEMMA_WINDOW)
+    share, err = 0.0, 0.0
+    for scale in FLASH_Q_SCALES:
+        q, k, v = (torch.randn((b, n, s, hd), generator=gen, device=dev)
+                   .mul_(sd).to(torch.bfloat16)
+                   for n, sd in ((h, scale), (kh, 1), (kh, 1)))
+        want, tol = flash_bound(q, k, v, opt, FLASH_REL["bfloat16"])
+        e, sh = flash_share(flash_attention(q, k, v, **opt), want, tol)
+        if not sh <= 1:
+            raise AssertionError(f"flash_attention RecurrentGemma layer, q "
+                                 f"std {scale}: max abs err {e}, {sh:.3g} "
+                                 f"of the bound")
+        err, share = max(err, e), max(share, sh)
+        wrong = flash_attention_ref(q, k, v, causal=True)
+        moved = float(((wrong.float() - want).abs_() > tol).float().mean())
+        del want, tol, wrong
+        torch.cuda.empty_cache()
+    if not moved > 0.1:
+        raise AssertionError(f"flash_attention RecurrentGemma layer: "
+                             f"dropping the window moves only {moved:.3g} "
+                             f"of the outputs past the bound")
+    i = torch.arange(s, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < opt[
+        "window"])
+    flops = 4 * b * h * hd * keys_in_range(s, opt["window"])
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    res = dict(
+        max_abs_err=err, share_of_bound=share, moved_if_dropped=moved,
+        ms=cuda_ms(lambda: flash_attention(q, k, v, **opt)),
+        plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, **opt)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)),
+        **bound(nbytes, flops, TENSOR_BF16_FLOPS_PER_S))
+    res["tflops"] = flops / res["ms"] / 1e9
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return res
+
+
 def check_flash_attention(dev, rng) -> None:
     """The flash kernel against its plain version: float32 and bf16, head
     dims 64, 128, 256; KH = H, H/2, 1; S of 1, 100 and 333 (no multiple of
@@ -1038,9 +1106,11 @@ def time_flash_attention(dev) -> dict:
         res[label]["tflops"] = flops / res[label]["ms"] / 1e9
         del q, k, v
         torch.cuda.empty_cache()
+    res["hd256_recurrentgemma"] = time_flash_recurrentgemma(dev, gen)
     a, g, c = (res[n] for n in ("local", "global", "softcap0"))
     dims = {f"{key}_{label}": res[label][key]
-            for label, _, _ in FLASH_LAYERS
+            for label in [lb for lb, _, _ in FLASH_LAYERS]
+            + ["hd256_recurrentgemma"]
             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return dict(
         shape=("B={} H={} KH={} S={} hd={} bf16, causal, softcap 50, q std "
@@ -1049,6 +1119,10 @@ def time_flash_attention(dev) -> dict:
         share_of_bound=max(r["share_of_bound"] for r in res.values()),
         moved_without_window=a["moved_if_dropped"],
         moved_without_softcap=g["moved_if_dropped"],
+        moved_without_window_recurrentgemma=res["hd256_recurrentgemma"][
+            "moved_if_dropped"],
+        share_of_bound_recurrentgemma=res["hd256_recurrentgemma"][
+            "share_of_bound"],
         ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
         bound_by=g["bound_by"], library_ms=c["library_ms"],
         ms_local=a["ms"], plain_ms_local=a["plain_ms"],
@@ -1065,6 +1139,10 @@ def time_flash_attention(dev) -> dict:
               "not causal), *_hd160: StableLM 12B's (B 2, H 32, KH 8, S "
               "8192, causal), both on the wgmma kernel (16- and 32-column "
               "boxes); "
+              "*_hd256_recurrentgemma: RecurrentGemma 2B's attn_local "
+              "layer (B 2, H 10, KH 1, S 8192, causal, window 2048, no "
+              "softcap; held at q std 1 and 20; library: SDPA with the "
+              "window as a boolean mask); "
               "*_hd128_mistral: Mistral NeMo 12B's layer (B 2, H 32, KH "
               "8, S 8192, causal), *_hd128_chameleon: Chameleon 34B's (B "
               "1, H 64, KH 8, S 4096, causal); softcap 0, library: SDPA; "
@@ -1926,14 +2004,19 @@ def parity_model(cfg, gen, dev):
     reference's draw (``init_params``) scales body matrices by
     1/sqrt(cycles), its stacked axis read as fan-in; at full width that
     saturates the attention softcap and makes the random network chaotic,
-    so that any two orders of rounding part ways (see PERF.md).  Embedding
-    and norms as the reference."""
+    so that any two orders of rounding part ways (see PERF.md).  The input
+    width is the first axis, the first two of attention's ``wo`` [H, hd,
+    d], and the last of sLSTM's ``r_gates`` [4, H, dh, dh] (its recurrent
+    product contracts dh; the first axis, 4, would drive the recurrence to
+    saturation).  Embedding, norms and RecurrentGemma's remainder blocks
+    (drawn at their first axis) as the reference."""
     from repro_torch.models import lm
     from repro_torch.models.common import tree_init
     plan = {}
     for name, spec in lm.plan_model(cfg).items():
         if spec.fan_in:
             width = spec.shape[0] * spec.shape[1] if name.endswith(".wo") \
+                else spec.shape[-1] if name.endswith(".r_gates") \
                 else spec.shape[0]
             spec = spec._replace(fan_in=width)
         plan[name] = spec
@@ -2587,33 +2670,52 @@ HUBERT_TRAIN_STEPS = 3
 HUBERT_GRAD_SHAPE = (2, 64)
 
 
-def parity_bound(n_layers: int) -> float:
+def parity_bound(n_layers: int, n_rec: int = 0) -> float:
     """Phase 5's bf16 bound at ``n_layers``: about 4 roundings to 8 bits a
     layer in which two paths differ, adding up like a random walk to
     sqrt(4 L) 2^-8 of the logit scale; twice that (0.099 at 40 layers,
     0.108 at 48).  A wrong cache slot or mask moves the logits by their
-    whole scale."""
-    return 2 * math.sqrt(4 * n_layers) * 2.0**-8
+    whole scale.
+
+    ``n_rec`` RG-LRU layers add 2 roundings each: decode rounds the
+    recurrence's state h to bf16 every step (the cache's dtype, as the
+    reference's ``apply_rglru``), where prefill keeps it in float32.  Each
+    step's h carries the roundings of the steps before it, decayed by a:
+    sum_k a^(2k) = 1 / (1 - a^2) roundings' worth of variance.  On
+    ``parity_model``'s draw the gate's pre-activation is about N(0, 1), so
+    a = exp(-8 softplus(1) sigmoid(.)) <= 0.59 for all but 0.2% of the
+    channels (1 / (1 - a^2) <= 1.54); 2 allows for the rest.  The xLSTM
+    cells keep their states in float32 on both paths and add nothing.
+    RecurrentGemma 2B (26 layers, 18 rec): 2 sqrt(104 + 36) 2^-8 = 0.092;
+    xLSTM 125M (12 layers): 0.054."""
+    return 2 * math.sqrt(4 * n_layers + 2 * n_rec) * 2.0**-8
 
 
-def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape) -> dict:
-    """(a)-(c): one decoder at full width, bf16, weights from
+def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape,
+                 profile_len: int = 0) -> dict:
+    """(a)-(c), phase 12: one decoder at full width, bf16, weights from
     ``parity_model``.  The main path, with the counts set to 0 before it
     and read after it: ``make_prefill_step`` twice on random tokens (one
-    flash launch a layer), then phase 5's decode (a prompt stepped into
-    the cache, greedy steps timed).  Then the decode-versus-prefill
-    parity, a check whose forward's flash launches are not counted."""
+    flash launch an attention layer), then phase 5's decode (a prompt
+    stepped into the cache, greedy steps timed; no flash launch).  With
+    ``profile_len``, one more prefill (of the first ``profile_len``
+    positions) and one more decode step under ``torch.profiler``: the
+    kernels each launches and its device busy time.  Then the
+    decode-versus-prefill parity within ``parity_bound``, a check whose
+    forward's flash launches are not counted."""
     import torch
     import repro_torch.configs as C
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import lm
     cfg = C.get(arch)
+    n_attn = sum(k.startswith("attn") for k in cfg.layer_kinds)
     t0 = time.perf_counter()
     model = parity_model(cfg, gen, dev)
     sync(dev)
     log(f"  [arch] {cfg.name}: {lm.count_params(model)} parameters "
-        f"({cfg.n_layers} layers, d {cfg.d_model}, heads {cfg.n_heads}/"
+        f"({cfg.n_layers} layers {cfg.block_pattern} x {cfg.cycles} + "
+        f"{cfg.remainder_blocks}, d {cfg.d_model}, heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab}, qk-norm {cfg.qk_norm}, rope theta "
         f"{cfg.rope_theta:g}), {cfg.param_dtype}, drawn in "
@@ -2637,9 +2739,10 @@ def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape) -> dict:
                                  f"{tuple(logits.shape)}: not [{b}, 1, "
                                  f"{cfg.vocab}] finite values")
     n_flash = launch_counts()["flash_attention"]
-    del logits, toks
+    del logits
     serve = make_serve_step(cfg, dev)
-    caches = lm.init_caches(cfg, DECODE_BATCH, PROMPT_LEN + GEN_LEN,
+    caches = lm.init_caches(cfg, DECODE_BATCH,
+                            PROMPT_LEN + GEN_LEN + bool(profile_len),
                             device=dev)
     prompts = torch.randint(0, cfg.vocab, (DECODE_BATCH, PROMPT_LEN),
                             generator=gen, device=dev, dtype=torch.int32)
@@ -2658,16 +2761,34 @@ def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape) -> dict:
                              f"{int(caches['pos'])}, logits not finite")
     counts = launch_counts()
     peak = memory_gib(dev, peak=True)
-    del caches, logits
+    steps = np.array(steps)
+    if profile_len:
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        d = device_shares(lambda: serve(model, caches, tok), dev)
+        p = device_shares(lambda: prefill(
+            model, {"inputs": toks[:, :profile_len]}), dev)
+        idle = f"idle {1 - p['busy_ms'] / (secs[-1] * 1e3):.1%} of the " \
+            f"unprofiled {secs[-1] * 1e3:.3f} ms" if profile_len == s \
+            else "idle not measured at this length"
+        log(f"  [arch] {cfg.name} launches: a prefill of {b} x "
+            f"{profile_len} {p['kernels']} kernels "
+            f"({p['kernels'] / profile_len:.1f} a position), device busy "
+            f"{p['busy_ms']:.3f} ms of its profiled {p['wall_ms']:.3f} ms, "
+            f"{idle}; a decode step of {DECODE_BATCH} "
+            f"requests {d['kernels']} kernels, device busy "
+            f"{d['busy_ms']:.3f} ms, idle "
+            f"{1 - d['busy_ms'] / (np.median(steps) * 1e3):.1%} of the "
+            f"unprofiled median {np.median(steps) * 1e3:.3f} ms; top of the "
+            f"prefill {p['top']}")
+    del caches, logits, toks
     pb, pn = parity_shape
     ptoks = torch.randint(0, cfg.vocab, (pb, pn), generator=gen, device=dev,
                           dtype=torch.int32)
     err = decode_vs_prefill(cfg, model, ptoks, dev)
-    tol = parity_bound(cfg.n_layers)
-    steps = np.array(steps)
+    tol = parity_bound(cfg.n_layers, cfg.layer_kinds.count("rec"))
     log(f"  [arch] {cfg.name} prefill {b} x {s}: "
         + ", ".join(f"{t:.3f} s ({b * s / t:.0f} tokens/s)" for t in secs)
-        + f"; flash launches {n_flash} ({cfg.n_layers} a prefill); decode "
+        + f"; flash launches {n_flash} ({n_attn} a prefill); decode "
         f"{DECODE_BATCH} requests, prompt of {PROMPT_LEN} tokens, "
         f"{GEN_LEN} greedy steps (cache at {PROMPT_LEN + 1}-"
         f"{PROMPT_LEN + GEN_LEN}): median {np.median(steps) * 1e3:.2f} ms a "
@@ -2675,11 +2796,12 @@ def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape) -> dict:
         f" peak device memory {peak:.2f} GiB; launches {counts}; decode vs "
         f"prefill over {pb} x {pn} tokens, bf16, {cfg.n_layers} layers: "
         f"max |gap| / max |logit| {err:.3g} (bound {tol:.3g})")
-    if dev.type == "cuda" and counts["flash_attention"] != \
-            cfg.n_layers * ARCH_PREFILL_CALLS:
+    if dev.type == "cuda" and (n_flash != n_attn * ARCH_PREFILL_CALLS or
+                               counts["flash_attention"] != n_flash):
         raise AssertionError(f"{cfg.name}: {ARCH_PREFILL_CALLS} prefills "
-                             f"and the decode launched the flash kernel "
-                             f"{counts['flash_attention']} times")
+                             f"launched the flash kernel {n_flash} times "
+                             f"({n_attn} attention layers), the decode "
+                             f"{counts['flash_attention'] - n_flash}")
     if not err <= tol:
         raise AssertionError(f"{cfg.name} decode vs prefill: {err} > {tol}")
     del model
@@ -2861,6 +2983,73 @@ def drive_archs(dev, seed: int) -> tuple:
     total = {k: total.get(k, 0) + v for k, v in c.items()}
     grad_err = hubert_grad_check(dev, seed)
     return total, grad_err
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent archs at full width (RecurrentGemma 2B, xLSTM 125M)
+# ---------------------------------------------------------------------------
+
+# arch, prefill (B, S), decode-versus-prefill parity (B, tokens), the
+# positions of the profiled prefill, as phase 11's (a)-(c) through
+# ``arch_decoder``, bf16, weights from ``parity_model``.  Cuts: the
+# prefill_32k cell's 32 x 32,768 to 2 x 8,192 for RecurrentGemma (phase
+# 5's prefill) and 2 x 4,096 for xLSTM, whose mLSTM and sLSTM step through
+# the tokens in Python (about 40 kernels a token and layer pair, ~10^6
+# launches a prefill); decode_32k's 128 requests and long_500k's 524,288
+# positions to phase 5's decode (4 requests, a cache of 16 + 24 tokens: a
+# recurrent state has the same size at any position, RecurrentGemma's
+# local layers hold 2,048 slots).  xLSTM's prefill is profiled at 512
+# positions: it launches the same kernels every token (983,965 at 4,096,
+# 240.2 a position, NVIDIA H100 80GB HBM3, 700.00 W), and the profiler's
+# processing of a million events took ~80 s.
+REC_RUNS = (("recurrentgemma_2b", (2, 8192), (2, 64), 8192),
+            ("xlstm_125m", (2, 4096), (2, 64), 512))
+# float32 decode vs prefill (TF32 off) at full width, the depth cut to one
+# cycle of the pattern plus RecurrentGemma's remainder (5 and 2 layers):
+# the reference's own bound for the hybrid and xlstm families
+# (tests/test_models.py)
+REC_F32_BOUND = 1e-3
+
+
+def drive_recurrent(dev, seed: int) -> dict:
+    """Phase 12: each arch's main path and bf16 parity at full depth
+    (``arch_decoder`` with the launches of one prefill and one decode step
+    profiled), then its float32 parity at one cycle plus the remainder;
+    returns the launch counts of the two main paths added up."""
+    import torch
+    import repro_torch.configs as C
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    for arch, (b, s), (pb, pn), _ in REC_RUNS:
+        log(f"  CUT: {arch} prefill {b} x {s} (prefill_32k: 32 x 32768), "
+            f"decode {DECODE_BATCH} requests, cache {PROMPT_LEN} + "
+            f"{GEN_LEN} (decode_32k: 128 x 32768; long_500k: 1 x 524288), "
+            f"parity {pb} x {pn}")
+    total = {}
+    for arch, prefill_shape, parity_shape, profile_len in REC_RUNS:
+        t0 = time.perf_counter()
+        c = arch_decoder(dev, gen, arch, prefill_shape, parity_shape,
+                         profile_len)
+        total = {k: total.get(k, 0) + v for k, v in c.items()}
+        cfg = C.get(arch)
+        cfg32 = cfg.replace(
+            n_layers=len(cfg.block_pattern) + len(cfg.remainder_blocks),
+            param_dtype="float32", compute_dtype="float32")
+        model = parity_model(cfg32, gen, dev)
+        pb, pn = parity_shape
+        ptoks = torch.randint(0, cfg.vocab, (pb, pn), generator=gen,
+                              device=dev, dtype=torch.int32)
+        err = decode_vs_prefill(cfg32, model, ptoks, dev)
+        log(f"  [rec] {cfg.name} decode vs prefill over {pb} x {pn} tokens, "
+            f"float32, {cfg32.n_layers} layers {cfg32.layer_kinds} at full "
+            f"width: max |gap| / max |logit| {err:.3g} (bound "
+            f"{REC_F32_BOUND}); {time.perf_counter() - t0:.1f} s with the "
+            f"bf16 runs")
+        if not err <= REC_F32_BOUND:
+            raise AssertionError(f"{cfg.name} float32 decode vs prefill: "
+                                 f"{err} > {REC_F32_BOUND}")
+        del model
+        release(dev)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -4103,6 +4292,14 @@ def main(argv=None) -> int:
         f"{t['ms_hd160']:.3f} ms, plain {t['plain_ms_hd160']:.3f} ms, SDPA "
         f"{t['library_ms_hd160']:.3f} ms, bound {t['bound_ms_hd160']:.3f} ms"
         f"; TFLOP/s {', '.join(f'{n} {v:.1f}' for n, v in t['tflops'].items())}"
+        f"; hd 256 MQA (RecurrentGemma 2B's attn_local, H 10, KH 1, window "
+        f"2048, q std 1 and 20: at most "
+        f"{t['share_of_bound_recurrentgemma']:.3g} of the bound, without "
+        f"the window {t['moved_without_window_recurrentgemma']:.3g} move "
+        f"past it): kernel {t['ms_hd256_recurrentgemma']:.3f} ms, plain "
+        f"{t['plain_ms_hd256_recurrentgemma']:.3f} ms, SDPA (mask) "
+        f"{t['library_ms_hd256_recurrentgemma']:.3f} ms, bound "
+        f"{t['bound_ms_hd256_recurrentgemma']:.3f} ms"
         f"; q std {FLASH_Q_SCALES[-1]:g}: at most {t['share_of_bound']:.3g} "
         f"of the bound; without the window {t['moved_without_window']:.3g}, "
         f"without the softcap {t['moved_without_softcap']:.3g} of the "
@@ -4186,7 +4383,16 @@ def main(argv=None) -> int:
     log(f"  phase 11 {time.perf_counter() - t11:.1f} s; launches {ar}")
     if ar["flash_attention"] == 0:
         raise AssertionError("phase 11 launched no flash_attention")
-    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar)
+
+    log("phase 12: the recurrent archs at full width (RecurrentGemma 2B, "
+        "xLSTM 125M: prefill, decode, launches a call, parity in bf16 and "
+        "float32)")
+    t12 = time.perf_counter()
+    rc = drive_recurrent(dev, args.seed)
+    log(f"  phase 12 {time.perf_counter() - t12:.1f} s; launches {rc}")
+    if rc["flash_attention"] == 0:
+        raise AssertionError("phase 12 launched no flash_attention")
+    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar, rc)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -4281,9 +4487,12 @@ def main(argv=None) -> int:
                 "bound_ms_hd128", "ms_hd80",
                 "plain_ms_hd80", "library_ms_hd80", "bound_ms_hd80",
                 "ms_hd160", "plain_ms_hd160", "library_ms_hd160",
-                "bound_ms_hd160", "tflops", "note")})
+                "bound_ms_hd160", "tflops", "note",
+                "share_of_bound_recurrentgemma",
+                "moved_without_window_recurrentgemma")})
             entry.update({f"{key}_{label}": t[f"{key}_{label}"]
-                          for label in ("hd128_mistral", "hd128_chameleon")
+                          for label in ("hd128_mistral", "hd128_chameleon",
+                                        "hd256_recurrentgemma")
                           for key in ("ms", "plain_ms", "library_ms",
                                       "bound_ms")})
             entry["note"] += (
@@ -4300,7 +4509,8 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
         f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}, "
-        f"serve {sv}, dql {dq}, distributed {ds}, train {tr}, archs {ar}")
+        f"serve {sv}, dql {dq}, distributed {ds}, train {tr}, archs {ar}, "
+        f"recurrent {rc}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

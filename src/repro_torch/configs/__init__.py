@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.configs``.  ``ARCHS`` and ``ALIASES`` name every
 architecture of the reference; the port has the configurations of the
-archs built of attention blocks alone (``PORTED``).  ``get`` of another
-one raises and says which part of ROADMAP.md brings it.
+archs built of attention and recurrent blocks (``PORTED``).  ``get`` of
+another one raises and says which part of ROADMAP.md brings it.
 
 Each architecture declares which shape cells apply (:func:`shape_cells`):
 an encoder has no decode cell, and only the recurrent families take
@@ -28,16 +28,16 @@ ARCHS = [
     "qwen3_1_7b",
     "xlstm_125m",
 ]
-PORTED = ("hubert_xlarge", "chameleon_34b", "stablelm_12b", "gemma2_9b",
-          "mistral_nemo_12b", "qwen3_1_7b")
+PORTED = ("hubert_xlarge", "chameleon_34b", "recurrentgemma_2b",
+          "stablelm_12b", "gemma2_9b", "mistral_nemo_12b", "qwen3_1_7b",
+          "xlstm_125m")
 
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 ALIASES["qwen3-1.7b"] = "qwen3_1_7b"
 ALIASES["llama4-scout-17b-a16e"] = "llama4_scout_17b_a16e"
 
 _LATER = ("not ported yet: its blocks and config come with ROADMAP.md "
-          "Queue 1 item 16b.3 (the recurrent blocks: RecurrentGemma, "
-          "xLSTM) or 16b.4 (MLA and MoE: DeepSeek-V3, Llama 4 Scout)")
+          "Queue 1 item 16b.4 (MLA and MoE: DeepSeek-V3, Llama 4 Scout)")
 
 
 def get(name: str) -> ModelConfig:

@@ -33,7 +33,9 @@ from repro_torch.data import LMDataConfig, lm_batch_at_step
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm
 from repro_torch.models.common import resolve_device
-from repro_torch.models.config import ModelConfig, smoke_config
+from repro_torch.models.config import (
+    ModelConfig, RGLRUConfig, smoke_config,
+)
 from repro_torch.models.transfer import (
     opt_state_from_numpy, params_from_numpy, to_reference_tree,
 )
@@ -43,17 +45,20 @@ from repro_torch.optim import AdamWConfig, adamw_init
 def preset_config(cfg: ModelConfig, preset: str) -> ModelConfig:
     """``full`` (the architecture), ``smoke`` (``smoke_config``) or ``100m``
     (a ~100M-parameter member of the same family: 103M for the dense
-    ones).  The port runs the archs built of attention blocks alone;
-    ``configs.get`` refuses the others."""
+    ones; RG-LRU at width 512).  ``configs.get`` refuses the archs the
+    port does not run yet (MLA and MoE)."""
     if preset == "full":
         return cfg
     if preset == "smoke":
         return smoke_config(cfg)
     if preset == "100m":
-        return cfg.replace(
-            n_layers=max(4, min(cfg.n_layers, 12)), d_model=768, n_heads=12,
-            n_kv_heads=min(cfg.n_kv_heads, 4), d_ff=2048, head_dim=64,
-            vocab=32768, remat="none", local_window=256)
+        kw = dict(n_layers=max(4, min(cfg.n_layers, 12)), d_model=768,
+                  n_heads=12, n_kv_heads=min(cfg.n_kv_heads, 4), d_ff=2048,
+                  head_dim=64, vocab=32768, remat="none", local_window=256)
+        if cfg.rglru is not None:
+            kw["rglru"] = RGLRUConfig(d_rnn=512, conv_width=4,
+                                      block_width=512)
+        return cfg.replace(**kw)
     raise ValueError(preset)
 
 

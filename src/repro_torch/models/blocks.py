@@ -1,4 +1,5 @@
-"""Transformer blocks of the port: GQA attention and the dense FFN.
+"""Blocks of the port: GQA attention, the dense FFN, and the recurrent
+blocks (RG-LRU, mLSTM, sLSTM).
 
 Counterpart of ``repro.models.blocks`` for the kinds the port runs so far.
 Every kind provides ``plan_<kind>(cfg)`` (a flat dict of ``ParamSpec``)
@@ -20,8 +21,18 @@ the flash kernel and :func:`_attend` take it alike.  The FFN kinds are
 SwiGLU, GeGLU and GELU (tanh approximation, as ``jax.nn.gelu``'s
 default).
 
-Not ported yet: RG-LRU, mLSTM and sLSTM (ROADMAP.md Queue 1 item 16b.3),
-MLA and MoE (16b.4).
+The recurrent blocks (RecurrentGemma's RG-LRU with its causal conv,
+xLSTM's mLSTM and sLSTM) carry a state from token to token.  Without a
+cache, RG-LRU's linear recurrence runs as a scan of ceil(log2 S)
+elementwise passes (:func:`linear_scan`, the reference's
+``associative_scan``), and mLSTM and sLSTM step through the tokens one
+at a time in Python, as the reference's ``lax.scan`` does; no kernel of
+the reference maps to them.  With a cache, each takes one step and
+writes its state in place: RG-LRU's ``h`` and ``conv`` in the cache's
+dtype (the compute dtype: ``h`` is rounded to it every step, as in the
+reference), the xLSTM cells' states in float32.
+
+Not ported yet: MLA and MoE (ROADMAP.md Queue 1 item 16b.4).
 """
 from __future__ import annotations
 
@@ -256,3 +267,254 @@ def apply_ffn(cfg: ModelConfig, p, x, kind: str = "swiglu"):
     if cfg.post_norms:
         y = rms_norm(y, p.post_norm, cfg.norm_eps)
     return x + y
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# ---------------------------------------------------------------------------
+
+def plan_rglru(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    r = cfg.rglru.d_rnn
+    cw = cfg.rglru.conv_width
+    return {
+        "norm": ParamSpec((d,), "zeros"),
+        "w_x": ParamSpec((d, r)),
+        "w_gate": ParamSpec((d, r)),
+        "conv_w": ParamSpec((cw, r)),
+        "conv_b": ParamSpec((r,), "zeros"),
+        "w_a": ParamSpec((r, r)),
+        "w_i": ParamSpec((r, r)),
+        "lam": ParamSpec((r,), "ones"),
+        "w_out": ParamSpec((r, d)),
+    }
+
+
+def causal_conv(u, w, b, state=None):
+    """Depthwise causal conv: u [B, S, R], w [CW, R], b [R]; ``state``
+    [B, CW-1, R] holds the inputs before u (zeros when None).  Returns
+    (out [B, S, R], the last CW-1 inputs)."""
+    cw = w.shape[0]
+    if state is None:
+        pad = u.new_zeros((u.shape[0], cw - 1) + tuple(u.shape[2:]))
+    else:
+        pad = state.to(u.dtype)
+    full = torch.cat([pad, u], dim=1)
+    s = u.shape[1]
+    out = sum(full[:, i:i + s] * w[i] for i in range(cw))
+    return out + b, full[:, full.shape[1] - (cw - 1):]
+
+
+def linear_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t along axis 1 from h_{-1} = 0: a log-depth
+    scan, ceil(log2 S) passes of (a, b) <- (a a_shift, b + a b_shift),
+    each element combined with the one ``shift`` steps before it."""
+    s, shift = a.shape[1], 1
+    while shift < s:
+        b = torch.cat([b[:, :shift],
+                       b[:, shift:] + a[:, shift:] * b[:, :-shift]], dim=1)
+        a = torch.cat([a[:, :shift], a[:, shift:] * a[:, :-shift]], dim=1)
+        shift *= 2
+    return b
+
+
+def apply_rglru(cfg: ModelConfig, p, x, cache=None):
+    """The RG-LRU block on ``x`` [B, S, d]: norm, a GELU gate, the causal
+    conv, the gated linear recurrence in float32, the output projection.
+    With ``cache`` ({"h" [B, R], "conv" [B, CW-1, R]}) ``x`` is one token
+    and the cache takes the new state in place.  Returns (x + y,
+    cache)."""
+    c = 8.0
+    xn = rms_norm(x, p.norm, cfg.norm_eps)
+    u = xn @ p.w_x.to(xn.dtype)
+    g = F.gelu(xn @ p.w_gate.to(xn.dtype), approximate="tanh")
+    u, new_conv = causal_conv(u, p.conv_w.to(u.dtype), p.conv_b.to(u.dtype),
+                              cache["conv"] if cache is not None else None)
+    uf = u.float()
+    r = torch.sigmoid(uf @ p.w_a.float())
+    i = torch.sigmoid(uf @ p.w_i.float())
+    log_a = -c * r * F.softplus(p.lam.float())
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
+    bterm = beta * (i * uf)
+    if cache is None:
+        h = linear_scan(a, bterm)
+    else:
+        if x.shape[1] != 1:
+            raise ValueError(f"a cached step takes one token, got "
+                             f"{x.shape[1]}")
+        h = a[:, 0] * cache["h"].float() + bterm[:, 0]
+        cache["h"].copy_(h)
+        cache["conv"].copy_(new_conv)
+        h = h[:, None]
+    y = (h.to(x.dtype) * g) @ p.w_out.to(x.dtype)
+    return x + y, cache
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, *, device, dtype
+                     ) -> Dict[str, torch.Tensor]:
+    r, cw = cfg.rglru.d_rnn, cfg.rglru.conv_width
+    return {"h": torch.zeros((batch, r), dtype=dtype, device=device),
+            "conv": torch.zeros((batch, cw - 1, r), dtype=dtype,
+                                device=device)}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory) and sLSTM (scalar memory) blocks
+# ---------------------------------------------------------------------------
+
+def plan_mlstm(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, h = cfg.d_model, cfg.n_heads
+    m = 2 * d                       # projection factor 2
+    return {
+        "norm": ParamSpec((d,), "zeros"),
+        "w_up": ParamSpec((d, 2 * m)),
+        "wq": ParamSpec((m, m)),
+        "wk": ParamSpec((m, m)),
+        "wv": ParamSpec((m, m)),
+        "w_if": ParamSpec((m, 2 * h)),
+        "gn": ParamSpec((m,), "zeros"),
+        "w_down": ParamSpec((m, d)),
+    }
+
+
+def mlstm_step(C, n, m, q, k, v, i_t, f_t):
+    """One token of the matrix memory, float32: C [B, H, dh, dh], n
+    [B, H, dh], m [B, H] (the stabiliser); q/k/v [B, H, dh], i_t/f_t
+    [B, H] (f_t a log-sigmoid).  Returns (C, n, m, h [B, H, dh])."""
+    fm = f_t + m
+    mnew = torch.maximum(fm, i_t)
+    fp = torch.exp(fm - mnew)[..., None]
+    ip = torch.exp(i_t - mnew)[..., None]
+    C = fp[..., None] * C + ip[..., None] * (v[..., :, None] * k[..., None, :])
+    n = fp * n + ip * k
+    denom = torch.clamp((n * q).sum(-1).abs(), min=1.0)[..., None]
+    h = (C * q[..., None, :]).sum(-1) / denom
+    return C, n, mnew, h
+
+
+def apply_mlstm(cfg: ModelConfig, p, x, cache=None):
+    """The mLSTM block on ``x`` [B, S, d]: up-projection to 2 x 2d, q/k/v
+    of head dim 2d / H, exponential input and sigmoid forget gates, the
+    matrix memory stepped token by token in float32, a norm over the
+    whole width 2d, the SiLU gate, the down-projection.  With ``cache``
+    ({"C", "n", "m"}, float32) ``x`` is one token and the cache takes the
+    new state in place."""
+    b, s, d = x.shape
+    h_ = cfg.n_heads
+    m = 2 * d
+    dh = m // h_
+    xn = rms_norm(x, p.norm, cfg.norm_eps)
+    z, gate = (xn @ p.w_up.to(xn.dtype)).chunk(2, dim=-1)
+    # the reference divides in the compute dtype by sqrt(dh) rounded to it
+    k_scale = float(torch.tensor(dh ** 0.5, dtype=torch.float64).to(z.dtype))
+    q = (z @ p.wq.to(z.dtype)).view(b, s, h_, dh).float()
+    k = ((z @ p.wk.to(z.dtype)).view(b, s, h_, dh) / k_scale).float()
+    v = (z @ p.wv.to(z.dtype)).view(b, s, h_, dh).float()
+    gf = z.float() @ p.w_if.float()
+    i_t = gf[..., :h_]
+    f_t = F.logsigmoid(gf[..., h_:])
+    if cache is None:
+        C = x.new_zeros((b, h_, dh, dh), dtype=torch.float32)
+        n = x.new_zeros((b, h_, dh), dtype=torch.float32)
+        mstab = x.new_zeros((b, h_), dtype=torch.float32)
+        hs = []
+        for t in range(s):
+            C, n, mstab, ht = mlstm_step(C, n, mstab, q[:, t], k[:, t],
+                                         v[:, t], i_t[:, t], f_t[:, t])
+            hs.append(ht)
+        hs = torch.stack(hs, dim=1)                     # [B, S, H, dh]
+    else:
+        if s != 1:
+            raise ValueError(f"a cached step takes one token, got {s}")
+        C, n, mstab, ht = mlstm_step(cache["C"].float(), cache["n"].float(),
+                                     cache["m"].float(), q[:, 0], k[:, 0],
+                                     v[:, 0], i_t[:, 0], f_t[:, 0])
+        for name, t in (("C", C), ("n", n), ("m", mstab)):
+            cache[name].copy_(t)
+        hs = ht[:, None]
+    hs = rms_norm(hs.reshape(b, s, m).to(x.dtype), p.gn, cfg.norm_eps)
+    y = (hs * F.silu(gate)) @ p.w_down.to(x.dtype)
+    return x + y, cache
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, *, device
+                     ) -> Dict[str, torch.Tensor]:
+    h_ = cfg.n_heads
+    dh = 2 * cfg.d_model // h_
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, h_, dh, dh), **f32),
+            "n": torch.zeros((batch, h_, dh), **f32),
+            "m": torch.zeros((batch, h_), **f32)}
+
+
+def plan_slstm(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, h = cfg.d_model, cfg.n_heads
+    dh = d // h
+    ff = max(int(4 * d / 3) // 2 * 2, 8)
+    return {
+        "norm": ParamSpec((d,), "zeros"),
+        "w_gates": ParamSpec((d, 4 * d)),
+        "r_gates": ParamSpec((4, h, dh, dh)),
+        "gn": ParamSpec((d,), "zeros"),
+        "norm2": ParamSpec((d,), "zeros"),
+        "up": ParamSpec((d, 2 * ff)),
+        "down": ParamSpec((ff, d)),
+    }
+
+
+def slstm_step(r, c, n, h, m, wx_t):
+    """One token of the scalar memory, float32: r [4, H, dh, dh] (the
+    recurrent weights of the z, i, f, o gates), states c/n/h/m [B, H, dh],
+    wx_t [B, 4, H, dh].  Returns (c, n, h, m)."""
+    pre = wx_t + torch.einsum("ghij,bhj->bghi", r, h)
+    z = torch.tanh(pre[:, 0])
+    i_t = pre[:, 1]
+    f_t = F.logsigmoid(pre[:, 2])
+    o = torch.sigmoid(pre[:, 3])
+    fm = f_t + m
+    mnew = torch.maximum(fm, i_t)
+    ip = torch.exp(i_t - mnew)
+    fp = torch.exp(fm - mnew)
+    c = fp * c + ip * z
+    n = torch.clamp(fp * n + ip, min=1e-6)
+    return c, n, o * c / n, mnew
+
+
+def apply_slstm(cfg: ModelConfig, p, x, cache=None):
+    """The sLSTM block on ``x`` [B, S, d]: gate pre-activations in
+    float32, the scalar memory stepped token by token with its per-head
+    recurrent product, a norm, the residual, then a SwiGLU FFN of width
+    4d/3.  With ``cache`` ({"c", "n", "h", "m"}, float32) ``x`` is one
+    token and the cache takes the new state in place."""
+    b, s, d = x.shape
+    h_ = cfg.n_heads
+    dh = d // h_
+    xn = rms_norm(x, p.norm, cfg.norm_eps)
+    wx = (xn.float() @ p.w_gates.float()).view(b, s, 4, h_, dh)
+    r = p.r_gates.float()
+    if cache is None:
+        c = n = h = m = x.new_zeros((b, h_, dh), dtype=torch.float32)
+        hs = []
+        for t in range(s):
+            c, n, h, m = slstm_step(r, c, n, h, m, wx[:, t])
+            hs.append(h)
+        hs = torch.stack(hs, dim=1)
+    else:
+        if s != 1:
+            raise ValueError(f"a cached step takes one token, got {s}")
+        state = slstm_step(r, *(cache[k].float() for k in "cnhm"), wx[:, 0])
+        for name, t in zip("cnhm", state):
+            cache[name].copy_(t)
+        hs = state[2][:, None]
+    hs = rms_norm(hs.reshape(b, s, d).to(x.dtype), p.gn, cfg.norm_eps)
+    y = x + hs
+    hff = swiglu(rms_norm(y, p.norm2, cfg.norm_eps) @ p.up.to(y.dtype))
+    return y + hff @ p.down.to(y.dtype), cache
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, *, device
+                     ) -> Dict[str, torch.Tensor]:
+    shape = (batch, cfg.n_heads, cfg.d_model // cfg.n_heads)
+    return {k: torch.zeros(shape, dtype=torch.float32, device=device)
+            for k in "cnhm"}

@@ -7,8 +7,9 @@ fields keep the reference's names and defaults, so that ``cfg.replace``
 takes the same keywords; ``dtype()`` returns torch dtypes.
 
 Not carried over: ``ShardingRules`` and the ``sharding`` field (one card,
-no mesh), ``scan_layers`` and ``moe_impl``, and the MoE, MLA and RG-LRU
-sub-configs, which come with their blocks.  ``attn_impl`` and
+no mesh), ``scan_layers`` and ``moe_impl``, and the MoE and MLA
+sub-configs, which come with their blocks.  ``RGLRUConfig`` (the rglru
+field) is the reference's.  ``attn_impl`` and
 ``attn_block`` are kept so that ``replace`` takes the reference's
 keywords, and nothing reads them: every cache-less attention runs the
 flash kernel whatever they say (``repro_torch.models.blocks.attend``).
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,11 +28,19 @@ REMATS = ("none", "full", "dots")
 
 
 @dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU recurrent block."""
+    d_rnn: int = 2560
+    conv_width: int = 4
+    block_width: int = 2560        # lru gate width
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | vlm | encoder (the ported
-    #                                archs'; moe, hybrid and xlstm come with
-    #                                ROADMAP.md Queue 1 items 16b.3-16b.4)
+    family: str                    # dense | hybrid | xlstm | vlm | encoder
+    #                                (the ported archs'; moe comes with
+    #                                ROADMAP.md Queue 1 item 16b.4)
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +59,7 @@ class ModelConfig:
     logit_softcap: float = 0.0              # gemma2
     local_window: int = 4096                # for "attn_local" blocks
     rope_theta: float = 10000.0
+    rglru: Optional[RGLRUConfig] = None     # recurrentgemma's rec blocks
     mtp: bool = False                       # DeepSeek multi-token prediction
     embed_inputs: bool = True
     # numerics
@@ -122,7 +132,10 @@ SHAPES = {
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests (the reference's sizes)."""
-    return cfg.replace(
+    kw = dict(
         n_layers=max(len(cfg.block_pattern) + len(cfg.prefix_blocks), 2),
         d_model=64, n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2) or 1,
         d_ff=128, vocab=256, head_dim=16, local_window=32, remat="none")
+    if cfg.rglru is not None:
+        kw["rglru"] = RGLRUConfig(d_rnn=64, conv_width=4, block_width=64)
+    return cfg.replace(**kw)

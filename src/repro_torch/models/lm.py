@@ -41,7 +41,12 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.config import ModelConfig
 
-KINDS = ("attn_dense", "attn_local")
+# each block kind and the parts of its layer, in order: attention or a
+# recurrence, then the FFN where the kind has one (mLSTM and sLSTM carry
+# their own projections in ``cell``)
+PARTS = {"attn_dense": ("attn", "ffn"), "attn_local": ("attn", "ffn"),
+         "rec": ("rec", "ffn"), "mlstm": ("cell",), "slstm": ("cell",)}
+KINDS = tuple(PARTS)
 # the ops whose outputs remat="dots" keeps (jax's checkpoint_dots: every
 # matrix product); the rest of a layer is recomputed in the backward
 _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -56,8 +61,8 @@ def _check_kind(kind: str) -> None:
     if kind not in KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP.md Queue 1 "
-            f"item 16b.3 for rec, mlstm and slstm, 16b.4 for mla_dense and "
-            f"attn_moe); the port runs {KINDS}")
+            f"item 16b.4 for mla_dense and attn_moe); the port runs "
+            f"{KINDS}")
 
 
 def _check_decoder(cfg: ModelConfig) -> None:
@@ -70,10 +75,11 @@ def _check_decoder(cfg: ModelConfig) -> None:
 
 def plan_block(cfg: ModelConfig, kind: str) -> Dict[str, ParamSpec]:
     _check_kind(kind)
-    plan = {f"attn.{n}": s for n, s in B.plan_attention(cfg).items()}
-    plan.update({f"ffn.{n}": s for n, s in
-                 B.plan_ffn(cfg, kind=cfg.ffn_kind).items()})
-    return plan
+    plans = {"attn": B.plan_attention, "rec": B.plan_rglru,
+             "cell": B.plan_mlstm if kind == "mlstm" else B.plan_slstm,
+             "ffn": lambda c: B.plan_ffn(c, kind=c.ffn_kind)}
+    return {f"{part}.{n}": s for part in PARTS[kind]
+            for n, s in plans[part](cfg).items()}
 
 
 def plan_model(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -112,16 +118,18 @@ def _sub(tensors: Dict[str, torch.Tensor], prefix: str):
 
 
 class Block(nn.Module):
-    """One layer's parameters: ``attn`` then ``ffn``, and its ``kind``
-    (``attn_local`` attends within the local window)."""
+    """One layer's parameters, one submodule for each of its kind's
+    ``PARTS`` (``attn`` and ``ffn``, ``rec`` and ``ffn``, or ``cell``),
+    and its ``kind`` (``attn_local`` attends within the local window)."""
 
     def __init__(self, kind: str, tensors: Dict[str, torch.Tensor],
                  trainable: bool = False):
         super().__init__()
         _check_kind(kind)
         self.kind = kind
-        self.attn = B.Params(_sub(tensors, "attn."), trainable)
-        self.ffn = B.Params(_sub(tensors, "ffn."), trainable)
+        for part in PARTS[kind]:
+            setattr(self, part, B.Params(_sub(tensors, f"{part}."),
+                                         trainable))
 
 
 class LM(nn.Module):
@@ -172,11 +180,20 @@ class LM(nn.Module):
 
 def apply_block(cfg: ModelConfig, kind: str, p, x, pos, cache):
     _check_kind(kind)
-    win = cfg.local_window if kind == "attn_local" else 0
-    x, c = B.apply_attention(cfg, p.attn, x, pos,
-                             cache["attn"] if cache else None, window=win)
+    if kind in ("mlstm", "slstm"):
+        apply = B.apply_mlstm if kind == "mlstm" else B.apply_slstm
+        x, c = apply(cfg, p.cell, x, cache["cell"] if cache else None)
+        return x, ({"cell": c} if cache else None)
+    if kind == "rec":
+        part = "rec"
+        x, c = B.apply_rglru(cfg, p.rec, x, cache["rec"] if cache else None)
+    else:
+        part = "attn"
+        win = cfg.local_window if kind == "attn_local" else 0
+        x, c = B.apply_attention(cfg, p.attn, x, pos,
+                                 cache["attn"] if cache else None, window=win)
     x = B.apply_ffn(cfg, p.ffn, x, kind=cfg.ffn_kind)
-    return x, ({"attn": c} if cache else None)
+    return x, ({part: c} if cache else None)
 
 
 def _layer(cfg: ModelConfig, layer: Block, x: torch.Tensor) -> torch.Tensor:
@@ -319,19 +336,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cuda") -> Dict[str, Any]:
-    """Zero caches in the compute dtype: ``pos`` (an int32 scalar) and one
-    ``{"attn": {"k", "v"}}`` per layer (local layers hold a rotating
-    buffer of min(window, max_len) slots).  A config that is not causal
-    raises: it has no decode."""
+    """Zero caches: ``pos`` (an int32 scalar) and one per layer, keyed by
+    the part that reads it: ``{"attn": {"k", "v"}}`` in the compute dtype
+    (local layers hold a rotating buffer of min(window, max_len) slots),
+    ``{"rec": {"h", "conv"}}`` in the compute dtype, and ``{"cell":
+    ...}``, mLSTM's ``C``, ``n``, ``m`` and sLSTM's ``c``, ``n``, ``h``,
+    ``m`` in float32, the dtype of the reference's carries after its
+    first step.  A config that is not causal raises: it has no decode."""
     _check_decoder(cfg)
     dev = resolve_device(device)
+    dtype = cfg.dtype("compute")
     layers = []
     for kind in cfg.layer_kinds:
         _check_kind(kind)
-        window = cfg.local_window if kind == "attn_local" else 0
-        layers.append({"attn": B.init_attn_cache(
-            cfg, batch, max_len, window, device=dev,
-            dtype=cfg.dtype("compute"))})
+        if kind == "rec":
+            layers.append({"rec": B.init_rglru_cache(cfg, batch, device=dev,
+                                                     dtype=dtype)})
+        elif kind in ("mlstm", "slstm"):
+            init = B.init_mlstm_cache if kind == "mlstm" \
+                else B.init_slstm_cache
+            layers.append({"cell": init(cfg, batch, device=dev)})
+        else:
+            window = cfg.local_window if kind == "attn_local" else 0
+            layers.append({"attn": B.init_attn_cache(
+                cfg, batch, max_len, window, device=dev, dtype=dtype)})
     return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
             "layers": layers}
 

@@ -5,7 +5,9 @@ The reference's ``lm.init_params`` returns a tree ``{"embed", "final_norm",
 ["head"], "prefix": [block, ...], "body": {"b<i>_<kind>": block}, "rem":
 [block, ...], ["mtp_proj", "mtp_block", "mtp_norm"]}`` whose ``body``
 leaves are stacked on a leading ``cycles`` axis; a block is ``{"attn":
-{...}, "ffn": {...}}``.  :func:`from_reference_tree` unstacks the body into
+{...}, "ffn": {...}}``, ``{"rec": {...}, "ffn": {...}}`` (RG-LRU) or
+``{"cell": {...}}`` (mLSTM, sLSTM), and ``rem`` holds the blocks after the
+last whole cycle (RecurrentGemma's two).  :func:`from_reference_tree` unstacks the body into
 the port's flat names (``layers.<i>.<path>``, ``mtp_block.<path>``) and
 :func:`to_reference_tree` stacks them back.  On top of them:
 

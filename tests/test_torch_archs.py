@@ -143,9 +143,8 @@ def test_cells_match_reference():
     assert TC.all_cells() == want
     assert {a for a, _ in want} == set(TC.PORTED)
     assert ("hubert_xlarge", "decode_32k") not in want
-    for arch in ("recurrentgemma_2b", "xlstm_125m", "deepseek_v3_671b",
-                 "llama4_scout_17b_a16e"):
-        with pytest.raises(NotImplementedError, match="16b"):
+    for arch in ("deepseek_v3_671b", "llama4_scout_17b_a16e"):
+        with pytest.raises(NotImplementedError, match="16b.4"):
             TC.get(arch)
 
 

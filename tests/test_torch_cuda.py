@@ -524,7 +524,10 @@ def test_apps_on_card_match_cpu(cuda, name):
     *(pytest.param(160, 8, 2, s, id=f"stablelm-{s}")
       for s in (1, 63, 64, 65, 127, 128, 129, 200, 333)),
     *(pytest.param(160, 8, kh, s, id=f"stablelm-kh{kh}-{s}")
-      for kh in (8, 1) for s in (1, 127, 128, 129, 200, 333))])
+      for kh in (8, 1) for s in (1, 127, 128, 129, 200, 333)),
+    # RecurrentGemma 2B's heads: MQA, H / KH = 10, hd 256
+    *(pytest.param(256, 10, 1, s, id=f"recurrentgemma-{s}")
+      for s in (1, 79, 80, 81, 200, 333))])
 def test_flash_attention(cuda, dtype, rel, q_std, hd, h, kh, s):
     """q at std 20 puts the scores in the softcaps' range; windows of 20
     and 50 lie under one key tile."""
@@ -602,6 +605,43 @@ def test_lm_on_card_launches_flash_and_matches_cpu(cuda, arch):
         want, caches_cpu = serve_cpu(on_cpu, caches_cpu, toks[:, t:t + 1])
         scale = max(1.0, float(want.abs().max()))
         assert float((got.cpu() - want).abs().max()) / scale < 2e-4, t
+    assert flash_attention.launches == before       # decode: plain code
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_125m"])
+def test_recurrent_on_card_matches_cpu(cuda, arch):
+    """RecurrentGemma (5 layers: a cycle and the remainder, hd 256) and
+    xLSTM (4 layers) at smoke width in float32: a prefill launches the
+    flash kernel once an attention layer, decode never; prefill and 40
+    decode steps agree with the CPU within the reference's 1e-3 for these
+    families (its draw saturates RG-LRU's gates, which float32 rounding
+    then moves by ~1e-5)."""
+    kw = dict(n_layers=5, head_dim=256) if arch == "recurrentgemma_2b" \
+        else dict(n_layers=4)
+    cfg = smoke_config(C.get(arch)).replace(
+        param_dtype="float32", compute_dtype="float32", **kw)
+    model = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    on_cpu = lm.LM(cfg, {n: p.detach().cpu()
+                         for n, p in model.named_parameters()})
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)).astype(
+        np.int32)
+    n_attn = sum(k.startswith("attn") for k in cfg.layer_kinds)
+    before = flash_attention.launches
+    got = make_prefill_step(cfg, cuda)(model, {"inputs": toks})
+    assert flash_attention.launches == before + n_attn
+    want = make_prefill_step(cfg, "cpu")(on_cpu, {"inputs": toks})
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) / scale < 1e-3
+    serve, serve_cpu = make_serve_step(cfg, cuda), make_serve_step(cfg, "cpu")
+    caches = lm.init_caches(cfg, 2, 40, device=cuda)
+    caches_cpu = lm.init_caches(cfg, 2, 40, device="cpu")
+    before = flash_attention.launches
+    for t in range(40):
+        got, caches = serve(model, caches, toks[:, t:t + 1])
+        want, caches_cpu = serve_cpu(on_cpu, caches_cpu, toks[:, t:t + 1])
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) / scale < 1e-3, t
     assert flash_attention.launches == before       # decode: plain code
 
 

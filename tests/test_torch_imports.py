@@ -59,7 +59,8 @@ def test_import_leaves_jax_out():
             "repro_torch.dql.derived, repro_torch.dql.workloads, "
             "repro_torch.core.distributed, repro_torch.optim, "
             "repro_torch.optim.compress, repro_torch.ckpt, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.configs.recurrentgemma_2b, "
+            "repro_torch.configs.xlstm_125m; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

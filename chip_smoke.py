@@ -117,6 +117,22 @@ Runs on one CUDA card, from the root of a checkout:
      at one cycle plus the remainder within ``REC_F32_BOUND``.  Phase 2
      holds flash at RecurrentGemma's layer (H 10, KH 1, window 2048) and
      times it beside SDPA.
+ 13. drives the MoE archs at full width, bf16, weights from
+     ``parity_model``, each cut in depth only: Llama 4 Scout at 12 of 48
+     layers (GQA, 16 experts top 1 and a shared one, all kept; 12 flash
+     launches a prefill) two prefills of 2 x 8192 tokens, DeepSeek-V3 at
+     5 of 61 (its 3 mla_dense layers and 2 attn_moe, MLA through the flash
+     kernel at q.k head dim 192 and v 128, 256 experts top 8 and a shared
+     one; 5 launches a prefill) two of 2 x 4096, each then phase 5's
+     decode (MLA absorbed over its latent cache; no flash launch) beside
+     the least time to read its weights; one more prefill and decode step
+     profiled, and the share of (token, k) slots that prefill's capacity
+     dropped; the decode-versus-prefill parity in bf16 over 4 x 32 tokens
+     within ``parity_bound`` before each request's first routing flip (the
+     flips by layer printed, from ``RoutingProbe``), and in float32 at 2
+     layers over 2 x 16 within 2e-4.  Phase 2 holds flash at MLA's layer
+     (H = KH 128, q.k 192, v 128) and Llama 4's (H 40, KH 8) and times
+     them beside SDPA.
 
 The kernels' launch counts are set to 0 before each path and read after
 it.  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
@@ -251,6 +267,14 @@ FLASH_CHAMELEON = (1, 64, 8, 4096, 128)
 # TFLOP/s, 0.304 ms; bytes give 0.055 ms
 FLASH_RECURRENTGEMMA = (2, 10, 1, 8192, 256)     # B, H, KH, S, hd
 FLASH_RECURRENTGEMMA_WINDOW = 2048
+# phase 13's layers, causal, no softcap, held at q std 1 and 20 and timed
+# beside their plain version and SDPA: DeepSeek-V3's MLA at its prefill
+# (H = KH 128, q.k head dim 192 = 128 + 64 rope columns, v head dim 128;
+# bound 2 B H S(S+1)/2 (192 + 128) = 1.375e12 FLOP at 989 TFLOP/s, 1.390
+# ms, bytes 0.40 ms) and Llama 4 Scout's (H 40, KH 8: H / KH 5, hd 128;
+# 4 B H hd S(S+1)/2, 1.390 ms)
+FLASH_MLA = (2, 128, 128, 4096, 192, 128)        # B, H, KH, S, hd, vd
+FLASH_LLAMA4 = (2, 40, 8, 8192, 128, 128)
 # label, shape, causal: the layers timed after the main shape
 FLASH_LAYERS = (("hd128", FLASH_QWEN, True), ("hd80", FLASH_HUBERT, False),
                 ("hd160", FLASH_STABLELM, True),
@@ -321,12 +345,16 @@ def ptxas_summary(text: str) -> list:
                     ident = mangled[d.end():d.end() + int(mangled[i:d.end()])]
                     if re.fullmatch(r"[A-Za-z_]\w*_kernel", ident):
                         rest = mangled[d.end() + len(ident):]
-                        arg = re.match(r"ILi(\d+)E(?:Lb([01])E)?", rest)
+                        arg = re.match(r"I((?:Li\d+E)+)(?:Lb([01])E)?", rest)
                         typed = re.match(r"I([fi])(?:Lb([01])E)?E", rest)
-                        name = ident + ("" if not arg else (
-                            f"<{arg.group(1)}>" if arg.group(2) is None
-                            else f"<{arg.group(1)}, "
-                                 f"{('false', 'true')[int(arg.group(2))]}>"))
+                        if arg:
+                            args = re.findall(r"Li(\d+)E", arg.group(1))
+                            if arg.group(2) is not None:
+                                args.append(("false", "true")[
+                                    int(arg.group(2))])
+                            name = ident + f"<{', '.join(args)}>"
+                        else:
+                            name = ident
                         if typed:
                             t = {"f": "float", "i": "int"}[typed.group(1)]
                             name = ident + (
@@ -952,18 +980,66 @@ def time_flash_recurrentgemma(dev, gen) -> dict:
     return res
 
 
+def time_flash_moe(dev, gen, shape) -> dict:
+    """Phase 13's layer at ``shape`` (``FLASH_MLA``: q.k head dim 192, v
+    128; ``FLASH_LLAMA4``: H / KH 5), bf16, causal: held within
+    ``flash_bound`` at q std 1 and 20, timed beside its plain version and
+    ``scaled_dot_product_attention`` (which takes a v head dim of its own;
+    ``library_ms`` None, and the reason in ``library``, where it
+    refuses)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, h, kh, s, hd, vd = shape
+    share, err = 0.0, 0.0
+    for scale in FLASH_Q_SCALES:
+        q, k, v = (torch.randn((b, n, s, d), generator=gen, device=dev)
+                   .mul_(sd).to(torch.bfloat16)
+                   for n, sd, d in ((h, scale, hd), (kh, 1, hd),
+                                    (kh, 1, vd)))
+        want, tol = flash_bound(q, k, v, {}, FLASH_REL["bfloat16"])
+        got = flash_attention(q, k, v)
+        e, sh = flash_share(got, want, tol)
+        if tuple(got.shape) != (b, h, s, vd) or not sh <= 1:
+            raise AssertionError(f"flash_attention {shape}, q std {scale}: "
+                                 f"out {tuple(got.shape)}, max abs err {e}, "
+                                 f"{sh:.3g} of the bound")
+        err, share = max(err, e), max(share, sh)
+        del want, tol, got
+        torch.cuda.empty_cache()
+    flops = 2 * b * h * (hd + vd) * keys_in_range(s, 0)
+    nbytes = (q.numel() + k.numel() + v.numel() + b * h * s * vd) * 2
+    res = dict(max_abs_err=err, share_of_bound=share,
+               ms=cuda_ms(lambda: flash_attention(q, k, v)),
+               plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v)),
+               **bound(nbytes, flops, TENSOR_BF16_FLOPS_PER_S))
+    try:
+        res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=kh != h))
+        res["library"] = "scaled_dot_product_attention(is_causal)"
+    except RuntimeError as exc:
+        res["library_ms"] = None
+        res["library"] = f"none: SDPA refused ({str(exc)[:80]})"
+    res["tflops"] = flops / res["ms"] / 1e9
+    del q, k, v
+    torch.cuda.empty_cache()
+    return res
+
+
 def check_flash_attention(dev, rng) -> None:
     """The flash kernel against its plain version: float32 and bf16, head
-    dims 64, 128, 256; KH = H, H/2, 1; S of 1, 100 and 333 (no multiple of
-    either dtype's tile); causal and not; windows under one tile; softcap
-    on and off; q at std 1 and 20.  Then Qwen3-1.7B's heads (hd 128, H 16,
-    KH 8) at S of 1, 127, 128, 129 (around the bf16 kernel's 128-row q
-    tile and 128-key tile) and 200 (no multiple of 64), with windows of 20
-    and 50 keys (under one key tile) besides the options above.  Then
-    HuBERT X-Large's hd 80 and StableLM 12B's hd 160 (bf16 on the wgmma
-    kernel's 16- and 32-column boxes): KH 8, 4, 1 of H 8 at S of 1, 63,
-    64, 65, 100, 127, 128, 129 (around the 128-row q tile and 128-key
-    tile), 200 and 333, with every option above."""
+    dims 64, 128, 256 and MLA's pair (q.k 192, v 128); KH = H, H/2, 1; S of
+    1, 100 and 333 (no multiple of either dtype's tile); causal and not;
+    windows under one tile; softcap on and off; q at std 1 and 20.  Then
+    Qwen3-1.7B's heads (hd 128, H 16, KH 8) at S of 1, 127, 128, 129
+    (around the bf16 kernel's 128-row q tile and 128-key tile) and 200 (no
+    multiple of 64), with windows of 20 and 50 keys (under one key tile)
+    besides the options above.  Then HuBERT X-Large's hd 80 and StableLM
+    12B's hd 160 (bf16 on the wgmma kernel's 16- and 32-column boxes): KH
+    8, 4, 1 of H 8 at S of 1, 63, 64, 65, 100, 127, 128, 129 (around the
+    128-row q tile and 128-key tile), 200 and 333, with every option
+    above."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     options = (dict(causal=True), dict(causal=True, window=20),
@@ -971,7 +1047,7 @@ def check_flash_attention(dev, rng) -> None:
                dict(causal=True, window=20, softcap=50.0),
                dict(causal=False), dict(causal=False, window=100,
                                         softcap=30.0))
-    shapes = [(8, hd, kh, s, options) for hd in (64, 128, 256)
+    shapes = [(8, hd, kh, s, options) for hd in (64, 128, 256, (192, 128))
               for kh in (8, 4, 1) for s in (1, 100, 333)]
     qwen = options + (dict(causal=True, window=50),)
     shapes += [(16, 128, 8, s, qwen) for s in (1, 127, 128, 129, 200)]
@@ -983,24 +1059,28 @@ def check_flash_attention(dev, rng) -> None:
         worst, worst_share = 0.0, 0.0
         for scale in FLASH_Q_SCALES:
             rel = FLASH_REL[name] * (scale if dtype == torch.float32 else 1)
-            for h, hd, kh, s, opts in shapes:
+            for h, dims, kh, s, opts in shapes:
+                hd, vd = dims if isinstance(dims, tuple) else (dims, dims)
                 q, k, v = (torch.as_tensor(
-                    rng.normal(0, sd, (2, n, s, hd)).astype(
+                    rng.normal(0, sd, (2, n, s, d)).astype(
                         np.float32), device=dev).to(dtype)
-                    for n, sd in ((h, scale), (kh, 1), (kh, 1)))
+                    for n, sd, d in ((h, scale, hd), (kh, 1, hd),
+                                     (kh, 1, vd)))
                 for opt in opts:
                     got = flash_attention(q, k, v, **opt)
                     err, share = flash_share(
                         got, *flash_bound(q, k, v, opt, rel))
-                    if got.dtype != dtype or not share <= 1:
+                    if got.dtype != dtype or got.shape[-1] != vd \
+                            or not share <= 1:
                         raise AssertionError(
                             f"flash_attention {dtype} q std {scale} "
-                            f"hd={hd} H={h} KH={kh} S={s} {opt}: max "
+                            f"hd={hd} vd={vd} H={h} KH={kh} S={s} {opt}: max "
                             f"abs err {err}, {share:.3g} of the "
                             f"bound {rel} (|plain| + A)")
                     worst = max(worst, err)
                     worst_share = max(worst_share, share)
-        log(f"  flash_attention {dtype}: q std 1/20, hd 64/128/256, KH 8/4/1 "
+        log(f"  flash_attention {dtype}: q std 1/20, hd 64/128/256 and "
+            f"q.k 192 / v 128, KH 8/4/1 "
             f"of H 8, S 1/100/333, causal or not, window 20/100, softcap "
             f"0/30/50; hd 128 H 16 KH 8 at S 1/127/128/129/200, window "
             f"20/50; hd 80/160, KH 8/4/1 of H 8, S 1/63/64/65/100/127/128/129/"
@@ -1107,10 +1187,12 @@ def time_flash_attention(dev) -> dict:
         del q, k, v
         torch.cuda.empty_cache()
     res["hd256_recurrentgemma"] = time_flash_recurrentgemma(dev, gen)
+    res["mla"] = time_flash_moe(dev, gen, FLASH_MLA)
+    res["llama4"] = time_flash_moe(dev, gen, FLASH_LLAMA4)
     a, g, c = (res[n] for n in ("local", "global", "softcap0"))
     dims = {f"{key}_{label}": res[label][key]
             for label in [lb for lb, _, _ in FLASH_LAYERS]
-            + ["hd256_recurrentgemma"]
+            + ["hd256_recurrentgemma", "mla", "llama4"]
             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return dict(
         shape=("B={} H={} KH={} S={} hd={} bf16, causal, softcap 50, q std "
@@ -1123,6 +1205,10 @@ def time_flash_attention(dev) -> dict:
             "moved_if_dropped"],
         share_of_bound_recurrentgemma=res["hd256_recurrentgemma"][
             "share_of_bound"],
+        share_of_bound_mla=res["mla"]["share_of_bound"],
+        share_of_bound_llama4=res["llama4"]["share_of_bound"],
+        library_mla=res["mla"]["library"],
+        library_llama4=res["llama4"]["library"],
         ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
         bound_by=g["bound_by"], library_ms=c["library_ms"],
         ms_local=a["ms"], plain_ms_local=a["plain_ms"],
@@ -1146,6 +1232,10 @@ def time_flash_attention(dev) -> dict:
               "*_hd128_mistral: Mistral NeMo 12B's layer (B 2, H 32, KH "
               "8, S 8192, causal), *_hd128_chameleon: Chameleon 34B's (B "
               "1, H 64, KH 8, S 4096, causal); softcap 0, library: SDPA; "
+              "*_mla: DeepSeek-V3's MLA layer (B 2, H = KH 128, S 4096, "
+              "q.k 192, v 128, causal), *_llama4: Llama 4 Scout's (B 2, H "
+              "40, KH 8, S 8192, hd 128, causal), both held at q std 1 and "
+              "20, library: SDPA (library_*: which call, or none); "
               "share_of_bound: the largest |kernel - "
               "plain| / (2^-7 "
               "(|plain| + A)); moved_*: share of the outputs the plain "
@@ -2006,21 +2096,42 @@ def parity_model(cfg, gen, dev):
     saturates the attention softcap and makes the random network chaotic,
     so that any two orders of rounding part ways (see PERF.md).  The input
     width is the first axis, the first two of attention's ``wo`` [H, hd,
-    d], and the last of sLSTM's ``r_gates`` [4, H, dh, dh] (its recurrent
-    product contracts dh; the first axis, 4, would drive the recurrence to
-    saturation).  Embedding, norms and RecurrentGemma's remainder blocks
-    (drawn at their first axis) as the reference."""
+    d], the second of the experts' ``moe.w_in`` [E, d, 2ff] and
+    ``moe.w_out`` [E, ff, d] (the first is the expert), and the last of
+    sLSTM's ``r_gates`` [4, H, dh, dh] (its recurrent product contracts dh;
+    the first axis, 4, would drive the recurrence to saturation).  Prefix
+    and remainder blocks likewise (the reference draws them at their
+    first axis, which is their input width but for ``wo``: DeepSeek-V3's
+    MLA prefix layers would add attention outputs sqrt(128) times too
+    large, nearly alike for every token of a long prefill, and its router
+    would send most tokens to the same experts).  Embedding and norms as
+    the reference.  The experts' leaves are drawn an expert at a time into
+    the model's dtype (a float32 draw of DeepSeek-V3's [256, 7168, 4096]
+    at once would take 30 GB beside the model); every other leaf as
+    ``tree_init`` draws it, in plan order."""
+    import torch
     from repro_torch.models import lm
     from repro_torch.models.common import tree_init
-    plan = {}
+    dtype = cfg.dtype("param")
+    tensors = {}
     for name, spec in lm.plan_model(cfg).items():
-        if spec.fan_in:
+        experts = ".moe.w_" in name
+        if spec.init == "normal" and len(spec.shape) > 1 \
+                and name != "embed":
             width = spec.shape[0] * spec.shape[1] if name.endswith(".wo") \
                 else spec.shape[-1] if name.endswith(".r_gates") \
-                else spec.shape[0]
+                else spec.shape[1] if experts else spec.shape[0]
             spec = spec._replace(fan_in=width)
-        plan[name] = spec
-    return lm.LM(cfg, tree_init(plan, gen, cfg.dtype("param"), dev))
+        if experts and spec.init == "normal":
+            t = torch.empty(spec.shape, dtype=dtype, device=dev)
+            for e in range(spec.shape[0]):
+                t[e] = torch.randn(spec.shape[1:], generator=gen,
+                                   device=gen.device).mul_(
+                    1.0 / math.sqrt(spec.fan_in or spec.shape[0]))
+            tensors[name] = t
+        else:
+            tensors.update(tree_init({name: spec}, gen, dtype, dev))
+    return lm.LM(cfg, tensors)
 
 
 def decode_vs_prefill(cfg, model, toks, dev) -> float:
@@ -2670,7 +2781,7 @@ HUBERT_TRAIN_STEPS = 3
 HUBERT_GRAD_SHAPE = (2, 64)
 
 
-def parity_bound(n_layers: int, n_rec: int = 0) -> float:
+def parity_bound(n_layers: int, n_rec: int = 0, n_mla: int = 0) -> float:
     """Phase 5's bf16 bound at ``n_layers``: about 4 roundings to 8 bits a
     layer in which two paths differ, adding up like a random walk to
     sqrt(4 L) 2^-8 of the logit scale; twice that (0.099 at 40 layers,
@@ -2687,29 +2798,135 @@ def parity_bound(n_layers: int, n_rec: int = 0) -> float:
     channels (1 / (1 - a^2) <= 1.54); 2 allows for the rest.  The xLSTM
     cells keep their states in float32 on both paths and add nothing.
     RecurrentGemma 2B (26 layers, 18 rec): 2 sqrt(104 + 36) 2^-8 = 0.092;
-    xLSTM 125M (12 layers): 0.054."""
-    return 2 * math.sqrt(4 * n_layers + 2 * n_rec) * 2.0**-8
+    xLSTM 125M (12 layers): 0.054.
+
+    ``n_mla`` MLA layers add 2 roundings each: decode attends absorbed,
+    rounding q_nope's product with ``wk_b`` (q_lat) and the context's with
+    ``wv_b`` to bf16, where prefill rounds the expanded keys k_nope and
+    values v; the float32 scores and probabilities of the absorbed path
+    against flash's bf16 P are the attention's own rounding, counted in
+    the 4.  An MoE layer rounds as a dense FFN does while both paths choose
+    the same experts, and adds nothing; past a routing flip (a near tie of
+    two experts' scores that the paths' roundings order differently) a
+    token runs another expert, and no rounding bound holds.  DeepSeek-V3
+    at 5 layers (all MLA): 2 sqrt(20 + 10) 2^-8 = 0.043; Llama 4 Scout at
+    12 (GQA): 0.054."""
+    return 2 * math.sqrt(4 * n_layers + 2 * n_rec + 2 * n_mla) * 2.0**-8
+
+
+class RoutingProbe:
+    """Records the experts every MoE layer chooses, call by call, while
+    it is open: it wraps ``blocks.moe_route`` (which ``apply_moe`` looks up
+    by name at each call) and puts it back on closing, so the serving path
+    pays nothing for it outside the checks.  ``eids``: one [N, K] tensor a
+    layer a forward, in layer order."""
+
+    def __enter__(self):
+        from repro_torch.models import blocks
+        self.eids, self._route = [], blocks.moe_route
+
+        def route(cfg, router, tokens):
+            gate, eid = self._route(cfg, router, tokens)
+            self.eids.append(eid)
+            return gate, eid
+        blocks.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        blocks.moe_route = self._route
+
+
+def dropped_slots(cfg, eids) -> tuple:
+    """(slots dropped, slots) of the (token, k) choices ``eids`` (one [N,
+    K] tensor a layer of one forward): a slot drops where its position in
+    its expert's buffer reaches the capacity for N tokens."""
+    from repro_torch.models import blocks
+    drop = sum(int((blocks.moe_slots(e, cfg.moe.num_experts)
+                    >= blocks.moe_capacity(cfg, e.shape[0])).sum())
+               for e in eids)
+    return drop, sum(e.numel() for e in eids)
+
+
+def moe_decode_vs_prefill(cfg, model, toks, dev) -> dict:
+    """``decode_vs_prefill`` for an MoE model, with each layer's chosen
+    experts recorded on both paths (``RoutingProbe``).  A (request,
+    position) diverges where a decode step's expert set differs from the
+    forward's at that position in any layer (a routing flip), or where the
+    forward dropped one of its slots (a decode step of B tokens never
+    drops: its capacity is at least B).  The gap is taken over each
+    request's positions before its first divergence, where both paths ran
+    the same experts: ``err`` its largest share of the largest |logit|,
+    ``held`` the positions it covers, ``err_all`` the gap over every
+    position; ``flips`` by MoE layer, ``first`` each request's first
+    divergence (the tokens, where none)."""
+    import torch
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import lm
+    from repro_torch.models.common import softcap
+    b, s = toks.shape
+    with torch.inference_mode(), RoutingProbe() as pre:
+        hidden, _ = lm.forward(cfg, model, toks)
+        full = softcap(lm.logits_fn(cfg, model, hidden).float(),
+                       cfg.logit_softcap)
+    from repro_torch.models import blocks
+    cap = blocks.moe_capacity(cfg, b * s)
+    want = [e.sort(dim=-1).values.view(b, s, -1) for e in pre.eids]
+    lost = np.zeros((b, s), bool)
+    for e in pre.eids:
+        pos = blocks.moe_slots(e, cfg.moe.num_experts).view(b, s, -1)
+        lost |= (pos >= cap).any(-1).cpu().numpy()
+    serve = make_serve_step(cfg, dev)
+    caches = lm.init_caches(cfg, b, s, device=dev)
+    scale = max(1.0, float(full.abs().max()))
+    flips = np.zeros((len(want), b, s), bool)
+    gaps = np.zeros((b, s))
+    for t in range(s):
+        with RoutingProbe() as step:
+            logits, caches = serve(model, caches, toks[:, t:t + 1])
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name}: decode step {t} not finite")
+        for layer, e in enumerate(step.eids):
+            flips[layer, :, t] = (e.sort(dim=-1).values != want[layer][:, t]
+                                  ).any(-1).cpu().numpy()
+        gaps[:, t] = ((logits - full[:, t]).abs().amax(-1) / scale
+                      ).cpu().numpy()
+    diverged = flips.any(0) | lost
+    first = [int(row.argmax()) if row.any() else s for row in diverged]
+    held = [gaps[i, :first[i]] for i in range(b)]
+    return dict(err=max((float(h.max()) for h in held if h.size),
+                        default=0.0),
+                err_all=float(gaps.max()), held=sum(first), first=first,
+                flips=flips.sum((1, 2)).tolist(), lost=int(lost.sum()))
 
 
 def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape,
-                 profile_len: int = 0) -> dict:
-    """(a)-(c), phase 12: one decoder at full width, bf16, weights from
-    ``parity_model``.  The main path, with the counts set to 0 before it
-    and read after it: ``make_prefill_step`` twice on random tokens (one
-    flash launch an attention layer), then phase 5's decode (a prompt
+                 profile_len: int = 0, cfg=None) -> dict:
+    """(a)-(c), phases 12 and 13: one decoder at full width (``cfg``, or
+    the arch's config), bf16, weights from ``parity_model``.  The main
+    path, with the counts set to 0 before it and read after it:
+    ``make_prefill_step`` twice on random tokens (one flash launch a layer
+    with attention, MLA's included), then phase 5's decode (a prompt
     stepped into the cache, greedy steps timed; no flash launch).  With
     ``profile_len``, one more prefill (of the first ``profile_len``
     positions) and one more decode step under ``torch.profiler``: the
-    kernels each launches and its device busy time.  Then the
-    decode-versus-prefill parity within ``parity_bound``, a check whose
-    forward's flash launches are not counted."""
+    kernels each launches and its device busy time; for an MoE model the
+    prefill's routing is recorded (``RoutingProbe``) for the share of
+    slots the capacity dropped.  Then the decode-versus-prefill parity
+    within ``parity_bound``, a check whose forward's flash launches are
+    not counted; for an MoE model over the positions before each
+    request's first routing flip (``moe_decode_vs_prefill``), the flips
+    printed.  An MoE model's decode step is printed beside the least time
+    to read the weights it reads (all but the embedding table and MTP:
+    every expert is multiplied every step)."""
+    import contextlib
     import torch
     import repro_torch.configs as C
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import lm
-    cfg = C.get(arch)
-    n_attn = sum(k.startswith("attn") for k in cfg.layer_kinds)
+    cfg = cfg or C.get(arch)
+    n_attn = sum(lm.PARTS[k][0] == "attn" for k in cfg.layer_kinds)
     t0 = time.perf_counter()
     model = parity_model(cfg, gen, dev)
     sync(dev)
@@ -2762,11 +2979,20 @@ def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape,
     counts = launch_counts()
     peak = memory_gib(dev, peak=True)
     steps = np.array(steps)
+    moe_lines = ""
     if profile_len:
         tok = logits.argmax(-1, keepdim=True).to(torch.int32)
         d = device_shares(lambda: serve(model, caches, tok), dev)
-        p = device_shares(lambda: prefill(
-            model, {"inputs": toks[:, :profile_len]}), dev)
+        probe = RoutingProbe() if cfg.moe else contextlib.nullcontext()
+        with probe:
+            p = device_shares(lambda: prefill(
+                model, {"inputs": toks[:, :profile_len]}), dev)
+        if cfg.moe:
+            drop, slots = dropped_slots(cfg, probe.eids)
+            moe_lines += (f"; the capacity ({cfg.moe.capacity_factor} x "
+                          f"the mean load) dropped {drop} of {slots} "
+                          f"(token, k) slots of the profiled prefill "
+                          f"({drop / slots:.3%})")
         idle = f"idle {1 - p['busy_ms'] / (secs[-1] * 1e3):.1%} of the " \
             f"unprofiled {secs[-1] * 1e3:.3f} ms" if profile_len == s \
             else "idle not measured at this length"
@@ -2781,11 +3007,33 @@ def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape,
             f"unprofiled median {np.median(steps) * 1e3:.3f} ms; top of the "
             f"prefill {p['top']}")
     del caches, logits, toks
+    if cfg.moe:
+        read = sum(t.numel() * t.element_size() for n, t in
+                   model.named_parameters()
+                   if n != "embed" and not n.startswith("mtp"))
+        moe_lines += (f"; decode median {np.median(steps) * 1e3:.2f} ms "
+                      f"against {read / HBM_BYTES_PER_S * 1e3:.2f} ms to "
+                      f"read the {read / 1e9:.1f} GB of weights a step "
+                      f"reads")
     pb, pn = parity_shape
     ptoks = torch.randint(0, cfg.vocab, (pb, pn), generator=gen, device=dev,
                           dtype=torch.int32)
-    err = decode_vs_prefill(cfg, model, ptoks, dev)
-    tol = parity_bound(cfg.n_layers, cfg.layer_kinds.count("rec"))
+    n_mla = sum(lm.is_mla(cfg, k) for k in cfg.layer_kinds)
+    tol = parity_bound(cfg.n_layers, cfg.layer_kinds.count("rec"), n_mla)
+    if cfg.moe:
+        par = moe_decode_vs_prefill(cfg, model, ptoks, dev)
+        err = par["err"]
+        moe_lines += (f"; bf16 routing: flips by MoE layer {par['flips']}, "
+                      f"slots the forward dropped at {par['lost']} "
+                      f"positions, first divergence by request "
+                      f"{par['first']}: the gap held over {par['held']} of "
+                      f"{pb * pn} positions (over all {par['err_all']:.3g})")
+        if not par["held"]:
+            raise AssertionError(f"{cfg.name}: every request's routing "
+                                 f"diverged at its first position; no "
+                                 f"position to hold the parity over")
+    else:
+        err = decode_vs_prefill(cfg, model, ptoks, dev)
     log(f"  [arch] {cfg.name} prefill {b} x {s}: "
         + ", ".join(f"{t:.3f} s ({b * s / t:.0f} tokens/s)" for t in secs)
         + f"; flash launches {n_flash} ({n_attn} a prefill); decode "
@@ -2795,7 +3043,7 @@ def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape,
         f"step (min {steps.min() * 1e3:.2f}, max {steps.max() * 1e3:.2f});"
         f" peak device memory {peak:.2f} GiB; launches {counts}; decode vs "
         f"prefill over {pb} x {pn} tokens, bf16, {cfg.n_layers} layers: "
-        f"max |gap| / max |logit| {err:.3g} (bound {tol:.3g})")
+        f"max |gap| / max |logit| {err:.3g} (bound {tol:.3g})" + moe_lines)
     if dev.type == "cuda" and (n_flash != n_attn * ARCH_PREFILL_CALLS or
                                counts["flash_attention"] != n_flash):
         raise AssertionError(f"{cfg.name}: {ARCH_PREFILL_CALLS} prefills "
@@ -3047,6 +3295,78 @@ def drive_recurrent(dev, seed: int) -> dict:
         if not err <= REC_F32_BOUND:
             raise AssertionError(f"{cfg.name} float32 decode vs prefill: "
                                  f"{err} > {REC_F32_BOUND}")
+        del model
+        release(dev)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the MoE archs at full width (Llama 4 Scout, DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+# arch, its config's changes on the card (the depth cut: every width and
+# every expert kept), prefill (B, S), bf16 parity (B, tokens), float32
+# parity's changes, as phase 12's runs through ``arch_decoder``.  Neither
+# fits one card whole (107.8e9 and 671.6e9 parameters, 216 and 1,343 GB
+# in bf16).  Llama 4 Scout at 12 of 48 layers: 56.9 GB (an attn_moe layer
+# 4.40 GB with its 16 experts, embedding and head 4.14).  DeepSeek-V3 at 5
+# of 61: its 3 mla_dense prefix layers and 2 attn_moe layers (23.0 GB each
+# with 256 experts; a third would need 77.5 GB), 54.5 GB with MTP.
+# Prefill 2 x 8192 and 2 x 4096 (prefill_32k: 32 x 32,768); phase 5's
+# decode (decode_32k: 128 x 32,768).  The bf16 parity runs 4 requests of
+# 32 tokens, held before each request's first routing flip; float32
+# (TF32 off) runs 2 x 16 tokens, under the capacity's floor of min(N, 32)
+# slots an expert on both paths, within the reference's 2e-4
+# (tests/test_models.py), at 2 layers (~26 and ~58 GB in float32).
+MOE_RUNS = (("llama4_scout_17b_a16e", dict(n_layers=12), (2, 8192), (4, 32),
+             dict(n_layers=2)),
+            ("deepseek_v3_671b", dict(n_layers=5), (2, 4096), (4, 32),
+             dict(prefix_blocks=("mla_dense",), n_layers=2)))
+MOE_F32_SHAPE = (2, 16)
+MOE_F32_BOUND = 2e-4
+
+
+def drive_moe(dev, seed: int) -> dict:
+    """Phase 13: each arch's main path and bf16 parity at its cut depth
+    (``arch_decoder``, one prefill and one decode step profiled, the
+    profiled prefill's dropped slots), then its float32 parity at 2 layers
+    (``moe_decode_vs_prefill``: every position held, the flips printed);
+    one model on the card at a time.  Returns the launch counts of the two
+    main paths added up."""
+    import torch
+    import repro_torch.configs as C
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    for arch, cut, (b, s), (pb, pn), _ in MOE_RUNS:
+        full = C.get(arch)
+        log(f"  CUT: {arch} {cut['n_layers']} of {full.n_layers} layers "
+            f"(every width, all {full.moe.num_experts} experts), prefill "
+            f"{b} x {s} (prefill_32k: 32 x 32768), decode {DECODE_BATCH} "
+            f"requests, cache {PROMPT_LEN} + {GEN_LEN} (decode_32k: 128 x "
+            f"32768), parity {pb} x {pn}")
+    total = {}
+    for arch, cut, prefill_shape, parity_shape, f32 in MOE_RUNS:
+        t0 = time.perf_counter()
+        cfg = C.get(arch).replace(**cut)
+        c = arch_decoder(dev, gen, arch, prefill_shape, parity_shape,
+                         prefill_shape[1], cfg=cfg)
+        total = {k: total.get(k, 0) + v for k, v in c.items()}
+        cfg32 = C.get(arch).replace(param_dtype="float32",
+                                    compute_dtype="float32", **f32)
+        model = parity_model(cfg32, gen, dev)
+        pb, pn = MOE_F32_SHAPE
+        ptoks = torch.randint(0, cfg.vocab, (pb, pn), generator=gen,
+                              device=dev, dtype=torch.int32)
+        par = moe_decode_vs_prefill(cfg32, model, ptoks, dev)
+        log(f"  [moe] {cfg.name} decode vs prefill over {pb} x {pn} tokens, "
+            f"float32, {cfg32.n_layers} layers {cfg32.layer_kinds} at full "
+            f"width: max |gap| / max |logit| {par['err_all']:.3g} (bound "
+            f"{MOE_F32_BOUND}); routing flips by MoE layer {par['flips']}, "
+            f"slots dropped at {par['lost']} positions; "
+            f"{time.perf_counter() - t0:.1f} s with the bf16 runs")
+        if not par["err_all"] <= MOE_F32_BOUND or par["lost"]:
+            raise AssertionError(f"{cfg.name} float32 decode vs prefill: "
+                                 f"{par['err_all']} > {MOE_F32_BOUND}, or "
+                                 f"{par['lost']} positions dropped a slot")
         del model
         release(dev)
     return total
@@ -4300,7 +4620,20 @@ def main(argv=None) -> int:
         f"{t['plain_ms_hd256_recurrentgemma']:.3f} ms, SDPA (mask) "
         f"{t['library_ms_hd256_recurrentgemma']:.3f} ms, bound "
         f"{t['bound_ms_hd256_recurrentgemma']:.3f} ms"
-        f"; q std {FLASH_Q_SCALES[-1]:g}: at most {t['share_of_bound']:.3g} "
+        + "".join(
+            f"; {label} (q std 1 and 20: at most "
+            f"{t['share_of_bound_' + key]:.3g} of the bound): kernel "
+            f"{t['ms_' + key]:.3f} ms, plain {t['plain_ms_' + key]:.3f} ms, "
+            + (f"SDPA {t['library_ms_' + key]:.3f} ms"
+               if t['library_ms_' + key] is not None
+               else t['library_' + key])
+            + f", bound {t['bound_ms_' + key]:.3f} ms"
+            for key, label in (
+                ("mla", "MLA q.k 192 / v 128 (DeepSeek-V3's layer, H = KH "
+                        "128, S 4096)"),
+                ("llama4", "hd 128, H 40, KH 8 (Llama 4 Scout's layer, S "
+                           "8192)")))
+        + f"; q std {FLASH_Q_SCALES[-1]:g}: at most {t['share_of_bound']:.3g} "
         f"of the bound; without the window {t['moved_without_window']:.3g}, "
         f"without the softcap {t['moved_without_softcap']:.3g} of the "
         f"outputs move past it")
@@ -4392,7 +4725,16 @@ def main(argv=None) -> int:
     log(f"  phase 12 {time.perf_counter() - t12:.1f} s; launches {rc}")
     if rc["flash_attention"] == 0:
         raise AssertionError("phase 12 launched no flash_attention")
-    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar, rc)
+
+    log("phase 13: the MoE archs at full width (Llama 4 Scout at 12 layers, "
+        "DeepSeek-V3 at 5: prefill, decode, launches a call, dropped "
+        "slots, parity in bf16 with its routing flips and in float32)")
+    t13 = time.perf_counter()
+    mo = drive_moe(dev, args.seed)
+    log(f"  phase 13 {time.perf_counter() - t13:.1f} s; launches {mo}")
+    if mo["flash_attention"] == 0:
+        raise AssertionError("phase 13 launched no flash_attention")
+    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar, rc, mo)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -4489,10 +4831,13 @@ def main(argv=None) -> int:
                 "ms_hd160", "plain_ms_hd160", "library_ms_hd160",
                 "bound_ms_hd160", "tflops", "note",
                 "share_of_bound_recurrentgemma",
-                "moved_without_window_recurrentgemma")})
+                "moved_without_window_recurrentgemma",
+                "share_of_bound_mla", "share_of_bound_llama4", "library_mla",
+                "library_llama4")})
             entry.update({f"{key}_{label}": t[f"{key}_{label}"]
                           for label in ("hd128_mistral", "hd128_chameleon",
-                                        "hd256_recurrentgemma")
+                                        "hd256_recurrentgemma", "mla",
+                                        "llama4")
                           for key in ("ms", "plain_ms", "library_ms",
                                       "bound_ms")})
             entry["note"] += (
@@ -4510,7 +4855,7 @@ def main(argv=None) -> int:
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
         f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}, "
         f"serve {sv}, dql {dq}, distributed {ds}, train {tr}, archs {ar}, "
-        f"recurrent {rc}")
+        f"recurrent {rc}, moe {mo}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -72,7 +72,7 @@ _SIGNATURES = {
         "spmv_ell_launch": ([_P, _P, _P, _LL, _I, _P, _SZ, _P], _I),
     },
     "flash_attention": {
-        "flash_attention_launch": ([_P] * 4 + [_I] * 8 + [_F, _P], _I),
+        "flash_attention_launch": ([_P] * 4 + [_I] * 9 + [_F, _P], _I),
     },
 }
 

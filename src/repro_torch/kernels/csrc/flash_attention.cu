@@ -7,7 +7,11 @@
 // (H % KH == 0), positions 0..S-1 for both; scores q.k / sqrt(hd) in
 // float32, tanh softcap, then the causal and window masks at -2e38;
 // m, l, acc in float32 with p rounded to V's type before P.V; the output
-// acc / max(l, 1e-30) in q's type.
+// acc / max(l, 1e-30) in q's type.  V may have a head dim of its own, vd
+// (DeepSeek-V3's MLA: q.k over 192 = 128 + 64 rope columns, v 128): v
+// [B, KH, S, vd] and the output [B, H, S, vd], the scale still
+// 1 / sqrt(hd), as the reference's dense attention (repro/models/
+// blocks.py _attend) takes it; the Pallas kernel had one hd for all three.
 //
 // On the H100 the TPU's sequential grid becomes independent blocks: one
 // block per (q tile, head, batch), the KV tiles walked by a loop inside
@@ -17,10 +21,10 @@
 // exp(-2e38 - m) = 0.  K and V rows past S are zeros and masked, so any
 // S runs.  Three kernels, chosen by dtype and head dim:
 //
-//   dtype    head dim                 kernel
-//   bf16     64, 80, 128, 160, 256    flash_wgmma_kernel (wgmma + TMA)
-//   bf16     16, 32                   flash_mma_kernel (mma.sync)
-//   float32  all seven                flash_f32_kernel (FMAs)
+//   dtype    head dim (q.k / v)             kernel
+//   bf16     64, 80, 128, 160, 256; 192/128 flash_wgmma_kernel (wgmma + TMA)
+//   bf16     16, 32                         flash_mma_kernel (mma.sync)
+//   float32  all seven; 192/128             flash_f32_kernel (FMAs)
 //
 //   bf16, hd 64/80/128/160/256 (the serving path): wgmma with a TMA ring.  A
 //     block of 384 threads owns 128 q rows of one head: warpgroup 0 is the
@@ -57,7 +61,11 @@
 //     of BK x hd, bf16: 224 KB at hd 256, 200 KB at 160, 180 KB at 80, 160 KB
 //     at 128, 80 KB at 64 (plus 1 KB alignment and the barriers).  Registers
 //     a consumer thread: hd / 2 float32 for O, BK / 2 for S and BK / 4 for P
-//     (128 + 40 + 20 at hd 256, 80 + 64 + 32 at 160).
+//     (128 + 40 + 20 at hd 256, 80 + 64 + 32 at 160).  With a v head dim of
+//     its own (VD, MLA's 192 / 128) Q and K are HD columns (three 64-column
+//     boxes) and V, P.V, O and the store VD (two): Q 48 KB + 2 stages of K
+//     (96 KB) and V (64 KB) = 208 KB; O takes VD / 2 registers.  The rest
+//     is the kernel at HD, unchanged: no path of it reads VD apart from V.
 //   bf16, hd 16, 32: mma.sync m16n8k16, 4 warps, 64 q rows x 64-key
 //     tiles loaded synchronously into shared memory (rows padded by 8
 //     elements so fragment loads hit 32 distinct banks: a row is an odd
@@ -66,8 +74,8 @@
 //     (hd 16); no full-width arch has them.
 //   float32: plain FMAs (the tensor cores' TF32 would break the float32
 //     contract), 256 threads, 32 q rows x 32-key tiles in shared
-//     memory, 8 threads a row.  It serves the float32 checks, not the
-//     serving path.
+//     memory, 8 threads a row (VD / 8 output columns each).  It serves the
+//     float32 checks and models, not the serving path.
 //
 // What bounds it: at the main shape (B 2, H 16, KH 8, S 8192, hd 256,
 // bf16) tensor-core operations: about 1.1e12 FLOP for a global layer
@@ -216,7 +224,10 @@ __device__ inline float rcp(float x) {
   return y;
 }
 
-template <int HD>
+// the widest swizzle row (64, 32 or 16 columns) that tiles a head dim
+constexpr int box_of(int d) { return d % 64 == 0 ? 64 : d % 32 == 0 ? 32 : 16; }
+
+template <int HD, int VD>
 struct Wg {
   static constexpr int BQ = 128;                 // q rows a block
   // keys a tile: at hd 256 the widest that fits two stages beside Q
@@ -226,25 +237,29 @@ struct Wg {
   // tools/flash_probes.py)
   static constexpr int STAGES = HD == 80 ? 4 : 2;
   static constexpr int THREADS = 384;            // producer + 2 consumers
-  // columns a TMA box: the widest swizzle row that tiles hd
-  static constexpr int BOX = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
+  // columns a TMA box: the widest swizzle row that tiles hd and vd
+  static constexpr int BOX = box_of(HD) < box_of(VD) ? box_of(HD) : box_of(VD);
   static constexpr uint32_t GROUP = 8 * BOX * 2; // 8 rows of a box, bytes
   static constexpr int Q_ELEMS = BQ * HD;
-  static constexpr int KV_ELEMS = BK * HD;       // one K or V tile
+  static constexpr int K_ELEMS = BK * HD;        // one K tile
+  static constexpr int V_ELEMS = BK * VD;        // one V tile
   static constexpr uint32_t Q_BYTES = Q_ELEMS * 2;
-  static constexpr uint32_t KV_BYTES = KV_ELEMS * 2;
+  static constexpr uint32_t K_BYTES = K_ELEMS * 2;
+  static constexpr uint32_t V_BYTES = V_ELEMS * 2;
   // the tiles, 1 KB to align them to the 128-byte swizzle's period, and
   // the 1 + 4 STAGES barriers
   static constexpr int SMEM =
-      (Q_ELEMS + 2 * STAGES * KV_ELEMS) * 2 + 1024 + 256;
+      (Q_ELEMS + STAGES * (K_ELEMS + V_ELEMS)) * 2 + 1024 + 256;
   static_assert((1 + 4 * STAGES) * 8 <= 256, "barriers overflow");
+  static_assert(SMEM <= 232448, "over the 227 KB a block can use");
+  static_assert(HD % BOX == 0 && VD % BOX == 0, "boxes tile hd and vd");
 };
 
 // S (BK/2 accumulators) for the 64 rows of consumer `c`: Q.K^T over hd.
-template <int HD>
+template <int HD, int VD>
 __device__ inline void qk_product(float* s, const __nv_bfloat16* Qs,
                                   const __nv_bfloat16* Kst, int c) {
-  using W = Wg<HD>;
+  using W = Wg<HD, VD>;
   constexpr int SUBS = W::BOX / 16;              // k16 steps a box
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
@@ -261,24 +276,24 @@ __device__ inline void qk_product(float* s, const __nv_bfloat16* Qs,
   }
 }
 
-// O (HD/2 accumulators) += P (bf16 A fragments) . V over BK keys.
-template <int HD>
+// O (VD/2 accumulators) += P (bf16 A fragments) . V over BK keys.
+template <int HD, int VD>
 __device__ inline void pv_product(float* o, uint32_t (*pa)[4],
                                   const __nv_bfloat16* Vst) {
-  using W = Wg<HD>;
+  using W = Wg<HD, VD>;
 #pragma unroll
   for (int kk = 0; kk < W::BK / 16; ++kk) {
     // MN-major B: 16 key rows of 2 BOX bytes (8-row groups GROUP bytes
-    // apart), the hd columns in boxes of BOX BK * 2 BOX bytes apart
+    // apart), the vd columns in boxes of BOX BK * 2 BOX bytes apart
     const uint64_t b = smem_desc<W::BOX>(Vst + kk * 16 * W::BOX,
                                          W::BK * W::BOX * 2, W::GROUP);
-    if constexpr (HD == 256)
+    if constexpr (VD == 256)
       repro::wgmma_rs_m64n256k16(o, pa[kk], b);
-    else if constexpr (HD == 160)
+    else if constexpr (VD == 160)
       repro::wgmma_rs_m64n160k16(o, pa[kk], b);
-    else if constexpr (HD == 128)
+    else if constexpr (VD == 128)
       repro::wgmma_rs_m64n128k16(o, pa[kk], b);
-    else if constexpr (HD == 80)
+    else if constexpr (VD == 80)
       repro::wgmma_rs_m64n80k16(o, pa[kk], b);
     else
       repro::wgmma_rs_m64n64k16(o, pa[kk], b);
@@ -343,21 +358,21 @@ __device__ __forceinline__ void tile_softmax(float* sc, float* m, float* l,
   l[1] = l[1] * corr[1] + rs[1];
 }
 
-template <int HD, bool CAPPED>
-__global__ void __launch_bounds__(Wg<HD>::THREADS, 1)
+template <int HD, int VD, bool CAPPED>
+__global__ void __launch_bounds__(Wg<HD, VD>::THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const Params p) {
-  using W = Wg<HD>;
-  constexpr int BK = W::BK, STAGES = W::STAGES, NS = BK / 8, NO = HD / 8;
+  using W = Wg<HD, VD>;
+  constexpr int BK = W::BK, STAGES = W::STAGES, NS = BK / 8, NO = VD / 8;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(base);
   __nv_bfloat16* Ks = Qs + W::Q_ELEMS;
-  __nv_bfloat16* Vs = Ks + STAGES * W::KV_ELEMS;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * W::KV_ELEMS);
+  __nv_bfloat16* Vs = Ks + STAGES * W::K_ELEMS;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * W::V_ELEMS);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + STAGES;
   uint64_t* k_empty = v_full + STAGES;
@@ -397,18 +412,18 @@ __global__ void __launch_bounds__(Wg<HD>::THREADS, 1)
       for (int t = t_lo, i = 0; t < t_hi; ++t, ++i) {
         const int s = i % STAGES;
         const uint32_t prev = ((i / STAGES) - 1) & 1;
-        __nv_bfloat16* kd = Ks + s * W::KV_ELEMS;
-        __nv_bfloat16* vd = Vs + s * W::KV_ELEMS;
+        __nv_bfloat16* kd = Ks + s * W::K_ELEMS;
+        __nv_bfloat16* vd = Vs + s * W::V_ELEMS;
         if (i >= STAGES) mbar_wait(&k_empty[s], prev);
-        mbar_expect_tx(&k_full[s], W::KV_BYTES);
+        mbar_expect_tx(&k_full[s], W::K_BYTES);
 #pragma unroll
         for (int c = 0; c < HD / W::BOX; ++c)
           tma_load_3d(kd + c * BK * W::BOX, &tm_k, &k_full[s], c * W::BOX,
                       t * BK, b * p.KH + kvh);
         if (i >= STAGES) mbar_wait(&v_empty[s], prev);
-        mbar_expect_tx(&v_full[s], W::KV_BYTES);
+        mbar_expect_tx(&v_full[s], W::V_BYTES);
 #pragma unroll
-        for (int c = 0; c < HD / W::BOX; ++c)
+        for (int c = 0; c < VD / W::BOX; ++c)
           tma_load_3d(vd + c * BK * W::BOX, &tm_v, &v_full[s], c * W::BOX,
                       t * BK, b * p.KH + kvh);
       }
@@ -433,9 +448,9 @@ __global__ void __launch_bounds__(Wg<HD>::THREADS, 1)
                          : LOG2E * p.scale;
   const float cap2 = p.softcap * LOG2E;
 
-  float o[HD / 2];
+  float o[VD / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < VD / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
   float sc[BK / 2];
 #pragma unroll
@@ -483,7 +498,7 @@ __global__ void __launch_bounds__(Wg<HD>::THREADS, 1)
     mbar_wait(&k_full[s], par);
     fence_regs<BK / 2>(sc);
     wgmma_fence();
-    qk_product<HD>(sc, Qs, Ks + s * W::KV_ELEMS, c);
+    qk_product<HD, VD>(sc, Qs, Ks + s * W::K_ELEMS, c);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<BK / 2>(sc);
@@ -498,18 +513,18 @@ __global__ void __launch_bounds__(Wg<HD>::THREADS, 1)
       mbar_wait(&k_full[s], par);
       mbar_wait(&v_full[pend], pend_par);
       fence_regs<BK / 2>(sc);
-      fence_regs<HD / 2>(o);
+      fence_regs<VD / 2>(o);
       wgmma_fence();
-      qk_product<HD>(sc, Qs, Ks + s * W::KV_ELEMS, c);
+      qk_product<HD, VD>(sc, Qs, Ks + s * W::K_ELEMS, c);
       wgmma_commit();
-      pv_product<HD>(o, pa, Vs + pend * W::KV_ELEMS);
+      pv_product<HD, VD>(o, pa, Vs + pend * W::V_ELEMS);
       wgmma_commit();
       asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
       fence_regs<BK / 2>(sc);
       if (tid == 0) mbar_arrive(&k_empty[s]);
       softmax(t);
       wgmma_wait_all();
-      fence_regs<HD / 2>(o);
+      fence_regs<VD / 2>(o);
       if (tid == 0) mbar_arrive(&v_empty[pend]);
       // rescale O where a row's max moved (a factor of 1 changes nothing)
       if (__any_sync(repro::FULL_MASK, corr[0] != 1.f || corr[1] != 1.f)) {
@@ -526,12 +541,12 @@ __global__ void __launch_bounds__(Wg<HD>::THREADS, 1)
       pend_par = par;
     }
     mbar_wait(&v_full[pend], pend_par);
-    fence_regs<HD / 2>(o);
+    fence_regs<VD / 2>(o);
     wgmma_fence();
-    pv_product<HD>(o, pa, Vs + pend * W::KV_ELEMS);
+    pv_product<HD, VD>(o, pa, Vs + pend * W::V_ELEMS);
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs<HD / 2>(o);
+    fence_regs<VD / 2>(o);
     if (tid == 0) mbar_arrive(&v_empty[pend]);
   }
   for (; t < t_hi; ++t, ++i) skip_tile(i);
@@ -544,12 +559,12 @@ __global__ void __launch_bounds__(Wg<HD>::THREADS, 1)
     // within one float32 rounding of the quotient (bf16 keeps 8 bits)
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  const size_t qoff = ((size_t)b * p.H + h) * p.S * HD;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + qoff;
+  const size_t ooff = ((size_t)b * p.H + h) * p.S * VD;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + ooff;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qpos[r] >= p.S) continue;
-    __nv_bfloat16* orow = out + (size_t)qpos[r] * HD + 2 * t4;
+    __nv_bfloat16* orow = out + (size_t)qpos[r] * VD + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
@@ -737,16 +752,17 @@ __global__ void __launch_bounds__(BF_THREADS)
 
 constexpr int F_BQ = 32, F_BK = 32, F_THREADS = 256;
 
-template <int HD>
+template <int HD, int VD>
 __global__ void __launch_bounds__(F_THREADS) flash_f32_kernel(const Params p) {
   constexpr int LD = HD + 1;           // odd stride: rows on distinct banks
+  constexpr int LDV = VD + 1;
   constexpr int PLD = F_BK + 1;
-  constexpr int CPT = HD / 8;          // output columns a thread
+  constexpr int CPT = VD / 8;          // output columns a thread
   extern __shared__ float fsmem[];
   float* Qs = fsmem;
   float* Ks = Qs + F_BQ * LD;
   float* Vs = Ks + F_BK * LD;
-  float* Ps = Vs + F_BK * LD;
+  float* Ps = Vs + F_BK * LDV;
 
   const int tid = threadIdx.x, r = tid >> 3, c = tid & 7;  // 8 threads a row
   const int n_qt = (p.S + F_BQ - 1) / F_BQ;
@@ -756,9 +772,10 @@ __global__ void __launch_bounds__(F_THREADS) flash_f32_kernel(const Params p) {
   const int q0 = qt * F_BQ, q1 = min(q0 + F_BQ, p.S);
   const size_t qoff = ((size_t)b * p.H + h) * p.S * HD;
   const size_t koff = ((size_t)b * p.KH + kvh) * p.S * HD;
+  const size_t voff = ((size_t)b * p.KH + kvh) * p.S * VD;
   const float* q = static_cast<const float*>(p.q) + qoff;
   const float* k = static_cast<const float*>(p.k) + koff;
-  const float* v = static_cast<const float*>(p.v) + koff;
+  const float* v = static_cast<const float*>(p.v) + voff;
 
   for (int i = tid; i < F_BQ * HD; i += F_THREADS) {
     const int rr = i / HD, dd = i % HD;
@@ -777,10 +794,11 @@ __global__ void __launch_bounds__(F_THREADS) flash_f32_kernel(const Params p) {
     __syncthreads();
     for (int i = tid; i < F_BK * HD; i += F_THREADS) {
       const int rr = i / HD, dd = i % HD;
-      const bool in = k0 + rr < p.S;
-      const size_t at = (size_t)(k0 + rr) * HD + dd;
-      Ks[rr * LD + dd] = in ? k[at] : 0.f;
-      Vs[rr * LD + dd] = in ? v[at] : 0.f;
+      Ks[rr * LD + dd] = k0 + rr < p.S ? k[(size_t)(k0 + rr) * HD + dd] : 0.f;
+    }
+    for (int i = tid; i < F_BK * VD; i += F_THREADS) {
+      const int rr = i / VD, dd = i % VD;
+      Vs[rr * LDV + dd] = k0 + rr < p.S ? v[(size_t)(k0 + rr) * VD + dd] : 0.f;
     }
     __syncthreads();
 
@@ -816,12 +834,13 @@ __global__ void __launch_bounds__(F_THREADS) flash_f32_kernel(const Params p) {
     for (int key = 0; key < F_BK; ++key) {
       const float pk = Ps[r * PLD + key];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[j] += pk * Vs[key * LD + c + 8 * j];
+      for (int j = 0; j < CPT; ++j) acc[j] += pk * Vs[key * LDV + c + 8 * j];
     }
   }
 
   if (qpos < p.S) {
-    float* orow = static_cast<float*>(p.o) + qoff + (size_t)qpos * HD;
+    float* orow = static_cast<float*>(p.o) +
+                  ((size_t)b * p.H + h) * p.S * VD + (size_t)qpos * VD;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int j = 0; j < CPT; ++j) orow[c + 8 * j] = acc[j] / den;
@@ -879,16 +898,16 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int heads, int S, int hd,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int VD>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
-  using W = Wg<HD>;
+  using W = Wg<HD, VD>;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, p.q, p.B * p.H, p.S, HD, W::BQ, W::BOX) ||
       !tensor_map(&tk, p.k, p.B * p.KH, p.S, HD, W::BK, W::BOX) ||
-      !tensor_map(&tv, p.v, p.B * p.KH, p.S, HD, W::BK, W::BOX))
+      !tensor_map(&tv, p.v, p.B * p.KH, p.S, VD, W::BK, W::BOX))
     return (int)cudaErrorInvalidValue;
-  auto kernel = p.softcap > 0.f ? flash_wgmma_kernel<HD, true>
-                                : flash_wgmma_kernel<HD, false>;
+  auto kernel = p.softcap > 0.f ? flash_wgmma_kernel<HD, VD, true>
+                                : flash_wgmma_kernel<HD, VD, false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        W::SMEM);
   const dim3 grid((p.S + W::BQ - 1) / W::BQ, p.H, p.B);
@@ -906,14 +925,14 @@ int launch_mma(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int VD>
 int launch_f32(const Params& p, cudaStream_t stream) {
-  const int smem =
-      (3 * F_BQ * (HD + 1) + F_BQ * (F_BK + 1)) * (int)sizeof(float);
-  cudaFuncSetAttribute(flash_f32_kernel<HD>,
+  const int smem = (F_BQ * (HD + 1) + F_BK * (HD + 1) + F_BK * (VD + 1) +
+                    F_BQ * (F_BK + 1)) * (int)sizeof(float);
+  cudaFuncSetAttribute(flash_f32_kernel<HD, VD>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((p.S + F_BQ - 1) / F_BQ, p.H, p.B);
-  flash_f32_kernel<HD><<<grid, F_THREADS, smem, stream>>>(p);
+  flash_f32_kernel<HD, VD><<<grid, F_THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -921,32 +940,40 @@ int launch_f32(const Params& p, cudaStream_t stream) {
 // columns) and to the mma.sync kernel at 16 and 32; float32 to the FMA
 // kernel.  A tensor map that fails to encode or a refused launch returns
 // its error: nothing falls back to another kernel.
-template <int HD>
+template <int HD, int VD = HD>
 int launch_hd(const Params& p, int bf16, cudaStream_t stream) {
-  static_assert(HD % 16 == 0, "wgmma and m16n8k16 step 16 columns");
-  if (!bf16) return launch_f32<HD>(p, stream);
-  if constexpr (HD >= 64)
-    return launch_wgmma<HD>(p, stream);
-  else
+  static_assert(HD % 16 == 0 && VD % 16 == 0,
+                "wgmma and m16n8k16 step 16 columns");
+  if (!bf16) return launch_f32<HD, VD>(p, stream);
+  if constexpr (HD >= 64 && VD >= 64)
+    return launch_wgmma<HD, VD>(p, stream);
+  else if constexpr (HD == VD)
     return launch_mma<HD>(p, stream);
+  else
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q [B, H, S, hd], k/v [B, KH, S, hd], o [B, H, S, hd], contiguous and
-// 16-byte aligned, all float32 (dtype 0) or all bf16 (dtype 1); hd in
-// {16, 32, 64, 80, 128, 160, 256}.
+// q [B, H, S, hd], k [B, KH, S, hd], v [B, KH, S, vd], o [B, H, S, vd],
+// contiguous and 16-byte aligned, all float32 (dtype 0) or all bf16
+// (dtype 1); hd = vd in {16, 32, 64, 80, 128, 160, 256}, or (hd, vd) =
+// (192, 128).
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
                                         const void* v, void* o, int B, int H,
-                                        int KH, int S, int hd, int dtype,
-                                        int causal, int window, float softcap,
-                                        void* stream_ptr) {
+                                        int KH, int S, int hd, int vd,
+                                        int dtype, int causal, int window,
+                                        float softcap, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (B <= 0 || S <= 0) return (int)cudaGetLastError();
   if (KH <= 0 || H % KH != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, B, H, KH, S, causal, window, softcap,
            (float)(1.0 / sqrt((double)hd))};
+  if (vd != hd) {
+    if (hd == 192 && vd == 128) return launch_hd<192, 128>(p, dtype, stream);
+    return (int)cudaErrorInvalidValue;
+  }
   switch (hd) {
     case 16: return launch_hd<16>(p, dtype, stream);
     case 32: return launch_hd<32>(p, dtype, stream);

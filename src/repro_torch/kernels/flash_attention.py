@@ -5,7 +5,10 @@ Counterpart of ``repro.kernels.flash_attention.flash_attention``, with its
 contract and layout: q [B, H, S, hd], k/v [B, KH, S, hd] (GQA, H % KH ==
 0), queries and keys at positions 0..S-1; causal mask, sliding window
 (``window > 0``: key within ``window`` of the query), tanh softcap; scale
-1/sqrt(hd); bf16 or float32 in, q's dtype out.
+1/sqrt(hd); bf16 or float32 in, q's dtype out.  V may have a head dim of
+its own, vd: v [B, KH, S, vd] gives [B, H, S, vd], the scale still
+1/sqrt(hd) (DeepSeek-V3's MLA: q.k over 192, v 128; the reference's
+dense attention takes any vd, its Pallas kernel one hd for all three).
 
 On the H100 ``csrc/flash_attention.cu`` replaces the Pallas kernel (its
 ``pl.pallas_call`` walks the KV blocks of one q block with a fori_loop):
@@ -31,44 +34,65 @@ hd):
   ``mma.sync`` kernel with synchronous loads.
 - float32 at every dim runs plain FMAs (TF32 would break its contract)
   and serves the checks and float32 models.
+- (hd, vd) = (192, 128), MLA's, runs the wgmma kernel in bf16 (Q and K
+  three 64-column boxes, V two; 208 KB of shared memory) and the FMA
+  kernel in float32 (``SPLIT_DIMS``).
 
 The scale is 1/sqrt of the true hd.  The source note gives the bounds
 and what the design leaves.
 
-CUDA tensors launch the kernel or raise; CPU tensors take the plain
-version :func:`ref.flash_attention_ref`, and only they.
+CUDA tensors launch the kernel or raise, also at a pair of head dims
+that no kernel serves (:func:`kernel_for`); CPU tensors take the plain
+version :func:`ref.flash_attention_ref`, at any head dims, and only they.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.ref import flash_attention_ref
 
+# head dims the kernels serve with v's equal to q.k's, and the pairs
+# (q.k hd, v hd) with a v head dim of its own (DeepSeek-V3's MLA)
 HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
+SPLIT_DIMS = ((192, 128),)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_for(hd: int, vd: int, dtype: torch.dtype) -> Optional[str]:
+    """The CUDA kernel that serves q.k head dim ``hd``, v head dim ``vd``
+    and ``dtype``: "wgmma" (bf16, both dims 64 or more), "mma" (bf16 at
+    16 and 32), "f32" (float32), or None where none does."""
+    if dtype not in _DTYPE_CODES or not (
+            (hd == vd and hd in HEAD_DIMS) or (hd, vd) in SPLIT_DIMS):
+        return None
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if min(hd, vd) >= 64 else "mma"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
-    """q [B, H, S, hd]; k/v [B, KH, S, hd] (H % KH == 0) -> [B, H, S, hd]."""
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention takes q [B, H, S, hd] and k, v "
-                         f"[B, KH, S, hd], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    """q [B, H, S, hd]; k [B, KH, S, hd], v [B, KH, S, vd] (H % KH == 0)
+    -> [B, H, S, vd]."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_attention takes q [B, H, S, hd], k [B, KH, "
+                         f"S, hd] and v [B, KH, S, vd], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, h, s, hd = q.shape
-    kh = k.shape[1]
+    kh, vd = k.shape[1], v.shape[3]
     if k.shape[0] != b or k.shape[2] != s or k.shape[3] != hd:
-        raise ValueError(f"flash_attention needs k, v [{b}, KH, {s}, {hd}] "
+        raise ValueError(f"flash_attention needs k [{b}, KH, {s}, {hd}] "
                          f"(queries and keys at the same positions), got "
                          f"{tuple(k.shape)}")
     if kh < 1 or h % kh:
         raise ValueError(f"flash_attention needs H % KH == 0, got H {h}, "
                          f"KH {kh}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, "
-                         f"got {hd}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes bf16 or float32 q, k, v of "
@@ -78,16 +102,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
+    if kernel_for(hd, vd, q.dtype) is None:
+        raise ValueError(f"flash_attention has no kernel for head dims "
+                         f"(q.k {hd}, v {vd}): it takes {HEAD_DIMS} for "
+                         f"both and the pairs {SPLIT_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
     q, k, v = (_aligned(t) for t in (q, k, v))
-    out = torch.empty_like(q)
+    out = q.new_empty((b, h, s, vd))
     if out.numel():
         lib = _build.library("flash_attention")
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            kh, s, hd, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            kh, s, hd, vd, _DTYPE_CODES[q.dtype], int(bool(causal)),
             max(int(window), 0), float(softcap),
             _build.stream_ptr(q.device))
         _build.check(lib, rc, "flash_attention")

@@ -115,9 +115,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0) -> torch.Tensor:
     """Dense masked softmax attention in float32, the flash kernel's
-    contract: q [B, H, S, hd], k/v [B, KH, S, hd] (GQA, H % KH == 0) at
-    positions 0..S-1; scale 1/sqrt(hd), tanh softcap before the mask,
-    masked scores at -2e38; the output in q's dtype.  Counterpart of
+    contract: q [B, H, S, hd], k [B, KH, S, hd], v [B, KH, S, vd] (GQA,
+    H % KH == 0; vd any, MLA's differs from hd) at positions 0..S-1;
+    scale 1/sqrt(hd), tanh softcap before the mask, masked scores at
+    -2e38; the output [B, H, S, vd] in q's dtype.  Counterpart of
     ``repro.kernels.ref.mha_ref``.  It holds the [B, H, S, S] scores (twice
     while they are scaled: the product's output stays unchanged, as a
     checkpoint that keeps matrix products, ``remat="dots"``, requires)."""

@@ -21,6 +21,7 @@ the targets (masked-frame prediction).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -34,7 +35,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm
 from repro_torch.models.common import resolve_device
 from repro_torch.models.config import (
-    ModelConfig, RGLRUConfig, smoke_config,
+    MLAConfig, ModelConfig, RGLRUConfig, smoke_config,
 )
 from repro_torch.models.transfer import (
     opt_state_from_numpy, params_from_numpy, to_reference_tree,
@@ -45,8 +46,7 @@ from repro_torch.optim import AdamWConfig, adamw_init
 def preset_config(cfg: ModelConfig, preset: str) -> ModelConfig:
     """``full`` (the architecture), ``smoke`` (``smoke_config``) or ``100m``
     (a ~100M-parameter member of the same family: 103M for the dense
-    ones; RG-LRU at width 512).  ``configs.get`` refuses the archs the
-    port does not run yet (MLA and MoE)."""
+    ones; RG-LRU at width 512, 8 experts of 768, MLA at (96, 64))."""
     if preset == "full":
         return cfg
     if preset == "smoke":
@@ -55,6 +55,15 @@ def preset_config(cfg: ModelConfig, preset: str) -> ModelConfig:
         kw = dict(n_layers=max(4, min(cfg.n_layers, 12)), d_model=768,
                   n_heads=12, n_kv_heads=min(cfg.n_kv_heads, 4), d_ff=2048,
                   head_dim=64, vocab=32768, remat="none", local_window=256)
+        if cfg.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                cfg.moe, num_experts=8, top_k=min(cfg.moe.top_k, 2),
+                d_ff_expert=768, d_ff_shared=768 if cfg.moe.num_shared else 0,
+                ep_axes=("model",))
+        if cfg.mla is not None:
+            kw["mla"] = MLAConfig(q_lora_rank=128, kv_lora_rank=64,
+                                  qk_nope_head_dim=64, qk_rope_head_dim=32,
+                                  v_head_dim=64)
         if cfg.rglru is not None:
             kw["rglru"] = RGLRUConfig(d_rnn=512, conv_width=4,
                                       block_width=512)

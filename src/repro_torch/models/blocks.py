@@ -1,7 +1,7 @@
-"""Blocks of the port: GQA attention, the dense FFN, and the recurrent
-blocks (RG-LRU, mLSTM, sLSTM).
+"""Blocks of the port: GQA attention, MLA, the dense FFN, MoE, and the
+recurrent blocks (RG-LRU, mLSTM, sLSTM).
 
-Counterpart of ``repro.models.blocks`` for the kinds the port runs so far.
+Counterpart of ``repro.models.blocks``.
 Every kind provides ``plan_<kind>(cfg)`` (a flat dict of ``ParamSpec``)
 and ``apply_<kind>(cfg, p, x, ...)`` on a :class:`Params` module holding
 those parameters.  Layout as the reference: activations [B, S, ...], q/k/v
@@ -32,7 +32,24 @@ writes its state in place: RG-LRU's ``h`` and ``conv`` in the cache's
 dtype (the compute dtype: ``h`` is rounded to it every step, as in the
 reference), the xLSTM cells' states in float32.
 
-Not ported yet: MLA and MoE (ROADMAP.md Queue 1 item 16b.4).
+MLA (DeepSeek-V3's multi-head latent attention) without a cache expands
+its latent to per-head keys (q.k head dim nope + rope = 192) and values
+(128) and runs the flash kernel at that pair of dims, one launch a layer.
+With a cache it decodes *absorbed*, as the reference: the cache holds only
+the normed latent [B, T, kv_lora_rank] and the roped ``k_rope`` [B, T,
+rope] in the compute dtype, and the scores are taken in latent space in
+float32.
+
+MoE is the reference's ``gather`` implementation (``apply_moe_gather``,
+its default ``moe_impl``): a float32 softmax router, top-k (ties to the
+lower expert id, as ``jax.lax.top_k``), gates renormalised, each (token,
+k) slot placed in its expert's buffer of ``moe_capacity`` slots in
+token-major order, slots past it dropped, two batched products over all
+experts, the weighted gather back, and the shared expert.  The routing
+(:func:`moe_route`) is looked up by name at every call, so that a probe
+can wrap it to record the chosen experts without a cost to the serving
+path.  ``moe_impl="a2a"`` (experts exchanged over a mesh) is not ported:
+ROADMAP.md Queue 1 item 27.
 """
 from __future__ import annotations
 
@@ -243,8 +260,101 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+# ----------------------------- MLA (DeepSeek-V3) ---------------------------
+
+def plan_mla(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "norm": ParamSpec((d,), "zeros"),
+        "wq_a": ParamSpec((d, m.q_lora_rank)),
+        "q_norm": ParamSpec((m.q_lora_rank,), "zeros"),
+        "wq_b": ParamSpec((m.q_lora_rank, h, qk)),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), "zeros"),
+        "wk_b": ParamSpec((m.kv_lora_rank, h, m.qk_nope_head_dim)),
+        "wv_b": ParamSpec((m.kv_lora_rank, h, m.v_head_dim)),
+        "wo": ParamSpec((h, m.v_head_dim, d)),
+    }
+
+
+def _heads(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [B, S, R] times w [R, H, k] -> [B, S, H, k] (one product)."""
+    r, h, k = w.shape
+    return (a @ w.to(a.dtype).reshape(r, h * k)).view(*a.shape[:2], h, k)
+
+
+def apply_mla(cfg: ModelConfig, p, x, pos=None, cache=None):
+    """MLA on ``x`` [B, S, d]: low-rank q (``wq_a``, norm, ``wq_b``) of
+    ``nope + rope`` columns a head, a shared latent and rope key
+    (``wkv_a``), rotary embeddings on the rope columns.  Without a cache
+    (``pos`` None or 0..S-1) the latent expands to keys and values and the
+    flash kernel attends at q.k head dim nope + rope and v head dim
+    ``v_head_dim``.  With one (``{"latent" [B, T, R], "k_rope" [B, T,
+    rope]}``), ``x`` is one token at ``pos`` [B, 1]: its latent and rope
+    key go into slot ``pos`` (clamped to T - 1, as the reference's
+    dynamic_update_slice) in place, and attention is absorbed: q_nope goes
+    into latent space through ``wk_b``, the scores over the cache are
+    float32, scaled by 1/sqrt(nope + rope), and the context leaves it
+    through ``wv_b``.  Returns (x + attention, cache)."""
+    m = cfg.mla
+    b, s, d = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    r = m.kv_lora_rank
+    xn = rms_norm(x, p.norm, cfg.norm_eps)
+    cq = rms_norm(xn @ p.wq_a.to(xn.dtype), p.q_norm, cfg.norm_eps)
+    q = _heads(cq, p.wq_b)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv = xn @ p.wkv_a.to(xn.dtype)
+    latent = rms_norm(ckv[..., :r], p.kv_norm, cfg.norm_eps)
+    k_rope = ckv[..., r:][:, :, None, :]                 # [B, S, 1, rope]
+    if cache is None:
+        pos = prefill_positions(pos, b, s, x.device)
+    sin, cos = rope_table(pos, rope_d, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+    k_rope = apply_rope(k_rope, sin, cos)
+
+    if cache is None:
+        k_nope = _heads(latent, p.wk_b)
+        v = _heads(latent, p.wv_b)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, rope_d)], dim=-1)
+        out = attend(cfg, torch.cat([q_nope, q_rope], dim=-1), k, v)
+    else:
+        if s != 1:
+            raise ValueError(f"a cached step takes one token, got {s}")
+        clat, crope = cache["latent"], cache["k_rope"]
+        cpos = pos.reshape(-1)[0]
+        tmax = clat.shape[1]
+        slot = cpos.clamp(max=tmax - 1).reshape(1).long()
+        clat.index_copy_(1, slot, latent.to(clat.dtype))
+        crope.index_copy_(1, slot, k_rope[:, :, 0, :].to(crope.dtype))
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
+                             p.wk_b.to(q_nope.dtype))
+        lat32 = clat.float()
+        scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), lat32)
+                  + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                                 crope.float())) / ((nope + rope_d) ** 0.5)
+        visible = torch.arange(tmax, device=x.device) <= cpos
+        probs = torch.softmax(scores.masked_fill(~visible, NEG), dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", probs, lat32).to(x.dtype)
+        out = torch.einsum("bshr,rhv->bshv", ctx, p.wv_b.to(x.dtype))
+    y = out.reshape(b, s, h * vd) @ p.wo.to(out.dtype).reshape(h * vd, d)
+    return x + y, cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
+                   dtype) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    return {"latent": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                  dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
 # ---------------------------------------------------------------------------
-# FFN: dense (swiglu / geglu / gelu)
+# FFN: dense (swiglu / geglu / gelu) and MoE
 # ---------------------------------------------------------------------------
 
 def plan_ffn(cfg: ModelConfig, d_ff: Optional[int] = None,
@@ -267,6 +377,84 @@ def apply_ffn(cfg: ModelConfig, p, x, kind: str = "swiglu"):
     if cfg.post_norms:
         y = rms_norm(y, p.post_norm, cfg.norm_eps)
     return x + y
+
+
+def plan_moe(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    mo = cfg.moe
+    d = cfg.d_model
+    p = {"norm": ParamSpec((d,), "zeros"),
+         "router": ParamSpec((d, mo.num_experts)),
+         "w_in": ParamSpec((mo.num_experts, d, 2 * mo.d_ff_expert)),
+         "w_out": ParamSpec((mo.num_experts, mo.d_ff_expert, d))}
+    if mo.num_shared:
+        ffs = mo.d_ff_shared or mo.d_ff_expert
+        p["shared_in"] = ParamSpec((d, 2 * ffs * mo.num_shared))
+        p["shared_out"] = ParamSpec((ffs * mo.num_shared, d))
+    return p
+
+
+def moe_route(cfg: ModelConfig, router: torch.Tensor, tokens: torch.Tensor):
+    """The router on ``tokens`` [N, d]: softmax of the float32 logits, the
+    top ``top_k`` experts a token (equal probabilities to the lower expert
+    id, as ``jax.lax.top_k``: a stable sort), the gates renormalised to sum
+    to 1 (over at least 1e-9).  Returns (gate [N, K] float32, eid [N, K]
+    int64)."""
+    probs = torch.softmax(tokens.float() @ router.float(), dim=-1)
+    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    gate, eid = top[:, :k], order[:, :k]
+    return gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9), eid
+
+
+def moe_capacity(cfg: ModelConfig, n: int) -> int:
+    """Slots an expert holds for ``n`` tokens: n top_k capacity_factor /
+    num_experts, at least 1, and at least min(n, 32), the reference's
+    floor that keeps small (decode) batches from dropping a slot."""
+    mo = cfg.moe
+    cap = int(max(1, (n * mo.top_k * mo.capacity_factor) // mo.num_experts))
+    return max(cap, min(n, 32))
+
+
+def moe_slots(eid: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Each (token, k) slot's position in its expert's buffer: how many
+    slots before it, in token-major order, chose the same expert (a cumsum
+    over the one-hot choices).  eid [N, K] -> [N, K] int64."""
+    n, k = eid.shape
+    flat = eid.reshape(-1, 1)
+    onehot = torch.zeros((n * k, num_experts), dtype=torch.int32,
+                         device=eid.device).scatter_(1, flat, 1)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
+    return pos.gather(1, flat).view(n, k).long()
+
+
+def apply_moe(cfg: ModelConfig, p, x):
+    """The MoE FFN on ``x`` [B, S, d] (the reference's ``gather``
+    implementation; see the module note).  Returns x + y."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    e, kk = mo.num_experts, mo.top_k
+    xn = rms_norm(x, p.norm, cfg.norm_eps)
+    tokens = xn.reshape(b * s, d)
+    n = tokens.shape[0]
+    gate, eid = moe_route(cfg, p.router, tokens)
+    cap = moe_capacity(cfg, n)
+    pos_k = moe_slots(eid, e)
+    keep = pos_k < cap
+    # dispatch: dropped slots go to row e, which no expert reads
+    flat_e = torch.where(keep, eid, e).reshape(-1)
+    flat_pos = torch.where(keep, pos_k, 0).reshape(-1)
+    disp = tokens.new_zeros((e + 1, cap, d))
+    disp[flat_e, flat_pos] = tokens.repeat_interleave(kk, dim=0)
+    hmid = swiglu(torch.bmm(disp[:e], p.w_in.to(disp.dtype)))
+    eout = torch.bmm(hmid, p.w_out.to(hmid.dtype))
+    # combine: a dropped slot reads expert 0's slot 0 and weighs it by 0
+    gath = eout[flat_e % e, flat_pos]
+    gath = gath * (gate.reshape(-1, 1) * keep.reshape(-1, 1)).to(gath.dtype)
+    y = gath.view(n, kk, d).sum(dim=1)
+    if mo.num_shared:
+        hs = swiglu(tokens @ p.shared_in.to(tokens.dtype))
+        y = y + hs @ p.shared_out.to(hs.dtype)
+    return x + y.view(b, s, d)
 
 
 # ---------------------------------------------------------------------------

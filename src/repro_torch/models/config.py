@@ -7,12 +7,15 @@ fields keep the reference's names and defaults, so that ``cfg.replace``
 takes the same keywords; ``dtype()`` returns torch dtypes.
 
 Not carried over: ``ShardingRules`` and the ``sharding`` field (one card,
-no mesh), ``scan_layers`` and ``moe_impl``, and the MoE and MLA
-sub-configs, which come with their blocks.  ``RGLRUConfig`` (the rglru
-field) is the reference's.  ``attn_impl`` and
-``attn_block`` are kept so that ``replace`` takes the reference's
+no mesh), ``scan_layers`` and ``moe_impl`` (the port's MoE is the
+reference's default, ``gather``; ``a2a`` needs a mesh: ROADMAP.md item
+27).
+``MoEConfig``, ``MLAConfig`` and ``RGLRUConfig`` are the reference's.
+``attn_impl``, ``attn_block`` and ``MoEConfig``'s ``ep_axes`` and
+``router_dtype`` are kept so that ``replace`` takes the reference's
 keywords, and nothing reads them: every cache-less attention runs the
-flash kernel whatever they say (``repro_torch.models.blocks.attend``).
+flash kernel whatever they say (``repro_torch.models.blocks.attend``), and
+the router runs in float32, as the reference's.
 """
 from __future__ import annotations
 
@@ -28,6 +31,28 @@ REMATS = ("none", "full", "dots")
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared: int = 0            # shared (always-on) experts
+    d_ff_shared: int = 0
+    ep_axes: Tuple[str, ...] = ("model",)      # inert (see above)
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"              # inert
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 Multi-head Latent Attention."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class RGLRUConfig:
     """RecurrentGemma RG-LRU recurrent block."""
     d_rnn: int = 2560
@@ -38,9 +63,7 @@ class RGLRUConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | hybrid | xlstm | vlm | encoder
-    #                                (the ported archs'; moe comes with
-    #                                ROADMAP.md Queue 1 item 16b.4)
+    family: str                # dense | moe | hybrid | xlstm | encoder | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +71,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 128
+    d_ff_dense: int = 0            # dense-FFN width for mixed MoE stacks
     block_pattern: Tuple[str, ...] = ("attn_dense",)
     prefix_blocks: Tuple[str, ...] = ()     # unrolled layers before the body
     causal: bool = True
@@ -59,6 +83,8 @@ class ModelConfig:
     logit_softcap: float = 0.0              # gemma2
     local_window: int = 4096                # for "attn_local" blocks
     rope_theta: float = 10000.0
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     rglru: Optional[RGLRUConfig] = None     # recurrentgemma's rec blocks
     mtp: bool = False                       # DeepSeek multi-token prediction
     embed_inputs: bool = True
@@ -135,7 +161,17 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     kw = dict(
         n_layers=max(len(cfg.block_pattern) + len(cfg.prefix_blocks), 2),
         d_model=64, n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2) or 1,
-        d_ff=128, vocab=256, head_dim=16, local_window=32, remat="none")
+        d_ff=128, vocab=256, head_dim=16, local_window=32,
+        d_ff_dense=128 if cfg.d_ff_dense else 0, remat="none")
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2),
+            d_ff_expert=64, d_ff_shared=64 if cfg.moe.num_shared else 0,
+            ep_axes=("model",))
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                              qk_nope_head_dim=16, qk_rope_head_dim=8,
+                              v_head_dim=16)
     if cfg.rglru is not None:
         kw["rglru"] = RGLRUConfig(d_rnn=64, conv_width=4, block_width=64)
     return cfg.replace(**kw)

@@ -42,9 +42,12 @@ from repro_torch.models.common import (
 from repro_torch.models.config import ModelConfig
 
 # each block kind and the parts of its layer, in order: attention or a
-# recurrence, then the FFN where the kind has one (mLSTM and sLSTM carry
-# their own projections in ``cell``)
+# recurrence, then the FFN or the MoE where the kind has one (mLSTM and
+# sLSTM carry their own projections in ``cell``).  ``attn`` is MLA in an
+# ``mla_dense`` layer (its FFN at ``d_ff_dense``) and in an ``attn_moe``
+# layer of a config with ``mla``, else GQA.
 PARTS = {"attn_dense": ("attn", "ffn"), "attn_local": ("attn", "ffn"),
+         "mla_dense": ("attn", "ffn"), "attn_moe": ("attn", "moe"),
          "rec": ("rec", "ffn"), "mlstm": ("cell",), "slstm": ("cell",)}
 KINDS = tuple(PARTS)
 # the ops whose outputs remat="dots" keeps (jax's checkpoint_dots: every
@@ -59,10 +62,14 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 def _check_kind(kind: str) -> None:
     if kind not in KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md Queue 1 "
-            f"item 16b.4 for mla_dense and attn_moe); the port runs "
-            f"{KINDS}")
+        raise ValueError(f"unknown block kind {kind!r}; the port runs "
+                         f"{KINDS}")
+
+
+def is_mla(cfg: ModelConfig, kind: str) -> bool:
+    """Whether a layer of ``kind`` attends with MLA (else GQA)."""
+    return kind == "mla_dense" or (kind == "attn_moe" and
+                                   cfg.mla is not None)
 
 
 def _check_decoder(cfg: ModelConfig) -> None:
@@ -75,9 +82,11 @@ def _check_decoder(cfg: ModelConfig) -> None:
 
 def plan_block(cfg: ModelConfig, kind: str) -> Dict[str, ParamSpec]:
     _check_kind(kind)
-    plans = {"attn": B.plan_attention, "rec": B.plan_rglru,
+    d_ff = cfg.d_ff_dense if kind == "mla_dense" else None
+    plans = {"attn": B.plan_mla if is_mla(cfg, kind) else B.plan_attention,
+             "rec": B.plan_rglru, "moe": B.plan_moe,
              "cell": B.plan_mlstm if kind == "mlstm" else B.plan_slstm,
-             "ffn": lambda c: B.plan_ffn(c, kind=c.ffn_kind)}
+             "ffn": lambda c: B.plan_ffn(c, d_ff, kind=c.ffn_kind)}
     return {f"{part}.{n}": s for part in PARTS[kind]
             for n, s in plans[part](cfg).items()}
 
@@ -119,8 +128,9 @@ def _sub(tensors: Dict[str, torch.Tensor], prefix: str):
 
 class Block(nn.Module):
     """One layer's parameters, one submodule for each of its kind's
-    ``PARTS`` (``attn`` and ``ffn``, ``rec`` and ``ffn``, or ``cell``),
-    and its ``kind`` (``attn_local`` attends within the local window)."""
+    ``PARTS`` (``attn`` and ``ffn`` or ``moe``, ``rec`` and ``ffn``, or
+    ``cell``), and its ``kind`` (``attn_local`` attends within the local
+    window)."""
 
     def __init__(self, kind: str, tensors: Dict[str, torch.Tensor],
                  trainable: bool = False):
@@ -189,10 +199,16 @@ def apply_block(cfg: ModelConfig, kind: str, p, x, pos, cache):
         x, c = B.apply_rglru(cfg, p.rec, x, cache["rec"] if cache else None)
     else:
         part = "attn"
-        win = cfg.local_window if kind == "attn_local" else 0
-        x, c = B.apply_attention(cfg, p.attn, x, pos,
-                                 cache["attn"] if cache else None, window=win)
-    x = B.apply_ffn(cfg, p.ffn, x, kind=cfg.ffn_kind)
+        c = cache["attn"] if cache else None
+        if is_mla(cfg, kind):
+            x, c = B.apply_mla(cfg, p.attn, x, pos, c)
+        else:
+            win = cfg.local_window if kind == "attn_local" else 0
+            x, c = B.apply_attention(cfg, p.attn, x, pos, c, window=win)
+    if kind == "attn_moe":
+        x = B.apply_moe(cfg, p.moe, x)
+    else:
+        x = B.apply_ffn(cfg, p.ffn, x, kind=cfg.ffn_kind)
     return x, ({part: c} if cache else None)
 
 
@@ -339,6 +355,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     """Zero caches: ``pos`` (an int32 scalar) and one per layer, keyed by
     the part that reads it: ``{"attn": {"k", "v"}}`` in the compute dtype
     (local layers hold a rotating buffer of min(window, max_len) slots),
+    or, for an MLA layer, ``{"attn": {"latent", "k_rope"}}`` in the compute
+    dtype,
     ``{"rec": {"h", "conv"}}`` in the compute dtype, and ``{"cell":
     ...}``, mLSTM's ``C``, ``n``, ``m`` and sLSTM's ``c``, ``n``, ``h``,
     ``m`` in float32, the dtype of the reference's carries after its
@@ -356,6 +374,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
             init = B.init_mlstm_cache if kind == "mlstm" \
                 else B.init_slstm_cache
             layers.append({"cell": init(cfg, batch, device=dev)})
+        elif is_mla(cfg, kind):
+            layers.append({"attn": B.init_mla_cache(
+                cfg, batch, max_len, device=dev, dtype=dtype)})
         else:
             window = cfg.local_window if kind == "attn_local" else 0
             layers.append({"attn": B.init_attn_cache(

@@ -139,13 +139,14 @@ def test_config_matches_reference(arch):
 
 
 def test_cells_match_reference():
-    want = [c for c in JC.all_cells() if c[0] in TC.PORTED]
+    want = JC.all_cells()
     assert TC.all_cells() == want
-    assert {a for a, _ in want} == set(TC.PORTED)
+    assert {a for a, _ in want} == set(TC.PORTED) == set(TC.ARCHS)
     assert ("hubert_xlarge", "decode_32k") not in want
     for arch in ("deepseek_v3_671b", "llama4_scout_17b_a16e"):
-        with pytest.raises(NotImplementedError, match="16b.4"):
-            TC.get(arch)
+        assert [c for c in TC.all_cells() if c[0] == arch] == \
+            [c for c in want if c[0] == arch] == \
+            [(arch, n) for n in ("train_4k", "prefill_32k", "decode_32k")]
 
 
 # -- blocks --------------------------------------------------------------------
@@ -396,11 +397,21 @@ def test_full_width_on_meta(arch):
 # -- the flash wrapper's head dims ------------------------------------------------
 
 def test_flash_refuses_head_dims_without_a_kernel():
-    """hd 80 and 160 now reach the plain version on CPU tensors
-    (``test_torch_models.test_flash_ref_matches_mha_ref``); a dim no
-    kernel takes (MLA's 192, ROADMAP item 16b.4) is refused before either
-    route."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    q = torch.zeros((1, 2, 8, 192))
+    """A pair of head dims that no kernel takes (96, or the smoke MLA's
+    (24, 16)) has none for a CUDA tensor (``kernel_for`` is None), and a
+    tensor off the CPU is refused there before any launch (on ``meta``
+    here); MLA's (192, 128) has one on both routes.  CPU tensors take the
+    plain version at any pair: [B, H, S, vd] out."""
+    from repro_torch.kernels.flash_attention import flash_attention, kernel_for
+    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "f32")):
+        assert kernel_for(96, 96, dtype) is None
+        assert kernel_for(24, 16, dtype) is None
+        assert kernel_for(192, 128, dtype) == route
+        assert kernel_for(128, 128, dtype) == route
+    q = torch.zeros((1, 2, 8, 96), device="meta")
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q)
+    for hd, vd in ((192, 128), (24, 16), (96, 96)):
+        q, v = torch.zeros((1, 2, 8, hd)), torch.ones((1, 2, 8, vd))
+        out = flash_attention(q, q, v)
+        assert tuple(out.shape) == (1, 2, 8, vd) and bool((out == 1).all())

@@ -48,7 +48,7 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models import blocks, lm
 from repro_torch.optim import AdamWConfig, adamw_init
-from repro_torch.models.config import smoke_config
+from repro_torch.models.config import MLAConfig, smoke_config
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 INT32_MAX = 2**31 - 1
@@ -682,6 +682,155 @@ def test_new_head_dims_on_card_launch_flash_and_match_cpu(cuda, case):
         want, caches_cpu = serve_cpu(on_cpu, caches_cpu, inputs[:, t:t + 1])
         scale = max(1.0, float(want.abs().max()))
         assert float((got.cpu() - want).abs().max()) / scale < 2e-4, t
+
+
+# DeepSeek-V3's MLA at its true head dims (q.k 128 + 64, v 128) on 2 heads:
+# the smoke MLA's (24, 16) has no kernel, and a CUDA tensor there raises
+TRUE_MLA = MLAConfig(q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=128,
+                     qk_rope_head_dim=64, v_head_dim=128)
+
+
+def _moe_smoke(arch):
+    cfg = smoke_config(C.get(arch)).replace(param_dtype="float32",
+                                            compute_dtype="float32")
+    if cfg.mla is not None:
+        cfg = cfg.replace(n_heads=2, n_kv_heads=2, mla=TRUE_MLA)
+    return cfg
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2**-7)])
+@pytest.mark.parametrize("q_std", [1.0, 20.0])
+@pytest.mark.parametrize("h,kh,s", [(4, 4, 1), (4, 4, 127), (4, 4, 129),
+                                    (4, 2, 200), (8, 1, 333)])
+def test_flash_attention_split_dims(cuda, dtype, rel, q_std, h, kh, s):
+    """MLA's pair (q.k 192, v 128) on both routes (wgmma in bf16, FMAs in
+    float32): [B, H, S, 128] out, one launch a call, within the bound of
+    ``test_flash_attention`` at every option, around the 128-row q tile
+    and 128-key tile and at S no multiple of a tile."""
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.as_tensor(rng.normal(0, sd, (2, n, s, d)).astype(
+        np.float32), device=cuda).to(dtype)
+        for n, sd, d in ((h, q_std, 192), (kh, 1, 192), (kh, 1, 128)))
+    if dtype == torch.float32:
+        rel *= q_std
+    for opts in (dict(causal=True), dict(causal=True, window=20),
+                 dict(causal=True, window=20, softcap=50.0),
+                 dict(causal=False),
+                 dict(causal=False, window=100, softcap=30.0)):
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, **opts)
+        assert flash_attention.launches == before + 1
+        assert got.dtype == dtype and tuple(got.shape) == (2, h, s, 128)
+        want = ref.flash_attention_ref(q, k, v, **opts).float()
+        a = ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                    **opts)
+        assert bool(((got.float() - want).abs()
+                     <= rel * (want.abs() + a)).all()), opts
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, k, v[..., :96])
+
+
+def test_mla_block_on_card_matches_cpu(cuda):
+    """The MLA block at its true head dims, float32: cache-less over 40
+    tokens (one flash launch at (192, 128)), then 8 absorbed steps
+    through the latent cache, against the same block on the CPU within
+    1e-5 of the largest |output|, and the caches likewise."""
+    cfg = _moe_smoke("deepseek_v3_671b")
+    host = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    part = {"cpu": host.layers[0].attn}
+    part["cuda"] = blocks.Params({n: p.detach().to(cuda) for n, p in
+                                  part["cpu"].named_parameters()})
+    x = torch.as_tensor(np.random.default_rng(2).normal(
+        0, 1, (2, 40, cfg.d_model)).astype(np.float32))
+    out, caches = {}, {}
+    for dev in ("cuda", "cpu"):
+        before = flash_attention.launches
+        with torch.no_grad():
+            out[dev] = [blocks.apply_mla(cfg, part[dev], x.to(dev))[0]]
+            assert flash_attention.launches == before + (dev == "cuda")
+            caches[dev] = blocks.init_mla_cache(cfg, 2, 40, device=dev,
+                                                dtype=torch.float32)
+            for t in range(8):
+                out[dev].append(blocks.apply_mla(
+                    cfg, part[dev], x[:, t:t + 1].to(dev),
+                    torch.full((2, 1), t, device=dev), caches[dev])[0])
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert float((got.cpu() - want).abs().max()) \
+            <= 1e-5 * max(1.0, float(want.abs().max()))
+    for n, want in caches["cpu"].items():
+        assert float((caches["cuda"][n].cpu() - want).abs().max()) \
+            <= 1e-5 * max(1.0, float(want.abs().max())), n
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+def test_moe_block_on_card_matches_cpu(cuda, skewed):
+    """DeepSeek's smoke MoE (4 experts, top 2, shared expert) on 2 x 40
+    tokens, float32, TF32 off: the same expert ids, slot positions and
+    kept slots as on the CPU, and the output within 1e-5; skewed, every
+    token's first choice is expert 0 and at least 30 slots are dropped."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = _moe_smoke("deepseek_v3_671b")
+    host = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tensors = {n: p.detach().clone() for n, p in
+               host.layers[cfg.layer_kinds.index("attn_moe")]
+               .moe.named_parameters()}
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1, (2, 40, cfg.d_model)).astype(np.float32)
+    if skewed:
+        u = rng.normal(0, 1, cfg.d_model).astype(np.float32)
+        u /= np.linalg.norm(u)
+        x += 4 * np.sqrt(cfg.d_model) * u
+        tensors["router"][:, 0] = torch.as_tensor(8 * u)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        part = blocks.Params({n: t.to(dev) for n, t in tensors.items()})
+        xd = torch.as_tensor(x, device=dev)
+        tokens = blocks.rms_norm(xd, part.norm, cfg.norm_eps).reshape(
+            -1, cfg.d_model)
+        _, eid = blocks.moe_route(cfg, part.router, tokens)
+        pos = blocks.moe_slots(eid, cfg.moe.num_experts)
+        with torch.no_grad():
+            res[dev] = (eid.cpu(), pos.cpu(),
+                        blocks.apply_moe(cfg, part, xd).cpu())
+    (ge, gp, gy), (we, wp, wy) = res["cuda"], res["cpu"]
+    assert torch.equal(ge, we) and torch.equal(gp, wp)
+    cap = blocks.moe_capacity(cfg, 80)
+    assert int((wp >= cap).sum()) >= (30 if skewed else 0)
+    assert float((gy - wy).abs().max()) <= 1e-5 * float(wy.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b",
+                                  "llama4_scout_17b_a16e"])
+def test_moe_archs_on_card_match_cpu(cuda, arch):
+    """DeepSeek-V3 (MLA at its true head dims, 3 mla_dense layers and an
+    attn_moe) and Llama 4 Scout (GQA at hd 16) at smoke width, float32: a
+    prefill launches the flash kernel once a layer, decode never; the
+    prefill and 16 decode steps (32 tokens: no slot dropped) agree with
+    the CPU within 2e-4 of the largest logit."""
+    cfg = _moe_smoke(arch)
+    model = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    on_cpu = lm.LM(cfg, {n: p.detach().cpu()
+                         for n, p in model.named_parameters()})
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32)
+    before = flash_attention.launches
+    got = make_prefill_step(cfg, cuda)(model, {"inputs": toks})
+    assert flash_attention.launches == before + cfg.n_layers
+    want = make_prefill_step(cfg, "cpu")(on_cpu, {"inputs": toks})
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) / scale < 2e-4
+    serve, serve_cpu = make_serve_step(cfg, cuda), make_serve_step(cfg, "cpu")
+    caches = lm.init_caches(cfg, 2, 16, device=cuda)
+    caches_cpu = lm.init_caches(cfg, 2, 16, device="cpu")
+    before = flash_attention.launches
+    for t in range(16):
+        got, caches = serve(model, caches, toks[:, t:t + 1])
+        want, caches_cpu = serve_cpu(on_cpu, caches_cpu, toks[:, t:t + 1])
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) / scale < 2e-4, t
+    assert flash_attention.launches == before       # decode: plain code
 
 
 @pytest.mark.parametrize("arch,window", [("gemma2_9b", 0), ("gemma2_9b", 32),

@@ -114,8 +114,11 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     flash_attention(*qkv())
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(*qkv(device="meta"))
+    # a head dim no kernel takes: refused off the CPU (before the device
+    # check), the plain version on it
     with pytest.raises(ValueError, match="head dims"):
-        flash_attention(*qkv(hd=48))
+        flash_attention(*qkv(hd=48, device="meta"))
+    assert tuple(flash_attention(*qkv(hd=48)).shape) == (1, 4, 8, 48)
     with pytest.raises(ValueError, match="H % KH"):
         flash_attention(*qkv(kh=3))
     with pytest.raises(TypeError):

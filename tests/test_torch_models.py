@@ -378,5 +378,9 @@ def test_configs_match_reference():
             assert getattr(t, f) == getattr(j, f), (arch, f)
         assert t.dtype("compute") == torch.bfloat16
     assert TC.get("qwen3-1.7b").name == "qwen3-1.7b"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.get("deepseek_v3_671b")
+    for arch in ("deepseek_v3_671b", "llama4_scout_17b_a16e"):
+        t, j = TC.get(arch), JC.get(arch)
+        assert t.family == j.family == "moe"
+        assert (t.moe.num_experts, t.moe.top_k, t.d_ff_dense) == \
+            (j.moe.num_experts, j.moe.top_k, j.d_ff_dense)
+        assert t.dtype("compute") == torch.bfloat16

@@ -566,8 +566,12 @@ def test_preset_config_matches_reference():
             assert tlm.count_params(model) == jn, (arch, preset)
             assert tcfg.remat == jcfg.remat
     for arch in ("deepseek_v3_671b", "llama4_scout_17b_a16e"):
-        with pytest.raises(NotImplementedError):
-            ttrain.preset_config(TC.get(arch), "100m")
+        for preset in ("smoke", "100m"):
+            jcfg = jtrain.preset_config(JC.get(arch), preset)
+            tcfg = ttrain.preset_config(TC.get(arch), preset)
+            for f in ("moe", "mla"):
+                a, b = getattr(tcfg, f), getattr(jcfg, f)
+                assert (a and vars(a)) == (b and vars(b)), (arch, preset, f)
     with pytest.raises(ValueError):
         ttrain.preset_config(TC.get("qwen3_1_7b"), "1b")
 

@@ -53,8 +53,8 @@ _QK = ("__device__ inline void qk_product(float* s, const __nv_bfloat16* Qs,"
        "{\n")
 _EXP = "const float pe = ex2(fmaf(sc[4 * j + e], ks, -m[e >> 1]));"
 _SOFTMAX = "  auto softmax = [&](int t) {\n"
-_BOX = ("static constexpr int BOX = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 "
-        ": 16;")
+_BOX = ("static constexpr int BOX = box_of(HD) < box_of(VD) ? box_of(HD) : "
+        "box_of(VD);")
 _STAGES = "static constexpr int STAGES = HD == 80 ? 4 : 2;"
 
 # variant -> (old, new) edits of flash_attention.cu, each old text unique
@@ -69,7 +69,8 @@ VARIANTS = {
     "h80s2": [(_STAGES, _STAGES.replace("? 4", "? 2"))],
     "h128s3": [(_STAGES, _STAGES.replace(": 2", ": HD == 128 ? 3 : 2"))],
     **{f"h128box{n}": [(_BOX, _BOX.replace(
-        "= HD % 64", f"= HD == 128 ? {n} : HD % 64"))] for n in (32, 16)},
+        "= box_of(HD) <", f"= HD == 128 ? {n} : box_of(HD) <"))]
+       for n in (32, 16)},
 }
 CHECKED = ("base", "h80s2", "h128s3", "h128box32", "h128box16")
 

@@ -134,6 +134,17 @@ Runs on one CUDA card, from the root of a checkout:
      (H = KH 128, q.k 192, v 128) and Llama 4's (H 40, KH 8) and times
      them beside SDPA.
 
+ 14. runs the dry-run (``repro_torch.launch.dryrun --all``, one process a
+     core): every (arch x shape) cell's step once on ``meta`` tensors under
+     ``FlopCounterMode`` and a byte and live-memory count, then prints
+     ``launch.roofline --md``'s table against one H100's constants
+     (modeled, not measured); then (b) three cells the card runs (phase 10
+     (c)'s Qwen3-1.7B train step, phase 5's Gemma 2 9B prefill and decode
+     step), each dry-run on ``meta`` and run on the card: the FLOPs equal,
+     ``argument_size`` within 0.5% of the device bytes the arguments hold,
+     the predicted peak beside ``max_memory_allocated``, the measured
+     seconds beside the roofline's, and the measured share of the bound.
+
 The kernels' launch counts are set to 0 before each path and read after
 it.  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
 to 2^20; each cut is logged as a ``CUT`` line.
@@ -166,13 +177,6 @@ VOCAB = 2**18            # wordcount shapes: never cut
 DOC_LEN = 64
 FULL_DOCS = 2**20        # the scale; may be cut only as far as 2^18
 MIN_DOCS = 2**18
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
-# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet): the
-# rate charged for the kernels' adds and key compares
-PEAK_OPS_PER_S = 67e12
-# H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet): the rate
-# charged for attention's two matrix products
-TENSOR_BF16_FLOPS_PER_S = 989e12
 INT32_MAX = 2**31 - 1
 # iterative shapes: graphs of 2^22 vertices (the scale; may be cut only as
 # far as 2^20), 16 out-slots, each present with probability 0.5.  The
@@ -320,12 +324,16 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: int, ops: float, ops_per_s: float = PEAK_OPS_PER_S) -> dict:
+def bound(nbytes: int, ops: float, tensor_cores: bool = False) -> dict:
     """The least time for the work: the larger of bytes (each input read
     once, each output written once) over the memory rate and operations
-    over the peak rate for their type, and which of the two it is."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
+    over the peak rate for their type (float32 outside the tensor cores
+    for the kernels' adds and key compares, bf16 on them for attention's
+    two matrix products; ``repro_torch.launch.mesh``), and which of the
+    two it is."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_F32_FLOPS, PEAK_FLOPS
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = ops / (PEAK_FLOPS if tensor_cores else PEAK_F32_FLOPS) * 1e3
     if t_bytes >= t_ops:
         return {"bound_ms": t_bytes, "bound_by": "bytes"}
     return {"bound_ms": t_ops, "bound_by": "operations"}
@@ -973,7 +981,7 @@ def time_flash_recurrentgemma(dev, gen) -> dict:
         plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, **opt)),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)),
-        **bound(nbytes, flops, TENSOR_BF16_FLOPS_PER_S))
+        **bound(nbytes, flops, tensor_cores=True))
     res["tflops"] = flops / res["ms"] / 1e9
     del q, k, v, mask
     torch.cuda.empty_cache()
@@ -1013,7 +1021,7 @@ def time_flash_moe(dev, gen, shape) -> dict:
     res = dict(max_abs_err=err, share_of_bound=share,
                ms=cuda_ms(lambda: flash_attention(q, k, v)),
                plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v)),
-               **bound(nbytes, flops, TENSOR_BF16_FLOPS_PER_S))
+               **bound(nbytes, flops, tensor_cores=True))
     try:
         res["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=kh != h))
@@ -1147,7 +1155,7 @@ def time_flash_attention(dev) -> dict:
         flops = 4 * b * h * hd * keys_in_range(s, window)
         res[label] = dict(max_abs_err=err, share_of_bound=share,
                           ms=cuda_ms(fn),
-                          **bound(nbytes, flops, TENSOR_BF16_FLOPS_PER_S))
+                          **bound(nbytes, flops, tensor_cores=True))
         if dropped:
             res[label]["moved_if_dropped"] = moved
         if label == "softcap0":
@@ -1182,7 +1190,7 @@ def time_flash_attention(dev) -> dict:
             plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, **opt)),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=kh != h)),
-            **bound(nbytes, flops, TENSOR_BF16_FLOPS_PER_S))
+            **bound(nbytes, flops, tensor_cores=True))
         res[label]["tflops"] = flops / res[label]["ms"] / 1e9
         del q, k, v
         torch.cuda.empty_cache()
@@ -2622,6 +2630,7 @@ def train_full(dev, seed: int) -> tuple:
     import repro_torch.configs as C
     from repro_torch.data import LMDataConfig, lm_batch_at_step
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import PEAK_FLOPS
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -2669,7 +2678,7 @@ def train_full(dev, seed: int) -> tuple:
     tokens = TRAIN_BATCH * TRAIN_LEN
     flops = 6 * n_params * tokens + 6 * cfg.n_layers * TRAIN_BATCH \
         * TRAIN_LEN ** 2 * cfg.n_heads * cfg.head_dim
-    bound_s = flops / TENSOR_BF16_FLOPS_PER_S
+    bound_s = flops / PEAK_FLOPS
     mean = float(timed.mean())
     log(f"  [train] (c) losses {losses}; warm-up step {secs[0]:.3f} s, "
         f"timed steps {[round(float(x) * 1e3, 1) for x in timed]} ms: mean "
@@ -2677,7 +2686,7 @@ def train_full(dev, seed: int) -> tuple:
         f"device memory {peak:.2f} GiB; flash launches {want_flash} "
         f"({2 * cfg.n_layers} a step: forward + remat recompute)")
     log(f"  [train] (c) model FLOPs a step 6*N*T + 6*L*B*S^2*H*hd = "
-        f"{flops:.4g}; bound at {TENSOR_BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s "
+        f"{flops:.4g}; bound at {PEAK_FLOPS / 1e12:.0f} TFLOP/s "
         f"bf16 {bound_s * 1e3:.1f} ms; share of it reached "
         f"{bound_s / mean:.1%} ({flops / mean / 1e12:.1f} TFLOP/s)")
     batch = lm_batch_at_step(data, n_steps)
@@ -2923,6 +2932,7 @@ def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape,
     import torch
     import repro_torch.configs as C
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import HBM_BW
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import lm
     cfg = cfg or C.get(arch)
@@ -3012,7 +3022,7 @@ def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape,
                    model.named_parameters()
                    if n != "embed" and not n.startswith("mtp"))
         moe_lines += (f"; decode median {np.median(steps) * 1e3:.2f} ms "
-                      f"against {read / HBM_BYTES_PER_S * 1e3:.2f} ms to "
+                      f"against {read / HBM_BW * 1e3:.2f} ms to "
                       f"read the {read / 1e9:.1f} GB of weights a step "
                       f"reads")
     pb, pn = parity_shape
@@ -3370,6 +3380,155 @@ def drive_moe(dev, seed: int) -> dict:
         del model
         release(dev)
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the dry-run on meta (launch.dryrun, launch.roofline), checked on
+# the card
+# ---------------------------------------------------------------------------
+
+# (b) the cells the card already runs, at their shapes there: Qwen3-1.7B's
+# train step as phase 10 (c) (its config's own remat full and loss_chunk
+# 512), Gemma 2 9B's prefill and its decode step as phase 5 (4 requests, a
+# cache of phase 5's prompt, greedy and profiled tokens): (label, arch,
+# kind, B, S)
+DRYRUN_CHECKS = (
+    ("phase 10 (c)", TRAIN_ARCH, "train", TRAIN_BATCH, TRAIN_LEN),
+    ("phase 5", LM_ARCH, "prefill", PREFILL_BATCH, PREFILL_LEN),
+    ("phase 5", LM_ARCH, "decode", DECODE_BATCH,
+     PROMPT_LEN + GEN_LEN + PROFILE_STEPS),
+)
+# argument_size within this share of the device bytes the arguments hold
+# (the caching allocator rounds each block up to 512 bytes)
+DRYRUN_ARG_REL = 0.005
+DRYRUN_TIMED = 2              # timed calls after the counted one
+DRYRUN_ALL_S = 600             # (a)'s time limit
+
+
+def dryrun_all() -> float:
+    """(a): ``python -m repro_torch.launch.dryrun --all`` on ``meta`` (one
+    process a core, in a process group of its own, killed whole past
+    ``DRYRUN_ALL_S``), the seconds of each cell, and ``launch.roofline
+    --md``'s table: a record of every (arch x shape) cell and no ``ERR``
+    row, or it raises.  Returns the phase's seconds."""
+    import signal
+    import repro_torch.configs as C
+    from repro_torch.launch import roofline
+    jobs = len(os.sched_getaffinity(0))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(jobs)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_ALL_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"dryrun --all ran past {DRYRUN_ALL_S} s")
+    secs = time.perf_counter() - t0
+    for line in out.splitlines():
+        log(f"  [dryrun] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun --all failed (rc {proc.returncode})")
+    recs = roofline.load_all("baseline")
+    for line in roofline.markdown_table(recs).splitlines():
+        log(f"  [dryrun] {line}")
+    cells = {(r["arch"], r["shape"]) for r in recs}
+    bad = [(r["arch"], r["shape"]) for r in recs if "error" in r["analysis"]]
+    if cells != set(C.all_cells()) or len(recs) != len(cells) or bad:
+        raise AssertionError(f"dryrun --all: {len(recs)} records for "
+                             f"{len(C.all_cells())} cells, errors {bad}")
+    log(f"  [dryrun] (a) {len(recs)} cells on meta in {secs:.1f} s "
+        f"({jobs} processes)")
+    return secs
+
+
+def dryrun_check(dev, seed: int, label: str, arch: str, kind: str, b: int,
+                 s: int) -> None:
+    """(b) one cell: its dry-run on ``meta``, then the same step on the
+    card, once under ``FlopCounterMode`` and ``DRYRUN_TIMED`` times timed
+    (peak memory from the last); the FLOPs must be equal and
+    ``argument_size`` within ``DRYRUN_ARG_REL`` of the device bytes the
+    arguments hold."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    import repro_torch.configs as C
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.steps import input_specs
+    from repro_torch.models.config import ShapeCell
+    cfg = C.get(arch)
+    cell = ShapeCell(f"{kind}_{b}x{s}", s, b, kind)
+    rec = dryrun.dryrun(cfg, cell, tag="card", arch=arch)
+    a = roofline.analyze(rec)
+    mem = rec["full"]["memory"]
+    release(dev)
+    cuda = dev.type == "cuda"
+    before = torch.cuda.memory_allocated(dev) if cuda else 0
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    step, args = input_specs(cfg, cell, device=dev, generator=gen)
+    sync(dev)
+    held = torch.cuda.memory_allocated(dev) - before if cuda \
+        else dryrun.storage_bytes(args)
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+        sync(dev)
+    del out
+    secs = []
+    for _ in range(DRYRUN_TIMED):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = step(*args)
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+        del out
+    peak = torch.cuda.max_memory_allocated(dev) - before if cuda \
+        else float("nan")
+    card_flops = fc.get_total_flops()
+    predicted = mem["argument_size"] + mem["output_size"] + mem["temp_size"]
+    t = secs[-1]
+    if kind == "decode":
+        share = roofline.useful_decode_bytes(arch, cell) / (t * HBM_BW)
+        what = "useful_decode_bytes / (s x 3.35 TB/s)"
+    else:
+        share = roofline.model_flops(arch, cell) / (t * PEAK_FLOPS)
+        what = "model_flops / (s x 989 TFLOP/s)"
+    rel = abs(mem["argument_size"] - held) / max(held, 1)
+    log(f"  [dryrun] (b) {cfg.name} {kind} {b} x {s} ({label}): meta "
+        f"{rec['full']['trace_s']:.2f} s; FLOPs meta {rec['full']['flops']:.6g}"
+        f", card {card_flops:.6g}; argument_size {mem['argument_size']} "
+        f"against {held} device bytes ({rel:.3%}); predicted peak "
+        f"{predicted / 2**30:.2f} GiB against max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; measured {', '.join(f'{x:.4f}' for x in secs)}"
+        f" s against analyze's t_step {a['t_step_s']:.4f} s ({a['dominant']}:"
+        f" compute {a['t_compute_s']:.4f}, memory {a['t_memory_s']:.4f}); "
+        f"share of the bound {share:.2%} ({what})")
+    del args, step
+    release(dev)
+    if rec["full"]["flops"] != card_flops:
+        raise AssertionError(f"{cfg.name} {kind}: the dry-run counts "
+                             f"{rec['full']['flops']} FLOPs, the card "
+                             f"{card_flops}")
+    if not rel <= DRYRUN_ARG_REL:
+        raise AssertionError(f"{cfg.name} {kind}: argument_size "
+                             f"{mem['argument_size']} is {rel:.3%} off the "
+                             f"{held} device bytes the arguments hold")
+
+
+def drive_dryrun(dev, seed: int) -> dict:
+    """Phase 14: (a) every cell on ``meta``, then (b) ``DRYRUN_CHECKS`` on
+    the card, the main path of the phase: the launch counts are set to 0
+    before (b) and read after it."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    dryrun_all()
+    reset_launch_counts()
+    for check in DRYRUN_CHECKS:
+        dryrun_check(dev, seed, *check)
+    return launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -4734,7 +4893,16 @@ def main(argv=None) -> int:
     log(f"  phase 13 {time.perf_counter() - t13:.1f} s; launches {mo}")
     if mo["flash_attention"] == 0:
         raise AssertionError("phase 13 launched no flash_attention")
-    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar, rc, mo)
+
+    log("phase 14: the dry-run on meta (31 cells against one H100's "
+        "constants), checked on the card (Qwen3-1.7B's train step, Gemma 2 "
+        "9B's prefill and decode step)")
+    t14 = time.perf_counter()
+    dr = drive_dryrun(dev, args.seed)
+    log(f"  phase 14 {time.perf_counter() - t14:.1f} s; launches {dr}")
+    if dr["flash_attention"] == 0:
+        raise AssertionError("phase 14 launched no flash_attention")
+    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar, rc, mo, dr)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -4855,7 +5023,7 @@ def main(argv=None) -> int:
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
         f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}, "
         f"serve {sv}, dql {dq}, distributed {ds}, train {tr}, archs {ar}, "
-        f"recurrent {rc}, moe {mo}")
+        f"recurrent {rc}, moe {mo}, dryrun {dr}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,15 +41,22 @@ hd):
 The scale is 1/sqrt of the true hd.  The source note gives the bounds
 and what the design leaves.
 
-CUDA tensors launch the kernel or raise, also at a pair of head dims
-that no kernel serves (:func:`kernel_for`); CPU tensors take the plain
-version :func:`ref.flash_attention_ref`, at any head dims, and only they.
+The wrapper is the custom op ``repro_torch::flash_attention``.  CUDA
+tensors launch the kernel or raise, also at a pair of head dims that no
+kernel serves (:func:`kernel_for`); CPU tensors take the plain version
+:func:`ref.flash_attention_ref`, at any head dims, and only they;
+``meta`` tensors give the output's shape and refuse the pairs the card
+refuses.  ``torch.utils.flop_counter.FlopCounterMode`` counts a call by
+its formula, 2 B H (hd + vd) times the keys the rows attend
+(:func:`attended_keys`), on every device alike, and never the plain
+version's own products.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.ref import flash_attention_ref
@@ -73,11 +80,27 @@ def kernel_for(hd: int, vd: int, dtype: torch.dtype) -> Optional[str]:
     return "wgmma" if min(hd, vd) >= 64 else "mma"
 
 
+def attended_keys(s: int, causal: bool, window: int) -> int:
+    """Keys the S rows of one head attend, summed over the rows: the
+    causal triangle cut to ``window`` keys a row, or, not causal, every
+    key but those more than ``window`` behind the row."""
+    if not causal:
+        if window <= 0 or window >= s:
+            return s * s
+        return s * s - (s - window) * (s - window + 1) // 2
+    w = s if window <= 0 else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q [B, H, S, hd]; k [B, KH, S, hd], v [B, KH, S, vd] (H % KH == 0)
-    -> [B, H, S, vd]."""
+    -> [B, H, S, vd], through the custom op ``repro_torch::flash_attention``
+    (:func:`_flash_op`): the kernel for CUDA tensors, the plain version
+    for CPU tensors, shapes only for ``meta`` tensors.  A CUDA or ``meta``
+    tensor at a pair of head dims that no kernel serves raises here, so
+    that a dry-run on ``meta`` refuses what the card refuses."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
             or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"flash_attention takes q [B, H, S, hd], k [B, KH, "
@@ -99,28 +122,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention inputs lie on different devices")
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
-    if kernel_for(hd, vd, q.dtype) is None:
+    if q.device.type != "cpu" and kernel_for(hd, vd, q.dtype) is None:
         raise ValueError(f"flash_attention has no kernel for head dims "
                          f"(q.k {hd}, v {vd}): it takes {HEAD_DIMS} for "
                          f"both and the pairs {SPLIT_DIMS}")
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
                          f"{q.device}")
+    return _flash_op(q, k, v, bool(causal), max(int(window), 0),
+                     float(softcap))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int, softcap: float) -> torch.Tensor:
+    """The op behind :func:`flash_attention`, which checks its arguments;
+    its CPU implementation is the plain version."""
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_cuda(q, k, v, causal, window, softcap):
+    b, h, s, hd = q.shape
+    kh, vd = k.shape[1], v.shape[3]
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = q.new_empty((b, h, s, vd))
     if out.numel():
         lib = _build.library("flash_attention")
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            kh, s, hd, vd, _DTYPE_CODES[q.dtype], int(bool(causal)),
-            max(int(window), 0), float(softcap),
-            _build.stream_ptr(q.device))
+            kh, s, hd, vd, _DTYPE_CODES[q.dtype], int(causal), window,
+            softcap, _build.stream_ptr(q.device))
         _build.check(lib, rc, "flash_attention")
         count_launch(flash_attention)
     return out
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, softcap):
+    return q.new_empty(q.shape[:3] + v.shape[3:])
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, softcap, *,
+                 out_shape=None, **kw) -> int:
+    """The two products' multiply-adds over the keys each row attends:
+    2 B H (hd + vd) keys."""
+    b, h, s, hd = q_shape
+    return 2 * b * h * (hd + v_shape[3]) * attended_keys(s, causal, window)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

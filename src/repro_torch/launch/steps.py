@@ -16,10 +16,21 @@ deterministic version raises; so does every cuBLAS product on CUDA unless
 used cuBLAS, as ``repro_torch.launch.train.main`` sets it.
 
 A batch's ``inputs`` are token ids [B, S], or embeddings [B, S, d] when
-``cfg.embed_inputs`` is False (HuBERT behind its frontend stub), as the
-reference's ``batch_specs`` gives them; another rank raises.  The input
-specs themselves are not ported (the reference's dry-run needs them,
-ROADMAP.md Queue 1 item 16b.5).
+``cfg.embed_inputs`` is False (HuBERT behind its frontend stub), as
+:func:`batch_specs` gives them; another rank raises.
+
+The input specs (:func:`batch_specs`, :func:`decode_specs`,
+:func:`opt_specs`, :func:`input_specs`) are the reference's
+``ShapeDtypeStruct`` stand-ins at ``mesh=None``: tensors on ``meta`` (the
+default) with the shapes and dtypes of a cell's inputs, which hold no
+memory and which every step takes, so that ``launch.dryrun`` runs a step
+without allocating.  On another device they hold values: weights drawn
+as ``lm.init_params`` draws them, ids and embeddings drawn, masks all
+on, caches and moments zero.  Two differences from the reference's
+structs: the weights are the port's model (``lm.LM``, flat names) and the
+caches its dict; the xLSTM cells' states are float32 (the reference's
+spec says the compute dtype, and its carries are float32 after the first
+step).
 """
 from __future__ import annotations
 
@@ -30,7 +41,7 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.models.common import resolve_device
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.optim import AdamWConfig, adamw_update
 
 
@@ -142,3 +153,93 @@ def make_eval_step(cfg: ModelConfig, device="cuda"):
         with torch.inference_mode():
             return lm.lm_loss(cfg, params, _batch_on(cfg, batch, dev))
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# Input specs
+# ---------------------------------------------------------------------------
+
+def _draw(dev: torch.device, generator):
+    """``generator`` where values are drawn (a fresh one seeded 0 on
+    ``dev`` when None); None on ``meta``, where nothing is drawn."""
+    if dev.type == "meta":
+        return None
+    return generator if generator is not None \
+        else torch.Generator(device=dev).manual_seed(0)
+
+
+def _ids(shape, vocab: int, dev: torch.device, gen) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+    return torch.randint(0, vocab, shape, generator=gen, device=gen.device,
+                         dtype=torch.int32).to(dev)
+
+
+def batch_specs(cfg: ModelConfig, cell: ShapeCell, device="meta",
+                generator=None) -> Dict[str, torch.Tensor]:
+    """A train or prefill batch: ``inputs`` int32 ids [B, S] (or [B, S, d]
+    embeddings in the compute dtype when ``cfg.embed_inputs`` is False),
+    ``targets`` int32 [B, S] and a bool ``mask`` [B, S]."""
+    dev = resolve_device(device)
+    gen = _draw(dev, generator)
+    b, s = cell.global_batch, cell.seq_len
+    if cfg.embed_inputs:
+        inputs = _ids((b, s), cfg.vocab, dev, gen)
+    elif gen is None:
+        inputs = torch.empty((b, s, cfg.d_model), dtype=cfg.dtype("compute"),
+                             device=dev)
+    else:
+        inputs = torch.randn((b, s, cfg.d_model), generator=gen,
+                             device=gen.device).to(dev, cfg.dtype("compute"))
+    return {"inputs": inputs, "targets": _ids((b, s), cfg.vocab, dev, gen),
+            "mask": torch.ones((b, s), dtype=torch.bool, device=dev)}
+
+
+def decode_specs(cfg: ModelConfig, cell: ShapeCell, device="meta",
+                 generator=None):
+    """(tokens int32 [B, 1], caches of ``cell.seq_len`` positions as
+    ``lm.init_caches`` makes them) for one serve step."""
+    dev = resolve_device(device)
+    tokens = _ids((cell.global_batch, 1), cfg.vocab, dev,
+                  _draw(dev, generator))
+    return tokens, lm.init_caches(cfg, cell.global_batch, cell.seq_len,
+                                  device=dev)
+
+
+def opt_specs(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
+              device="meta") -> Dict[str, Any]:
+    """AdamW's state for ``cfg``'s parameters: ``m`` and ``v`` by
+    parameter name in ``opt_cfg.opt_dtype`` (zero), and an int32
+    ``step``, as ``optim.adamw_init`` makes it."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    dev = resolve_device(device)
+    plan = lm.plan_model(cfg)
+
+    def moments():
+        return {n: torch.zeros(s.shape, dtype=opt_cfg.opt_dtype, device=dev)
+                for n, s in plan.items()}
+    return {"m": moments(), "v": moments(),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell,
+                opt_cfg: Optional[AdamWConfig] = None, device="meta",
+                generator=None):
+    """Everything one step of ``cell`` takes: ``(step_fn, args)``, the
+    step made for ``device`` and its arguments there: ``(params,
+    opt_state, batch)`` for a train cell (the model built with
+    ``trainable=True``), ``(params, batch)`` for a prefill, ``(params,
+    caches, tokens)`` for a decode cell."""
+    dev = resolve_device(device)
+    gen = _draw(dev, generator)
+    params = lm.init_params(cfg, gen, dev, trainable=cell.kind == "train")
+    if cell.kind == "train":
+        opt_cfg = opt_cfg or AdamWConfig()
+        return make_train_step(cfg, opt_cfg, dev), (
+            params, opt_specs(cfg, opt_cfg, dev),
+            batch_specs(cfg, cell, dev, gen))
+    if cell.kind == "prefill":
+        return make_prefill_step(cfg, dev), (
+            params, batch_specs(cfg, cell, dev, gen))
+    tokens, caches = decode_specs(cfg, cell, dev, gen)
+    return make_serve_step(cfg, dev), (params, caches, tokens)

@@ -607,9 +607,11 @@ def apply_mlstm(cfg: ModelConfig, p, x, cache=None):
         n = x.new_zeros((b, h_, dh), dtype=torch.float32)
         mstab = x.new_zeros((b, h_), dtype=torch.float32)
         hs = []
-        for t in range(s):
-            C, n, mstab, ht = mlstm_step(C, n, mstab, q[:, t], k[:, t],
-                                         v[:, t], i_t[:, t], f_t[:, t])
+        # one token at a time through unbind (not q[:, t]): its backward
+        # stacks the tokens' gradients once, where indexing's scatters
+        # each into a zero tensor of the whole sequence (O(S^2) bytes)
+        for step in zip(*(t.unbind(1) for t in (q, k, v, i_t, f_t))):
+            C, n, mstab, ht = mlstm_step(C, n, mstab, *step)
             hs.append(ht)
         hs = torch.stack(hs, dim=1)                     # [B, S, H, dh]
     else:
@@ -684,8 +686,8 @@ def apply_slstm(cfg: ModelConfig, p, x, cache=None):
     if cache is None:
         c = n = h = m = x.new_zeros((b, h_, dh), dtype=torch.float32)
         hs = []
-        for t in range(s):
-            c, n, h, m = slstm_step(r, c, n, h, m, wx[:, t])
+        for wx_t in wx.unbind(1):        # unbind: see apply_mlstm
+            c, n, h, m = slstm_step(r, c, n, h, m, wx_t)
             hs.append(h)
         hs = torch.stack(hs, dim=1)
     else:

@@ -60,7 +60,9 @@ def test_import_leaves_jax_out():
             "repro_torch.core.distributed, repro_torch.optim, "
             "repro_torch.optim.compress, repro_torch.ckpt, "
             "repro_torch.launch.train, repro_torch.configs.recurrentgemma_2b, "
-            "repro_torch.configs.xlstm_125m; "
+            "repro_torch.configs.xlstm_125m, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
+            "repro_torch.launch.report; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -112,10 +114,11 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
                 torch.zeros((1, kh, s, hd), device=device, dtype=dtype),
                 torch.zeros((1, kh, s, hd), device=device, dtype=dtype))
     flash_attention(*qkv())
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention(*qkv(device="meta"))
-    # a head dim no kernel takes: refused off the CPU (before the device
-    # check), the plain version on it
+    # meta gives the output's shape (a dry-run), and nothing more
+    out = flash_attention(*qkv(device="meta"))
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 4, 8, 64)
+    # a head dim no kernel takes: refused off the CPU (on meta as on the
+    # card), the plain version on it
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(*qkv(hd=48, device="meta"))
     assert tuple(flash_attention(*qkv(hd=48)).shape) == (1, 4, 8, 48)

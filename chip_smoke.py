@@ -145,8 +145,28 @@ Runs on one CUDA card, from the root of a checkout:
      the predicted peak beside ``max_memory_allocated``, the measured
      seconds beside the roofline's, and the measured share of the bound.
 
+ 15. runs one process a rank (``RankMesh``, ``launch.ranks.run_ranks``):
+     (a) one rank on nccl, wordcount's run and update (a) on phase 3's
+     corpus, bitwise equal to phase 3's MRBG session; (b) 4 ranks sharing
+     the card on gloo (each rank's kernels on the card, the exchange
+     staged through host memory): wordcount (phase 3's corpus, update
+     (a)), SSSP (phase 4's graph and update) bitwise, and PageRank on
+     2^20 vertices, its run within 1e-5 with equal ``ShuffleStats`` and
+     its refresh (64 vertices rewired) in mode distributed-i2, with
+     LocalMesh's iterations, within ``RANK_PR_REFRESH_TOL``, against
+     ``LocalMesh({"data": 4})`` on the card;
+     each rank's seconds, exchange seconds and peak memory; (c) Llama 4
+     Scout's MoE layer at full width (d 5120, 16 experts top 1,
+     d_ff_expert 8192, shared 8192) on 4 ranks of 4 experts each through
+     ``moe_impl="a2a"`` against the single-process ``gather`` layer:
+     bf16 over 2 x 2048 tokens within ``MOE_RANK_BF16_REL`` of the
+     output's max, float32 over 2 x 256 within ``MOE_F32_BOUND``, expert
+     ids and kept slots equal at capacity 16, and the dropped slots of
+     each at the config's 1.25; (d) ``compressed_psum`` on 4 ranks bitwise
+     equal to the stacked form.
+
 The kernels' launch counts are set to 0 before each path and read after
-it.  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
+it (phase 15: in each rank, around each of its jobs).  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
 to 2^20; each cut is logged as a ``CUT`` line.
 
 Prints the card's name and power limit, then one JSON line of per-kernel
@@ -4666,6 +4686,409 @@ def drive_distributed(dev, rng, docs, steps, mrbg_results, mrbg_s,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: one process a rank (RankMesh, launch.ranks.run_ranks)
+# ---------------------------------------------------------------------------
+
+RANK_SHARDS = 4
+RANK_TIMEOUT = 300            # each launch's limit, seconds
+# (b) PageRank's graph: phase 9 (c)'s size, cut from phase 4's 2^22
+RANK_PR_VERTICES = 2**20
+RANK_PR_TOL = 1e-5            # (b): the card's float adds are atomic
+# (b) PageRank's refresh: 64 of its 2^20 vertices rewired (phase 9 (c)
+# rewires 0.1%, a refresh of 19-27 s on LocalMesh)
+RANK_PR_REWIRE = 2**-14
+# (b) the refresh against LocalMesh's, max |ranks - LocalMesh|: at CPC
+# PR_CPC a DK whose accumulated change lies within the adds' rounding of
+# the threshold is emitted on one run and withheld on the other (the
+# card's float adds are atomic, so two LocalMesh runs part too); the
+# withheld change, below PR_CPC, moves each of its ~8 targets by d / 8 of
+# it (1.06e-4; two LocalMesh refreshes parted by 1.08e-4 and 1.2e-4 in
+# PR 27's chip runs), and a target of a one-edge vertex by d of it, so
+# PR_CPC covers a few such flips.  A refresh that changed nothing would
+# miss the rewire's d / 8 ~ 0.1 at a rewired vertex's targets: the phase
+# checks that the refresh moves LocalMesh's ranks by at least
+# RANK_PR_SEEN times the tolerance, so that the check can see it.
+RANK_PR_REFRESH_TOL = PR_CPC
+RANK_PR_SEEN = 10
+# (c) Llama 4 Scout's MoE layer at full width, one layer (depth cut from
+# 48), B x S tokens drawn from --seed, capacity 16 (nothing drops on
+# either path) and the config's own 1.25 for the dropped slots
+MOE_RANK_ARCH = "llama4_scout_17b_a16e"
+MOE_RANK_MESH = {"data": 1, "model": RANK_SHARDS}
+MOE_RANK_SHAPE = (2, 2048)
+MOE_RANK_F32_SHAPE = (2, 256)
+MOE_RANK_CF = 16.0
+MOE_RANK_SMOKE = False        # True: smoke width (a CPU rehearsal)
+# bf16 a2a against gather: the two run the experts' products on buffers
+# of other shapes (a capacity buffer masked to each expert, against one
+# batched product), which may round to bf16 (2^-8 of a value) apart; the
+# issue's 2^-8 of max |y| tightened to 2^-10: PR 27's chip call 2 found
+# the two bitwise equal (cuBLAS took the same path at both shapes)
+MOE_RANK_BF16_REL = 2**-10
+
+
+def rank_jobs_file(work: Path, jobs: list) -> str:
+    path = work / f"spec-{len(list(work.glob('spec-*')))}.json"
+    path.write_text(json.dumps({"jobs": jobs, "out": str(work)}))
+    return str(path)
+
+
+def launch_ranks(dev, work: Path, n: int, backend: str, jobs: list) -> list:
+    """``n`` ranks on ``dev``'s card (all on cuda:0), or on the CPU in a
+    rehearsal, through ``run_ranks`` under ``RANK_TIMEOUT``."""
+    from repro_torch.launch.ranks import run_ranks
+    return run_ranks("repro_torch.launch.ranks", n, backend=backend,
+                     device="cuda:0" if dev.type == "cuda" else "cpu",
+                     timeout=RANK_TIMEOUT,
+                     args=[rank_jobs_file(work, jobs)])
+
+
+def rank_lines(tag: str, name: str, outs: list) -> dict:
+    """Each rank's seconds, exchange seconds and peak memory of a job;
+    returns the launches of all ranks added up."""
+    total = {}
+    for r, out in enumerate(outs):
+        o = out[name]
+        log(f"  [{tag}] rank {r}: epochs "
+            f"{', '.join(f'{s:.3f}' for s in o['seconds'])} s (exchange "
+            f"{', '.join(f'{s:.3f}' for s in o['exchange_seconds'])} s), "
+            f"job {o['job_seconds']:.1f} s, peak device memory "
+            f"{o['peak_gib']:.2f} GiB, launches {o['launches']}")
+        total = {k: total.get(k, 0) + v for k, v in o["launches"].items()}
+    return total
+
+
+def check_ranks_equal(tag: str, name: str, outs: list, want: list,
+                      got: dict, results: list, tol: float = 0.0,
+                      epochs=None) -> list:
+    """Every rank's reports equal ``want`` (LocalMesh's summaries, but
+    for the seconds) and rank 0's results ``results``, bitwise; with
+    ``tol``, the results within it and the reports' mode, iterations,
+    ShuffleStats and stores equal.  ``epochs``: the epochs held (all by
+    default).  Returns what differs."""
+    idx = list(range(len(results))) if epochs is None else list(epochs)
+    bad = []
+    for i in idx:
+        g, r = got[f"r{i}"], results[i]
+        if tol:
+            err = float(np.abs(g.astype(np.float64) - r).max())
+            ok = g.shape == r.shape and np.isfinite(g).all() and err <= tol
+        else:                                    # SSSP holds inf
+            err, ok = "not bitwise", np.array_equal(g, r)
+        if not ok:
+            bad.append(f"{tag} epoch {i}: ranks differ from LocalMesh "
+                       f"({err}, tolerance {tol})")
+    # PageRank: the results within ``tol``, and what steers the loop (mode,
+    # iterations, ShuffleStats, stores) equal
+    fields = ("mode", "iters", "shuffle", "store", "mrbg_on")
+    keep = lambda e: {k: v for k, v in e.items() if k != "result"
+                      and (not tol or k in fields)}
+    wanted = [keep(want[i]) for i in idx]
+    for r, out in enumerate(outs):
+        epochs = [keep(out[name]["epochs"][i]) for i in idx]
+        if epochs != wanted:
+            diff = [(i, k, g.get(k), w.get(k))
+                    for i, g, w in zip(idx, epochs, wanted)
+                    for k in sorted(set(g) | set(w)) if g.get(k) != w.get(k)]
+            bad.append(f"{tag}: rank {r}'s reports differ from LocalMesh's:"
+                       f" (epoch, field, rank, LocalMesh) {diff[:6]}")
+    if not bad:
+        how = f"within {tol}" if tol else "bitwise"
+        log(f"  [{tag}] epochs {idx} equal to LocalMesh({{'data': "
+            f"{RANK_SHARDS}}}) on the card ({how}; every rank's reports, "
+            f"ShuffleStats {[want[i]['shuffle'] for i in idx]})")
+    return bad
+
+
+def local_mesh_run(dev, job: str, z, cfg_kw: dict) -> tuple:
+    """LocalMesh({"data": 4}) on the card: the job's run and deltas;
+    ``(reports as report_summary, results, seconds)`` (a summary taken
+    at once: a report's counts are the live view's)."""
+    from repro_torch.api import LocalMesh, MeshConfig, RunConfig, Session, \
+        make_delta
+    from repro_torch.launch.ranks import deltas_of, make_app, report_summary
+    app, data, key = make_app(job, z)
+    sess = Session(app, RunConfig(device=dev.type, mesh=MeshConfig(
+        LocalMesh({"data": RANK_SHARDS})), **cfg_kw))
+    reps, results, secs = [], [], []
+    for d in [None] + deltas_of(z):
+        t0 = time.perf_counter()
+        reps.append(report_summary(sess.run(data) if d is None
+                                   else sess.update(make_delta(*d))))
+        secs.append(time.perf_counter() - t0)
+        results.append(sess.result[key])
+    del sess, data
+    release(dev)
+    return reps, results, secs
+
+
+def moe_gather_want(dev, spec: dict) -> dict:
+    """The single-process ``gather`` layer on the card on a ``moe`` job's
+    weights and x (drawn alike from its seed): y, the expert ids
+    (``RoutingProbe``) and the kept slots."""
+    import torch
+    from repro_torch.launch.ranks import moe_config, moe_inputs
+    from repro_torch.models import blocks
+    cfg = moe_config(spec).replace(moe_impl="gather")
+    w, x = moe_inputs(cfg, spec, dev)
+    with RoutingProbe() as probe, torch.no_grad():
+        y = blocks.apply_moe(cfg, blocks.Params(w), x)
+    eid = probe.eids[-1]
+    kept = blocks.moe_slots(eid, cfg.moe.num_experts) < \
+        blocks.moe_capacity(cfg, eid.shape[0])
+    out = {"y": y.cpu(), "eid": eid.cpu(), "kept": kept.cpu()}
+    del w, x, y
+    release(dev)
+    return out
+
+
+def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
+                seed: int) -> dict:
+    """Phase 15: (a) one rank on nccl, (b) 4 ranks sharing the card on
+    gloo (wordcount, SSSP, PageRank), (c) Llama 4 Scout's MoE layer on 4
+    ranks, (d) ``compressed_psum`` on 4 ranks.  Returns the ranks' launches
+    of (a) and (b) added up."""
+    import torch
+    from repro_torch.apps import pagerank
+    from repro_torch.launch.ranks import moe_config, save_deltas
+    from repro_torch.optim.compress import compressed_psum
+    work = ROOT / "build" / f"ranks-{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        # inputs: phase 3's corpus and update (a), phase 4's SSSP graph and
+        # update, a PageRank graph of phase 9 (c)'s size and 64 of its
+        # vertices rewired (RANK_PR_REWIRE)
+        label, (rid, words, sign), _, _ = steps[0]
+        np.savez(work / "in_wordcount.npz", **save_deltas(
+            {"docs": docs, "vocab": VOCAB}, [(rid, {"w": words}, sign)]))
+        np.savez(work / "in_sssp.npz", **save_deltas(
+            {"nbrs": sssp_kept["nbrs"], "w": sssp_kept["w"], "src": 0},
+            [sssp_kept["delta"]]))
+        nbrs = pagerank.random_graph(RANK_PR_VERTICES, OUT_SLOTS, seed=int(
+            rng.integers(2**31)), p_edge=P_EDGE)
+        delta, after = rewire_delta(rng, nbrs, RANK_PR_REWIRE)
+        np.savez(work / "in_pagerank.npz",
+                 **save_deltas({"nbrs": nbrs}, [delta]))
+        pr_ref, pr_ch = pagerank_fixpoint(nbrs)
+        pr_ref2, pr_ch2 = pagerank_fixpoint(after, r0=pr_ref)
+        del nbrs, after
+        failures = []
+
+        # (a) one rank on nccl
+        log(f"  (a) 1 rank, nccl, cuda:0, RankMesh({{'data': 1}}): "
+            f"wordcount run and {label}")
+        t0 = time.perf_counter()
+        # (a CPU rehearsal has no nccl: it runs gloo)
+        outs = launch_ranks(dev, work, 1,
+                            "nccl" if dev.type == "cuda" else "gloo", [{
+            "job": "wordcount", "name": "a", "mesh": {"data": 1},
+            "data": str(work / "in_wordcount.npz")}])
+        got = np.load(work / "a.npz")
+        same = [np.array_equal(got[f"r{i}"], mrbg_results[i])
+                for i in range(2)]
+        if not all(same):
+            failures.append(f"(a): run, update (a) equal to phase 3's "
+                            f"mrbg session: {same}")
+        launches = rank_lines("ranks-nccl", "a", outs)
+        log(f"  [ranks-nccl] run and update (a) bitwise equal to phase 3's "
+            f"mrbg session: {same}; modes "
+            f"{[e['mode'] for e in outs[0]['a']['epochs']]}; "
+            f"{time.perf_counter() - t0:.1f} s with the process's start")
+
+        # the references of (b), (c), (d), before the ranks take the card
+        t0 = time.perf_counter()
+        kw = {"wordcount": {}, "sssp": {},
+              "pagerank": {"cpc_threshold": PR_CPC}}
+        local = {job: local_mesh_run(dev, job, np.load(
+            work / f"in_{job}.npz"), kw[job]) for job in kw}
+        # a second LocalMesh PageRank: how far two runs of the same
+        # session part on the card, whose float adds are atomic
+        local["pagerank-again"] = local_mesh_run(
+            dev, "pagerank", np.load(work / "in_pagerank.npz"),
+            kw["pagerank"])
+        for job, (reps, _, secs) in local.items():
+            log(f"  [ranks-local] {job} LocalMesh({{'data': "
+                f"{RANK_SHARDS}}}) on the card: "
+                f"{', '.join(f'{s:.3f}' for s in secs)} s, modes "
+                f"{[r['mode'] for r in reps]}")
+        moe = {
+            "moe-bf16": dict(shape=MOE_RANK_SHAPE,
+                             capacity_factor=MOE_RANK_CF),
+            "moe-f32": dict(shape=MOE_RANK_F32_SHAPE,
+                            capacity_factor=MOE_RANK_CF,
+                            replace={"param_dtype": "float32",
+                                     "compute_dtype": "float32"}),
+            "moe-cf": dict(shape=MOE_RANK_SHAPE)}
+        moe = {n: dict(s, job="moe", name=n, arch=MOE_RANK_ARCH,
+                       mesh=MOE_RANK_MESH, seed=seed + 15,
+                       smoke=MOE_RANK_SMOKE)
+               for n, s in moe.items()}
+        want = {n: moe_gather_want(dev, s) for n, s in moe.items()}
+        x = torch.randn((RANK_SHARDS, 4096, 512), generator=torch.Generator(
+            device=dev).manual_seed(seed + 15), device=dev)
+        x *= torch.logspace(-2, 2, RANK_SHARDS, device=dev)[:, None, None]
+        err = torch.zeros_like(x).normal_(0, 1e-3)
+        np.savez(work / "in_compress.npz", x=x.cpu().numpy(),
+                 err=err.cpu().numpy())
+        cmean, cerr = compressed_psum(x, err)
+        cmean, cerr = cmean.cpu().numpy(), cerr.cpu().numpy()
+        del x, err
+        release(dev)
+        log(f"  references (LocalMesh, the gather layer, the stacked "
+            f"compressed_psum) {time.perf_counter() - t0:.1f} s")
+
+        # (b) + (c) + (d): one launch of 4 ranks sharing the card on gloo
+        t0 = time.perf_counter()
+        jobs = [{"job": job, "name": f"b-{job}", "mesh": {"data": RANK_SHARDS},
+                 "data": str(work / f"in_{job}.npz"), "config": kw[job]}
+                for job in kw]
+        jobs += list(moe.values())
+        jobs.append({"job": "compress", "name": "d",
+                     "data": str(work / "in_compress.npz")})
+        log(f"  (b)-(d) {RANK_SHARDS} ranks, gloo (host staging), all on "
+            f"cuda:0: {[j['name'] for j in jobs]}")
+        outs = launch_ranks(dev, work, RANK_SHARDS, "gloo", jobs)
+        log(f"  [ranks-gloo] the launch: {time.perf_counter() - t0:.1f} s "
+            f"with the processes' start")
+        for job in kw:
+            reps, results, secs = local[job]
+            n = f"b-{job}"
+            got = np.load(work / f"{n}.npz")
+            if job != "pagerank":
+                failures += check_ranks_equal(f"ranks-{job}", n, outs, reps,
+                                              got, results)
+            else:
+                # the run within RANK_PR_TOL, its reports equal; the
+                # refresh (CPC 1e-3: a DK whose accumulated change lies
+                # within the adds' rounding of the threshold is emitted
+                # on one run and not the other) in LocalMesh's mode and
+                # iterations on every rank, within RANK_PR_REFRESH_TOL of
+                # LocalMesh's, and within phase 9's bound of the float64
+                # fixpoint, beside a second LocalMesh run
+                failures += check_ranks_equal(
+                    f"ranks-{job}", n, outs, reps, got, results,
+                    RANK_PR_TOL, epochs=[0])
+                again = local["pagerank-again"]
+                gap = lambda a, b: float(np.abs(
+                    a.astype(np.float64) - b).max())
+                moved = gap(results[1], results[0])
+                to_local = gap(got["r1"], results[1])
+                to_again = gap(again[1][1], results[1])
+                steer = ("dropped", "shuffle_cap", "regrows", "steps")
+                for r, out in enumerate(outs):
+                    e = out[n]["epochs"][1]
+                    if e["mode"] != "distributed-i2" or \
+                            e["iters"] != reps[1]["iters"] or \
+                            any(e["shuffle"][k] != reps[1]["shuffle"][k]
+                                for k in steer):
+                        failures.append(
+                            f"(b) PageRank refresh, rank {r}: mode "
+                            f"{e['mode']}, iterations {e['iters']}, "
+                            f"ShuffleStats {e['shuffle']}; LocalMesh "
+                            f"distributed-i2 wanted, {reps[1]['mode']}, "
+                            f"{reps[1]['iters']}, {reps[1]['shuffle']}")
+                for what, g in (("ranks", to_local),
+                                ("LocalMesh again", to_again)):
+                    if not np.isfinite(g) or g > RANK_PR_REFRESH_TOL:
+                        failures.append(
+                            f"(b) PageRank refresh: max |{what} - "
+                            f"LocalMesh| {g:.4g} > RANK_PR_REFRESH_TOL "
+                            f"{RANK_PR_REFRESH_TOL:g}")
+                if not moved >= RANK_PR_SEEN * RANK_PR_REFRESH_TOL:
+                    failures.append(
+                        f"(b) PageRank refresh: it moves LocalMesh's ranks "
+                        f"by {moved:.4g}, under {RANK_PR_SEEN} x "
+                        f"RANK_PR_REFRESH_TOL: the check could not see a "
+                        f"refresh that did nothing")
+                from repro_torch.api import RunConfig
+                held = RANK_PR_VERTICES * max(
+                    reps[0]["max_change"][-1], PR_CPC + RunConfig(
+                        device=dev.type, **kw[job]).refresh_tol_)
+                for label, r in (("ranks", got["r1"]),
+                                 ("LocalMesh", results[1]),
+                                 ("LocalMesh again", again[1][1])):
+                    try:
+                        line = check_pagerank(f"phase 15 {label} refresh",
+                                              r, pr_ref2, held, pr_ch2)
+                        log(f"  [ranks-pagerank] refresh, {label}: {line}")
+                    except AssertionError as e:
+                        failures.append(str(e))
+                log(f"  [ranks-pagerank] refresh: max |ranks - LocalMesh| "
+                    f"{to_local:.4g}, max |LocalMesh - LocalMesh again| "
+                    f"{to_again:.4g} (tolerance {RANK_PR_REFRESH_TOL:g}); "
+                    f"max |refresh - run| of LocalMesh {moved:.4g} (at "
+                    f"least {RANK_PR_SEEN * RANK_PR_REFRESH_TOL:g}); modes "
+                    f"ranks {[o[n]['epochs'][1]['mode'] for o in outs]}, "
+                    f"LocalMesh {reps[1]['mode']}, again {again[0][1]['mode']}"
+                    f"; iterations "
+                    f"{[o[n]['epochs'][1]['iters'] for o in outs]}, "
+                    f"{reps[1]['iters']}, {again[0][1]['iters']}; "
+                    f"ShuffleStats ranks "
+                    f"{outs[0][n]['epochs'][1]['shuffle']}, LocalMesh "
+                    f"{reps[1]['shuffle']}, again {again[0][1]['shuffle']}")
+            c = rank_lines(f"ranks-{job}", n, outs)
+            launches = {k: launches.get(k, 0) + v for k, v in c.items()}
+
+        # (c) the MoE layer
+        for n, spec in moe.items():
+            got, w = torch.load(work / f"{n}.pt"), want[n]
+            yw, yg = w["y"].float(), got["y"].float()
+            scale = float(yw.abs().max())
+            err = float((yg - yw).abs().max())
+            same = torch.equal(got["eid"], w["eid"])
+            kept = torch.equal(got["kept"], w["kept"])
+            o = outs[0][n]
+            drops = (int((~got["kept"]).sum()), int((~w["kept"]).sum()))
+            mo = moe_config(spec).moe
+            log(f"  [ranks-moe] {n}: {MOE_RANK_ARCH} one MoE layer (d "
+                f"{moe_config(spec).d_model}, {mo.num_experts} experts top "
+                f"{mo.top_k}, d_ff_expert {mo.d_ff_expert}, shared "
+                f"{mo.d_ff_shared}; {o['experts']} experts a rank), "
+                f"{spec['shape'][0]} x "
+                f"{spec['shape'][1]} tokens, capacity_factor "
+                f"{spec.get('capacity_factor', 1.25)}, "
+                f"{spec.get('replace', {}).get('compute_dtype', 'bfloat16')}"
+                f": a2a on {RANK_SHARDS} ranks against the gather path: "
+                f"max abs err {err:.4g} of max |y| {scale:.4g} "
+                f"({err / scale:.3g} of it); expert ids equal {same}, kept "
+                f"slots equal {kept}; dropped slots a2a {drops[0]}, gather "
+                f"{drops[1]} of {o['slots']}; a2a "
+                + ", ".join(f"rank {r} {out[n]['seconds'] * 1e3:.1f} ms "
+                            f"peak {out[n]['peak_gib']:.2f} GiB"
+                            for r, out in enumerate(outs)))
+            if n == "moe-cf":
+                continue
+            bound = (MOE_RANK_BF16_REL if n == "moe-bf16"
+                     else MOE_F32_BOUND) * scale
+            if not (same and kept and err <= bound and drops == (0, 0)
+                    and bool(torch.isfinite(yg).all())):
+                failures.append(
+                    f"(c) {n}: a2a against gather: ids {same}, kept {kept},"
+                    f" err {err} > {bound}, or dropped {drops}")
+
+        # (d) compressed_psum
+        same = []
+        for r in range(RANK_SHARDS):
+            got = np.load(work / f"d_r{r}.npz")
+            same.append(bool(np.array_equal(got["mean"], cmean[r])
+                             and np.array_equal(got["err"], cerr[r])))
+        if not all(same):
+            failures.append(f"(d): compressed_psum on ranks equal to the "
+                            f"stacked form: {same}")
+        log(f"  [ranks-compress] (d) compressed_psum on {RANK_SHARDS} ranks "
+            f"bitwise equal to the stacked form, rank by rank: {same}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        raise AssertionError("phase 15: " + "; ".join(failures))
+    for name in ("sort_lex", "segment_sum", "segment_minmax",
+                 "fused_shuffle_reduce"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"phase 15's ranks launched no {name}")
+    return launches
+
+
 def sync(dev) -> None:
     import torch
     if dev.type == "cuda":
@@ -4902,7 +5325,16 @@ def main(argv=None) -> int:
     log(f"  phase 14 {time.perf_counter() - t14:.1f} s; launches {dr}")
     if dr["flash_attention"] == 0:
         raise AssertionError("phase 14 launched no flash_attention")
-    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar, rc, mo, dr)
+
+    log(f"phase 15: one process a rank (RankMesh): 1 rank on nccl; "
+        f"{RANK_SHARDS} ranks sharing the card on gloo (wordcount, SSSP, "
+        f"PageRank against LocalMesh; Llama 4 Scout's MoE layer, a2a "
+        f"against gather; compressed_psum)")
+    t15 = time.perf_counter()
+    rk = drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
+                     args.seed)
+    log(f"  phase 15 {time.perf_counter() - t15:.1f} s; launches {rk}")
+    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar, rc, mo, dr, rk)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -4923,7 +5355,8 @@ def main(argv=None) -> int:
         t = timed[name]
         entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(p[name] for p in paths),
+            "replaces": replaces,
+            "launches": sum(p.get(name, 0) for p in paths),
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -5023,7 +5456,7 @@ def main(argv=None) -> int:
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
         f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}, "
         f"serve {sv}, dql {dq}, distributed {ds}, train {tr}, archs {ar}, "
-        f"recurrent {rc}, moe {mo}, dryrun {dr}")
+        f"recurrent {rc}, moe {mo}, dryrun {dr}, ranks {rk}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@
 
 ``RunConfig(device="cpu")`` runs the kernels' plain versions on the CPU.
 ``RunConfig(mesh=MeshConfig(LocalMesh({"data": 8})))`` runs the same spec
-on 8 logical shards of the device.
+on 8 logical shards of the device; ``MeshConfig(RankMesh(...))``, one
+process a shard (``repro_torch.launch.ranks``).
 """
 from repro_torch.api.config import (
     STREAM_POLICIES, MeshConfig, RunConfig, StreamConfig,
@@ -20,7 +21,7 @@ from repro_torch.api.report import MODES, RunReport, ShuffleStats
 from repro_torch.api.session import Session
 
 # the declaration vocabulary, re-exported so callers need only this module
-from repro_torch.core.distributed import LocalMesh
+from repro_torch.core.distributed import LocalMesh, RankMesh
 from repro_torch.core.engine import JobSpec, emit_multi, emit_single
 from repro_torch.core.incremental import DeltaKV, make_delta
 from repro_torch.core.iterative import IterSpec, State, default_difference
@@ -30,7 +31,8 @@ from repro_torch.core.kvstore import (
 )
 
 __all__ = [
-    "Session", "RunConfig", "MeshConfig", "LocalMesh", "StreamConfig",
+    "Session", "RunConfig", "MeshConfig", "LocalMesh", "RankMesh",
+    "StreamConfig",
     "STREAM_POLICIES",
     "RunReport", "ShuffleStats", "MODES",
     "JobSpec", "IterSpec", "State", "default_difference",

@@ -12,7 +12,11 @@ Every kind the reference writes is handled: ``onestep-mrbg``,
 query's per-stage views, stores and input schemas), and the meshed
 ``distributed`` (dense state with ``cpc`` in ``state.npz``) and
 ``distributed-onestep`` (``view.npz``) kinds, whose per-shard MRBG slices
-go to ``shards.json`` plus ``mrbg_{p:03d}.npz``.  Device tensors are saved
+go to ``shards.json`` plus ``mrbg_{p:03d}.npz``.  A session on a
+``RankMesh`` writes the same layout under ``<root>/rank_{r:03d}/``, one
+directory a rank, each with its own shard's store and CPC accumulators
+(its ``session.json`` names the world size; a restore on another raises).
+Device tensors are saved
 as host numpy arrays of the reference's dtypes; a restored session puts
 its state back on ``config.device``.  ``Session.restore`` rebuilds the newest epoch; the
 next ``update(delta)`` continues exactly where the snapshot left off.
@@ -54,14 +58,16 @@ def _store_from_npz(num_keys: int, path: Path, meta: Dict,
 
 
 def _save_shard_stores(drv, tmp: Path) -> None:
-    """Per-shard MRBG slices of a meshed driver (local-key space, so only
-    a mesh of the same part count can reuse them)."""
+    """Per-shard MRBG slices of a meshed driver, the file named by its
+    shard (local-key space, so only a mesh of the same part count can
+    reuse them)."""
     metas = None
     if drv.stores is not None:
         metas = [_store_to_npz(s, tmp / f"mrbg_{p:03d}.npz")
-                 for p, s in enumerate(drv.stores)]
+                 for p, s in zip(drv.shards, drv.stores)]
     (tmp / "shards.json").write_text(json.dumps(
-        {"n_parts": drv.n_parts, "mrbg_on": drv.mrbg_on, "stores": metas}))
+        {"n_parts": drv.n_parts, "mrbg_on": drv.mrbg_on, "stores": metas,
+         "shards": list(drv.shards)}))
 
 
 def _load_shard_stores(drv, d: Path, cfg: RunConfig) -> bool:
@@ -73,11 +79,25 @@ def _load_shard_stores(drv, d: Path, cfg: RunConfig) -> bool:
     meta = json.loads(sj.read_text())
     if meta["stores"] is None or meta["n_parts"] != drv.n_parts:
         return False
+    shards = meta.get("shards", list(range(meta["n_parts"])))
+    if shards != list(drv.shards):
+        raise ValueError(f"the snapshot holds the stores of shards "
+                         f"{shards}, this process runs {drv.shards}")
     drv.stores = [
         _store_from_npz(drv.rows, d / f"mrbg_{p:03d}.npz", m, cfg)
-        for p, m in enumerate(meta["stores"])]
+        for p, m in zip(shards, meta["stores"])]
     drv.mrbg_on = meta["mrbg_on"]
     return True
+
+
+def _rank_root(root: Path, cfg: RunConfig) -> tuple:
+    """``(root, world)``: a RankMesh session's own directory under
+    ``root`` and its world size, else ``(root, None)``."""
+    from repro_torch.core.distributed import RankMesh
+    mesh = cfg.mesh.mesh if cfg.mesh is not None else None
+    if isinstance(mesh, RankMesh):
+        return root / f"rank_{mesh.rank:03d}", mesh.world
+    return root, None
 
 
 def _atomic_epoch_dir(root: Path, epoch: int):
@@ -133,7 +153,7 @@ def _load_view(num_keys: int, z) -> ResultView:
 # ---------------------------------------------------------------------------
 
 def save_session(session, root: str) -> Path:
-    rootp = Path(root)
+    rootp, world = _rank_root(Path(root), session.config)
     rootp.mkdir(parents=True, exist_ok=True)
     drv = session._driver
     if session.epoch < 0:
@@ -183,9 +203,11 @@ def save_session(session, root: str) -> Path:
     else:                                 # pragma: no cover
         raise ValueError(f"unknown driver kind {drv.kind!r}")
 
-    _atomic_write_text(rootp / "session.json", json.dumps(
-        {"kind": drv.kind, "epoch": session.epoch, "mode": drv.mode,
-         "name": session.spec.name}))
+    meta = {"kind": drv.kind, "epoch": session.epoch, "mode": drv.mode,
+            "name": session.spec.name}
+    if world is not None:
+        meta["world_size"] = world
+    _atomic_write_text(rootp / "session.json", json.dumps(meta))
     return out
 
 
@@ -194,9 +216,18 @@ def save_session(session, root: str) -> Path:
 # ---------------------------------------------------------------------------
 
 def load_session(cls, spec, root: str, config: Optional[RunConfig]):
-    rootp = Path(root)
-    meta = json.loads((rootp / "session.json").read_text())
     cfg = config or RunConfig()
+    rootp, world = _rank_root(Path(root), cfg)
+    if world is not None and not (rootp / "session.json").exists():
+        raise FileNotFoundError(
+            f"no snapshot of this rank under {root} ({rootp.name} missing): "
+            f"a RankMesh session restores its own rank's snapshot")
+    meta = json.loads((rootp / "session.json").read_text())
+    if meta.get("world_size") != world:
+        raise ValueError(f"the snapshot under {root} was written by "
+                         f"{meta.get('world_size') or 'one process'} "
+                         f"rank(s); this session runs "
+                         f"{world or 'one process'}")
     kind = meta["kind"]
 
     # the driver is chosen by config; pin the config to the snapshot's kind
@@ -283,9 +314,11 @@ def load_session(cls, spec, root: str, config: Optional[RunConfig]):
         state = {k[3:]: torch.from_numpy(sz[k].copy()).to(session.device)
                  for k in sz.files if k.startswith("sv_")}
         if kind == "distributed":
-            from repro_torch.core.distributed import partition_state
-            drv.state_parts = partition_state(state, spec.num_state,
-                                              drv.n_parts)
+            from repro_torch.core.distributed import (
+                local_rows, partition_state,
+            )
+            drv.state_parts = local_rows(partition_state(
+                state, spec.num_state, drv.n_parts), drv.shards, drv.n_parts)
             if "cpc" in sz.files:
                 drv.cpc_accum = sz["cpc"].copy()
             drv._rebuild_rev()

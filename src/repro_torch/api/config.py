@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.api.config``, with the reference's names and
 defaults: :class:`MeshConfig` (distributed execution over the logical
-shards of a ``repro_torch.core.distributed.LocalMesh``), :class:`RunConfig`
+shards of a ``repro_torch.core.distributed.LocalMesh``, or one process a
+shard on a ``RankMesh``), :class:`RunConfig`
 and the streaming layer's :class:`StreamConfig`.  ``device`` takes the
 place of the reference's ``backend``: ``"cuda"`` (the default) runs the
 hand-written kernels and raises when there is no card; ``"cpu"`` runs
@@ -33,11 +34,12 @@ class MeshConfig:
     """Validated distributed-execution knobs (§4.3), one object per mesh.
 
     ``RunConfig(mesh=MeshConfig(LocalMesh({"data": 8}), ...))`` runs the
-    job as 8 logical shards, all on ``RunConfig.device``.
+    job as 8 logical shards, all on ``RunConfig.device``;
+    ``MeshConfig(RankMesh({"data": 8}, device=..., backend=...))`` as 8
+    ranks, each on the mesh's device, whose shards must be every rank.
     """
 
-    # the mesh; duck-typed: anything with a ``.shape`` mapping from axis
-    # name to size (repro_torch.core.distributed.LocalMesh)
+    # the mesh: a repro_torch.core.distributed.LocalMesh or RankMesh
     mesh: Any
 
     # partition axis (+ optional pod axis flattened into one exchange axis)
@@ -63,10 +65,12 @@ class MeshConfig:
     merge_workers: int = 0
 
     def __post_init__(self):
-        shape = getattr(self.mesh, "shape", None)
-        if shape is None:
-            raise ValueError("MeshConfig.mesh must be a LocalMesh (or "
-                             "expose .shape like one)")
+        from repro_torch.core.distributed import (LocalMesh, RankMesh,
+                                                  exchange_axes)
+        if not isinstance(self.mesh, (LocalMesh, RankMesh)):
+            raise ValueError(f"MeshConfig.mesh must be a LocalMesh or a "
+                             f"RankMesh, got {type(self.mesh).__name__}")
+        shape = self.mesh.shape
         if self.axis not in shape:
             raise ValueError(f"mesh has no axis {self.axis!r} "
                              f"(axes: {tuple(shape)})")
@@ -85,6 +89,17 @@ class MeshConfig:
                              f"got {self.refresh!r}")
         if self.merge_workers < 0:
             raise ValueError("merge_workers must be >= 0 (0 = auto)")
+        if isinstance(self.mesh, RankMesh):
+            axes = exchange_axes(self.axis, self.pod_axis)
+            if self.n_parts != self.mesh.world:
+                raise ValueError(
+                    f"a RankMesh runs one shard a rank: the exchange axes "
+                    f"{axes} hold {self.n_parts} shards, the mesh "
+                    f"{self.mesh.world} ranks")
+            if [a for a in shape if a in axes] != list(axes):
+                raise ValueError(f"a RankMesh's pod axis comes before its "
+                                 f"data axis (shard = pod * |data| + data "
+                                 f"= rank): {tuple(shape)}")
 
     @property
     def n_parts(self) -> int:
@@ -158,6 +173,10 @@ class RunConfig:
         if self.mesh is not None and not isinstance(self.mesh, MeshConfig):
             raise TypeError("RunConfig(mesh=...) takes a MeshConfig: "
                             "RunConfig(mesh=MeshConfig(mesh, axis=..., ...))")
+        rank_dev = self._rank_device()
+        if rank_dev is not None and rank_dev.type != self.device:
+            raise ValueError(f"RunConfig(device={self.device!r}) but the "
+                             f"RankMesh's device is {rank_dev}")
         if self.report_history < 1:
             raise ValueError("report_history must be >= 1")
         if self.delta_bucket_min < 1:
@@ -182,13 +201,19 @@ class RunConfig:
                 "fix_window_bytes": self.fix_window_bytes}
 
     def torch_device(self) -> torch.device:
-        """The device to run on; raises when CUDA is asked for and absent."""
+        """The device to run on (a RankMesh's own, ``cuda:<k>``, when the
+        mesh is one); raises when CUDA is asked for and absent."""
         if self.device == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "RunConfig(device='cuda') but torch.cuda.is_available() is "
                 "False; pass RunConfig(device='cpu') to run the plain "
                 "versions on the CPU")
-        return torch.device(self.device)
+        rank_dev = self._rank_device()
+        return rank_dev if rank_dev is not None else torch.device(self.device)
+
+    def _rank_device(self) -> Optional[torch.device]:
+        """A RankMesh's device (None for no mesh or a LocalMesh)."""
+        return getattr(getattr(self.mesh, "mesh", None), "device", None)
 
 
 STREAM_POLICIES = ("latency", "throughput", "paper")

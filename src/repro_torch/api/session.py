@@ -16,7 +16,9 @@ Counterpart of ``repro.api.session.Session`` on one device: a
                          logical shards of the device (§4.3): the sharded
                          prime loop or one-step run, then per-shard
                          fine-grain refresh (``_Distributed``,
-                         ``_DistOneStep``);
+                         ``_DistOneStep``); with a ``RankMesh`` the same
+                         drivers run one shard a process, every rank
+                         driving its own session on the same inputs;
   * ``checkpoint()`` / ``restore()`` -> fault tolerance (§6), in the
                          reference's npz + json layout, so that either
                          package restores the other's snapshots.
@@ -470,6 +472,38 @@ def _shard_stores(cfg: RunConfig, rows: int, n_parts: int) -> list:
             for _ in range(n_parts)]
 
 
+def _mesh_setup(drv, cfg: RunConfig) -> None:
+    """A meshed driver's view of its mesh: ``shards``, the shards this
+    process runs (all P on a LocalMesh, the rank's own on a RankMesh) and
+    ``_slot`` (shard -> row of the local ``[L, ...]`` state)."""
+    drv.mc = cfg.mesh
+    drv.n_parts = drv.mc.n_parts
+    drv.shards = dist.local_shards(drv.mc.mesh, drv.mc.axis,
+                                   drv.mc.pod_axis)
+    drv._slot = {p: i for i, p in enumerate(drv.shards)}
+
+
+def _global_ints(drv, values) -> list:
+    """Counts summed over every shard (over the ranks on a RankMesh)."""
+    return drv.mc.mesh.all_reduce(
+        torch.tensor(list(values), dtype=torch.int64)).tolist()
+
+
+def _fill_stores(drv, rep: RunReport, io: bool) -> None:
+    """The per-shard stores' sizes (and IO, with ``io``) summed over every
+    shard into ``rep``."""
+    sts = drv.stores
+    nums = [sum(s.file_bytes() for s in sts), sum(s.live_bytes() for s in sts),
+            sum(s.n_batches for s in sts)]
+    if io:
+        nums += [sum(s.stats.n_reads for s in sts),
+                 sum(s.stats.bytes_read for s in sts)]
+    nums = _global_ints(drv, nums)
+    rep.store_bytes, rep.live_bytes, rep.store_batches = nums[:3]
+    if io:
+        rep.io = IOStats(n_reads=nums[3], bytes_read=nums[4])
+
+
 def _exchange_delta(drv, delta: DeltaKV, project=None, state=None) -> list:
     """Phase 1 of a meshed refresh: partition ``delta`` by
     ``hash(project(key))`` (the key itself for ``project=None``) at a
@@ -485,8 +519,9 @@ def _exchange_delta(drv, delta: DeltaKV, project=None, state=None) -> list:
                        minlength=n_parts)
     cap = next_bucket(max(int(load.max(initial=0)), 1),
                       drv.cfg.delta_bucket_min)
-    pk, pv, pvalid, psign = dist.partition_delta(delta, n_parts, cap,
-                                                 project=project)
+    pk, pv, pvalid, psign = dist.local_rows(
+        dist.partition_delta(delta, n_parts, cap, project=project),
+        drv.shards, n_parts)
     if drv._dx_step is None:
         drv._dx_step = dist.make_delta_exchange_step(
             drv.spec, drv.mc.mesh, drv.mc.axis, pod_axis=drv.mc.pod_axis)
@@ -495,7 +530,8 @@ def _exchange_delta(drv, delta: DeltaKV, project=None, state=None) -> list:
     args = (dev(pk), tree_map(dev, pv), dev(pvalid), dev(psign))
     outs = drv._dx_step(*args) if state is None \
         else drv._dx_step(*args, state)
-    shards, sent, _dropped = dist.delta_exchange_to_host(outs)
+    shards, sent, _dropped = dist.delta_exchange_to_host(outs,
+                                                         drv.mc.mesh)
     sh = drv._shuffle
     sh.exchange_seconds.append(time.perf_counter() - tx)
     sh.edges_exchanged += sent
@@ -518,9 +554,13 @@ class _Distributed:
 
     ``MeshConfig(refresh="warm")`` (or an unstable map topology, or a
     tripped MRBG-off) re-partitions the mirror and re-converges warm from
-    the current state.  The state lives on the device as ``[P, rows, ...]``
-    tensors; the structure mirror, the reverse index, the per-shard stores
-    and the CPC accumulators on the host.
+    the current state.  The state lives on the device as ``[L, rows, ...]``
+    tensors of the L local shards; the structure mirror, the reverse index,
+    the per-shard stores and the CPC accumulators on the host.  On a
+    RankMesh (L = 1) each rank holds its shard's state, store and CPC
+    accumulators; the host mirror and reverse index are every rank's, and
+    the DKs each iteration emits are gathered from all ranks, so that the
+    next iteration's delta rows, and every decision, are alike on all.
     """
 
     kind = "distributed"
@@ -534,8 +574,7 @@ class _Distributed:
         self.spec = spec
         self.cfg = cfg
         self.device = device
-        self.mc = cfg.mesh
-        self.n_parts = self.mc.n_parts
+        _mesh_setup(self, cfg)
         self.rows = (spec.num_state + self.n_parts - 1) // self.n_parts
         self.state_parts: Optional[Dict[str, torch.Tensor]] = None
         # one MRBG slice per shard, keyed by local ids (K2 // P); None
@@ -565,8 +604,9 @@ class _Distributed:
         if self.state_parts is None:      # may be pre-seeded by restore
             dks = torch.arange(self.spec.num_state, dtype=torch.int32,
                                device=self.device)
-            self.state_parts = dist.partition_state(
-                self.spec.init_state(dks), self.spec.num_state, self.n_parts)
+            self.state_parts = dist.local_rows(dist.partition_state(
+                self.spec.init_state(dks), self.spec.num_state,
+                self.n_parts), self.shards, self.n_parts)
         self._shuffle = ShuffleStats()
         self._logs = []
         self._converge(self.cfg.max_iters, self.cfg.tol)
@@ -606,13 +646,14 @@ class _Distributed:
     def _seed_stores(self, last_edges) -> None:
         """Per-shard MRBG slices from the final iteration's received edges
         (``reduce(slice[p]) == state[p]`` by construction)."""
-        self.stores = _shard_stores(self.cfg, self.rows, self.n_parts)
-        for p, ed in enumerate(last_edges or []):
+        self.stores = _shard_stores(self.cfg, self.rows, len(self.shards))
+        for i, ed in enumerate(last_edges or []):
             if ed["k2"].size == 0:
                 continue
+            p = self.shards[i]
             local = ((ed["k2"].astype(np.int64) - p)
                      // self.n_parts).astype(np.int32)
-            self.stores[p].append(local, ed["mk"], _v2_dict(ed["v2"]))
+            self.stores[i].append(local, ed["mk"], _v2_dict(ed["v2"]))
         self.cpc_accum[:] = 0.0
         self.mrbg_on = True
 
@@ -723,7 +764,7 @@ class _Distributed:
         affected_parts = []
         merged = dist.merge_shards_parallel(
             spec.reducer, self.stores, n_parts, shards, device=self.device,
-            workers=self.mc.merge_workers)
+            workers=self.mc.merge_workers, shard_ids=self.shards)
         for p, aff, vals, _counts in merged:
             if aff.size == 0:
                 continue
@@ -732,14 +773,19 @@ class _Distributed:
                 self.device)
             new = {n: _host_tensor(a).to(self.device)
                    for n, a in vals.items()}
-            old = {n: a[p, local] for n, a in self.state_parts.items()}
+            i = self._slot[p]
+            old = {n: a[i, local] for n, a in self.state_parts.items()}
             change = spec.difference(new, old).cpu().numpy()
             if change.size:
                 max_change = max(max_change, float(change.max()))
             self.cpc_accum[aff] += change
             for n, a in new.items():
-                self.state_parts[n][p, local] = a
+                self.state_parts[n][i, local] = a
             affected_parts.append(aff)
+        affected_total, n_reads, n_bytes = _global_ints(self, (
+            affected_total, sum(s.stats.n_reads for s in self.stores),
+            sum(s.stats.bytes_read for s in self.stores)))
+        max_change = dist.global_max(self.mc.mesh, max_change)
 
         if affected_total == 0:
             self._max_change.append(0.0)
@@ -749,15 +795,16 @@ class _Distributed:
         self._max_change.append(max_change)
 
         # CPC (§5.3), global across shards: emit only above-threshold DKs
-        affected_all = np.concatenate(affected_parts)
+        affected_all = np.concatenate(affected_parts) if affected_parts \
+            else np.zeros(0, np.int32)
         emit_mask = self.cpc_accum[affected_all] > cfg.cpc_threshold
         emitted = np.sort(affected_all[emit_mask]).astype(np.int64)
         self.cpc_accum[emitted] = 0.0
+        emitted = np.sort(np.concatenate(
+            self.mc.mesh.all_gather_object(emitted)))
         self._logs.append(IterationLog(
             iteration, n_input, affected_total, int(emitted.size), True,
-            time.perf_counter() - t0,
-            sum(s.stats.n_reads for s in self.stores),
-            sum(s.stats.bytes_read for s in self.stores)))
+            time.perf_counter() - t0, n_reads, n_bytes))
 
         # auto MRBG-off (§5.2): fine-grain state stops paying off
         p_delta = emitted.size / max(spec.num_state, 1)
@@ -767,8 +814,10 @@ class _Distributed:
         return emitted
 
     def result(self) -> Dict[str, np.ndarray]:
+        """The whole state (gathered from every rank on a RankMesh)."""
+        parts = dist.gather_parts(self.mc.mesh, self.state_parts)
         return {n: a.cpu().numpy() for n, a in dist.unpartition_state(
-            self.state_parts, self.spec.num_state).items()}
+            parts, self.spec.num_state).items()}
 
     def fill(self, rep: RunReport) -> None:
         rep.iters = self._iters
@@ -779,9 +828,7 @@ class _Distributed:
             rep.io = IOStats(n_reads=sum(l.io_reads for l in self._logs),
                              bytes_read=sum(l.io_bytes for l in self._logs))
         if self.stores:
-            rep.store_bytes = sum(s.file_bytes() for s in self.stores)
-            rep.live_bytes = sum(s.live_bytes() for s in self.stores)
-            rep.store_batches = sum(s.n_batches for s in self.stores)
+            _fill_stores(self, rep, io=False)
         rep.mrbg_on = bool(self.stores) and self.mrbg_on
         rep.shuffle = self._shuffle
 
@@ -792,7 +839,9 @@ class _DistOneStep:
 
     The initial run reuses the refresh machinery (every input record is an
     all-'+' delta against empty per-shard stores), so there is one step
-    (the delta exchange) and one merge path from epoch 0 on.
+    (the delta exchange) and one merge path from epoch 0 on.  On a
+    RankMesh each rank keeps its shard's store; the merged keys of every
+    rank are gathered, so that each rank's view is the whole result.
     """
 
     kind = "distributed-onestep"
@@ -801,8 +850,7 @@ class _DistOneStep:
         self.spec = spec
         self.cfg = cfg
         self.device = device
-        self.mc = cfg.mesh
-        self.n_parts = self.mc.n_parts
+        _mesh_setup(self, cfg)
         self.rows = (spec.num_keys + self.n_parts - 1) // self.n_parts
         self.stores: Optional[list] = None
         self.view: Optional[ResultView] = None
@@ -814,7 +862,7 @@ class _DistOneStep:
 
     def run(self, inp: KV) -> None:
         self._shuffle = ShuffleStats()
-        self.stores = _shard_stores(self.cfg, self.rows, self.n_parts)
+        self.stores = _shard_stores(self.cfg, self.rows, len(self.shards))
         self.view = None
         delta = DeltaKV(inp.keys, inp.keys, inp.values, inp.valid,
                         torch.ones(inp.capacity, dtype=torch.int8,
@@ -844,7 +892,11 @@ class _DistOneStep:
         affected_total = 0
         merged = dist.merge_shards_parallel(
             spec.reducer, self.stores, n_parts, shards, device=self.device,
-            workers=self.mc.merge_workers)
+            workers=self.mc.merge_workers, shard_ids=self.shards)
+        # every shard's merges, in shard order (a RankMesh's ranks are its
+        # shards, in order)
+        merged = [m for part in self.mc.mesh.all_gather_object(merged)
+                  for m in part]
         for p, aff, vals, counts in merged:
             if aff.size == 0:
                 continue
@@ -867,10 +919,5 @@ class _DistOneStep:
         if self.view is not None:
             rep.counts = self.view.counts
         if self.stores:
-            rep.store_bytes = sum(s.file_bytes() for s in self.stores)
-            rep.live_bytes = sum(s.live_bytes() for s in self.stores)
-            rep.store_batches = sum(s.n_batches for s in self.stores)
-            rep.io = IOStats(
-                n_reads=sum(s.stats.n_reads for s in self.stores),
-                bytes_read=sum(s.stats.bytes_read for s in self.stores))
+            _fill_stores(self, rep, io=True)
         rep.shuffle = self._shuffle

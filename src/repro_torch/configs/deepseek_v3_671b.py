@@ -4,11 +4,13 @@ MoE 1 shared + 256 routed top-8 (d_ff_expert=2048), first 3 layers dense
 
 Counterpart of ``repro.configs.deepseek_v3_671b``, with its values.  The
 reference shards the experts 256 ways (``ep_axes``); the port runs them
-on one card (``moe_impl="gather"``), where the whole model (671.6e9
-parameters, 1,343 GB in bf16) does not fit: a card runs it with its
-layers cut.
+on one card (``moe_impl="gather"``), or over ranks with ``"a2a"``, where
+the whole model (671.6e9 parameters, 1,343 GB in bf16) does not fit: a
+card runs it with its layers cut.
 """
-from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig
+from repro_torch.models.config import (
+    MLAConfig, ModelConfig, MoEConfig, ShardingRules,
+)
 
 CONFIG = ModelConfig(
     name="deepseek-v3-671b",
@@ -31,4 +33,5 @@ CONFIG = ModelConfig(
     mtp=True,
     rope_theta=10000.0,
     loss_chunk=512,
+    sharding=ShardingRules(expert=("data", "model")),
 )

@@ -1,12 +1,27 @@
-"""Distributed MapReduce shuffle over P logical shards on one device (§4.3).
+"""Distributed MapReduce shuffle over P shards (§4.3).
 
 Counterpart of ``repro.core.distributed``.  The reference maps the paper's
 Hadoop runtime onto a TPU mesh with ``shard_map``; the reference's own mesh
-tests run it as P devices in one process.  The port runs the same program as
-**P logical shards in one process, on one device**: a :class:`LocalMesh`
-names the shard axes, each shard's work is one pass of a Python loop (its
-own launches of the sort, segment-reduce and fused-merge kernels), and the
-all_to_all is a transpose of the stacked send buffers (:func:`all_to_all`).
+tests run it as P devices in one process.  The port runs the same program
+on either of two meshes:
+
+  * :class:`LocalMesh`: **P logical shards in one process, on one
+    device**.  Each shard's work is one pass of a Python loop (its own
+    launches of the sort, segment-reduce and fused-merge kernels), and the
+    all_to_all is a transpose of the stacked send buffers
+    (:func:`all_to_all`).
+  * :class:`RankMesh`: **one process (rank) a shard**, over an initialised
+    ``torch.distributed`` process group.  A rank maps, buckets, sorts,
+    reduces and preserves its own shard only, on its own device; the
+    exchange is one ``all_to_all_single`` a leaf (NCCL on device tensors,
+    or gloo through host memory, as the caller chose), and every decision
+    that steers the loop (regrow, converge, CPC, MRBG-off) reads values
+    reduced over all ranks, so that every rank takes it the same way.
+    The program is SPMD: every rank builds the same session on the same
+    host inputs and gets the same full result back (``all_gather``).
+
+Both give the same results, iteration counts and ``ShuffleStats`` at the
+same P:
 
   * partitions: one per shard along the ``data`` axis, or the flattened
     (``pod``, ``data``) axes: shard index = pod * |data| + data, the order
@@ -40,6 +55,7 @@ device).  Engine-internal: user code drives this through
 """
 from __future__ import annotations
 
+import math
 import os
 import threading
 import time
@@ -48,6 +64,7 @@ from typing import Dict, Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from repro_torch.core.incremental import _combine_edges, _merge_reduce, _v2_dict
 from repro_torch.core.iterative import IterSpec, gather_state
@@ -65,10 +82,12 @@ _IK = np.int32(INVALID_KEY)
 class LocalMesh:
     """A mesh of logical shards in one process, on one device.
 
-    ``MeshConfig`` reads only ``.shape`` (axis name -> size), as it reads a
-    ``jax.sharding.Mesh``'s: ``LocalMesh({"data": 8})`` or
-    ``LocalMesh({"pod": 2, "data": 4})``.  Every shard lives on
-    ``RunConfig.device``.
+    ``LocalMesh({"data": 8})`` or ``LocalMesh({"pod": 2, "data": 4})``:
+    axis name -> size (``.shape``), as a ``jax.sharding.Mesh``'s.  Every
+    shard lives on ``RunConfig.device``.  It has :class:`RankMesh`'s
+    interface to the engine (``shards``, ``exchange``, ``all_reduce``,
+    ``gather_shards``, ``all_gather_object``), each for one process that
+    runs every shard, so that the drivers call the mesh alike on both.
     """
 
     __slots__ = ("_shape",)
@@ -95,10 +114,258 @@ class LocalMesh:
     def __repr__(self) -> str:
         return f"LocalMesh({dict(self._shape)!r})"
 
+    def shards(self, axes) -> List[int]:
+        """The shards of the flattened ``axes`` this process runs: all."""
+        return list(range(math.prod(self._shape[a] for a in axes)))
+
+    def exchange(self, send: torch.Tensor, axes) -> torch.Tensor:
+        """Every shard's send buffers ``[P, P, cap, ...]`` to what each
+        receives, ``[P, P * cap, ...]``: :func:`all_to_all`."""
+        return all_to_all(send)
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """One process holds every shard's share: ``t`` itself."""
+        return t
+
+    def gather_shards(self, t: torch.Tensor) -> torch.Tensor:
+        """``[P, ...]`` rows of this process's shards: already all P."""
+        return t
+
+    def all_gather_object(self, obj) -> list:
+        return [obj]
+
+
+BACKENDS = ("nccl", "gloo")
+# leaves whose dtype a backend may not carry (gloo has no bool, bfloat16
+# or int16) travel as their bytes, viewed as uint8 along the last axis
+_WIRE = (torch.bool, torch.bfloat16, torch.float16)
+
+
+class RankMesh:
+    """A mesh of one process (rank) per shard, over the initialised default
+    ``torch.distributed`` process group.
+
+    ``RankMesh({"data": 4}, device="cuda:0", backend="gloo")``: the axes
+    and their sizes as :class:`LocalMesh`'s, whose product must equal the
+    group's world size (else it raises).  Ranks lie on the axes in row
+    order (the last axis fastest), so the engine's shard index pod *
+    |data| + data is the rank on a ``{"pod": ..., "data": ...}`` mesh.
+    ``device`` is this rank's device and ``backend`` the group's, both
+    chosen by the caller: ``"nccl"`` exchanges device tensors and needs a
+    card; ``"gloo"`` copies each send buffer to host memory and what it
+    receives back to ``device`` (nothing to copy on the CPU).  Neither is
+    ever swapped for the other, and a failed collective raises.  Every
+    rank must build its meshes, and call their collectives, in the same
+    order (a sub-group is made by every rank, the first time any axis set
+    asks for it).
+    """
+
+    __slots__ = ("_shape", "rank", "world", "device", "backend", "coords",
+                 "_groups")
+
+    def __init__(self, shape: Mapping[str, int], *, device, backend: str):
+        shape = dict(LocalMesh(shape).shape)
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{backend!r}")
+        device = torch.device(device)
+        if backend == "nccl":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "RankMesh(backend='nccl') needs a CUDA card, and "
+                    "torch.cuda.is_available() is False; use gloo")
+            if device.type != "cuda":
+                raise ValueError(f"RankMesh(backend='nccl') exchanges "
+                                 f"device tensors: device {device} is not "
+                                 f"a CUDA device")
+        if not (tdist.is_available() and tdist.is_initialized()):
+            raise RuntimeError("RankMesh is built over an initialised "
+                               "process group: call torch.distributed."
+                               "init_process_group first")
+        world = tdist.get_world_size()
+        size = math.prod(shape.values())
+        if size != world:
+            raise ValueError(f"RankMesh {shape} has {size} ranks, but the "
+                             f"process group's world size is {world}")
+        group_backend = str(tdist.get_backend())
+        if group_backend != backend:
+            raise ValueError(f"RankMesh(backend={backend!r}) over a process "
+                             f"group of backend {group_backend!r}")
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        rank = tdist.get_rank()
+        for name, value in (("_shape", MappingProxyType(shape)),
+                            ("rank", rank), ("world", world),
+                            ("device", device), ("backend", backend),
+                            ("_groups", {})):
+            object.__setattr__(self, name, value)
+        object.__setattr__(self, "coords",
+                           MappingProxyType(self.coords_of(rank)))
+
+    def __setattr__(self, name, value):
+        raise AttributeError("RankMesh is immutable")
+
+    @property
+    def shape(self) -> Mapping[str, int]:
+        return self._shape
+
+    def __repr__(self) -> str:
+        return (f"RankMesh({dict(self._shape)!r}, rank={self.rank}, "
+                f"device={str(self.device)!r}, backend={self.backend!r})")
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """A rank's index on every axis (row order, the last fastest)."""
+        coords = {}
+        for name in reversed(list(self._shape)):
+            coords[name] = rank % self._shape[name]
+            rank //= self._shape[name]
+        return {n: coords[n] for n in self._shape}
+
+    def index(self, axes, rank: Optional[int] = None) -> int:
+        """The flattened index over ``axes`` (the last fastest) of this
+        rank, or of ``rank``."""
+        coords = self.coords if rank is None else self.coords_of(rank)
+        i = 0
+        for a in axes:
+            i = i * self._shape[a] + coords[a]
+        return i
+
+    def _rank_of(self, coords: Mapping[str, int]) -> int:
+        r = 0
+        for a, size in self._shape.items():
+            r = r * size + coords[a]
+        return r
+
+    def group(self, axes):
+        """The process group of the ranks that share this rank's
+        coordinates off ``axes`` (None: the whole world).  Its ranks, in
+        torch's order (by global rank), must be in the flattened order of
+        ``axes``, so ``axes`` must follow the mesh's own order, or this
+        raises.  Every group of the axis set is made on first use, by
+        every rank in the same order."""
+        axes = tuple(axes)
+        if axes not in self._groups:
+            if list(axes) != [a for a in self._shape if a in axes]:
+                raise ValueError(f"axes {axes} must follow the mesh's order "
+                                 f"{tuple(self._shape)}")
+            others = [a for a in self._shape if a not in axes]
+            sizes = [self._shape[a] for a in axes]
+            mine = None
+            for off in np.ndindex(*[self._shape[a] for a in others]):
+                base = dict(zip(others, off))
+                members = [self._rank_of({**base, **dict(zip(axes, on))})
+                           for on in np.ndindex(*sizes)]
+                g = None if len(members) == self.world \
+                    else tdist.new_group(members)
+                if self.rank in members:
+                    mine = g
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+    # -- the wire ------------------------------------------------------------
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.contiguous()
+        if t.dtype in _WIRE:
+            t = t.view(torch.uint8)
+        return t.cpu() if self.backend == "gloo" else t.to(self.device)
+
+    def _unwire(self, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        t = t.to(self.device)
+        return t.view(dtype) if dtype in _WIRE else t
+
+    def shards(self, axes) -> List[int]:
+        """The shards of the flattened ``axes`` this process runs: its
+        own."""
+        return [self.index(axes)]
+
+    def exchange(self, send: torch.Tensor, axes) -> torch.Tensor:
+        """This rank's send buffers ``[1, P, cap, ...]`` to what it
+        receives, ``[1, P * cap, ...]``."""
+        return self.all_to_all(send[0], axes)[None]
+
+    def gather_shards(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ``[1, ...]`` rows as every shard's ``[P, ...]``
+        (the ranks are the shards, in order)."""
+        return self.all_gather(t[0])
+
+    def all_to_all(self, send: torch.Tensor, axes) -> torch.Tensor:
+        """Send buffers ``[n, cap, ...]``, one a destination in the
+        flattened order of ``axes``, to the received ``[n * cap, ...]``,
+        one block a source in the same order (``jax.lax.all_to_all(...,
+        tiled=True)`` over ``axes``)."""
+        out = self._wire(send)
+        recv = torch.empty_like(out)
+        tdist.all_to_all_single(recv, out, group=self.group(axes))
+        return self._unwire(recv, send.dtype).reshape(
+            (-1,) + tuple(send.shape[2:]))
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` from every rank, stacked in rank order: ``[world, ...]``."""
+        w = self._wire(t)
+        parts = [torch.empty_like(w) for _ in range(self.world)]
+        tdist.all_gather(parts, w)
+        return self._unwire(torch.stack(parts), t.dtype)
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` summed (or maxed) over the ranks; a new tensor."""
+        if t.dtype in _WIRE:
+            raise TypeError(f"all_reduce of {t.dtype}: reduce a wider "
+                            f"dtype")
+        w = self._wire(t).clone()
+        tdist.all_reduce(w, op={"sum": tdist.ReduceOp.SUM,
+                                "max": tdist.ReduceOp.MAX}[op])
+        return self._unwire(w, t.dtype)
+
+    def all_gather_object(self, obj) -> list:
+        """A picklable object from every rank, in rank order."""
+        out = [None] * self.world
+        tdist.all_gather_object(out, obj)
+        return out
+
 
 def n_parts_of(mesh, axis: str, pod_axis: Optional[str] = None) -> int:
     """Shards of the flattened (pod, data) exchange axis."""
     return mesh.shape[axis] * (mesh.shape[pod_axis] if pod_axis else 1)
+
+
+def exchange_axes(axis: str, pod_axis: Optional[str] = None) -> tuple:
+    return (pod_axis, axis) if pod_axis else (axis,)
+
+
+def local_shards(mesh, axis: str, pod_axis: Optional[str] = None
+                 ) -> List[int]:
+    """The shards this process runs: all P on a :class:`LocalMesh`, the
+    rank's own on a :class:`RankMesh`."""
+    return mesh.shards(exchange_axes(axis, pod_axis))
+
+
+def local_rows(parts, shards: List[int], n_parts: int):
+    """The rows of ``[P, ...]`` arrays or tensors that ``shards`` own
+    (everything, uncopied, when they are all P)."""
+    if len(shards) == n_parts:
+        return parts
+    return tree_map(lambda a: a[shards], parts)
+
+
+def global_sum(mesh, t: torch.Tensor) -> int:
+    """``t.sum()`` over every shard: this process's, reduced over the
+    ranks on a :class:`RankMesh`."""
+    return int(mesh.all_reduce(t.sum().to(torch.int64)))
+
+
+def global_max(mesh, value: float) -> float:
+    return float(mesh.all_reduce(torch.tensor(float(value),
+                                              dtype=torch.float64), "max"))
+
+
+def gather_parts(mesh, parts: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """Every shard's ``[rows, ...]`` slice as ``[P, rows, ...]`` in shard
+    order: this process's ``parts`` on a :class:`LocalMesh`, the ranks'
+    ``[1, rows, ...]`` gathered on a :class:`RankMesh` (whose ranks are
+    the shards, in shard order: the exchange's group holds the axes in
+    the mesh's order)."""
+    return {n: mesh.gather_shards(a) for n, a in parts.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -229,22 +496,29 @@ def _bucket(edges: Edges, n_parts: int, cap: int):
 
 
 def _exchange(edge_shards: Iterable[Edges], n_parts: int,
-              cap: Optional[int]):
-    """Bucket every shard's edges (``edge_shards`` in shard order) and run
-    the one all_to_all.  ``cap=None`` takes the shards' edge capacity
+              cap: Optional[int], mesh=None, axes: tuple = ("data",)):
+    """Bucket the edges of this process's shards (``edge_shards``, in
+    shard order) and run the one all_to_all (``mesh.exchange`` a leaf): a
+    transpose on a :class:`LocalMesh` (the default, of ``n_parts``
+    shards), one ``all_to_all_single`` a leaf over ``axes`` on a
+    :class:`RankMesh`.  ``cap=None`` takes the shards' edge capacity
     (the delta path, which can then never drop).
 
-    Returns ``(recv, sent [P], drop [P], cap)``: ``recv`` is one Edges of
-    ``[P_dst, P_src * cap]`` leaves.  Send slots that no edge fills hold
-    INVALID_KEY keys, ``valid`` False, sign 0 and zero values.
+    Returns ``(recv, sent [L], drop [L], cap)`` for the L local shards:
+    ``recv`` is one Edges of ``[L, P_src * cap]`` leaves.  Send slots that
+    no edge fills hold INVALID_KEY keys, ``valid`` False, sign 0 and zero
+    values.
     """
+    if mesh is None:
+        mesh = LocalMesh({axes[0]: n_parts})
     send = None
     sent, drop = [], []
     total = 0
+    n_local = len(mesh.shards(axes))
     for s, edges in enumerate(edge_shards):
         if send is None:
             cap = edges.capacity if cap is None else int(cap)
-            total = n_parts * n_parts * cap
+            total = n_local * n_parts * cap
             dev = edges.k2.device
             # one scratch slot at the end takes the edges that are not sent
             full = lambda dtype, fill, trail=(): torch.full(
@@ -272,8 +546,8 @@ def _exchange(edge_shards: Iterable[Edges], n_parts: int,
     recv = []
     while leaves:                  # each send buffer goes once it is moved
         b = leaves.pop(0)
-        recv.append(all_to_all(b[:total].view(
-            (n_parts, n_parts, cap) + tuple(b.shape[1:]))))
+        recv.append(mesh.exchange(b[:total].view(
+            (n_local, n_parts, cap) + tuple(b.shape[1:])), axes))
         del b
     return unflatten(recv), torch.stack(sent), torch.stack(drop), cap
 
@@ -323,33 +597,37 @@ def make_distributed_step(spec: IterSpec, mesh, axis: str, shuffle_cap: int,
                           preserve: bool = False):
     """The iteration over the P shards of ``axis`` (+ optional pod axis).
 
-    Called as ``step(struct_keys [P, cap], struct_vals, struct_valid,
-    state_vals [P, rows, ...])``; returns ``(new_vals [P, rows, ...],
-    counts [P, rows], drop [P], sent [P])``, and with ``preserve=True``
-    also the list of each shard's received edges sorted by (K2, MK)
-    (``P * cap`` rows each): the shard's MRBG slice for the iteration.
+    Called as ``step(struct_keys [L, cap], struct_vals, struct_valid,
+    state_vals [L, rows, ...])`` with the rows of this process's L shards
+    (:func:`local_shards`: all P on a LocalMesh, one on a RankMesh);
+    returns ``(new_vals [L, rows, ...], counts [L, rows], drop [L], sent
+    [L])``, and with ``preserve=True`` also the list of each local shard's
+    received edges sorted by (K2, MK) (``P * cap`` rows each): the shard's
+    MRBG slice for the iteration.
     """
     n_parts = n_parts_of(mesh, axis, pod_axis)
     rows = (spec.num_state + n_parts - 1) // n_parts
+    shards = local_shards(mesh, axis, pod_axis)
+    axes = exchange_axes(axis, pod_axis)
 
     def step(struct_keys, struct_vals, struct_valid, state_vals):
         def shard_edges():
-            for p in range(n_parts):
-                kv = KV(struct_keys[p], _shard(struct_vals, p),
-                        struct_valid[p])
-                dv = _local_state(spec, kv, _shard(state_vals, p), n_parts)
+            for i in range(len(shards)):
+                kv = KV(struct_keys[i], _shard(struct_vals, i),
+                        struct_valid[i])
+                dv = _local_state(spec, kv, _shard(state_vals, i), n_parts)
                 sign = torch.ones(kv.capacity, dtype=torch.int8,
                                   device=kv.keys.device)
                 yield spec.map_fn(kv, dv, sign)
 
         recv, sent, drop, _cap = _exchange(shard_edges(), n_parts,
-                                           shuffle_cap)
+                                           shuffle_cap, mesh, axes)
         outs, counts, kept = [], [], []
-        for p in range(n_parts):
+        for i, p in enumerate(shards):
             # sort by (K2, MK) before reducing: per-key accumulation order
             # then matches the single-device shuffle, and the sorted buffer
             # doubles as the shard's preserved MRBG slice
-            r = sort_edges(_shard(recv, p), num_keys=2)
+            r = sort_edges(_shard(recv, i), num_keys=2)
             local = torch.div(r.k2, n_parts, rounding_mode="floor")
             acc, cnt = segment_reduce(spec.reducer, local, r.v2, r.valid,
                                       rows)
@@ -420,8 +698,11 @@ def run_distributed(spec: IterSpec, mesh, struct_parts, state_parts, *,
                     step_cache: Optional[dict] = None):
     """Drive the distributed prime loop to convergence.
 
-    ``struct_parts`` are :func:`partition_struct`'s host arrays;
-    ``state_parts`` a dict of ``[P, rows, ...]`` tensors.  The loop runs
+    ``struct_parts`` are :func:`partition_struct`'s host arrays of all P
+    shards; ``state_parts`` a dict of ``[L, rows, ...]`` tensors, the
+    state of this process's shards (:func:`local_shards`).  Every decision
+    (regrow, converge) reads counts and changes reduced over all shards,
+    so that on a :class:`RankMesh` every rank takes it alike.  The loop runs
     on ``device`` (default: the state's) and returns the new state as
     tensors there.
 
@@ -437,7 +718,9 @@ def run_distributed(spec: IterSpec, mesh, struct_parts, state_parts, *,
     per-shard MRBG-Stores of fine-grain refresh.  ``step_cache`` (a
     caller-owned dict) keeps steps, and their trace counts, across calls.
     """
-    skeys, svals, svalid = struct_parts
+    n_parts = n_parts_of(mesh, axis, pod_axis)
+    skeys, svals, svalid = local_rows(
+        struct_parts, local_shards(mesh, axis, pod_axis), n_parts)
     first = next(iter(state_parts.values()))
     device = first.device if device is None else torch.device(device)
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -467,7 +750,7 @@ def run_distributed(spec: IterSpec, mesh, struct_parts, state_parts, *,
             t0 = time.perf_counter()
             outs = get_step(cap)(dkeys, dvals, dvalid, state)
             new_vals, _counts, drop, sent = outs[:4]
-            nd = int(drop.sum())
+            nd = global_sum(mesh, drop)
             if nd == 0:
                 history["exchange_seconds"].append(
                     time.perf_counter() - t0)
@@ -480,12 +763,12 @@ def run_distributed(spec: IterSpec, mesh, struct_parts, state_parts, *,
             cap = min(next_bucket(cap + 1, 1), cap_ceiling)
             history["regrows"] += 1
             history["shuffle_cap"] = cap
-        history["sent"] += int(sent.sum())
+        history["sent"] += global_sum(mesh, sent)
         if preserve_last:
             last_pres = outs[4]
         flat = lambda a: a.reshape((-1,) + tuple(a.shape[2:]))
-        change = float(spec.difference(tree_map(flat, new_vals),
-                                       tree_map(flat, state)).max())
+        change = global_max(mesh, float(spec.difference(
+            tree_map(flat, new_vals), tree_map(flat, state)).max()))
         state = new_vals
         history["iters"] = it + 1
         history["max_change"].append(change)
@@ -536,48 +819,53 @@ def make_delta_exchange_step(spec, mesh, axis: str, *,
                              pod_axis: Optional[str] = None):
     """Phase 1 of fine-grain distributed refresh, as a step.
 
-    ``step(dkeys, dvals, dvalid, dsign[, state_vals])`` with ``[P, cap]``
-    inputs: each shard re-Maps its delta rows (gathering its *local* state
+    ``step(dkeys, dvals, dvalid, dsign[, state_vals])`` with ``[L, cap]``
+    inputs, the rows of this process's L shards (:func:`local_shards`):
+    each shard re-Maps its delta rows (gathering its *local* state
     slice when ``spec`` is iterative) and one all_to_all routes the
     emitted edges to their owners.  The send capacity is the full
     per-shard edge capacity, so the delta path never drops an edge.
 
-    Returns ``(recv, sent [P], drop [P], cap)``: ``recv`` lists each
+    Returns ``(recv, sent [L], drop [L], cap)``: ``recv`` lists each local
     shard's received edges (``[P * cap]`` rows) sorted by (K2, MK), global
     keys, sign kept.
     """
     n_parts = n_parts_of(mesh, axis, pod_axis)
+    n_local = len(local_shards(mesh, axis, pod_axis))
+    axes = exchange_axes(axis, pod_axis)
     iterative = hasattr(spec, "project")
 
     def step(dkeys, dvals, dvalid, dsign, state_vals=None):
         def shard_edges():
-            for p in range(n_parts):
-                kv = KV(dkeys[p], _shard(dvals, p), dvalid[p])
+            for i in range(n_local):
+                kv = KV(dkeys[i], _shard(dvals, i), dvalid[i])
                 if iterative:
-                    dv = _local_state(spec, kv, _shard(state_vals, p),
+                    dv = _local_state(spec, kv, _shard(state_vals, i),
                                       n_parts)
-                    yield spec.map_fn(kv, dv, dsign[p])
+                    yield spec.map_fn(kv, dv, dsign[i])
                 else:
-                    yield spec.map_fn(kv, dsign[p])
+                    yield spec.map_fn(kv, dsign[i])
 
-        recv, sent, drop, cap = _exchange(shard_edges(), n_parts, None)
-        pres = [sort_edges(_shard(recv, p), num_keys=2)
-                for p in range(n_parts)]
+        recv, sent, drop, cap = _exchange(shard_edges(), n_parts, None,
+                                          mesh, axes)
+        pres = [sort_edges(_shard(recv, i), num_keys=2)
+                for i in range(n_local)]
         return pres, sent, drop, cap
 
     return _Traced("distributed.delta_exchange", step)
 
 
-def delta_exchange_to_host(outs):
+def delta_exchange_to_host(outs, mesh):
     """A delta-exchange step's outputs as per-shard host dicts.
 
-    Returns ``(shards, sent, dropped)``; each shard dict holds the valid
-    received delta edges (global keys, (K2, MK)-sorted, sign kept).  Only
-    each shard's valid prefix is copied, never the padding.
+    Returns ``(shards, sent, dropped)``; each local shard's dict holds the
+    valid received delta edges (global keys, (K2, MK)-sorted, sign kept),
+    and ``sent`` and ``dropped`` count every shard's.  Only each shard's
+    valid prefix is copied, never the padding.
     """
     recv, sent, drop, _cap = outs
-    return (_shards_to_host(recv, with_sign=True), int(sent.sum()),
-            int(drop.sum()))
+    return (_shards_to_host(recv, with_sign=True), global_sum(mesh, sent),
+            global_sum(mesh, drop))
 
 
 # ---------------------------------------------------------------------------
@@ -631,26 +919,30 @@ def merge_shard_delta(reducer: Reducer, store: MRBGStore, shard: int,
 
 
 def merge_shards_parallel(reducer: Reducer, stores, n_parts: int, shards,
-                          *, device, workers: int = 0):
+                          *, device, workers: int = 0, shard_ids=None):
     """:func:`merge_shard_delta` for every non-empty shard, on threads.
 
-    Each shard merges against its own store and a disjoint global key set,
-    so the merges are independent; their launches share the device's
-    current stream.  ``workers=0`` sizes the pool as ``min(8, cpus,
-    jobs)``; ``workers=1`` runs them in order on the caller's thread.
-    Returns ``[(p, affected, vals, counts), ...]`` in shard order either
-    way, so that callers apply their updates deterministically.
+    ``stores[i]`` and ``shards[i]`` belong to shard ``shard_ids[i]``
+    (default ``i``: every shard of a LocalMesh; a RankMesh's rank passes
+    its one shard).  Each shard merges against its own store and a
+    disjoint global key set, so the merges are independent; their launches
+    share the device's current stream.  ``workers=0`` sizes the pool as
+    ``min(8, cpus, jobs)``; ``workers=1`` runs them in order on the
+    caller's thread.  Returns ``[(p, affected, vals, counts), ...]`` in
+    shard order either way, so that callers apply their updates
+    deterministically.
     """
-    jobs = [(p, sh) for p, sh in enumerate(shards) if sh["k2"].size]
+    ids = list(range(len(shards))) if shard_ids is None else list(shard_ids)
+    jobs = [(i, sh) for i, sh in enumerate(shards) if sh["k2"].size]
     if not jobs:
         return []
 
     def _one(job):
-        p, sh = job
+        i, sh = job
         aff, vals, counts = merge_shard_delta(
-            reducer, stores[p], p, n_parts, sh["k2"], sh["mk"], sh["v2"],
-            sh["sign"], device=device)
-        return p, aff, vals, counts
+            reducer, stores[i], ids[i], n_parts, sh["k2"], sh["mk"],
+            sh["v2"], sh["sign"], device=device)
+        return ids[i], aff, vals, counts
 
     if workers == 0:
         workers = min(8, os.cpu_count() or 1, len(jobs))

@@ -37,8 +37,11 @@ the git-ignored ``build/dryrun/<arch>__<shape>__h100x1__<tag>.json``.
   python -m repro_torch.launch.dryrun --arch chameleon_34b --shape \\
       train_4k --tag remat_dots --set remat=dots
 
-A mesh of cards (``--multi-pod``) waits for the rank-per-card exchange
-(ROADMAP.md Queue 1, item 21).
+``--multi-pod`` (the reference's 2 x 16 x 16 mesh) raises: the ranks and
+their exchange exist (``repro_torch.core.distributed.RankMesh``,
+``launch.mesh.make_production_mesh``), but the port has no GSPMD, so the
+LM itself is not sharded across cards; only the MoE's ``a2a`` layer
+splits its experts over ranks (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -268,7 +271,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported: a mesh of cards is item 21")
+                    help="not ported: the LM is not sharded across "
+                         "cards")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--tag", default="baseline")
     ap.add_argument("--skip-existing", action="store_true")
@@ -280,8 +284,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.multi_pod:
         raise NotImplementedError(
-            "--multi-pod: a mesh of cards needs one process per card, the "
-            "rank-per-card exchange of ROADMAP.md Queue 1 item 21")
+            "--multi-pod: the LM sharded across cards is not ported (the "
+            "port has no GSPMD; ranks and the MoE's a2a layer exist, but "
+            "every other weight would be replicated on each card); see "
+            "ROADMAP.md Queue 1")
     import repro_torch.configs as C
     if args.all:
         cells = C.all_cells()

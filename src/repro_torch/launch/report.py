@@ -9,14 +9,16 @@ go to the file ``--out`` names:
 
 A variant is a record written under its own tag with its config changed
 through ``--set``; the port's variants are the ``remat`` modes (the
-reference's ``a2a`` variants wait for the MoE's ``a2a`` path, ROADMAP.md
-item 27, and its blockwise ones have no meaning here: every cache-less
-attention runs the flash kernel).  Make them with
+reference's ``a2a`` variants dry-run a GSPMD-sharded step across chips,
+which the port does not build: its ``a2a`` layer runs on ranks, see
+``repro_torch.launch.ranks``; its blockwise ones have no meaning here:
+every cache-less attention runs the flash kernel).  Make them with
 
   python -m repro_torch.launch.dryrun --arch chameleon_34b --shape \\
       train_4k --tag remat_dots --set remat=dots
 
-The reference's multi-pod summary waits for a mesh of cards (item 21).
+The reference's multi-pod summary waits for the LM sharded across
+cards (ROADMAP.md Queue 1).
 
   python -m repro_torch.launch.report --out build/dryrun/REPORT.md
 """

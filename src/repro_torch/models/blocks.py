@@ -40,16 +40,21 @@ the normed latent [B, T, kv_lora_rank] and the roped ``k_rope`` [B, T,
 rope] in the compute dtype, and the scores are taken in latent space in
 float32.
 
-MoE is the reference's ``gather`` implementation (``apply_moe_gather``,
-its default ``moe_impl``): a float32 softmax router, top-k (ties to the
-lower expert id, as ``jax.lax.top_k``), gates renormalised, each (token,
-k) slot placed in its expert's buffer of ``moe_capacity`` slots in
-token-major order, slots past it dropped, two batched products over all
-experts, the weighted gather back, and the shared expert.  The routing
+MoE takes the reference's two paths, chosen as its ``apply_moe``
+chooses.  ``gather`` (:func:`apply_moe_gather`, the default ``moe_impl``):
+a float32 softmax router, top-k (ties to the lower expert id, as
+``jax.lax.top_k``), gates renormalised, each (token, k) slot placed in its
+expert's buffer of ``moe_capacity`` slots in token-major order, slots past
+it dropped, two batched products over all experts, the weighted gather
+back, and the shared expert.  ``a2a`` (:func:`apply_moe_a2a`, with
+``moe_impl="a2a"`` and an ambient ``RankMesh`` that has every ``ep_axes``
+axis, ``repro_torch.models.meshctx``): each rank routes its own block of
+tokens, buckets the (token, k) slots by the rank that holds their expert,
+exchanges them (and back) over the EP axes with ``all_to_all_single``, and
+runs only its ``num_experts / P`` experts.  The routing
 (:func:`moe_route`) is looked up by name at every call, so that a probe
 can wrap it to record the chosen experts without a cost to the serving
-path.  ``moe_impl="a2a"`` (experts exchanged over a mesh) is not ported:
-ROADMAP.md Queue 1 item 27.
+path.
 """
 from __future__ import annotations
 
@@ -428,8 +433,27 @@ def moe_slots(eid: torch.Tensor, num_experts: int) -> torch.Tensor:
 
 
 def apply_moe(cfg: ModelConfig, p, x):
-    """The MoE FFN on ``x`` [B, S, d] (the reference's ``gather``
-    implementation; see the module note).  Returns x + y."""
+    """The MoE FFN on ``x`` [B, S, d]: :func:`apply_moe_a2a` when
+    ``cfg.moe_impl`` is ``"a2a"`` and the ambient mesh has every
+    ``ep_axes`` axis, else :func:`apply_moe_gather` (the reference's
+    choice).  Returns x + y."""
+    if cfg.moe_impl == "a2a":
+        from repro_torch.models.meshctx import get_mesh
+        mesh = get_mesh()
+        if mesh is not None and all(a in mesh.shape
+                                    for a in cfg.moe.ep_axes):
+            return apply_moe_a2a(cfg, p, x, mesh)
+    if p.w_in.shape[0] != cfg.moe.num_experts:
+        raise ValueError(
+            f"the layer holds {p.w_in.shape[0]} of {cfg.moe.num_experts} "
+            f"experts (an expert-parallel slice): it runs only through "
+            f"moe_impl='a2a' under a mesh that has {cfg.moe.ep_axes}")
+    return apply_moe_gather(cfg, p, x)
+
+
+def apply_moe_gather(cfg: ModelConfig, p, x):
+    """The MoE FFN on ``x`` [B, S, d], the reference's ``gather``
+    implementation (see the module note).  Returns x + y."""
     mo = cfg.moe
     b, s, d = x.shape
     e, kk = mo.num_experts, mo.top_k
@@ -455,6 +479,128 @@ def apply_moe(cfg: ModelConfig, p, x):
         hs = swiglu(tokens @ p.shared_in.to(tokens.dtype))
         y = y + hs @ p.shared_out.to(hs.dtype)
     return x + y.view(b, s, d)
+
+
+def a2a_slots(cfg: ModelConfig, eid: torch.Tensor, p_ep: int):
+    """The a2a path's bucketing of the (token, k) slots of ``eid`` [n, K]
+    by destination rank ``eid // (E / p_ep)``, as the reference's
+    ``local_moe``: ``order`` (a stable sort of the destinations), the
+    sorted destinations, each sorted slot's rank within its destination
+    (position minus ``searchsorted(..., "left")``), ``ok`` (rank below the
+    per-destination capacity) and the capacity, ``int(n K cf) // p_ep +
+    1`` floored at ``min(n K, 32)``."""
+    mo = cfg.moe
+    n, kk = eid.shape
+    cap = int(n * kk * mo.capacity_factor) // p_ep + 1
+    cap = max(cap, min(n * kk, 32))
+    dest = (eid // (mo.num_experts // p_ep)).reshape(-1)
+    order = torch.sort(dest, stable=True).indices
+    sdest = dest[order]
+    rank = torch.arange(n * kk, device=eid.device) - torch.searchsorted(
+        sdest, sdest, side="left")
+    return order, sdest, rank, rank < cap, cap
+
+
+def _block_of(n: int, parts: int, i: int, what: str) -> slice:
+    if n % parts:
+        raise ValueError(f"the a2a path splits {what} {n} over {parts} "
+                         f"ranks: it must divide")
+    return slice(i * (n // parts), (i + 1) * (n // parts))
+
+
+def a2a_block(cfg: ModelConfig, mesh, b: int, s: int, rank=None):
+    """The (batch, sequence) slices of a [b, s, ...] activation that a rank
+    (this one by default) works on in the a2a path: the reference's
+    ``in_specs``, batch split over the ``cfg.sharding.batch`` axes the
+    mesh has, sequence over ``"model"``."""
+    batch_axes = tuple(a for a in cfg.sharding.batch if a in mesh.shape)
+    nb = 1
+    for a in batch_axes:
+        nb *= mesh.shape[a]
+    seq = ("model",) if "model" in mesh.shape else ()
+    ns = mesh.shape["model"] if seq else 1
+    return (_block_of(b, nb, mesh.index(batch_axes, rank), "the batch"),
+            _block_of(s, ns, mesh.index(seq, rank), "the sequence"))
+
+
+def apply_moe_a2a(cfg: ModelConfig, p, x, mesh):
+    """The expert-parallel MoE on ``x`` [B, S, d] over ``mesh`` (a
+    ``RankMesh``), op for op the reference's ``apply_moe_a2a``.
+
+    Every rank takes the whole ``x`` and returns the whole ``x + y``, as
+    the reference's function does at its global view.  Inside, a rank
+    works on the token block the reference's ``in_specs`` give it (batch
+    split over the ``cfg.sharding.batch`` axes the mesh has, sequence over
+    ``"model"``): the float32 router and top-k (:func:`moe_route`), gates
+    renormalised, the slots bucketed by destination rank
+    (:func:`a2a_slots`) into a ``[P_ep, cap, d]`` send buffer with their
+    expert ids (-1 in empty slots), two exchanges out over the EP axes and
+    one back (``RankMesh.all_to_all``, a group for each coordinate off
+    them), each of the rank's ``E / P_ep`` experts' SwiGLU products on the
+    capacity buffer masked to its slots, the combine by slot and gate, and
+    the blocks of y brought together with ``all_gather``; then the shared
+    expert on every token.  ``p.w_in`` / ``p.w_out`` hold only this rank's
+    experts (``params_from_numpy(..., ep=...)``).
+
+    As in the reference's scatter (XLA applies a scatter's updates in
+    order), the slots that do not fit write an empty slot to destination
+    0's slot 0 after its token did: with any slot dropped, that token's
+    slot goes empty too.
+    """
+    mo = cfg.moe
+    b, s, d = x.shape
+    ep_axes = tuple(a for a in mo.ep_axes if a in mesh.shape)
+    p_ep = 1
+    for a in ep_axes:
+        p_ep *= mesh.shape[a]
+    e_loc = mo.num_experts // p_ep
+    if p.w_in.shape[0] != e_loc:
+        raise ValueError(f"{p_ep} EP ranks hold {e_loc} experts each; the "
+                         f"layer holds {p.w_in.shape[0]}")
+    xn = rms_norm(x, p.norm, cfg.norm_eps)
+    bsl, ssl = a2a_block(cfg, mesh, b, s)
+    toks = xn[bsl, ssl].reshape(-1, d)
+    n, kk = toks.shape[0], mo.top_k
+    gate, eid = moe_route(cfg, p.router, toks)
+    order, sdest, rank, ok, cap = a2a_slots(cfg, eid, p_ep)
+    row = torch.where(ok, sdest, 0)
+    col = torch.where(ok, rank, 0)
+    send = toks.new_zeros((p_ep, cap, d))
+    send_eid = torch.full((p_ep, cap), -1, dtype=torch.int32,
+                          device=toks.device)
+    send[row[ok], col[ok]] = toks[order[ok] // kk]
+    send_eid[row[ok], col[ok]] = eid.reshape(-1)[order[ok]].to(torch.int32)
+    if not bool(ok.all()):
+        send[0, 0] = 0
+        send_eid[0, 0] = -1
+
+    rt = mesh.all_to_all(send, ep_axes)                  # [p_ep * cap, d]
+    local_e = mesh.all_to_all(send_eid, ep_axes) - mesh.index(ep_axes) * e_loc
+    out = torch.zeros_like(rt)
+    for le in range(e_loc):
+        sel = (local_e == le)[:, None]
+        h = swiglu(torch.where(sel, rt, 0) @ p.w_in[le].to(rt.dtype))
+        out = out + torch.where(sel, h @ p.w_out[le].to(h.dtype), 0)
+    back = mesh.all_to_all(out.view(p_ep, cap, d), ep_axes)
+
+    last = p_ep * cap - 1
+    slot_of = torch.full((n * kk,), last, dtype=torch.int64,
+                         device=toks.device)
+    slot_of[order] = torch.where(ok, sdest * cap + rank, last)
+    ok_slot = torch.zeros(n * kk, dtype=torch.bool, device=toks.device)
+    ok_slot[order] = ok
+    gathered = back[slot_of]
+    w = (gate.reshape(-1) * ok_slot).to(gathered.dtype)
+    y_loc = (gathered * w[:, None]).view(n, kk, d).sum(dim=1)
+    y = torch.empty_like(x)
+    blocks = mesh.all_gather(y_loc.view(x[bsl, ssl].shape))
+    for r in range(mesh.world):
+        y[a2a_block(cfg, mesh, b, s, r)] = blocks[r]
+    if mo.num_shared:
+        flat = xn.reshape(b * s, d)
+        hs = swiglu(flat @ p.shared_in.to(flat.dtype))
+        y = y + (hs @ p.shared_out.to(hs.dtype)).view(b, s, d)
+    return x + y
 
 
 # ---------------------------------------------------------------------------

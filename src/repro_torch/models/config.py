@@ -6,16 +6,19 @@ times, then ``remainder_blocks``) after optional ``prefix_blocks``.  The
 fields keep the reference's names and defaults, so that ``cfg.replace``
 takes the same keywords; ``dtype()`` returns torch dtypes.
 
-Not carried over: ``ShardingRules`` and the ``sharding`` field (one card,
-no mesh), ``scan_layers`` and ``moe_impl`` (the port's MoE is the
-reference's default, ``gather``; ``a2a`` needs a mesh: ROADMAP.md item
-27).
-``MoEConfig``, ``MLAConfig`` and ``RGLRUConfig`` are the reference's.
-``attn_impl``, ``attn_block`` and ``MoEConfig``'s ``ep_axes`` and
-``router_dtype`` are kept so that ``replace`` takes the reference's
-keywords, and nothing reads them: every cache-less attention runs the
-flash kernel whatever they say (``repro_torch.models.blocks.attend``), and
-the router runs in float32, as the reference's.
+``ShardingRules``, ``MoEConfig``, ``MLAConfig`` and ``RGLRUConfig`` are
+the reference's.  ``moe_impl`` picks the MoE's path as the reference's
+does: ``"gather"`` (the default) or ``"a2a"``, the expert-parallel
+exchange over ``MoEConfig.ep_axes`` of the ambient ``RankMesh``
+(``repro_torch.models.meshctx``).  Of ``ShardingRules`` only ``batch``
+is read (the token blocks of ``a2a``): the port has no GSPMD, so the rest
+of the model runs replicated on every rank.  Not carried over:
+``scan_layers`` (the stack is a ``ModuleList``).  ``attn_impl``,
+``attn_block`` and ``MoEConfig``'s ``router_dtype`` are kept so that
+``replace`` takes the reference's keywords, and nothing reads them: every
+cache-less attention runs the flash kernel whatever they say
+(``repro_torch.models.blocks.attend``), and the router runs in float32,
+as the reference's.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ class MoEConfig:
     d_ff_expert: int
     num_shared: int = 0            # shared (always-on) experts
     d_ff_shared: int = 0
-    ep_axes: Tuple[str, ...] = ("model",)      # inert (see above)
+    ep_axes: Tuple[str, ...] = ("model",)      # the a2a exchange's axes
     capacity_factor: float = 1.25
     router_dtype: str = "float32"              # inert
 
@@ -58,6 +61,26 @@ class RGLRUConfig:
     d_rnn: int = 2560
     conv_width: int = 4
     block_width: int = 2560        # lru gate width
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """Logical tensor axes -> mesh axis names (None = replicated), the
+    reference's fields and defaults.  The port reads ``batch`` alone (the
+    a2a path's token blocks); the others name a GSPMD layout the port does
+    not build."""
+    batch: Tuple[str, ...] = ("pod", "data")
+    seq: Optional[str] = None
+    heads: Optional[str] = "model"
+    kv_heads: Optional[str] = "model"
+    d_model: Optional[str] = None
+    d_ff: Optional[str] = "model"
+    vocab: Optional[str] = "model"
+    expert: Tuple[str, ...] = ("model",)
+    kv_seq: Optional[str] = None
+
+
+MOE_IMPLS = ("gather", "a2a")
 
 
 @dataclass(frozen=True)
@@ -94,11 +117,14 @@ class ModelConfig:
     opt_dtype: str = "float32"              # read nowhere, as in the
     #                                         reference: AdamWConfig decides
     remat: str = "full"                     # full | dots | none
+    moe_impl: str = "gather"                # gather | a2a (see above)
     attn_impl: str = "dense"                # inert (see above)
     attn_block: int = 1024                  # inert
     loss_chunk: int = 0                     # 0 = unchunked cross-entropy
     norm_eps: float = 1e-6
     post_norms: bool = False                # gemma2 pre+post norms
+    sharding: ShardingRules = dataclasses.field(
+        default_factory=ShardingRules)
 
     def __post_init__(self):
         for which in ("param", "compute", "opt"):
@@ -108,6 +134,9 @@ class ModelConfig:
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got "
                              f"{self.remat!r}")
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
+                             f"{self.moe_impl!r}")
 
     # ---- derived -------------------------------------------------------
     @property

@@ -72,6 +72,12 @@ def is_mla(cfg: ModelConfig, kind: str) -> bool:
                                    cfg.mla is not None)
 
 
+def is_expert_leaf(name: str) -> bool:
+    """Whether a parameter is stacked on the experts (``moe.w_in``,
+    ``moe.w_out``): what an expert-parallel rank holds a slice of."""
+    return ".moe.w_" in name
+
+
 def _check_decoder(cfg: ModelConfig) -> None:
     if not cfg.causal:
         raise ValueError(
@@ -148,12 +154,23 @@ class LM(nn.Module):
     inputs come embedded; ``mtp_proj``, ``mtp_block``, ``mtp_norm`` with
     ``cfg.mtp``), built from tensors named as :func:`plan_model`
     names them; any leaf missing, left over or of another shape raises.
-    The parameters take gradients only when ``trainable``."""
+    The parameters take gradients only when ``trainable``.  ``ep_size`` >
+    1: the MoE layers hold ``num_experts / ep_size`` experts, a rank's
+    slice for the ``a2a`` path (``transfer.params_from_numpy(...,
+    ep=...)``)."""
 
     def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor],
-                 trainable: bool = False):
+                 trainable: bool = False, ep_size: int = 1):
         super().__init__()
         plan = plan_model(cfg)
+        if ep_size > 1:
+            if cfg.moe is None or cfg.moe.num_experts % ep_size:
+                raise ValueError(f"ep_size {ep_size} must divide the "
+                                 f"experts of {cfg.name}")
+            plan = {n: (s._replace(shape=(s.shape[0] // ep_size,)
+                                   + tuple(s.shape[1:]))
+                        if is_expert_leaf(n) else s)
+                    for n, s in plan.items()}
         missing = sorted(plan.keys() - tensors.keys())
         extra = sorted(tensors.keys() - plan.keys())
         if missing or extra:

@@ -12,7 +12,8 @@ the port's flat names (``layers.<i>.<path>``, ``mtp_block.<path>``) and
 :func:`to_reference_tree` stacks them back.  On top of them:
 
 - :func:`params_from_numpy` / :func:`params_to_numpy`: the model, every
-  leaf copied bit for bit.  bfloat16 goes through its 16-bit pattern:
+  leaf copied bit for bit (with ``ep=(index, size)``, only the experts of
+  EP rank ``index`` of ``size``, for the MoE's ``a2a`` path).  bfloat16 goes through its 16-bit pattern:
   in, an array of ``ml_dtypes.bfloat16`` (``jax.tree.map(np.asarray,
   params)``), a uint16 array of the patterns, or a torch tensor; out, the
   uint16 patterns.  A leaf missing, left over, of another shape or of
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch.models.common import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, is_expert_leaf
 from repro_torch.tree import tree_map
 
 _TOP = ("embed", "final_norm", "head", "mtp_proj", "mtp_norm")
@@ -148,13 +149,23 @@ def numpy_of(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
-                      device="cuda", trainable: bool = False) -> LM:
-    """The port's model holding the reference tree's weights."""
+                      device="cuda", trainable: bool = False,
+                      ep=None) -> LM:
+    """The port's model holding the reference tree's weights.  ``ep``
+    ``(index, size)``: each MoE layer keeps experts ``index * E / size``
+    up to ``(index + 1) * E / size`` (rank ``index`` of the ``size`` EP
+    ranks), so that no rank copies the others'."""
     dev = resolve_device(device)
     dtype = cfg.dtype("param")
     flat = from_reference_tree(cfg, tree)
+    size = 1
+    if ep is not None:
+        index, size = ep
+        e_loc = cfg.moe.num_experts // size
+        flat = {n: a[index * e_loc:(index + 1) * e_loc]
+                if is_expert_leaf(n) else a for n, a in flat.items()}
     return LM(cfg, {n: tensor_of(a, dtype, n).to(dev)
-                    for n, a in flat.items()}, trainable)
+                    for n, a in flat.items()}, trainable, ep_size=size)
 
 
 def params_to_numpy(cfg: ModelConfig, model: LM) -> Dict[str, Any]:

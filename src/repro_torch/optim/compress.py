@@ -7,11 +7,18 @@ residual stays in an error-feedback buffer added back before the next
 step (EF-SGD, Karimireddy et al., 2019).
 
 The reference runs :func:`compressed_psum` inside ``shard_map`` over a
-mesh axis.  Here the P replicas' values are stacked on a leading
-``[P, ...]`` axis, the convention of ``repro_torch.core.distributed``'s
-``LocalMesh`` (P logical shards of one device), and the all-reduce is a
-sum over that axis.  A rank-per-card version, with the reduce as an NCCL
-all-reduce, waits for the rank-per-card mesh (ROADMAP.md Queue 1 item 21).
+mesh axis.  The port takes either mesh of ``repro_torch.core.distributed``:
+
+  * no mesh (a ``LocalMesh``, P logical shards of one device): the P
+    replicas' values are stacked on a leading ``[P, ...]`` axis and the
+    all-reduce is a sum over that axis;
+  * ``mesh=RankMesh(...)``, one process a replica: each rank passes its
+    own leaf; the ranks' int8 payloads and scales are gathered
+    (``all_gather``: the int8 bytes are what crosses the wire) and every
+    rank sums their dequantized values in rank order.  That is the
+    stacked form's sum, in its order, so both give the same bits on every
+    rank (an ``all_reduce`` of the float32 values would add in the
+    backend's order, which differs from rank to rank and run to run).
 """
 from __future__ import annotations
 
@@ -35,13 +42,17 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def compressed_psum(x: torch.Tensor, err: torch.Tensor):
+def compressed_psum(x: torch.Tensor, err: torch.Tensor, mesh=None):
     """Error-feedback int8 mean of ``x`` [P, ...] over its leading axis.
 
     Replica ``r`` quantizes ``x[r] + err[r]`` with its own scale; the mean
     of the P dequantized tensors comes back on every replica.  Returns
     (the mean float32 [P, ...], the new error buffers [P, ...] in
-    ``err``'s dtype)."""
+    ``err``'s dtype).  With ``mesh`` (a ``RankMesh``), ``x`` and ``err``
+    are this rank's own leaf and buffer, the P replicas are the ranks, and
+    the mean and new buffer come back in the leaf's shape."""
+    if mesh is not None:
+        return _ranked_psum(x, err, mesh)
     if x.shape != err.shape or x.ndim < 1:
         raise ValueError(f"compressed_psum takes x and err of one shape "
                          f"[P, ...], got {tuple(x.shape)} and "
@@ -58,6 +69,20 @@ def compressed_psum(x: torch.Tensor, err: torch.Tensor):
     for part in parts[1:]:
         total = total + part
     return (total / n).expand_as(xe), new_err.to(err.dtype)
+
+
+def _ranked_psum(x: torch.Tensor, err: torch.Tensor, mesh):
+    if x.shape != err.shape:
+        raise ValueError(f"compressed_psum takes x and err of one shape, "
+                         f"got {tuple(x.shape)} and {tuple(err.shape)}")
+    xe = x.to(torch.float32) + err.to(torch.float32)
+    q, scale = quantize_int8(xe)
+    new_err = xe - dequantize_int8(q, scale)
+    qs, scales = mesh.all_gather(q), mesh.all_gather(scale)
+    total = dequantize_int8(qs[0], scales[0])
+    for r in range(1, mesh.world):
+        total = total + dequantize_int8(qs[r], scales[r])
+    return total / mesh.world, new_err.to(err.dtype)
 
 
 def init_error_buffers(grads: Any, dtype=torch.bfloat16):

@@ -19,6 +19,7 @@ of the largest |logit| in float32 and 3e-2 in bf16 on body matrices at
 1/sqrt(input width); the loss within 1e-5 and every gradient leaf within
 1e-4 of its largest |value|; weights bit for bit.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -132,7 +133,12 @@ def models():
 def test_config_matches_reference(arch):
     t, j = TC.get(arch), JC.get(arch)
     for f in ModelConfig.__dataclass_fields__:
-        assert getattr(t, f) == getattr(j, f), (arch, f)
+        want = getattr(j, f)
+        if dataclasses.is_dataclass(want):       # sharding: by value
+            assert dataclasses.asdict(getattr(t, f)) == \
+                dataclasses.asdict(want), (arch, f)
+        else:
+            assert getattr(t, f) == want, (arch, f)
     assert TC.get(arch.replace("_", "-")) is t
     assert [c.name for c in TC.shape_cells(t)] == \
         [c.name for c in JC.shape_cells(j)]

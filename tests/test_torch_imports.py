@@ -62,7 +62,8 @@ def test_import_leaves_jax_out():
             "repro_torch.launch.train, repro_torch.configs.recurrentgemma_2b, "
             "repro_torch.configs.xlstm_125m, repro_torch.launch.mesh, "
             "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
-            "repro_torch.launch.report; "
+            "repro_torch.launch.report, repro_torch.launch.ranks, "
+            "repro_torch.models.meshctx; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

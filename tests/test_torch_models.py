@@ -11,6 +11,7 @@ The reference's Pallas flash kernel cannot run under the installed JAX
 (``repro/kernels/flash_attention.py`` calls ``pl.load``, which JAX 0.9.0
 lacks), so the attention oracle is ``repro.kernels.ref.mha_ref``.
 """
+import dataclasses
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -375,7 +376,12 @@ def test_configs_match_reference():
     for arch in ARCHS:
         t, j = TC.get(arch), JC.get(arch)
         for f in ModelConfig.__dataclass_fields__:
-            assert getattr(t, f) == getattr(j, f), (arch, f)
+            want = getattr(j, f)
+            if dataclasses.is_dataclass(want):   # sharding: by value
+                assert dataclasses.asdict(getattr(t, f)) == \
+                    dataclasses.asdict(want), (arch, f)
+            else:
+                assert getattr(t, f) == want, (arch, f)
         assert t.dtype("compute") == torch.bfloat16
     assert TC.get("qwen3-1.7b").name == "qwen3-1.7b"
     for arch in ("deepseek_v3_671b", "llama4_scout_17b_a16e"):

@@ -111,7 +111,7 @@ Runs on one CUDA card, from the root of a checkout:
      ``parity_model``: RecurrentGemma 2B (RG-LRU, local MQA attention at
      hd 256: 8 flash launches a prefill) two prefills of 2 x 8192 tokens,
      xLSTM 125M (mLSTM and sLSTM stepped a token at a time) two of 2 x
-     4096, each then phase 5's decode; one more prefill and decode step
+     2048, each then phase 5's decode; one more prefill and decode step
      profiled for the kernels each launches; the decode-versus-prefill
      parity in bf16 at full depth within ``parity_bound`` and in float32
      at one cycle plus the remainder within ``REC_F32_BOUND``.  Phase 2
@@ -134,8 +134,9 @@ Runs on one CUDA card, from the root of a checkout:
      (H = KH 128, q.k 192, v 128) and Llama 4's (H 40, KH 8) and times
      them beside SDPA.
 
- 14. runs the dry-run (``repro_torch.launch.dryrun --all``, one process a
-     core): every (arch x shape) cell's step once on ``meta`` tensors under
+ 14. runs the dry-run (``repro_torch.launch.dryrun --all``, started in
+     the background before phase 3 in two processes at nice 19, waited for
+     here): every (arch x shape) cell's step once on ``meta`` tensors under
      ``FlopCounterMode`` and a byte and live-memory count, then prints
      ``launch.roofline --md``'s table against one H100's constants
      (modeled, not measured); then (b) three cells the card runs (phase 10
@@ -164,6 +165,29 @@ Runs on one CUDA card, from the root of a checkout:
      ids and kept slots equal at capacity 16, and the dropped slots of
      each at the config's 1.25; (d) ``compressed_psum`` on 4 ranks bitwise
      equal to the stacked form.
+ 16. trains the MoE and recurrent archs: (a) the attention gradient
+     (flash forward, the dense formula's backward) on the card against
+     the CPU in float32 at MLA's pairs of head dims, (q.k 96, v 64) on
+     DeepSeek-V3 --preset 100m's 12 heads and (192, 128) on 2; (b) 3 train
+     steps of DeepSeek-V3 and Llama 4 Scout at --preset 100m cut to 4
+     layers (MTP on) and of RecurrentGemma's and xLSTM's smoke configs
+     (the mLSTM loop in checkpointed chunks of 16 of S 64), float32,
+     remat full, on the card against the CPU within phase 10's bounds
+     (but the parameter elements whose Adam step's sign rounding decides,
+     held to two steps of lr: ``STEP_ZERO_LEAF``'s note), the MoE layers'
+     routing flips between the two printed step by step;
+     (c) full width, bf16, AdamW moments float32, remat full, loss_chunk
+     512, 1 warm-up and 2 timed steps: Llama 4 Scout at 1 of 48 layers
+     (4.27e9 parameters; B 2 x S 4096 where the dry-run on ``meta``
+     predicts a peak under 76 GB, AdamW's update of the largest leaves in
+     slices), RecurrentGemma 2B B 2 x S 4096, xLSTM 125M B 2 x S 128 (and
+     one step with the mLSTM loop whole, for its peak): ms a step,
+     tokens/s, peak memory, losses, flash launches, the 6 N_active T
+     bound; (d) ``launch.train.train`` of DeepSeek-V3 at --preset 100m
+     (flash at (96, 64) in bf16) failed at step 3 and resumed, bitwise.
+     DeepSeek-V3 at full width does not fit one card (a ``CUT`` line).
+     Phase 2 holds flash at (96, 64) in both dtypes and times
+     ``FLASH_MLA_100M`` beside SDPA.
 
 The kernels' launch counts are set to 0 before each path and read after
 it (phase 15: in each rank, around each of its jobs).  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
@@ -177,6 +201,7 @@ JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import math
@@ -299,6 +324,10 @@ FLASH_RECURRENTGEMMA_WINDOW = 2048
 # 4 B H hd S(S+1)/2, 1.390 ms)
 FLASH_MLA = (2, 128, 128, 4096, 192, 128)        # B, H, KH, S, hd, vd
 FLASH_LLAMA4 = (2, 40, 8, 8192, 128, 128)
+# phase 16 (d)'s layer: DeepSeek-V3 at --preset 100m (H = KH 12, q.k 64 +
+# 32 rope columns, v 64), B 8 x S 1024; bound by bytes: 63 MB of q, k, v
+# and o, 0.019 ms at 3.35 TB/s (operations 1.6e10 FLOP, 0.016 ms)
+FLASH_MLA_100M = (8, 12, 12, 1024, 96, 64)
 # label, shape, causal: the layers timed after the main shape
 FLASH_LAYERS = (("hd128", FLASH_QWEN, True), ("hd80", FLASH_HUBERT, False),
                 ("hd160", FLASH_STABLELM, True),
@@ -1010,7 +1039,8 @@ def time_flash_recurrentgemma(dev, gen) -> dict:
 
 def time_flash_moe(dev, gen, shape) -> dict:
     """Phase 13's layer at ``shape`` (``FLASH_MLA``: q.k head dim 192, v
-    128; ``FLASH_LLAMA4``: H / KH 5), bf16, causal: held within
+    128; ``FLASH_LLAMA4``: H / KH 5), or phase 16's (``FLASH_MLA_100M``:
+    q.k 96, v 64), bf16, causal: held within
     ``flash_bound`` at q std 1 and 20, timed beside its plain version and
     ``scaled_dot_product_attention`` (which takes a v head dim of its own;
     ``library_ms`` None, and the reason in ``library``, where it
@@ -1057,7 +1087,8 @@ def time_flash_moe(dev, gen, shape) -> dict:
 
 def check_flash_attention(dev, rng) -> None:
     """The flash kernel against its plain version: float32 and bf16, head
-    dims 64, 128, 256 and MLA's pair (q.k 192, v 128); KH = H, H/2, 1; S of
+    dims 64, 128, 256 and MLA's pairs (q.k 192, v 128; q.k 96, v 64: its
+    32-column boxes, V's count of them not Q's); KH = H, H/2, 1; S of
     1, 100 and 333 (no multiple of either dtype's tile); causal and not;
     windows under one tile; softcap on and off; q at std 1 and 20.  Then
     Qwen3-1.7B's heads (hd 128, H 16, KH 8) at S of 1, 127, 128, 129
@@ -1075,7 +1106,8 @@ def check_flash_attention(dev, rng) -> None:
                dict(causal=True, window=20, softcap=50.0),
                dict(causal=False), dict(causal=False, window=100,
                                         softcap=30.0))
-    shapes = [(8, hd, kh, s, options) for hd in (64, 128, 256, (192, 128))
+    shapes = [(8, hd, kh, s, options)
+              for hd in (64, 128, 256, (192, 128), (96, 64))
               for kh in (8, 4, 1) for s in (1, 100, 333)]
     qwen = options + (dict(causal=True, window=50),)
     shapes += [(16, 128, 8, s, qwen) for s in (1, 127, 128, 129, 200)]
@@ -1107,8 +1139,8 @@ def check_flash_attention(dev, rng) -> None:
                             f"bound {rel} (|plain| + A)")
                     worst = max(worst, err)
                     worst_share = max(worst_share, share)
-        log(f"  flash_attention {dtype}: q std 1/20, hd 64/128/256 and "
-            f"q.k 192 / v 128, KH 8/4/1 "
+        log(f"  flash_attention {dtype}: q std 1/20, hd 64/128/256, "
+            f"q.k 192 / v 128 and q.k 96 / v 64, KH 8/4/1 "
             f"of H 8, S 1/100/333, causal or not, window 20/100, softcap "
             f"0/30/50; hd 128 H 16 KH 8 at S 1/127/128/129/200, window "
             f"20/50; hd 80/160, KH 8/4/1 of H 8, S 1/63/64/65/100/127/128/129/"
@@ -1217,10 +1249,11 @@ def time_flash_attention(dev) -> dict:
     res["hd256_recurrentgemma"] = time_flash_recurrentgemma(dev, gen)
     res["mla"] = time_flash_moe(dev, gen, FLASH_MLA)
     res["llama4"] = time_flash_moe(dev, gen, FLASH_LLAMA4)
+    res["mla100m"] = time_flash_moe(dev, gen, FLASH_MLA_100M)
     a, g, c = (res[n] for n in ("local", "global", "softcap0"))
     dims = {f"{key}_{label}": res[label][key]
             for label in [lb for lb, _, _ in FLASH_LAYERS]
-            + ["hd256_recurrentgemma", "mla", "llama4"]
+            + ["hd256_recurrentgemma", "mla", "llama4", "mla100m"]
             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return dict(
         shape=("B={} H={} KH={} S={} hd={} bf16, causal, softcap 50, q std "
@@ -1235,8 +1268,11 @@ def time_flash_attention(dev) -> dict:
             "share_of_bound"],
         share_of_bound_mla=res["mla"]["share_of_bound"],
         share_of_bound_llama4=res["llama4"]["share_of_bound"],
+        share_of_bound_mla100m=res["mla100m"]["share_of_bound"],
         library_mla=res["mla"]["library"],
         library_llama4=res["llama4"]["library"],
+        library_mla100m=res["mla100m"]["library"],
+        bound_by_mla100m=res["mla100m"]["bound_by"],
         ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
         bound_by=g["bound_by"], library_ms=c["library_ms"],
         ms_local=a["ms"], plain_ms_local=a["plain_ms"],
@@ -1262,7 +1298,9 @@ def time_flash_attention(dev) -> dict:
               "1, H 64, KH 8, S 4096, causal); softcap 0, library: SDPA; "
               "*_mla: DeepSeek-V3's MLA layer (B 2, H = KH 128, S 4096, "
               "q.k 192, v 128, causal), *_llama4: Llama 4 Scout's (B 2, H "
-              "40, KH 8, S 8192, hd 128, causal), both held at q std 1 and "
+              "40, KH 8, S 8192, hd 128, causal), *_mla100m: DeepSeek-V3's "
+              "at --preset 100m (B 8, H = KH 12, S 1024, q.k 96, v 64, "
+              "causal; bound by bytes), each held at q std 1 and "
               "20, library: SDPA (library_*: which call, or none); "
               "share_of_bound: the largest |kernel - "
               "plain| / (2^-7 "
@@ -2428,6 +2466,19 @@ STEP_SHAPE, STEP_CHUNK, STEP_COUNT = (2, 64), 16, 3
 STEP_OPT = dict(lr=3e-4, warmup=1, total_steps=10)
 STEP_TOL = 1e-5
 STEP_PARAM_TOL = STEP_OPT["lr"] / 10
+# Phase 16 (b): at --preset 100m (vocab 32,768, d 768) enough elements sit
+# at that floor that some step opposite ways on two summation orders of
+# one device: two CPU runs of DeepSeek-V3's 3 steps, 1 and 7 BLAS threads,
+# part by 2.3e-4 (Llama 4 Scout's by 7.9e-5: its top-1 gate is p / p = 1,
+# so its router's whole gradient is rounding; tools/train_probes.py
+# spread).  There an element is
+# undecided where the CPU's gradient in some step is within STEP_TOL of
+# its leaf's largest (the grad norm's own bound), or its whole leaf is
+# below STEP_ZERO_LEAF of the model's largest gradient: its Adam step's
+# sign is rounding's.  Decided elements are held to STEP_PARAM_TOL
+# (measured 1.6e-5 and 2.4e-6 between those CPU runs), undecided ones to
+# two steps of lr a step, the most two runs of Adam can part.
+STEP_ZERO_LEAF = 1e-7
 # (c) Qwen3-1.7B at full width (configs/qwen3_1_7b.py), bf16, remat full,
 # loss_chunk 512, B 2 x S 4096 (8,192 tokens a step): 1 warm-up step, 4
 # timed, 1 profiled
@@ -2443,62 +2494,197 @@ RESTART = dict(steps=6, global_batch=8, seq_len=256, log_every=1)
 RESTART_FAIL_AT, RESTART_EVERY = 3, 2
 
 
-def grad_check(dev, rng) -> list:
-    """(a): q, k, v gradients through ``blocks.attend`` on the card and on
-    the CPU; flash launches rise by one a forward."""
+def attn_grad_check(dev, rng, tag: str, label: str, cfg, h: int, kh: int,
+                    hd: int, vd: int, window: int = 0) -> float:
+    """q [B, S, h, hd], k [B, S, kh, hd], v [B, S, kh, vd] gradients through
+    ``blocks.attend`` (``cfg``'s mask and softcap) on the card and on the
+    CPU, within ``GRAD_REL`` of each one's largest value on the CPU; flash
+    launches rise by one a forward on the card.  Returns the largest of
+    the three errors."""
     import torch
-    import repro_torch.configs as C
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import blocks
-    out = []
     b, s = GRAD_SHAPE
+    host = [torch.from_numpy(rng.normal(0, std, (b, s, n, d)).astype(
+        np.float32)) for std, n, d in ((GRAD_Q_STD, h, hd), (1.0, kh, hd),
+                                       (1.0, kh, vd), (1.0, h, vd))]
+    grads = {}
+    for where in (dev, torch.device("cpu")):
+        q, k, v = (t.to(where).requires_grad_() for t in host[:3])
+        before = flash_attention.launches
+        o = blocks.attend(cfg, q, k, v, window)
+        launched = flash_attention.launches - before
+        grads[where.type] = torch.autograd.grad(o, (q, k, v),
+                                                host[3].to(where))
+        if launched != (1 if where.type == "cuda" else 0):
+            raise AssertionError(f"{label}: {launched} flash launches for "
+                                 f"one forward on {where}")
+    errs = []
+    for name, got, want in zip("qkv", grads[dev.type], grads["cpu"]):
+        err = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+        errs.append(err)
+        if not err <= GRAD_REL:
+            raise AssertionError(f"{label}: d{name} on the card {err:.3g} of "
+                                 f"its max from the CPU's (bound "
+                                 f"{GRAD_REL})")
+    log(f"  [{tag}] (a) attention gradient, {label}, B {b} S {s} H "
+        f"{h}/{kh}: max |card - cpu| / max |cpu| dq {errs[0]:.3g}, dk "
+        f"{errs[1]:.3g}, dv {errs[2]:.3g} (bound {GRAD_REL}); one flash "
+        f"launch a forward, none in the backward")
+    return max(errs)
+
+
+def grad_check(dev, rng) -> list:
+    """(a): ``attn_grad_check`` at each of ``GRAD_CASES``."""
+    import repro_torch.configs as C
+    out = []
     for label, arch, window in GRAD_CASES:
         cfg = C.get(arch).replace(param_dtype="float32",
                                   compute_dtype="float32")
-        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        host = [torch.from_numpy(rng.normal(0, std, (b, s, n, hd)).astype(
-            np.float32)) for std, n in ((GRAD_Q_STD, h), (1.0, kh),
-                                        (1.0, kh), (1.0, h))]
-        grads = {}
-        for where in (dev, torch.device("cpu")):
-            q, k, v = (t.to(where).requires_grad_() for t in host[:3])
-            before = flash_attention.launches
-            o = blocks.attend(cfg, q, k, v, window)
-            launched = flash_attention.launches - before
-            grads[where.type] = torch.autograd.grad(
-                o, (q, k, v), host[3].to(where))
-            if launched != (1 if where.type == "cuda" else 0):
-                raise AssertionError(f"{label}: {launched} flash launches "
-                                     f"for one forward on {where}")
-        errs = []
-        for name, got, want in zip("qkv", grads[dev.type], grads["cpu"]):
-            err = float((got.cpu() - want).abs().max()) / float(
-                want.abs().max())
-            errs.append(err)
-            if not err <= GRAD_REL:
-                raise AssertionError(f"{label}: d{name} on the card "
-                                     f"{err:.3g} of its max from the CPU's "
-                                     f"(bound {GRAD_REL})")
-        log(f"  [train] (a) attention gradient, {label}, B {b} S {s} H "
-            f"{h}/{kh}: max |card - cpu| / max |cpu| dq {errs[0]:.3g}, dk "
-            f"{errs[1]:.3g}, dv {errs[2]:.3g} (bound {GRAD_REL}); one flash "
-            f"launch a forward, none in the backward")
-        out.append(max(errs))
+        out.append(attn_grad_check(
+            dev, rng, "train", label, cfg, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.head_dim, window))
     return out
 
 
-def step_check(dev, seed: int) -> None:
-    """(b): 3 train steps of a smoke config on the card and on the CPU from
-    the same weights (Gemma 2's at 1/sqrt(input width), ``parity_model``:
-    its reference draw makes the smoke network chaotic)."""
+class UndecidedProbe:
+    """While open, marks the parameter elements whose Adam step direction
+    rounding decides (``STEP_ZERO_LEAF``'s note): it wraps
+    ``launch.steps.adamw_update`` (looked up by name at each train step)
+    and ORs into ``mask`` (bool, by parameter name, on the CPU) each
+    step's elements whose gradient is within ``STEP_TOL`` of its leaf's
+    largest |value|, or all of a leaf below ``STEP_ZERO_LEAF`` of the
+    step's largest gradient; ``nonzero()`` counts the elements so marked
+    in a step where their gradient was not exactly 0."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.launch import steps
+        self.mask, self.live, self._update = {}, {}, steps.adamw_update
+
+        def update(grads, *args, **kw):
+            top = max(float(g.abs().max()) for g in grads.values())
+            for n, g in grads.items():
+                a = g.detach().abs().cpu()
+                big = float(a.max())
+                und = (a <= STEP_TOL * big) if big > STEP_ZERO_LEAF * top \
+                    else torch.ones_like(a, dtype=torch.bool)
+                live = und & (a > 0)
+                if n in self.mask:
+                    und, live = und | self.mask[n], live | self.live[n]
+                self.mask[n], self.live[n] = und, live
+            return self._update(grads, *args, **kw)
+        steps.adamw_update = update
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import steps
+        steps.adamw_update = self._update
+
+    def nonzero(self) -> int:
+        return sum(int(m.sum()) for m in self.live.values())
+
+
+def steps_vs_cpu(dev, seed: int, tag: str, label: str, cfg, host,
+                 undecided: bool = False) -> None:
+    """``STEP_COUNT`` train steps of ``cfg`` (float32, remat full,
+    ``STEP_CHUNK``) from the weights of ``host`` (an ``LM`` on the CPU) on
+    the card and on the CPU, on the same batches of ``STEP_SHAPE``: the
+    losses and grad norms within ``STEP_TOL``, the parameters within
+    ``STEP_PARAM_TOL``, or it raises.  With ``undecided``, the elements
+    whose step direction rounding decides on the CPU (``UndecidedProbe``)
+    are held instead to two steps of lr a step.  An MoE config's routing
+    is recorded on both (``RoutingProbe``: each MoE layer in the forward
+    and again in the remat recompute) and the tokens whose experts differ
+    between card and CPU are printed step by step (a flip, reported, not
+    bounded)."""
+    import contextlib
     import torch
-    import repro_torch.configs as C
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
-    from repro_torch.models.config import smoke_config
-    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
     cpu = torch.device("cpu")
     b, s = STEP_SHAPE
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(STEP_COUNT):
+        toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+        batches.append({"inputs": toks[:, :-1], "targets": toks[:, 1:],
+                        "mask": rng.random((b, s)) < 0.9})
+    runs = {}
+    for where in (dev, cpu):
+        model = lm.LM(cfg, {n: p.detach().to(where).clone() for n, p in
+                            host.named_parameters()}, trainable=True)
+        opt_cfg = AdamWConfig(**STEP_OPT)
+        opt = adamw_init(dict(model.named_parameters()), opt_cfg)
+        step = make_train_step(cfg, opt_cfg, where)
+        metrics, routes = [], []
+        with (UndecidedProbe() if undecided and where == cpu
+              else contextlib.nullcontext()) as und:
+            for batch in batches:
+                with RoutingProbe() as probe:
+                    model, opt, m = step(model, opt, batch)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                routes.append([e.sort(dim=-1).values.cpu()
+                               for e in probe.eids])
+        runs[where.type] = (metrics, {n: p.detach().cpu() for n, p in
+                                      model.named_parameters()}, routes)
+    (got, gp, gr), (want, wp, wr) = runs[dev.type], runs["cpu"]
+    loss_gap = max(abs(g[0] - w[0]) for g, w in zip(got, want))
+    norm_gap = max(abs(g[1] - w[1]) / w[1] for g, w in zip(got, want))
+    gaps = {n: (gp[n] - wp[n]).abs() for n in wp}
+    param_gap = max(float(d.max()) for d in gaps.values())
+    split = ""
+    if undecided:
+        opt_cfg = AdamWConfig(**STEP_OPT)
+        und_tol = 2 * sum(float(cosine_schedule(opt_cfg, i + 1))
+                          for i in range(STEP_COUNT))
+        def most(parts):
+            return max((float(d.max()) for d in parts if d.numel()),
+                       default=0.0)
+        param_gap = most(d[~und.mask[n]] for n, d in gaps.items())
+        und_gap = most(d[und.mask[n]] for n, d in gaps.items())
+        total = sum(d.numel() for d in gaps.values())
+        split = (f"; {und.nonzero()} elements of {total} undecided (a nonzero "
+                 f"gradient within {STEP_TOL} of its leaf's max, or a leaf "
+                 f"of rounding), their gap {und_gap:.3g} (bound "
+                 f"{und_tol:.3g})")
+        if not und_gap <= und_tol:
+            raise AssertionError(f"{label}: undecided parameters on the "
+                                 f"card {und_gap} from the CPU's, past "
+                                 f"{und_tol}")
+    flips = ""
+    if cfg.moe is not None:
+        if [len(r) for r in gr] != [len(r) for r in wr] or not gr[0]:
+            raise AssertionError(f"{label}: the card routed "
+                                 f"{[len(r) for r in gr]} times a step, the "
+                                 f"CPU {[len(r) for r in wr]}")
+        flips = "; routing flips card vs cpu by step " + str([
+            sum(int((g != w).any(-1).sum()) for g, w in zip(gs, ws))
+            for gs, ws in zip(gr, wr)]) + (
+            f" (of {sum(e.shape[0] for e in gr[0])} token rows a step, "
+            f"{len(gr[0])} routings: forward and remat recompute)")
+    log(f"  [{tag}] (b) {label}, float32, remat full, loss_chunk "
+        f"{cfg.loss_chunk} of S {s}, {STEP_COUNT} steps: losses card "
+        f"{[round(g[0], 6) for g in got]} cpu "
+        f"{[round(w[0], 6) for w in want]}; max |loss gap| {loss_gap:.3g}, "
+        f"grad norm {norm_gap:.3g} of itself, params {param_gap:.3g} (bounds "
+        f"{STEP_TOL}, {STEP_TOL}, {STEP_PARAM_TOL:.3g}){split}{flips}")
+    if not (loss_gap <= STEP_TOL and norm_gap <= STEP_TOL
+            and param_gap <= STEP_PARAM_TOL):
+        raise AssertionError(f"{label}: train steps on the card differ from "
+                             f"the CPU's past the bounds")
+
+
+def step_check(dev, seed: int) -> None:
+    """(b): ``steps_vs_cpu`` for the Qwen3 and Gemma 2 smoke configs (Gemma
+    2's weights at 1/sqrt(input width), ``parity_model``: its reference
+    draw makes the smoke network chaotic)."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.models import lm
+    from repro_torch.models.config import smoke_config
+    cpu = torch.device("cpu")
     for arch in ("qwen3_1_7b", "gemma2_9b"):
         cfg = smoke_config(C.get(arch)).replace(
             param_dtype="float32", compute_dtype="float32", remat="full",
@@ -2506,40 +2692,7 @@ def step_check(dev, seed: int) -> None:
         gen = torch.Generator().manual_seed(seed)
         host = (parity_model(cfg, gen, cpu) if arch == "gemma2_9b" else
                 lm.init_params(cfg, gen, cpu))
-        rng = np.random.default_rng(seed)
-        batches = []
-        for _ in range(STEP_COUNT):
-            toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
-            batches.append({"inputs": toks[:, :-1], "targets": toks[:, 1:],
-                            "mask": rng.random((b, s)) < 0.9})
-        runs = {}
-        for where in (dev, cpu):
-            model = lm.LM(cfg, {n: p.detach().to(where).clone() for n, p in
-                                host.named_parameters()}, trainable=True)
-            opt_cfg = AdamWConfig(**STEP_OPT)
-            opt = adamw_init(dict(model.named_parameters()), opt_cfg)
-            step = make_train_step(cfg, opt_cfg, where)
-            metrics = []
-            for batch in batches:
-                model, opt, m = step(model, opt, batch)
-                metrics.append((float(m["loss"]), float(m["grad_norm"])))
-            runs[where.type] = (metrics, {n: p.detach().cpu() for n, p in
-                                          model.named_parameters()})
-        (got, gp), (want, wp) = runs[dev.type], runs["cpu"]
-        loss_gap = max(abs(g[0] - w[0]) for g, w in zip(got, want))
-        norm_gap = max(abs(g[1] - w[1]) / w[1] for g, w in zip(got, want))
-        param_gap = max(float((gp[n] - wp[n]).abs().max()) for n in wp)
-        log(f"  [train] (b) {cfg.name} smoke, float32, remat full, "
-            f"loss_chunk {STEP_CHUNK} of S {s}, {STEP_COUNT} steps: losses "
-            f"card {[round(g[0], 6) for g in got]} cpu "
-            f"{[round(w[0], 6) for w in want]}; max |loss gap| "
-            f"{loss_gap:.3g}, grad norm {norm_gap:.3g} of itself, params "
-            f"{param_gap:.3g} (bounds {STEP_TOL}, {STEP_TOL}, "
-            f"{STEP_PARAM_TOL:.3g})")
-        if not (loss_gap <= STEP_TOL and norm_gap <= STEP_TOL
-                and param_gap <= STEP_PARAM_TOL):
-            raise AssertionError(f"{cfg.name}: train steps on the card "
-                                 f"differ from the CPU's past the bounds")
+        steps_vs_cpu(dev, seed, "train", f"{cfg.name} smoke", cfg, host)
 
 
 def train_shares(fn, dev) -> dict:
@@ -2731,15 +2884,17 @@ def train_full(dev, seed: int) -> tuple:
     return counts, flash
 
 
-def restart_check(dev, seed: int) -> None:
-    """(d): ``train(..., fail_at=k)`` then the same run again resumes from
-    its checkpoint; the resumed losses equal an uninterrupted run's bit for
-    bit.  Checkpoints go under the git-ignored ``build/`` and are removed."""
+def restart_check(dev, seed: int, arch: str = TRAIN_ARCH,
+                  tag: str = "train") -> None:
+    """(d): ``train(..., fail_at=k)`` of ``arch`` at ``--preset 100m``, then
+    the same run again resumes from its checkpoint; the resumed losses
+    equal an uninterrupted run's bit for bit.  Checkpoints go under the
+    git-ignored ``build/`` and are removed."""
     import contextlib
     import io
     import repro_torch.configs as C
     from repro_torch.launch.train import preset_config, train
-    cfg = preset_config(C.get(TRAIN_ARCH), "100m")
+    cfg = preset_config(C.get(arch), "100m")
     root = ROOT / "build" / f"train-{os.getpid()}"
     try:
         t0 = time.perf_counter()
@@ -2765,7 +2920,7 @@ def restart_check(dev, seed: int) -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     start = RESTART["steps"] - len(rest)
-    log(f"  [train] (d) {cfg.name} --preset 100m, {RESTART['steps']} steps "
+    log(f"  [{tag}] (d) {cfg.name} --preset 100m, {RESTART['steps']} steps "
         f"of {RESTART['global_batch']} x {RESTART['seq_len']} "
         f"({t_whole:.1f} s uninterrupted): failed before step "
         f"{RESTART_FAIL_AT}, {resumed}; losses from step {start}: resumed "
@@ -3271,9 +3426,11 @@ def drive_archs(dev, seed: int) -> tuple:
 # positions of the profiled prefill, as phase 11's (a)-(c) through
 # ``arch_decoder``, bf16, weights from ``parity_model``.  Cuts: the
 # prefill_32k cell's 32 x 32,768 to 2 x 8,192 for RecurrentGemma (phase
-# 5's prefill) and 2 x 4,096 for xLSTM, whose mLSTM and sLSTM step through
-# the tokens in Python (about 40 kernels a token and layer pair, ~10^6
-# launches a prefill); decode_32k's 128 requests and long_500k's 524,288
+# 5's prefill) and 2 x 2,048 for xLSTM, whose mLSTM and sLSTM step through
+# the tokens in Python (about 40 kernels a token and layer pair, ~5 x 10^5
+# launches a prefill; it was 2 x 4,096 until phase 16 needed the seconds:
+# 20-26 s a prefill there on a slow host); decode_32k's 128
+# requests and long_500k's 524,288
 # positions to phase 5's decode (4 requests, a cache of 16 + 24 tokens: a
 # recurrent state has the same size at any position, RecurrentGemma's
 # local layers hold 2,048 slots).  xLSTM's prefill is profiled at 512
@@ -3281,7 +3438,7 @@ def drive_archs(dev, seed: int) -> tuple:
 # 240.2 a position, NVIDIA H100 80GB HBM3, 700.00 W), and the profiler's
 # processing of a million events took ~80 s.
 REC_RUNS = (("recurrentgemma_2b", (2, 8192), (2, 64), 8192),
-            ("xlstm_125m", (2, 4096), (2, 64), 512))
+            ("xlstm_125m", (2, 2048), (2, 64), 512))
 # float32 decode vs prefill (TF32 off) at full width, the depth cut to one
 # cycle of the pattern plus RecurrentGemma's remainder (5 and 2 layers):
 # the reference's own bound for the hybrid and xlstm families
@@ -3423,47 +3580,78 @@ DRYRUN_CHECKS = (
 DRYRUN_ARG_REL = 0.005
 DRYRUN_TIMED = 2              # timed calls after the counted one
 DRYRUN_ALL_S = 600             # (a)'s time limit
+# (a) runs in the background from phase 3 on, in this many processes at
+# this niceness, so that it takes idle cores and yields to the phases on
+# the card: its critical path is DeepSeek-V3's train_4k (110-145 s in one
+# process), the other 30 cells about 330 s of one core in all
+DRYRUN_JOBS = 2
+DRYRUN_NICE = 19
 
 
-def dryrun_all() -> float:
-    """(a): ``python -m repro_torch.launch.dryrun --all`` on ``meta`` (one
-    process a core, in a process group of its own, killed whole past
-    ``DRYRUN_ALL_S``), the seconds of each cell, and ``launch.roofline
-    --md``'s table: a record of every (arch x shape) cell and no ``ERR``
-    row, or it raises.  Returns the phase's seconds."""
-    import signal
-    import repro_torch.configs as C
-    from repro_torch.launch import roofline
-    jobs = len(os.sched_getaffinity(0))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--jobs", str(jobs)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=DRYRUN_ALL_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise AssertionError(f"dryrun --all ran past {DRYRUN_ALL_S} s")
-    secs = time.perf_counter() - t0
-    for line in out.splitlines():
-        log(f"  [dryrun] {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"dryrun --all failed (rc {proc.returncode})")
-    recs = roofline.load_all("baseline")
-    for line in roofline.markdown_table(recs).splitlines():
-        log(f"  [dryrun] {line}")
-    cells = {(r["arch"], r["shape"]) for r in recs}
-    bad = [(r["arch"], r["shape"]) for r in recs if "error" in r["analysis"]]
-    if cells != set(C.all_cells()) or len(recs) != len(cells) or bad:
-        raise AssertionError(f"dryrun --all: {len(recs)} records for "
-                             f"{len(C.all_cells())} cells, errors {bad}")
-    log(f"  [dryrun] (a) {len(recs)} cells on meta in {secs:.1f} s "
-        f"({jobs} processes)")
-    return secs
+class DryrunAll:
+    """(a): ``python -m repro_torch.launch.dryrun --all`` on ``meta``,
+    started by ``start()`` in a process group of its own (``DRYRUN_JOBS``
+    processes at niceness ``DRYRUN_NICE``, its output to a file under the
+    git-ignored ``build/``) and waited for by ``finish()``, which kills the
+    group past ``DRYRUN_ALL_S`` from the start and raises; ``kill()`` stops
+    a group still running (the script stops every process it starts)."""
+
+    def start(self) -> "DryrunAll":
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.log = ROOT / "build" / f"dryrun-all-{os.getpid()}.log"
+        self.log.parent.mkdir(parents=True, exist_ok=True)
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                ["nice", "-n", str(DRYRUN_NICE), sys.executable, "-m",
+                 "repro_torch.launch.dryrun", "--all", "--jobs",
+                 str(DRYRUN_JOBS)], cwd=ROOT, env=env, stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        self.t0 = time.perf_counter()
+        return self
+
+    def kill(self) -> None:
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self.log.unlink(missing_ok=True)
+
+    def finish(self) -> float:
+        """The seconds of each cell and ``launch.roofline --md``'s table: a
+        record of every (arch x shape) cell and no ``ERR`` row, or it
+        raises.  Returns the background run's seconds."""
+        import repro_torch.configs as C
+        from repro_torch.launch import roofline
+        left = DRYRUN_ALL_S - (time.perf_counter() - self.t0)
+        waited = time.perf_counter()
+        try:
+            self.proc.wait(timeout=max(left, 0))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"dryrun --all ran past {DRYRUN_ALL_S} s")
+        waited = time.perf_counter() - waited
+        secs = time.perf_counter() - self.t0
+        for line in self.log.read_text().splitlines():
+            log(f"  [dryrun] {line}")
+        self.log.unlink()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"dryrun --all failed (rc "
+                                 f"{self.proc.returncode})")
+        recs = roofline.load_all("baseline")
+        for line in roofline.markdown_table(recs).splitlines():
+            log(f"  [dryrun] {line}")
+        cells = {(r["arch"], r["shape"]) for r in recs}
+        bad = [(r["arch"], r["shape"]) for r in recs
+               if "error" in r["analysis"]]
+        if cells != set(C.all_cells()) or len(recs) != len(cells) or bad:
+            raise AssertionError(f"dryrun --all: {len(recs)} records for "
+                                 f"{len(C.all_cells())} cells, errors {bad}")
+        log(f"  [dryrun] (a) {len(recs)} cells on meta, in the background "
+            f"since phase 3 ({DRYRUN_JOBS} processes at nice {DRYRUN_NICE}):"
+            f" done {secs:.1f} s after its start; this phase waited "
+            f"{waited:.1f} s for it")
+        return secs
 
 
 def dryrun_check(dev, seed: int, label: str, arch: str, kind: str, b: int,
@@ -3539,12 +3727,13 @@ def dryrun_check(dev, seed: int, label: str, arch: str, kind: str, b: int,
                              f"{held} device bytes the arguments hold")
 
 
-def drive_dryrun(dev, seed: int) -> dict:
-    """Phase 14: (a) every cell on ``meta``, then (b) ``DRYRUN_CHECKS`` on
-    the card, the main path of the phase: the launch counts are set to 0
-    before (b) and read after it."""
+def drive_dryrun(dev, seed: int, background: DryrunAll) -> dict:
+    """Phase 14: (a) every cell on ``meta`` (``background``, started
+    before phase 3), then (b) ``DRYRUN_CHECKS`` on the card, the main path
+    of the phase: the launch counts are set to 0 before (b) and read after
+    it."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    dryrun_all()
+    background.finish()
     reset_launch_counts()
     for check in DRYRUN_CHECKS:
         dryrun_check(dev, seed, *check)
@@ -5089,6 +5278,251 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training the MoE and recurrent archs (DeepSeek-V3, Llama 4
+# Scout, RecurrentGemma 2B, xLSTM 125M)
+# ---------------------------------------------------------------------------
+
+# (a) the attention gradient at MLA's pairs of head dims, as phase 10 (a)
+# (GRAD_SHAPE, GRAD_Q_STD, GRAD_REL; float32 on the FMA route): (label,
+# DeepSeek-V3's preset, heads).  MLA expands its latent to every head, so
+# KH = H; the 100m preset's 12 heads at (96, 64), full width's pair on 2.
+MLA_GRAD_CASES = (("MLA q.k 96 / v 64 (--preset 100m)", "100m", 12),
+                  ("MLA q.k 192 / v 128 (full width)", "full", 2))
+# (b) phase 10 (b)'s steps (STEP_SHAPE, STEP_CHUNK, STEP_OPT, STEP_TOL,
+# STEP_PARAM_TOL): the MoE archs at --preset 100m cut to STEP_LAYERS
+# layers (DeepSeek-V3: its 3 mla_dense and one attn_moe, MTP on, flash at
+# (96, 64); Llama 4 Scout: 4 attn_moe of 8 experts top 1), the recurrent
+# archs' smoke configs (RecurrentGemma 2B at 3 layers, xLSTM 125M at 2),
+# xLSTM's mLSTM loop in chunks of STEP_MLSTM_CHUNK of S 64 so that the
+# chunked recompute acts
+MOE_REC_STEPS = (("deepseek_v3_671b", "100m"),
+                 ("llama4_scout_17b_a16e", "100m"),
+                 ("recurrentgemma_2b", "smoke"), ("xlstm_125m", "smoke"))
+STEP_LAYERS = 4
+STEP_MLSTM_CHUNK = 16
+# (c) full width, bf16, AdamW moments float32, remat full, loss_chunk 512,
+# FULL_TRAIN_WARMUP + FULL_TRAIN_TIMED steps: (arch, layers (None: all),
+# B (None: 2 if the dry-run on meta predicts a peak under
+# FULL_TRAIN_PEAK_GB, else 1), S).  Cuts: Llama 4 Scout to 1 of 48 layers
+# (4.27e9 parameters, 51 GB of weights, gradients and moments); train_4k's
+# batch of 256 to 2; xLSTM's S to 128: its token loop steps a token at a
+# time in Python, and a train step at S 512 took 26 s on the card, 13-15 s
+# at 256 (NVIDIA H100 80GB HBM3, 700 W; about 50 ms a position, the loop
+# run forward three times under remat and the chunks' recompute, and back
+# once), too long for the script's time limit; at 128 the chunks of 64
+# still act.
+# DeepSeek-V3 does not fit: the experts of one attn_moe layer are 11.3e9
+# parameters, about 136 GB at 12 bytes a parameter.
+FULL_TRAIN_RUNS = (("llama4_scout_17b_a16e", 1, None, 4096),
+                   ("recurrentgemma_2b", None, 2, 4096),
+                   ("xlstm_125m", None, 2, 128))
+FULL_TRAIN_WARMUP, FULL_TRAIN_TIMED = 1, 2
+FULL_TRAIN_PEAK_GB = 76
+# (d) phase 10 (d)'s restart (RESTART) through launch.train.train
+RESTART_ARCH = "deepseek_v3_671b"
+
+
+def attn_layers(cfg) -> int:
+    """Layers whose attention runs the flash kernel without a cache (every
+    kind but the recurrent ones)."""
+    return sum(k not in ("rec", "mlstm", "slstm") for k in cfg.layer_kinds)
+
+
+def moe_rec_grads(dev, rng) -> list:
+    """(a): ``attn_grad_check`` at ``MLA_GRAD_CASES``."""
+    import repro_torch.configs as C
+    from repro_torch.launch.train import preset_config
+    out = []
+    for label, preset, h in MLA_GRAD_CASES:
+        cfg = preset_config(C.get("deepseek_v3_671b"), preset).replace(
+            param_dtype="float32", compute_dtype="float32")
+        m = cfg.mla
+        out.append(attn_grad_check(
+            dev, rng, "moe-train", label, cfg, h, h,
+            m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim))
+    return out
+
+
+def moe_rec_steps(dev, seed: int) -> None:
+    """(b): ``steps_vs_cpu`` for each of ``MOE_REC_STEPS``, weights from
+    ``parity_model`` (the reference's draw saturates the recurrent smoke
+    nets and sends most tokens to one expert)."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models import blocks
+    cpu = torch.device("cpu")
+    for arch, preset in MOE_REC_STEPS:
+        cfg = preset_config(C.get(arch), preset)
+        if preset == "100m":
+            cfg = cfg.replace(n_layers=STEP_LAYERS)
+        cfg = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                          remat="full", loss_chunk=STEP_CHUNK)
+        host = parity_model(cfg, torch.Generator().manual_seed(seed), cpu)
+        label = f"{cfg.name} --preset {preset}, {cfg.n_layers} layers " \
+            f"{list(cfg.layer_kinds)}{', MTP' if cfg.mtp else ''}"
+        chunk = blocks.MLSTM_CHUNK
+        if "mlstm" in cfg.layer_kinds:
+            blocks.MLSTM_CHUNK = STEP_MLSTM_CHUNK
+            label += f", mLSTM in chunks of {STEP_MLSTM_CHUNK}"
+        try:
+            steps_vs_cpu(dev, seed, "moe-train", label, cfg, host,
+                         undecided=True)
+        finally:
+            blocks.MLSTM_CHUNK = chunk
+
+
+def train_batch_for(cfg, s: int) -> tuple:
+    """Llama 4 Scout's batch in (c): 2 where ``launch.dryrun`` on ``meta``
+    predicts the step's peak (arguments, output and temporaries) under
+    ``FULL_TRAIN_PEAK_GB``, else 1.  Returns (B, the predicted peak in
+    bytes)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeCell
+    mem = dryrun.dryrun(cfg, ShapeCell(f"train_2x{s}", s, 2, "train"))[
+        "full"]["memory"]
+    peak = sum(mem.values())
+    return (2 if peak <= FULL_TRAIN_PEAK_GB * 1e9 else 1), peak
+
+
+def train_arch_full(dev, seed: int, arch: str, layers, b, s: int) -> None:
+    """(c) one arch at full width: ``FULL_TRAIN_WARMUP`` +
+    ``FULL_TRAIN_TIMED`` steps of ``make_train_step`` (bf16, AdamW moments
+    float32, remat full, loss_chunk 512) on weights from ``parity_model``:
+    ms a step, tokens/s, peak memory, losses (finite), flash launches a
+    step (forward and remat recompute of each attention layer), and the
+    reference's model FLOPs (6 N_active T) against the bf16 peak.  For a
+    config with mLSTM layers, one more step with the loop whole
+    (``MLSTM_CHUNK`` at S) for its peak beside the chunked one's."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.data import LMDataConfig, lm_batch_at_step
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import PEAK_FLOPS
+    from repro_torch.launch.roofline import active_params
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import blocks, lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    full = C.get(arch)
+    cfg = full.replace(remat="full", loss_chunk=512,
+                       **({"n_layers": layers} if layers else {}))
+    predicted = None
+    if b is None:
+        b, predicted = train_batch_for(cfg, s)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    host = parity_model(cfg, gen, dev)
+    model = lm.LM(cfg, {n: p.detach() for n, p in host.named_parameters()},
+                  trainable=True)
+    del host
+    n_params, n_active = lm.count_params(model), active_params(cfg)
+    opt_cfg = AdamWConfig()
+    opt = adamw_init(dict(model.named_parameters()), opt_cfg)
+    step = make_train_step(cfg, opt_cfg, dev)
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                        seed=seed)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    log(f"  [moe-train] (c) {cfg.name}: {cfg.n_layers} of {full.n_layers} "
+        f"layers {sorted(set(cfg.layer_kinds))}, {n_params} parameters "
+        f"({n_active} active), {cfg.param_dtype}, AdamW moments "
+        f"{opt_cfg.opt_dtype}, remat {cfg.remat}, loss_chunk "
+        f"{cfg.loss_chunk}; B {b} x S {s}"
+        + (f" (the dry-run on meta predicts {predicted / 1e9:.2f} GB at B "
+           f"2)" if predicted is not None else "")
+        + f"; state {memory_gib(dev):.2f} GiB, built in {t_init:.1f} s")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    before = flash_attention.launches
+    n_steps = FULL_TRAIN_WARMUP + FULL_TRAIN_TIMED
+    for i in range(n_steps):
+        batch = lm_batch_at_step(data, i)
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    launched = flash_attention.launches - before
+    peak = memory_gib(dev, peak=True)
+    want = n_steps * 2 * attn_layers(cfg) if dev.type == "cuda" else 0
+    if launched != want:
+        raise AssertionError(f"{cfg.name}: {n_steps} steps launched the "
+                             f"flash kernel {launched} times, not {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.name}: losses not finite: {losses}")
+    mean = float(np.mean(secs[FULL_TRAIN_WARMUP:]))
+    tokens = b * s
+    flops = 6 * n_active * tokens
+    log(f"  [moe-train] (c) {cfg.name} losses {losses}; warm-up step "
+        f"{secs[0]:.3f} s, timed steps "
+        f"{[round(x * 1e3, 1) for x in secs[FULL_TRAIN_WARMUP:]]} ms: mean "
+        f"{mean * 1e3:.1f} ms a step, {tokens / mean:.0f} tokens/s; peak "
+        f"device memory {peak:.2f} GiB"
+        + (f" (predicted {predicted / 2**30:.2f} GiB)"
+           if predicted is not None and b == 2 else "")
+        + f"; flash launches {launched} ({launched // n_steps} a step); "
+        f"6 N_active T = {flops:.4g} FLOPs, bound at "
+        f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16 {flops / PEAK_FLOPS * 1e3:.1f}"
+        f" ms, share reached {flops / PEAK_FLOPS / mean:.1%}")
+    if "mlstm" in cfg.layer_kinds:
+        chunk = blocks.MLSTM_CHUNK
+        blocks.MLSTM_CHUNK = s
+        try:
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, lm_batch_at_step(data, n_steps))
+            loss = float(m["loss"])
+            whole_s = time.perf_counter() - t0
+        finally:
+            blocks.MLSTM_CHUNK = chunk
+        log(f"  [moe-train] (c) {cfg.name} the mLSTM loop whole "
+            f"(MLSTM_CHUNK = S {s}): one step {whole_s * 1e3:.1f} ms, loss "
+            f"{loss}, peak device memory "
+            f"{memory_gib(dev, peak=True):.2f} GiB against {peak:.2f} GiB "
+            f"in chunks of {chunk}")
+    del model, opt, step
+    release(dev)
+
+
+def drive_moe_rec_train(dev, rng, seed: int) -> tuple:
+    """Phase 16: (a) the attention gradient at MLA's pairs, card against
+    CPU; (b) 3 float32 train steps of each arch, card against CPU; then
+    the main path, the launch counts set to 0 before it and read after
+    it: (c) the full-width steps (``FULL_TRAIN_RUNS``), (d)
+    ``launch.train.train`` of DeepSeek-V3 at --preset 100m failed and
+    resumed bitwise.  Returns the counts and (a)'s largest error."""
+    import repro_torch.configs as C
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    ds = C.get("deepseek_v3_671b")
+    experts = 3 * (ds.moe.num_experts + ds.moe.num_shared) * ds.d_model \
+        * ds.moe.d_ff_expert
+    log(f"  CUT: deepseek_v3_671b trains only at --preset 100m on one card "
+        f"(the experts of one attn_moe layer at full width are "
+        f"{experts / 1e9:.1f}e9 parameters, about {12 * experts / 1e9:.0f}"
+        f" GB at 12 bytes a parameter); full width waits for four cards")
+    for arch, layers, b, s in FULL_TRAIN_RUNS:
+        full = C.get(arch)
+        cuts = ([f"{layers} of {full.n_layers} layers"] if layers else []) \
+            + [f"B {b or 'from the dry-run'} (train_4k: 256)"] \
+            + ([f"S {s} (train_4k: 4096)"] if s != 4096 else [])
+        log(f"  CUT: {arch} training: {', '.join(cuts)}")
+    t0 = time.perf_counter()
+    err = max(moe_rec_grads(dev, rng))
+    moe_rec_steps(dev, seed)
+    log(f"  [moe-train] (a)-(b) {time.perf_counter() - t0:.1f} s")
+    reset_launch_counts()
+    for arch, layers, b, s in FULL_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        train_arch_full(dev, seed, arch, layers, b, s)
+        log(f"  [moe-train] (c) {arch} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    restart_check(dev, seed, RESTART_ARCH, "moe-train")
+    log(f"  [moe-train] (d) {time.perf_counter() - t0:.1f} s")
+    return launch_counts(), err
+
+
 def sync(dev) -> None:
     import torch
     if dev.type == "cuda":
@@ -5214,7 +5648,10 @@ def main(argv=None) -> int:
                 ("mla", "MLA q.k 192 / v 128 (DeepSeek-V3's layer, H = KH "
                         "128, S 4096)"),
                 ("llama4", "hd 128, H 40, KH 8 (Llama 4 Scout's layer, S "
-                           "8192)")))
+                           "8192)"),
+                ("mla100m", "MLA q.k 96 / v 64 (DeepSeek-V3 --preset "
+                            "100m's layer, B 8, H = KH 12, S 1024; bound "
+                            f"by {t['bound_by_mla100m']})")))
         + f"; q std {FLASH_Q_SCALES[-1]:g}: at most {t['share_of_bound']:.3g} "
         f"of the bound; without the window {t['moved_without_window']:.3g}, "
         f"without the softcap {t['moved_without_softcap']:.3g} of the "
@@ -5225,6 +5662,11 @@ def main(argv=None) -> int:
     timed["fused_shuffle_reduce"]["one_block_shapes"] = time_one_block(
         dev, rng, args.vertices)
     torch.cuda.empty_cache()
+
+    # phase 14 (a), on meta, in the background from here on; stopped at
+    # exit whatever the outcome
+    dry = DryrunAll().start()
+    atexit.register(dry.kill)
 
     log("phase 3: main path (wordcount, one-step incremental)")
     if args.docs != FULL_DOCS:
@@ -5321,7 +5763,7 @@ def main(argv=None) -> int:
         "constants), checked on the card (Qwen3-1.7B's train step, Gemma 2 "
         "9B's prefill and decode step)")
     t14 = time.perf_counter()
-    dr = drive_dryrun(dev, args.seed)
+    dr = drive_dryrun(dev, args.seed, dry)
     log(f"  phase 14 {time.perf_counter() - t14:.1f} s; launches {dr}")
     if dr["flash_attention"] == 0:
         raise AssertionError("phase 14 launched no flash_attention")
@@ -5334,7 +5776,18 @@ def main(argv=None) -> int:
     rk = drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
                      args.seed)
     log(f"  phase 15 {time.perf_counter() - t15:.1f} s; launches {rk}")
-    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar, rc, mo, dr, rk)
+
+    log("phase 16: training the MoE and recurrent archs (the attention "
+        "gradient at MLA's pairs and train steps against the CPU; Llama 4 "
+        "Scout at 1 layer, RecurrentGemma 2B, xLSTM 125M at full width; "
+        "DeepSeek-V3 --preset 100m failed and resumed)")
+    t16 = time.perf_counter()
+    mt, moe_grad = drive_moe_rec_train(dev, rng, args.seed)
+    log(f"  phase 16 {time.perf_counter() - t16:.1f} s; launches {mt}")
+    if mt["flash_attention"] == 0:
+        raise AssertionError("phase 16 launched no flash_attention")
+    paths = (mrbg, acc, pr, sp, lmc, st, sv, dq, ds, tr, ar, rc, mo, dr, rk,
+             mt)
 
     sources = {
         "sort_lex": ("src/repro_torch/kernels/csrc/sort.cu",
@@ -5417,6 +5870,7 @@ def main(argv=None) -> int:
                              "at PageRank's shapes")
         if name == "flash_attention":
             entry["grad_rel_err_train"] = grad_err
+            entry["grad_rel_err_mla"] = moe_grad
             entry["grad_rel_err_hubert"] = hubert_grad
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        train_flash["max_abs_err"])
@@ -5434,11 +5888,12 @@ def main(argv=None) -> int:
                 "share_of_bound_recurrentgemma",
                 "moved_without_window_recurrentgemma",
                 "share_of_bound_mla", "share_of_bound_llama4", "library_mla",
-                "library_llama4")})
+                "library_llama4", "share_of_bound_mla100m",
+                "library_mla100m")})
             entry.update({f"{key}_{label}": t[f"{key}_{label}"]
                           for label in ("hd128_mistral", "hd128_chameleon",
                                         "hd256_recurrentgemma", "mla",
-                                        "llama4")
+                                        "llama4", "mla100m")
                           for key in ("ms", "plain_ms", "library_ms",
                                       "bound_ms")})
             entry["note"] += (
@@ -5447,7 +5902,9 @@ def main(argv=None) -> int:
                 "blocks.attend, q std 1 and 20; max_abs_err: the largest of "
                 "phase 2's and these; grad_rel_err_hubert: phase 11 (d), "
                 "HuBERT's smoke config at hd 80, every gradient card vs "
-                "CPU over its leaf's max")
+                "CPU over its leaf's max; grad_rel_err_mla: phase 16 (a), "
+                "dq, dk, dv at MLA's (96, 64) and (192, 128), card vs CPU "
+                "over their max")
         kernels.append(entry)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5456,7 +5913,8 @@ def main(argv=None) -> int:
     log(f"  total {time.perf_counter() - t_all:.1f} s; launches mrbg {mrbg}, "
         f"auto {acc}, pagerank {pr}, sssp {sp}, lm {lmc}, stream {st}, "
         f"serve {sv}, dql {dq}, distributed {ds}, train {tr}, archs {ar}, "
-        f"recurrent {rc}, moe {mo}, dryrun {dr}, ranks {rk}")
+        f"recurrent {rc}, moe {mo}, dryrun {dr}, ranks {rk}, moe/rec "
+        f"train {mt}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

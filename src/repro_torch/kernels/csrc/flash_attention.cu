@@ -8,10 +8,11 @@
 // float32, tanh softcap, then the causal and window masks at -2e38;
 // m, l, acc in float32 with p rounded to V's type before P.V; the output
 // acc / max(l, 1e-30) in q's type.  V may have a head dim of its own, vd
-// (DeepSeek-V3's MLA: q.k over 192 = 128 + 64 rope columns, v 128): v
-// [B, KH, S, vd] and the output [B, H, S, vd], the scale still
-// 1 / sqrt(hd), as the reference's dense attention (repro/models/
-// blocks.py _attend) takes it; the Pallas kernel had one hd for all three.
+// (DeepSeek-V3's MLA: q.k over 192 = 128 + 64 rope columns, v 128; its
+// 100m preset's 96 = 64 + 32 and v 64): v [B, KH, S, vd] and the output
+// [B, H, S, vd], the scale still 1 / sqrt(hd), as the reference's dense
+// attention (repro/models/blocks.py _attend) takes it; the Pallas kernel
+// had one hd for all three.
 //
 // On the H100 the TPU's sequential grid becomes independent blocks: one
 // block per (q tile, head, batch), the KV tiles walked by a loop inside
@@ -21,10 +22,11 @@
 // exp(-2e38 - m) = 0.  K and V rows past S are zeros and masked, so any
 // S runs.  Three kernels, chosen by dtype and head dim:
 //
-//   dtype    head dim (q.k / v)             kernel
-//   bf16     64, 80, 128, 160, 256; 192/128 flash_wgmma_kernel (wgmma + TMA)
-//   bf16     16, 32                         flash_mma_kernel (mma.sync)
-//   float32  all seven; 192/128             flash_f32_kernel (FMAs)
+//   dtype    head dim (q.k / v)                    kernel
+//   bf16     64, 80, 128, 160, 256; 192/128, 96/64 flash_wgmma_kernel
+//                                                  (wgmma + TMA)
+//   bf16     16, 32                                flash_mma_kernel (mma.sync)
+//   float32  all seven; 192/128, 96/64             flash_f32_kernel (FMAs)
 //
 //   bf16, hd 64/80/128/160/256 (the serving path): wgmma with a TMA ring.  A
 //     block of 384 threads owns 128 q rows of one head: warpgroup 0 is the
@@ -64,8 +66,11 @@
 //     (128 + 40 + 20 at hd 256, 80 + 64 + 32 at 160).  With a v head dim of
 //     its own (VD, MLA's 192 / 128) Q and K are HD columns (three 64-column
 //     boxes) and V, P.V, O and the store VD (two): Q 48 KB + 2 stages of K
-//     (96 KB) and V (64 KB) = 208 KB; O takes VD / 2 registers.  The rest
-//     is the kernel at HD, unchanged: no path of it reads VD apart from V.
+//     (96 KB) and V (64 KB) = 208 KB; O takes VD / 2 registers.  At 96 / 64
+//     (the 100m preset's MLA) the box is the 32 columns that tile 96, in
+//     the 64-byte swizzle as at hd 160: Q and K three boxes, V and O two; Q
+//     24 KB + 2 stages of K (48 KB) and V (32 KB) = 104 KB.  The rest is
+//     the kernel at HD, unchanged: no path of it reads VD apart from V.
 //   bf16, hd 16, 32: mma.sync m16n8k16, 4 warps, 64 q rows x 64-key
 //     tiles loaded synchronously into shared memory (rows padded by 8
 //     elements so fragment loads hit 32 distinct banks: a row is an odd
@@ -957,8 +962,8 @@ int launch_hd(const Params& p, int bf16, cudaStream_t stream) {
 
 // q [B, H, S, hd], k [B, KH, S, hd], v [B, KH, S, vd], o [B, H, S, vd],
 // contiguous and 16-byte aligned, all float32 (dtype 0) or all bf16
-// (dtype 1); hd = vd in {16, 32, 64, 80, 128, 160, 256}, or (hd, vd) =
-// (192, 128).
+// (dtype 1); hd = vd in {16, 32, 64, 80, 128, 160, 256}, or (hd, vd) in
+// {(192, 128), (96, 64)}.
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
                                         const void* v, void* o, int B, int H,
                                         int KH, int S, int hd, int vd,
@@ -972,6 +977,7 @@ REPRO_EXPORT int flash_attention_launch(const void* q, const void* k,
            (float)(1.0 / sqrt((double)hd))};
   if (vd != hd) {
     if (hd == 192 && vd == 128) return launch_hd<192, 128>(p, dtype, stream);
+    if (hd == 96 && vd == 64) return launch_hd<96, 64>(p, dtype, stream);
     return (int)cudaErrorInvalidValue;
   }
   switch (hd) {

@@ -7,8 +7,9 @@ contract and layout: q [B, H, S, hd], k/v [B, KH, S, hd] (GQA, H % KH ==
 (``window > 0``: key within ``window`` of the query), tanh softcap; scale
 1/sqrt(hd); bf16 or float32 in, q's dtype out.  V may have a head dim of
 its own, vd: v [B, KH, S, vd] gives [B, H, S, vd], the scale still
-1/sqrt(hd) (DeepSeek-V3's MLA: q.k over 192, v 128; the reference's
-dense attention takes any vd, its Pallas kernel one hd for all three).
+1/sqrt(hd) (DeepSeek-V3's MLA: q.k over 192, v 128, and at its 100m
+preset 96 and 64; the reference's dense attention takes any vd, its
+Pallas kernel one hd for all three).
 
 On the H100 ``csrc/flash_attention.cu`` replaces the Pallas kernel (its
 ``pl.pallas_call`` walks the KV blocks of one q block with a fori_loop):
@@ -36,7 +37,8 @@ hd):
   and serves the checks and float32 models.
 - (hd, vd) = (192, 128), MLA's, runs the wgmma kernel in bf16 (Q and K
   three 64-column boxes, V two; 208 KB of shared memory) and the FMA
-  kernel in float32 (``SPLIT_DIMS``).
+  kernel in float32 (``SPLIT_DIMS``); (96, 64), the 100m preset's MLA,
+  likewise with 32-column boxes (Q and K three, V two; 104 KB).
 
 The scale is 1/sqrt of the true hd.  The source note gives the bounds
 and what the design leaves.
@@ -62,9 +64,10 @@ from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.ref import flash_attention_ref
 
 # head dims the kernels serve with v's equal to q.k's, and the pairs
-# (q.k hd, v hd) with a v head dim of its own (DeepSeek-V3's MLA)
+# (q.k hd, v hd) with a v head dim of its own (DeepSeek-V3's MLA at full
+# width and at ``launch.train``'s 100m preset)
 HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
-SPLIT_DIMS = ((192, 128),)
+SPLIT_DIMS = ((192, 128), (96, 64))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

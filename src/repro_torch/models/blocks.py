@@ -26,7 +26,8 @@ xLSTM's mLSTM and sLSTM) carry a state from token to token.  Without a
 cache, RG-LRU's linear recurrence runs as a scan of ceil(log2 S)
 elementwise passes (:func:`linear_scan`, the reference's
 ``associative_scan``), and mLSTM and sLSTM step through the tokens one
-at a time in Python, as the reference's ``lax.scan`` does; no kernel of
+at a time in Python, as the reference's ``lax.scan`` does (in training,
+mLSTM's in checkpointed chunks of ``MLSTM_CHUNK`` tokens); no kernel of
 the reference maps to them.  With a cache, each takes one step and
 writes its state in place: RG-LRU's ``h`` and ``conv`` in the cache's
 dtype (the compute dtype: ``h`` is rounded to it every step, as in the
@@ -63,6 +64,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (
@@ -80,6 +82,12 @@ NEG = -2.0e38
 ATTN_BWD_SCORE_BYTES = 2**30
 # the profiler range around that recompute (``chip_smoke.py`` reads it)
 ATTN_BWD_RANGE = "attention_backward_recompute"
+# tokens of the mLSTM loop recomputed together in a training pass: autograd
+# of a token saves its [B, H, dh, dh] float32 state C about three times
+# (4.7 MB each at xLSTM 125M's B 2, H 4, dh 384: some 58 GB for one layer
+# at S 4096), so with grad on the loop runs in chunks of this many tokens,
+# each under a checkpoint that keeps only the state at its start
+MLSTM_CHUNK = 64
 
 
 class Params(nn.Module):
@@ -727,13 +735,34 @@ def mlstm_step(C, n, m, q, k, v, i_t, f_t):
     return C, n, mnew, h
 
 
+def mlstm_loop(C, n, m, q, k, v, i_t, f_t):
+    """:func:`mlstm_step` over the tokens of q/k/v [B, T, H, dh] and
+    i_t/f_t [B, T, H] from the state (C, n, m).  Returns (C, n, m, h [B,
+    T, H, dh])."""
+    hs = []
+    # one token at a time through unbind (not q[:, t]): its backward
+    # stacks the tokens' gradients once, where indexing's scatters each
+    # into a zero tensor of the whole sequence (O(S^2) bytes)
+    for step in zip(*(t.unbind(1) for t in (q, k, v, i_t, f_t))):
+        C, n, m, ht = mlstm_step(C, n, m, *step)
+        hs.append(ht)
+    return C, n, m, torch.stack(hs, dim=1)
+
+
 def apply_mlstm(cfg: ModelConfig, p, x, cache=None):
     """The mLSTM block on ``x`` [B, S, d]: up-projection to 2 x 2d, q/k/v
     of head dim 2d / H, exponential input and sigmoid forget gates, the
     matrix memory stepped token by token in float32, a norm over the
     whole width 2d, the SiLU gate, the down-projection.  With ``cache``
     ({"C", "n", "m"}, float32) ``x`` is one token and the cache takes the
-    new state in place."""
+    new state in place.
+
+    Without a cache and with grad on (training), a sequence longer than
+    ``MLSTM_CHUNK`` goes through :func:`mlstm_loop` a chunk of that many
+    tokens at a time, each chunk under ``torch.utils.checkpoint`` with the
+    state carried across: the backward keeps the states at the chunks'
+    starts and recomputes one chunk's tokens at a time.  The values and
+    gradients are the whole loop's."""
     b, s, d = x.shape
     h_ = cfg.n_heads
     m = 2 * d
@@ -752,14 +781,16 @@ def apply_mlstm(cfg: ModelConfig, p, x, cache=None):
         C = x.new_zeros((b, h_, dh, dh), dtype=torch.float32)
         n = x.new_zeros((b, h_, dh), dtype=torch.float32)
         mstab = x.new_zeros((b, h_), dtype=torch.float32)
-        hs = []
-        # one token at a time through unbind (not q[:, t]): its backward
-        # stacks the tokens' gradients once, where indexing's scatters
-        # each into a zero tensor of the whole sequence (O(S^2) bytes)
-        for step in zip(*(t.unbind(1) for t in (q, k, v, i_t, f_t))):
-            C, n, mstab, ht = mlstm_step(C, n, mstab, *step)
-            hs.append(ht)
-        hs = torch.stack(hs, dim=1)                     # [B, S, H, dh]
+        seq = (q, k, v, i_t, f_t)
+        if torch.is_grad_enabled() and s > MLSTM_CHUNK:
+            hs = []
+            for chunk in zip(*(t.split(MLSTM_CHUNK, dim=1) for t in seq)):
+                C, n, mstab, ht = checkpoint(mlstm_loop, C, n, mstab, *chunk,
+                                             use_reentrant=False)
+                hs.append(ht)
+            hs = torch.cat(hs, dim=1)                   # [B, S, H, dh]
+        else:
+            C, n, mstab, hs = mlstm_loop(C, n, mstab, *seq)
     else:
         if s != 1:
             raise ValueError(f"a cached step takes one token, got {s}")
@@ -822,7 +853,10 @@ def apply_slstm(cfg: ModelConfig, p, x, cache=None):
     float32, the scalar memory stepped token by token with its per-head
     recurrent product, a norm, the residual, then a SwiGLU FFN of width
     4d/3.  With ``cache`` ({"c", "n", "h", "m"}, float32) ``x`` is one
-    token and the cache takes the new state in place."""
+    token and the cache takes the new state in place.  Its states are
+    [B, H, dh], a token's saved tensors the size of its gate inputs, so
+    a training pass runs the loop whole (no chunks, unlike
+    :func:`apply_mlstm`)."""
     b, s, d = x.shape
     h_ = cfg.n_heads
     dh = d // h_
@@ -832,7 +866,7 @@ def apply_slstm(cfg: ModelConfig, p, x, cache=None):
     if cache is None:
         c = n = h = m = x.new_zeros((b, h_, dh), dtype=torch.float32)
         hs = []
-        for wx_t in wx.unbind(1):        # unbind: see apply_mlstm
+        for wx_t in wx.unbind(1):        # unbind: see mlstm_loop
             c, n, h, m = slstm_step(r, c, n, h, m, wx_t)
             hs.append(h)
         hs = torch.stack(hs, dim=1)

@@ -11,7 +11,8 @@ names (``layers.3.attn.wq``); the state is ``{"m", "v", "step"}`` with
 ``step`` an int32 scalar tensor.  :func:`adamw_update` writes the new
 parameters and moments in place, leaf by leaf (the reference returns new
 trees), so a step holds one leaf's float32 temporaries, not a second copy
-of the state.
+of the state; a leaf of more than ``ADAMW_SLICE_ELEMS`` elements goes in
+slices of its leading axis, so that they stay near that size.
 """
 from __future__ import annotations
 
@@ -20,6 +21,17 @@ from dataclasses import dataclass
 from typing import Dict
 
 import torch
+
+# the elements of a leaf above which its update goes in slices of the
+# leading axis: the update's float32 temporaries (the gradient, both
+# moments, the step, the parameter) are each the size of what is updated
+# at once, 5.4 GB for Llama 4 Scout's expert leaf w_in [16, 5120, 16384]
+# whole, 2.1 GB at this size (a train step of its one-layer cut peaks at
+# 61.7 GiB on ``meta``, 82.7 whole; 57.7 at 2^28, which doubles the
+# slices and the ops a dry-run of DeepSeek-V3 counts: tools/
+# train_probes.py).  The arithmetic is elementwise, so a slice's result
+# is bitwise the whole leaf's.
+ADAMW_SLICE_ELEMS = 2**29
 
 
 @dataclass(frozen=True)
@@ -52,6 +64,17 @@ def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(sums[1:], sums[0]))
 
 
+def leaf_slices(shape) -> list:
+    """The index of each part a leaf of ``shape`` is updated in: the whole
+    (``...``) up to ``ADAMW_SLICE_ELEMS`` elements, else runs of rows of
+    the leading axis with at most that many elements (one row at least)."""
+    numel = math.prod(shape)
+    if numel <= ADAMW_SLICE_ELEMS or len(shape) == 0:
+        return [...]
+    rows = max(1, ADAMW_SLICE_ELEMS // (numel // shape[0]))
+    return [slice(i, i + rows) for i in range(0, shape[0], rows)]
+
+
 def adamw_init(params: Dict[str, torch.Tensor], cfg: AdamWConfig):
     """Zero moments in ``cfg.opt_dtype`` beside each parameter, step 0."""
     dev = next(iter(params.values())).device if params else None
@@ -81,15 +104,17 @@ def adamw_update(grads: Dict[str, torch.Tensor], opt_state,
                                        device=stepf.device), stepf)
     corr2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                        device=stepf.device), stepf)
-    for name, p in params.items():
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        g = grads[name].float() * scale
-        m2 = b1 * m.float() + (1 - b1) * g
-        v2 = b2 * v.float() + (1 - b2) * g.square()
-        delta = (m2 / corr1) / ((v2 / corr2).sqrt() + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        m.copy_(m2)
-        v.copy_(v2)
+    for name, leaf in params.items():
+        for part in leaf_slices(leaf.shape):
+            p = leaf[part]
+            m, v = opt_state["m"][name][part], opt_state["v"][name][part]
+            g = grads[name][part].float() * scale
+            m2 = b1 * m.float() + (1 - b1) * g
+            v2 = b2 * v.float() + (1 - b2) * g.square()
+            delta = (m2 / corr1) / ((v2 / corr2).sqrt() + cfg.eps) \
+                + cfg.weight_decay * p.float()
+            p.copy_(p.float() - lr * delta)
+            m.copy_(m2)
+            v.copy_(v2)
     return params, {"m": opt_state["m"], "v": opt_state["v"],
                     "step": step}, {"grad_norm": gnorm, "lr": lr}

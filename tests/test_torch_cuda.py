@@ -703,15 +703,19 @@ def _moe_smoke(arch):
 @pytest.mark.parametrize("q_std", [1.0, 20.0])
 @pytest.mark.parametrize("h,kh,s", [(4, 4, 1), (4, 4, 127), (4, 4, 129),
                                     (4, 2, 200), (8, 1, 333)])
-def test_flash_attention_split_dims(cuda, dtype, rel, q_std, h, kh, s):
-    """MLA's pair (q.k 192, v 128) on both routes (wgmma in bf16, FMAs in
-    float32): [B, H, S, 128] out, one launch a call, within the bound of
+@pytest.mark.parametrize("hd,vd", [(192, 128), (96, 64)])
+def test_flash_attention_split_dims(cuda, dtype, rel, q_std, h, kh, s, hd,
+                                    vd):
+    """MLA's pairs, (q.k 192, v 128) at full width and (96, 64) at the
+    100m preset (32-column boxes), on both routes (wgmma in bf16, FMAs in
+    float32): [B, H, S, vd] out, one launch a call, within the bound of
     ``test_flash_attention`` at every option, around the 128-row q tile
-    and 128-key tile and at S no multiple of a tile."""
+    and 128-key tile and at S no multiple of a tile; half of v's columns
+    make a pair no kernel serves, which raises."""
     rng = np.random.default_rng(s)
     q, k, v = (torch.as_tensor(rng.normal(0, sd, (2, n, s, d)).astype(
         np.float32), device=cuda).to(dtype)
-        for n, sd, d in ((h, q_std, 192), (kh, 1, 192), (kh, 1, 128)))
+        for n, sd, d in ((h, q_std, hd), (kh, 1, hd), (kh, 1, vd)))
     if dtype == torch.float32:
         rel *= q_std
     for opts in (dict(causal=True), dict(causal=True, window=20),
@@ -721,14 +725,14 @@ def test_flash_attention_split_dims(cuda, dtype, rel, q_std, h, kh, s):
         before = flash_attention.launches
         got = flash_attention(q, k, v, **opts)
         assert flash_attention.launches == before + 1
-        assert got.dtype == dtype and tuple(got.shape) == (2, h, s, 128)
+        assert got.dtype == dtype and tuple(got.shape) == (2, h, s, vd)
         want = ref.flash_attention_ref(q, k, v, **opts).float()
         a = ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
                                     **opts)
         assert bool(((got.float() - want).abs()
                      <= rel * (want.abs() + a)).all()), opts
     with pytest.raises(ValueError, match="head dims"):
-        flash_attention(q, k, v[..., :96])
+        flash_attention(q, k, v[..., :vd // 2])
 
 
 def test_mla_block_on_card_matches_cpu(cuda):

@@ -32,6 +32,7 @@ import torch
 import repro.configs as JC
 from repro.kernels.ref import mha_ref
 from repro.launch import roofline as jroofline
+from repro.launch import train as jtrain
 from repro.launch.steps import make_prefill_step as j_prefill_step
 from repro.launch.steps import make_serve_step as j_serve_step
 from repro.models import blocks as jblocks
@@ -44,12 +45,15 @@ import repro_torch.configs as TC
 from repro_torch.kernels.flash_attention import flash_attention, kernel_for
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.launch import steps as tsteps
+from repro_torch.launch import train as ttrain
 from repro_torch.models import blocks as tblocks
 from repro_torch.models import lm as tlm
 from repro_torch.models.config import MLAConfig as TMLA
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.config import smoke_config as t_smoke
-from repro_torch.models.transfer import params_from_numpy, params_to_numpy
+from repro_torch.models.transfer import (
+    params_from_numpy, params_to_numpy, to_reference_tree,
+)
 
 CPU = "cpu"
 ARCHS = ("deepseek_v3_671b", "llama4_scout_17b_a16e")
@@ -156,18 +160,24 @@ def _ref_layer(jcfg, tree, i):
 
 # -- configs ------------------------------------------------------------------
 
+def _assert_same_config(t, j, what):
+    """Every field of the port's config as the reference's, the
+    sub-configs by value."""
+    for f in ModelConfig.__dataclass_fields__:
+        want = getattr(j, f)
+        if dataclasses.is_dataclass(want):
+            assert dataclasses.asdict(getattr(t, f)) == \
+                dataclasses.asdict(want), (what, f)
+        else:
+            assert getattr(t, f) == want, (what, f)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_matches_reference(arch):
     """Every field, the sub-configs by value, the cells, the smoke
     config's MoE and MLA."""
     t, j = TC.get(arch), JC.get(arch)
-    for f in ModelConfig.__dataclass_fields__:
-        want = getattr(j, f)
-        if dataclasses.is_dataclass(want):
-            assert dataclasses.asdict(getattr(t, f)) == \
-                dataclasses.asdict(want), (arch, f)
-        else:
-            assert getattr(t, f) == want, (arch, f)
+    _assert_same_config(t, j, arch)
     assert TC.get(arch.replace("_", "-")) is t
     assert [c.name for c in TC.shape_cells(t)] == \
         [c.name for c in JC.shape_cells(j)] == \
@@ -180,14 +190,31 @@ def test_config_matches_reference(arch):
                             if dataclasses.is_dataclass(b) else b), f
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_preset_100m_matches_reference(arch):
+    """``launch.train.preset_config(..., "100m")`` field by field as the
+    reference's (8 experts of 768, DeepSeek's MLA at q.k 64 + 32 and v
+    64); the flash kernel serves the MLA pair on both routes."""
+    t = ttrain.preset_config(TC.get(arch), "100m")
+    _assert_same_config(t, jtrain.preset_config(JC.get(arch), "100m"),
+                        arch)
+    assert t.moe.num_experts == 8 and t.moe.d_ff_expert == 768
+    if t.mla is not None:
+        pair = (t.mla.qk_nope_head_dim + t.mla.qk_rope_head_dim,
+                t.mla.v_head_dim)
+        assert pair == (96, 64)
+        assert kernel_for(*pair, torch.bfloat16) == "wgmma"
+        assert kernel_for(*pair, torch.float32) == "f32"
+
+
 # -- the flash wrapper at a v head dim of its own -----------------------------
 
-@pytest.mark.parametrize("hd,vd", [(192, 128), (24, 16)])
+@pytest.mark.parametrize("hd,vd", [(192, 128), (96, 64), (24, 16)])
 def test_flash_ref_matches_mha_ref_split_dims(hd, vd):
-    """MLA's pair (q.k 192, v 128) and the smoke MLA's (24, 16), causal,
-    GQA, S 100 (no multiple of a tile): the plain version against the
-    reference's ``mha_ref`` within 1e-5, [B, H, S, vd] out; the wrapper
-    takes it for CPU tensors at any pair."""
+    """MLA's pair (q.k 192, v 128), the 100m preset's (96, 64) and the
+    smoke MLA's (24, 16), causal, GQA, S 100 (no multiple of a tile): the
+    plain version against the reference's ``mha_ref`` within 1e-5, [B, H,
+    S, vd] out; the wrapper takes it for CPU tensors at any pair."""
     rng = np.random.default_rng(hd)
     q, k, v = (rng.normal(0, 1, shape).astype(np.float32) for shape in
                ((2, 4, 100, hd), (2, 2, 100, hd), (2, 2, 100, vd)))
@@ -197,9 +224,9 @@ def test_flash_ref_matches_mha_ref_split_dims(hd, vd):
     assert tuple(got.shape) == (2, 4, 100, vd)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     assert torch.equal(flash_attention(_t(q), _t(k), _t(v)), got)
-    # a CUDA tensor gets a kernel at MLA's pair on both routes, none at
+    # a CUDA tensor gets a kernel at MLA's pairs on both routes, none at
     # the smoke pair
-    served = (hd, vd) == (192, 128)
+    served = (hd, vd) != (24, 16)
     assert (kernel_for(hd, vd, torch.bfloat16) == "wgmma") == served
     assert (kernel_for(hd, vd, torch.float32) == "f32") == served
 
@@ -385,6 +412,103 @@ def test_decode_matches_prefill(models, arch):
     for t in range(S):
         logits, caches = serve(tp, caches, toks[:, t:t + 1])
         assert float((logits - full[:, t]).abs().max()) / scale < F32_REL, t
+
+
+# -- loss and gradients ---------------------------------------------------------
+
+# case -> (arch, loss_chunk); DeepSeek's smoke config keeps its MTP head
+GRAD_CASES = {"deepseek_v3_671b": ("deepseek_v3_671b", 0),
+              "deepseek_v3_671b-chunked": ("deepseek_v3_671b", 8),
+              "llama4_scout_17b_a16e": ("llama4_scout_17b_a16e", 0)}
+
+
+@pytest.fixture(scope="module")
+def ref_grads(models):
+    """Per case: ``jax.value_and_grad(lm.lm_loss)`` under ``jax.jit`` on
+    the module's float32 draw (remat none), its loss, gradients and the
+    expert ids of every ``jax.lax.top_k`` its forward ran, recorded by a
+    debug callback; with the port's config (remat full) and the batch."""
+    out = {}
+    top_k = jax.lax.top_k
+    for case, (arch, chunk) in GRAD_CASES.items():
+        jcfg, tcfg, jp, _, _ = models(arch)
+        jcfg = jcfg.replace(loss_chunk=chunk, remat="none")
+        rng = np.random.default_rng(5)
+        toks = rng.integers(0, jcfg.vocab, (B, S + 1)).astype(np.int32)
+        batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:],
+                 "mask": rng.random((B, S)) < 0.9}
+        ids = []
+
+        def spy(a, k):
+            res = top_k(a, k)
+            jax.debug.callback(lambda e: ids.append(np.asarray(e)), res[1])
+            return res
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(jax.lax, "top_k", spy)
+            loss, grads = jax.jit(jax.value_and_grad(functools.partial(
+                jlm.lm_loss, jcfg)))(jp, {k: jnp.asarray(v)
+                                         for k, v in batch.items()})
+            jax.effects_barrier()
+        out[case] = (tcfg.replace(loss_chunk=chunk, remat="full"),
+                     jax.tree.map(np.asarray, jp), batch, float(loss),
+                     jax.tree.map(np.asarray, grads), ids)
+    return out
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_lm_loss_and_gradients_match_reference(ref_grads, case,
+                                               monkeypatch):
+    """The port's loss and gradients (remat full: each layer recomputed
+    in the backward, MLA's attention through ``FlashAttend``'s dense
+    recompute, the MoE's dispatch by autograd) against the reference's on
+    DeepSeek-V3 (3 mla_dense layers, an attn_moe, MTP; the loss whole and
+    in chunks of 8) and Llama 4 Scout: the loss within 1e-5, every
+    gradient leaf within 1e-4 of its largest |value|, and the expert ids of
+    every MoE layer equal to the reference's, in the forward and again in
+    the backward's recompute.
+
+    Llama 4's router routes top 1, and the gate renormalised over one
+    expert is p / p = 1 whatever the router: its gradient is 0 in both
+    packages but for rounding (about 5e-9 in each, of a largest gradient
+    near 0.6), so there the two are held to be below 1e-7 of the model's
+    largest gradient instead, and only there."""
+    tcfg, jp, batch, jloss, jgrads, jids = ref_grads[case]
+    ids, route = [], tblocks.moe_route
+
+    def spy(cfg, router, tokens):
+        gate, eid = route(cfg, router, tokens)
+        ids.append(eid.numpy().copy())
+        return gate, eid
+    monkeypatch.setattr(tblocks, "moe_route", spy)
+    model = params_from_numpy(tcfg, jp, CPU, trainable=True)
+    loss = tlm.lm_loss(tcfg, model, {k: torch.as_tensor(v)
+                                     for k, v in batch.items()})
+    n_fwd = len(ids)
+    loss.backward()
+    assert abs(float(loss.detach()) - jloss) <= 1e-5
+    n_moe = tcfg.layer_kinds.count("attn_moe")
+    assert len(jids) == n_fwd == n_moe and len(ids) == 2 * n_moe
+    for got, want in zip(ids[:n_fwd], jids):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(ids[n_fwd:], ids[n_fwd - 1::-1]):
+        np.testing.assert_array_equal(got, want)
+    got = jax.tree.leaves(to_reference_tree(
+        tcfg, {n: p.grad for n, p in model.named_parameters()}))
+    want = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(got) == len(want)
+    floor = 1e-7 * max(float(np.abs(a).max()) for _, a in want)
+    zero = []
+    for (path, a), g in zip(want, got):
+        a = np.asarray(a, np.float64)
+        if np.abs(a).max() <= floor:
+            zero.append(jax.tree_util.keystr(path))
+            assert np.abs(g.numpy()).max() <= floor, (zero[-1], floor)
+            continue
+        err = np.abs(a - g.numpy()).max() / max(np.abs(a).max(), 1e-30)
+        assert err <= 1e-4, (jax.tree_util.keystr(path), err)
+    assert zero == ([k for k in map(jax.tree_util.keystr, (
+        p for p, _ in want)) if k.endswith("['router']")]
+        if tcfg.moe.top_k == 1 else []), zero
 
 
 # -- weights across -----------------------------------------------------------

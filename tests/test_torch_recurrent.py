@@ -368,12 +368,16 @@ def test_decode_matches_prefill(models, arch):
 
 @pytest.mark.parametrize("arch,chunk", [("recurrentgemma_2b", 16),
                                         ("xlstm_125m", 0)])
-def test_lm_loss_and_gradients_match_reference(models, arch, chunk):
+def test_lm_loss_and_gradients_match_reference(models, arch, chunk,
+                                               monkeypatch):
     """``jax.value_and_grad(lm.lm_loss)`` and the port's loss and gradients
     on matrices at 1/sqrt(input width).  The port runs remat full (each
     layer's recurrence recomputed in the backward), the reference none,
     which compiles in a third of the time; remat moves no value
-    (``tests/test_torch_train.py`` holds the modes equal)."""
+    (``tests/test_torch_train.py`` holds the modes equal).  xLSTM's mLSTM
+    loop runs in checkpointed chunks of 16 tokens (``MLSTM_CHUNK``), three
+    over S 48, inside each layer's remat."""
+    monkeypatch.setattr(tblocks, "MLSTM_CHUNK", 16)
     jcfg = _cfgs(arch, loss_chunk=chunk, remat="none")[0]
     tcfg = _cfgs(arch, loss_chunk=chunk, remat="full")[1]
     jp = models(arch, width_scaled=True)[2]
@@ -398,6 +402,50 @@ def test_lm_loss_and_gradients_match_reference(models, arch, chunk):
         a = np.asarray(a, np.float64)
         err = np.abs(a - g.numpy()).max() / max(np.abs(a).max(), 1e-30)
         assert err <= 1e-4, (jax.tree_util.keystr(path), err)
+
+
+@pytest.mark.parametrize("chunk", [4, 5])
+def test_mlstm_chunks_equal_the_whole_loop(models, monkeypatch, chunk):
+    """The mLSTM block with grad on over S 16, its loop in checkpointed
+    chunks of 4 tokens (5: the last one short) against the whole loop
+    (``MLSTM_CHUNK`` at S): the output and the gradients of the input and
+    of every parameter are bitwise equal (each chunk's recompute repeats
+    the whole loop's operations on the same values, and the chunks'
+    gradients meet only by concatenation).  Without grad the block runs
+    the whole loop whatever the chunk."""
+    _, tcfg, _, _, tp = models("xlstm_125m", width_scaled=True)
+    part = tp.layers[0].cell
+    x = _t(np.random.default_rng(9).normal(0, 1, (B, 16, tcfg.d_model)))
+    dy = _t(np.random.default_rng(10).normal(0, 1, (B, 16, tcfg.d_model)))
+    params = list(part.parameters())
+    calls, loop = [], tblocks.mlstm_loop
+    monkeypatch.setattr(tblocks, "mlstm_loop",
+                        lambda *a: calls.append(a[3].shape[1]) or loop(*a))
+    res = {}
+    for c in (16, chunk):
+        monkeypatch.setattr(tblocks, "MLSTM_CHUNK", c)
+        xg = x.clone().requires_grad_()
+        for w in params:
+            w.requires_grad_()
+        calls = []
+        y, _ = tblocks.apply_mlstm(tcfg, part, xg)
+        grads = torch.autograd.grad(y, [xg] + params, dy)
+        for w in params:
+            w.requires_grad_(False)
+        res[c] = (y.detach(), grads, list(calls))
+        with torch.no_grad():
+            calls.clear()
+            assert torch.equal(tblocks.apply_mlstm(tcfg, part, x)[0],
+                               y.detach())
+            assert calls == [16]
+    (y0, g0, c0), (y1, g1, c1) = res[16], res[chunk]
+    assert c0 == [16]
+    # the forward's chunks, then each recomputed in the backward
+    fwd = [min(chunk, 16 - i) for i in range(0, 16, chunk)]
+    assert c1 == fwd + fwd[::-1]
+    assert torch.equal(y0, y1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
 
 
 # -- weights across --------------------------------------------------------------

@@ -238,6 +238,39 @@ def test_adamw_update_bf16_params_bit_for_bit():
     assert checked > 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_update_in_slices_is_bitwise_whole(monkeypatch, dtype):
+    """With ``ADAMW_SLICE_ELEMS`` at 20, the two leaves of 128 elements
+    are updated in slices of their leading axis ([16, 8] in 8 slices of 2
+    rows, [32, 4] in 7 of 5 rows, the last short), the 8-element one
+    whole: 4 steps give parameters and moments bitwise equal to the
+    whole-leaf update's.  Llama 4 Scout's expert leaf at the default goes
+    in 3 slices of at most 6 of its 16 experts."""
+    assert [(sl.start, sl.stop) for sl in tadamw.leaf_slices(
+        (16, 5120, 16384))] == [(0, 6), (6, 12), (12, 18)]
+    assert tadamw.leaf_slices((8,)) == [...]
+    rng = np.random.default_rng(2)
+    params, grads = _opt_case(rng, dtype)
+    tcfg = tadamw.AdamWConfig(**OPT)
+    runs = []
+    for elems in (tadamw.ADAMW_SLICE_ELEMS, 20):
+        monkeypatch.setattr(tadamw, "ADAMW_SLICE_ELEMS", elems)
+        assert len(tadamw.leaf_slices((16, 8))) == (1 if elems > 128
+                                                    else 8)
+        tp = _tparams(params)
+        to = tadamw.adamw_init(tp, tcfg)
+        for g in grads:
+            tp, to, _ = tadamw.adamw_update(
+                {n: torch.from_numpy(a) for n, a in g.items()}, to, tp, tcfg)
+        runs.append((tp, to))
+    (wp, wo), (sp, so) = runs
+    for n in wp:
+        assert torch.equal(wp[n], sp[n]) and torch.equal(wo["m"][n],
+                                                         so["m"][n]) \
+            and torch.equal(wo["v"][n], so["v"][n]), n
+    assert len(tadamw.leaf_slices((32, 4))) == 7
+
+
 def test_global_norm_and_clip_match_reference():
     rng = np.random.default_rng(2)
     tree = {"a": rng.normal(0, 1, (64, 3)).astype(np.float32),

@@ -352,6 +352,9 @@ PROFILE_STEPS = 4
 # their whole scale.
 PARITY_BATCH, PARITY_LEN, PARITY_F32_LAYERS = 2, 64, 4
 PARITY_TOL = {"float32": 2e-4, "bfloat16": 0.1}
+# phase 5's prefill seconds and median decode ms, which phase 15 (e) logs
+# beside its own
+LM_TIMES = {}
 
 
 def log(msg: str) -> None:
@@ -2161,11 +2164,9 @@ def parity_model(cfg, gen, dev):
     1/sqrt(cycles), its stacked axis read as fan-in; at full width that
     saturates the attention softcap and makes the random network chaotic,
     so that any two orders of rounding part ways (see PERF.md).  The input
-    width is the first axis, the first two of attention's ``wo`` [H, hd,
-    d], the second of the experts' ``moe.w_in`` [E, d, 2ff] and
-    ``moe.w_out`` [E, ff, d] (the first is the expert), and the last of
-    sLSTM's ``r_gates`` [4, H, dh, dh] (its recurrent product contracts dh;
-    the first axis, 4, would drive the recurrence to saturation).  Prefix
+    width of a matrix is ``launch.ranks.parity_fan_in``'s, which
+    ``draw_dense`` reads too (sLSTM's ``r_gates`` by its last axis: the
+    first, 4, would drive the recurrence to saturation).  Prefix
     and remainder blocks likewise (the reference draws them at their
     first axis, which is their input width but for ``wo``: DeepSeek-V3's
     MLA prefix layers would add attention outputs sqrt(128) times too
@@ -2176,18 +2177,15 @@ def parity_model(cfg, gen, dev):
     at once would take 30 GB beside the model); every other leaf as
     ``tree_init`` draws it, in plan order."""
     import torch
+    from repro_torch.launch.ranks import parity_fan_in
     from repro_torch.models import lm
     from repro_torch.models.common import tree_init
     dtype = cfg.dtype("param")
     tensors = {}
     for name, spec in lm.plan_model(cfg).items():
         experts = ".moe.w_" in name
-        if spec.init == "normal" and len(spec.shape) > 1 \
-                and name != "embed":
-            width = spec.shape[0] * spec.shape[1] if name.endswith(".wo") \
-                else spec.shape[-1] if name.endswith(".r_gates") \
-                else spec.shape[1] if experts else spec.shape[0]
-            spec = spec._replace(fan_in=width)
+        if spec.init == "normal" and len(spec.shape) > 1:
+            spec = spec._replace(fan_in=parity_fan_in(name, spec.shape))
         if experts and spec.init == "normal":
             t = torch.empty(spec.shape, dtype=dtype, device=dev)
             for e in range(spec.shape[0]):
@@ -2386,6 +2384,8 @@ def drive_lm(dev, seed: int) -> dict:
             raise AssertionError("decode logits not finite")
     gen_toks = torch.cat(out, dim=1).cpu().numpy()
     steps = np.array(step_secs)
+    LM_TIMES.update(prefill_s=[round(t, 4) for t in secs],
+                    decode_ms=round(float(np.median(steps)) * 1e3, 2))
     log(f"  [lm] decode {DECODE_BATCH} requests: prompt of {PROMPT_LEN} "
         f"tokens stepped in {t_prompt:.3f} s, {GEN_LEN} greedy steps: "
         f"median {np.median(steps) * 1e3:.2f} ms a step (min "
@@ -4915,6 +4915,21 @@ MOE_RANK_SMOKE = False        # True: smoke width (a CPU rehearsal)
 # issue's 2^-8 of max |y| tightened to 2^-10: PR 27's chip call 2 found
 # the two bitwise equal (cuBLAS took the same path at both shapes)
 MOE_RANK_BF16_REL = 2**-10
+# (e) Gemma 2 9B at full width served tensor-parallel on the 4 ranks,
+# {"model": 4}: each rank holds 4 of the 16 heads and 2 of the 8 kv heads
+# (flash at H 4, KH 2, hd 256), a quarter of d_ff and of the vocabulary.
+# The weights from draw_dense (1/sqrt of each matrix's input width, as
+# parity_model: the reference's draw makes the random network chaotic);
+# prefill 1 x 2048, then 8 tokens decoded.  bf16 against the replicated
+# run on the card within PARITY_TOL["bfloat16"] of the largest |logit|
+# (each layer's two partial sums add in float32 and round once, against
+# one bf16 product: a few roundings a layer, as phase 5's parity); float32
+# (TF32 off) at PARITY_F32_LAYERS layers within PARITY_TOL["float32"].
+TP_ARCH = "gemma2_9b"
+TP_MESH = {"model": RANK_SHARDS}
+TP_SHAPE = (1, 2048)
+TP_STEPS = 8
+TP_SMOKE = False              # True: smoke width (a CPU rehearsal)
 
 
 def rank_jobs_file(work: Path, jobs: list) -> str:
@@ -5032,12 +5047,108 @@ def moe_gather_want(dev, spec: dict) -> dict:
     return out
 
 
+def tp_specs(seed: int) -> dict:
+    """(e)'s two ``lm_tp`` jobs: bf16 at full depth, float32 at
+    PARITY_F32_LAYERS layers."""
+    base = dict(job="lm_tp", arch=TP_ARCH, mesh=TP_MESH, seed=seed + 16,
+                shape=list(TP_SHAPE), steps=TP_STEPS, smoke=TP_SMOKE)
+    return {"tp-bf16": dict(base, name="tp-bf16"),
+            "tp-f32": dict(base, name="tp-f32", layers=PARITY_F32_LAYERS,
+                           replace={"param_dtype": "float32",
+                                    "compute_dtype": "float32"})}
+
+
+def tp_replicated(dev, spec: dict) -> dict:
+    """(e)'s replicated run on the card: the job's draw and ids through
+    ``launch.ranks.serve_lm`` without a mesh; the model freed after."""
+    import torch
+    from repro_torch.launch.ranks import lm_config, lm_tp_inputs, serve_lm
+    t0 = time.perf_counter()
+    cfg = lm_config(spec)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model, toks = lm_tp_inputs(cfg, spec, dev)
+    out = serve_lm(cfg, model, toks, spec["steps"], dev)
+    out["param_bytes"] = sum(p.nbytes for p in model.parameters())
+    out["peak_gib"] = memory_gib(dev, peak=True)
+    del model, toks, out["caches"]
+    release(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tp_rank_bytes(spec: dict) -> list:
+    """Each rank's parameter bytes as ``meta`` counts them: the model of
+    ``MetaMesh(TP_MESH, rank=r)`` (``lm.init_params(..., mesh=)``)."""
+    from repro_torch.launch.mesh import MetaMesh
+    from repro_torch.launch.ranks import lm_config
+    from repro_torch.models import lm
+    cfg = lm_config(spec)
+    return [sum(p.nbytes for p in lm.init_params(
+        cfg, None, "meta", mesh=MetaMesh(TP_MESH, rank=r)).parameters())
+        for r in range(RANK_SHARDS)]
+
+
+def check_tp(work: Path, outs: list, specs: dict, want: dict) -> list:
+    """(e): the ranks' logits against the replicated run's, decode against
+    prefill, each rank's parameter bytes against ``meta``'s count; logs
+    the flash launches, seconds and peaks.  Returns what failed."""
+    import torch
+    import repro_torch.configs as C
+    from repro_torch.models.common import softcap
+    bad = []
+    cap = C.get(TP_ARCH).logit_softcap
+
+    def gap(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+    for n, spec in specs.items():
+        tol = PARITY_TOL["float32" if n == "tp-f32" else "bfloat16"]
+        got, rep = torch.load(work / f"{n}.pt"), want[n]["logits"]
+        errs = {k: gap(got[k], rep[k]) for k in ("prefill", "decode")}
+        last = softcap(got["prefill_short"][:, 0], cap)
+        errs["decode_vs_prefill"] = gap(got["decode"][-1], last)
+        finite = all(bool(got[k].isfinite().all()) for k in got)
+        meta = tp_rank_bytes(spec)
+        held = [o[n]["param_bytes"] for o in outs]
+        o = [out[n] for out in outs]
+        log(f"  [ranks-tp] {n}: {TP_ARCH} {spec.get('layers') or 'all'} "
+            f"layers on {RANK_SHARDS} ranks {TP_MESH}, prefill "
+            f"{TP_SHAPE[0]} x {TP_SHAPE[1]}, {TP_STEPS} decode steps: max "
+            f"|ranks - replicated| / max |logit| prefill "
+            f"{errs['prefill']:.3g}, decode {errs['decode']:.3g}; decode vs "
+            f"prefill {errs['decode_vs_prefill']:.3g} (bound {tol}); flash "
+            f"launches a rank {[x['flash'] for x in o]} at (H, KH, hd) "
+            f"{o[0]['heads']}; parameter bytes a rank {held} (meta "
+            f"{meta}; replicated {want[n]['param_bytes']})")
+        log(f"  [ranks-tp] {n}: prefill s a rank "
+            f"{[round(x['prefill_s'], 4) for x in o]} (replicated "
+            f"{want[n]['prefill_s']:.4f} s), decode ms a step (median) "
+            f"{[round(float(np.median(x['decode_s'])) * 1e3, 2) for x in o]}"
+            f" (replicated "
+            f"{float(np.median(want[n]['decode_s'])) * 1e3:.2f} ms; phase "
+            f"5: {LM_TIMES}); inside the gloo reductions, prefill "
+            f"{[round(x['prefill_comm']['psum_s'], 4) for x in o]} s "
+            f"({o[0]['prefill_comm']['psum_calls']} psums) and gathers "
+            f"{[round(x['prefill_comm']['gather_s'], 4) for x in o]} s, "
+            f"decode {[round(x['decode_comm']['psum_s'], 4) for x in o]} s "
+            f"({o[0]['decode_comm']['psum_calls']} psums); peak device "
+            f"memory a rank {[round(x['peak_gib'], 2) for x in o]} GiB "
+            f"(replicated {want[n]['peak_gib']:.2f} GiB); the job "
+            f"{[round(x['job_seconds'], 2) for x in o]} s a rank, the "
+            f"replicated run {want[n]['seconds']:.2f} s")
+        if not (finite and max(errs.values()) <= tol and held == meta):
+            bad.append(f"(e) {n}: errors {errs} over {tol}, finite {finite},"
+                       f" or parameter bytes {held} != meta's {meta}")
+    return bad
+
+
 def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
                 seed: int) -> dict:
     """Phase 15: (a) one rank on nccl, (b) 4 ranks sharing the card on
     gloo (wordcount, SSSP, PageRank), (c) Llama 4 Scout's MoE layer on 4
-    ranks, (d) ``compressed_psum`` on 4 ranks.  Returns the ranks' launches
-    of (a) and (b) added up."""
+    ranks, (d) ``compressed_psum`` on 4 ranks, (e) Gemma 2 9B served
+    tensor-parallel on the 4 ranks.  Returns the ranks' launches of (a),
+    (b) and (e) added up."""
     import torch
     from repro_torch.apps import pagerank
     from repro_torch.launch.ranks import moe_config, save_deltas
@@ -5124,6 +5235,8 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
         cmean, cerr = cmean.cpu().numpy(), cerr.cpu().numpy()
         del x, err
         release(dev)
+        tp = tp_specs(seed)
+        tp_want = {n: tp_replicated(dev, spec) for n, spec in tp.items()}
         log(f"  references (LocalMesh, the gather layer, the stacked "
             f"compressed_psum) {time.perf_counter() - t0:.1f} s")
 
@@ -5135,6 +5248,7 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
         jobs += list(moe.values())
         jobs.append({"job": "compress", "name": "d",
                      "data": str(work / "in_compress.npz")})
+        jobs += list(tp.values())
         log(f"  (b)-(d) {RANK_SHARDS} ranks, gloo (host staging), all on "
             f"cuda:0: {[j['name'] for j in jobs]}")
         outs = launch_ranks(dev, work, RANK_SHARDS, "gloo", jobs)
@@ -5267,12 +5381,18 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
                             f"stacked form: {same}")
         log(f"  [ranks-compress] (d) compressed_psum on {RANK_SHARDS} ranks "
             f"bitwise equal to the stacked form, rank by rank: {same}")
+
+        # (e) the dense LM tensor-parallel
+        failures += check_tp(work, outs, tp, tp_want)
+        flash = sum(out[n]["flash"] for out in outs for n in tp)
+        launches["flash_attention"] = launches.get("flash_attention",
+                                                   0) + flash
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
         raise AssertionError("phase 15: " + "; ".join(failures))
     for name in ("sort_lex", "segment_sum", "segment_minmax",
-                 "fused_shuffle_reduce"):
+                 "fused_shuffle_reduce", "flash_attention"):
         if launches.get(name, 0) == 0:
             raise AssertionError(f"phase 15's ranks launched no {name}")
     return launches
@@ -5771,7 +5891,8 @@ def main(argv=None) -> int:
     log(f"phase 15: one process a rank (RankMesh): 1 rank on nccl; "
         f"{RANK_SHARDS} ranks sharing the card on gloo (wordcount, SSSP, "
         f"PageRank against LocalMesh; Llama 4 Scout's MoE layer, a2a "
-        f"against gather; compressed_psum)")
+        f"against gather; compressed_psum; Gemma 2 9B tensor-parallel, "
+        f"{TP_MESH}, against its replicated run)")
     t15 = time.perf_counter()
     rk = drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
                      args.seed)

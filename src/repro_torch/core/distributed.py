@@ -136,6 +136,20 @@ class LocalMesh:
 
 
 BACKENDS = ("nccl", "gloo")
+STATS0 = {"psum_s": 0.0, "psum_calls": 0, "gather_s": 0.0,
+          "gather_calls": 0}
+
+
+def coords_of(shape: Mapping[str, int], rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s index on every axis of a mesh of ``shape`` (row
+    order, the last fastest)."""
+    coords = {}
+    for name in reversed(list(shape)):
+        coords[name] = rank % shape[name]
+        rank //= shape[name]
+    return {n: coords[n] for n in shape}
+
+
 # leaves whose dtype a backend may not carry (gloo has no bool, bfloat16
 # or int16) travel as their bytes, viewed as uint8 along the last axis
 _WIRE = (torch.bool, torch.bfloat16, torch.float16)
@@ -161,7 +175,7 @@ class RankMesh:
     """
 
     __slots__ = ("_shape", "rank", "world", "device", "backend", "coords",
-                 "_groups")
+                 "_groups", "stats")
 
     def __init__(self, shape: Mapping[str, int], *, device, backend: str):
         shape = dict(LocalMesh(shape).shape)
@@ -197,7 +211,7 @@ class RankMesh:
         for name, value in (("_shape", MappingProxyType(shape)),
                             ("rank", rank), ("world", world),
                             ("device", device), ("backend", backend),
-                            ("_groups", {})):
+                            ("_groups", {}), ("stats", dict(STATS0))):
             object.__setattr__(self, name, value)
         object.__setattr__(self, "coords",
                            MappingProxyType(self.coords_of(rank)))
@@ -215,11 +229,7 @@ class RankMesh:
 
     def coords_of(self, rank: int) -> Dict[str, int]:
         """A rank's index on every axis (row order, the last fastest)."""
-        coords = {}
-        for name in reversed(list(self._shape)):
-            coords[name] = rank % self._shape[name]
-            rank //= self._shape[name]
-        return {n: coords[n] for n in self._shape}
+        return coords_of(self._shape, rank)
 
     def index(self, axes, rank: Optional[int] = None) -> int:
         """The flattened index over ``axes`` (the last fastest) of this
@@ -299,22 +309,72 @@ class RankMesh:
         return self._unwire(recv, send.dtype).reshape(
             (-1,) + tuple(send.shape[2:]))
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` from every rank, stacked in rank order: ``[world, ...]``."""
+    def _size(self, axes) -> int:
+        return self.world if axes is None else math.prod(
+            self._shape[a] for a in axes)
+
+    def _gather(self, t: torch.Tensor, axes) -> torch.Tensor:
         w = self._wire(t)
-        parts = [torch.empty_like(w) for _ in range(self.world)]
-        tdist.all_gather(parts, w)
+        parts = [torch.empty_like(w) for _ in range(self._size(axes))]
+        tdist.all_gather(parts, w, group=None if axes is None
+                         else self.group(axes))
         return self._unwire(torch.stack(parts), t.dtype)
 
-    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` summed (or maxed) over the ranks; a new tensor."""
+    def _sync(self) -> None:
+        # gloo stages through host memory, which waits for the device
+        # anyway: wait first, so that the seconds are the exchange's
+        if self.backend == "gloo" and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def all_gather(self, t: torch.Tensor, axes=None) -> torch.Tensor:
+        """``t`` from every rank of ``axes``' group (None: the world),
+        stacked in the flattened order of ``axes``: ``[n, ...]``."""
+        self._sync()
+        t0 = time.perf_counter()
+        out = self._gather(t, axes)
+        self._count("gather", t0)
+        return out
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum",
+                   axes=None) -> torch.Tensor:
+        """``t`` summed (or maxed) over the ranks of ``axes``' group (None:
+        the world); a new tensor."""
         if t.dtype in _WIRE:
             raise TypeError(f"all_reduce of {t.dtype}: reduce a wider "
                             f"dtype")
         w = self._wire(t).clone()
         tdist.all_reduce(w, op={"sum": tdist.ReduceOp.SUM,
-                                "max": tdist.ReduceOp.MAX}[op])
+                                "max": tdist.ReduceOp.MAX}[op],
+                         group=None if axes is None else self.group(axes))
         return self._unwire(w, t.dtype)
+
+    def psum(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The sum of ``t`` over ``axes``' group, the same bits on every
+        rank: each element's partials (sent as bytes; gloo has no
+        bfloat16) are added in float32 (float64 for float64) in the
+        flattened order of ``axes`` and rounded once to ``t``'s dtype.
+        The order is the same on every backend, so that a run on nccl can
+        be held bit for bit against one on gloo."""
+        self._sync()
+        t0 = time.perf_counter()
+        wide = torch.float64 if t.dtype == torch.float64 else torch.float32
+        parts = self._gather(t, tuple(axes))
+        acc = parts[0].to(wide)
+        for p in parts[1:]:
+            acc += p
+        out = acc.to(t.dtype)
+        self._count("psum", t0)
+        return out
+
+    def _count(self, what: str, t0: float) -> None:
+        self._sync()
+        self.stats[f"{what}_s"] += time.perf_counter() - t0
+        self.stats[f"{what}_calls"] += 1
+
+    def reset_stats(self) -> None:
+        """Zero ``stats``: the seconds and calls of ``psum`` and
+        ``all_gather`` (gloo waits for the device before each)."""
+        self.stats.update(STATS0)
 
     def all_gather_object(self, obj) -> list:
         """A picklable object from every rank, in rank order."""

@@ -1,4 +1,5 @@
-"""Dry-run of every (arch x shape) cell on ``meta`` tensors, for one H100.
+"""Dry-run of every (arch x shape) cell on ``meta`` tensors, for one H100
+or for one rank of the reference's meshes.
 
 Counterpart of ``repro.launch.dryrun``, which lowers and compiles each
 step on a TPU mesh of 256 or 512 chips and reads XLA's cost and memory
@@ -21,27 +22,52 @@ cell's shapes, and counted:
 
 The record keeps the reference's keys (``arch``, ``shape``, ``mesh``,
 ``tag``, ``devices``, ``cycles``, ``full``), so that ``launch.roofline``
-reads it as the reference's reads its own: ``devices`` is 1, ``coll`` is
-empty (one card has no collectives), and ``trace_s`` (the seconds of the
-run on ``meta``) stands for ``lower_s``; there is no ``compile_s``.  An
-eager run counts every layer, so the reference's layer probes are not
-needed.  A config with token-loop blocks (``mlstm``, ``slstm``: xLSTM
-steps its tokens one at a time in Python) is run at two short lengths
-instead (:data:`PROBE_LENS`) and extrapolated linearly to S: its record
-carries ``probe1``, ``probe2`` and ``estimated``, as the reference's
-records do, and ``full`` holds the extrapolated counts.  Records go to
-the git-ignored ``build/dryrun/<arch>__<shape>__h100x1__<tag>.json``.
+reads it as the reference's reads its own: on ``h100x1`` (the default)
+``devices`` is 1 and ``coll`` is empty (one card has no collectives);
+``trace_s`` (the seconds of the run on ``meta``) stands for ``lower_s``;
+there is no ``compile_s``.  An eager run counts every layer, so the
+reference's layer probes are not needed.  A config with token-loop
+blocks (``mlstm``, ``slstm``: xLSTM steps its tokens one at a time in
+Python) is run at two short lengths instead (:data:`PROBE_LENS`) and
+extrapolated linearly to S: its record carries ``probe1``, ``probe2``
+and ``estimated``, as the reference's records do, and ``full`` holds the
+extrapolated counts.
+
+``--mesh pod16x16`` (the reference's 16 x 16 ``("data", "model")`` mesh)
+and ``--mesh pod2x16x16`` (``--multi-pod``: 2 x 16 x 16 with ``"pod"``
+first) count one rank, rank 0, of a serving cell (prefill, decode) of a
+dense attention arch: its model cut by ``cfg.sharding``
+(``models.shard``) and its step run on ``meta`` under a
+``launch.mesh.MetaMesh``, whose collectives count their output bytes.
+The batch rule is the reference's ``_fix_rules_for_mesh``: the batch
+splits over ``("data",)`` on one pod, ``("pod", "data")`` on two.  The
+record's ``devices`` is 256 or 512, ``coll`` the rank's collective bytes
+by kind, in closed form (B the cell's batch, B_r the rank's rows of it,
+S the step's tokens a row, d, L layers, V the vocabulary; b the compute
+dtype's bytes, b_l the logits' (the compute dtype's for a prefill,
+float32's for a decode step))::
+
+    all-reduce  (2 L + 1) B_r S d b    two partial sums a layer (attention,
+                                       FFN) and the vocab-parallel
+                                       embedding
+    all-gather  B_r V b_l + B V b_l    the last token's vocab slices over
+                                       "model", then the rows over the
+                                       batch's axes
+
+(HuBERT, whose inputs come embedded, has no embedding reduction).  A
+train cell, and an arch with MLA, MoE, RG-LRU, mLSTM or sLSTM layers,
+raise under a mesh, naming their ROADMAP.md item.  Records go to
+the git-ignored ``build/dryrun/<arch>__<shape>__<mesh>__<tag>.json``.
 
   python -m repro_torch.launch.dryrun --arch qwen3_1_7b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--skip-existing]
   python -m repro_torch.launch.dryrun --arch chameleon_34b --shape \\
       train_4k --tag remat_dots --set remat=dots
+  python -m repro_torch.launch.dryrun --arch gemma2_9b --shape \\
+      decode_32k --multi-pod
+  python -m repro_torch.launch.dryrun --all --mesh pod16x16
 
-``--multi-pod`` (the reference's 2 x 16 x 16 mesh) raises: the ranks and
-their exchange exist (``repro_torch.core.distributed.RankMesh``,
-``launch.mesh.make_production_mesh``), but the port has no GSPMD, so the
-LM itself is not sharded across cards; only the MoE's ``a2a`` layer
-splits its experts over ranks (ROADMAP.md Queue 1).
+``--all`` with a mesh runs the dense archs' serving cells.
 """
 from __future__ import annotations
 
@@ -61,8 +87,13 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch.launch.mesh import MESHES, MetaMesh
+
 ART = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 MESH = "h100x1"
+# the shape cells a mesh's --all counts: the serving cells of the dense
+# attention archs (the others raise under a mesh)
+MESH_SHAPES = ("prefill_32k", "decode_32k")
 # the lengths a token-loop config is run at; S must be a multiple of the
 # first for the extrapolation to stay in integers
 PROBE_LENS = (8, 16)
@@ -139,9 +170,10 @@ class Traffic(TorchDispatchMode):
         return out
 
 
-def trace_step(step, args) -> Dict[str, Any]:
+def trace_step(step, args, mesh=None) -> Dict[str, Any]:
     """Run ``step(*args)`` once under the counters; the reference's
-    ``_compile_once`` record, with ``trace_s`` for ``lower_s``."""
+    ``_compile_once`` record, with ``trace_s`` for ``lower_s``; ``coll``,
+    the collective bytes ``mesh`` (a ``MetaMesh``) counted in it."""
     traffic = Traffic(args)
     flops = FlopCounterMode(display=False)
     t0 = time.perf_counter()
@@ -154,7 +186,7 @@ def trace_step(step, args) -> Dict[str, Any]:
         "trace_s": round(trace_s, 3),
         "flops": float(flops.get_total_flops()),
         "bytes": float(traffic.bytes),
-        "coll": {},
+        "coll": dict(mesh.coll) if mesh is not None else {},
         "memory": {"argument_size": storage_bytes(args),
                    "output_size": output,
                    "temp_size": max(traffic.peak - output, 0)},
@@ -172,17 +204,30 @@ def _extrapolate(a: float, b: float, s: int) -> float:
     return float(int(a) + (int(b) - int(a)) * (s - p1) // (p2 - p1))
 
 
-def dryrun(cfg, cell, tag: str = "baseline", arch: Optional[str] = None
-           ) -> Dict[str, Any]:
+def dryrun(cfg, cell, tag: str = "baseline", arch: Optional[str] = None,
+           mesh: str = MESH) -> Dict[str, Any]:
     """The record of one cell: ``cfg`` at ``cell`` (a ``ShapeCell``) on
     ``meta``, probed along tokens where the config has token-loop blocks
-    and the cell runs a whole sequence."""
+    and the cell runs a whole sequence; with ``mesh`` a name of
+    ``launch.mesh.MESHES``, rank 0 of that mesh."""
     from repro_torch.launch.steps import input_specs
     from repro_torch.models.config import ShapeCell
-    rec = {"arch": arch or cfg.name, "shape": cell.name, "mesh": MESH,
+    rec = {"arch": arch or cfg.name, "shape": cell.name, "mesh": mesh,
            "tag": tag, "devices": 1, "cycles": cfg.cycles,
            "cell": {"seq_len": cell.seq_len,
                     "global_batch": cell.global_batch, "kind": cell.kind}}
+    if mesh != MESH:
+        from repro_torch.models.shard import check_supported, \
+            fix_rules_for_mesh
+        if mesh not in MESHES:
+            raise ValueError(f"mesh must be {MESH} or one of "
+                             f"{sorted(MESHES)}, got {mesh!r}")
+        check_supported(cfg, cell.kind)
+        meta = MetaMesh(MESHES[mesh])
+        cfg = fix_rules_for_mesh(cfg, meta.shape)
+        rec["devices"] = meta.world
+        rec["full"] = trace_step(*input_specs(cfg, cell, mesh=meta), meta)
+        return rec
     if cell.kind == "decode" or not has_token_loop(cfg):
         rec["full"] = trace_step(*input_specs(cfg, cell))
         return rec
@@ -212,29 +257,29 @@ def dryrun(cfg, cell, tag: str = "baseline", arch: Optional[str] = None
     return rec
 
 
-def record_path(arch: str, shape: str, tag: str) -> Path:
-    return ART / f"{arch}__{shape}__{MESH}__{tag}.json"
+def record_path(arch: str, shape: str, tag: str, mesh: str = MESH) -> Path:
+    return ART / f"{arch}__{shape}__{mesh}__{tag}.json"
 
 
 def dryrun_cell(arch: str, shape: str, overrides=None,
-                tag: str = "baseline") -> Dict[str, Any]:
+                tag: str = "baseline", mesh: str = MESH) -> Dict[str, Any]:
     """Dry-run ``arch`` at the cell ``shape`` (a name of ``SHAPES``), with
-    ``overrides`` for its config, and write its record."""
+    ``overrides`` for its config, on ``mesh``, and write its record."""
     import repro_torch.configs as C
     from repro_torch.models.config import SHAPES
     cfg = C.get(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
-    rec = dryrun(cfg, SHAPES[shape], tag, arch)
+    rec = dryrun(cfg, SHAPES[shape], tag, arch, mesh)
     full = rec["full"]
     probed = " (probed at S " + ", ".join(
         str(rec[k]["seq_len"]) for k in ("probe1", "probe2")) + ")" \
         if "estimated" in rec else ""
-    print(f"[{arch} x {shape} x {MESH} x {tag}] trace {full['trace_s']:.2f} "
+    print(f"[{arch} x {shape} x {mesh} x {tag}] trace {full['trace_s']:.2f} "
           f"s{probed}: flops {full['flops']:.4g} bytes {full['bytes']:.4g} "
-          f"memory {full['memory']}", flush=True)
+          f"coll {full['coll']} memory {full['memory']}", flush=True)
     ART.mkdir(parents=True, exist_ok=True)
-    record_path(arch, shape, tag).write_text(json.dumps(rec, indent=1))
+    record_path(arch, shape, tag, mesh).write_text(json.dumps(rec, indent=1))
     return rec
 
 
@@ -256,10 +301,10 @@ def parse_overrides(pairs) -> Dict[str, Any]:
 def _run_cell(job):
     """One cell of ``--all`` in a worker: (arch, shape, seconds, the
     traceback or None)."""
-    arch, shape, overrides, tag = job
+    arch, shape, overrides, tag, mesh = job
     t0 = time.perf_counter()
     try:
-        dryrun_cell(arch, shape, overrides, tag)
+        dryrun_cell(arch, shape, overrides, tag, mesh)
         err = None
     except Exception:               # report every cell, then fail
         err = traceback.format_exc()
@@ -270,9 +315,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch")
     ap.add_argument("--shape")
+    ap.add_argument("--mesh", default=MESH,
+                    choices=[MESH, *MESHES],
+                    help="one H100, or rank 0 of the reference's 16 x 16 "
+                         "or 2 x 16 x 16 mesh (dense archs' serving cells)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported: the LM is not sharded across "
-                         "cards")
+                    help="the same as --mesh pod2x16x16")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--tag", default="baseline")
     ap.add_argument("--skip-existing", action="store_true")
@@ -282,14 +330,13 @@ def main(argv=None) -> int:
                     help="cells traced at once, each in a process of its "
                          "own")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the LM sharded across cards is not ported (the "
-            "port has no GSPMD; ranks and the MoE's a2a layer exist, but "
-            "every other weight would be replicated on each card); see "
-            "ROADMAP.md Queue 1")
+    mesh = "pod2x16x16" if args.multi_pod else args.mesh
     import repro_torch.configs as C
-    if args.all:
+    if args.all and mesh != MESH:
+        from repro_torch.models.shard import SHARDED_KINDS
+        cells = [(a, s) for a, s in C.all_cells() if s in MESH_SHAPES
+                 and set(C.get(a).layer_kinds) <= set(SHARDED_KINDS)]
+    elif args.all:
         cells = C.all_cells()
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
@@ -298,10 +345,11 @@ def main(argv=None) -> int:
     overrides = parse_overrides(args.set) or None
     jobs = []
     for arch, shape in cells:
-        if args.skip_existing and record_path(arch, shape, args.tag).exists():
+        if args.skip_existing and record_path(arch, shape, args.tag,
+                                              mesh).exists():
             print(f"skip {arch} x {shape} (exists)")
             continue
-        jobs.append((arch, shape, overrides, args.tag))
+        jobs.append((arch, shape, overrides, args.tag, mesh))
     if args.jobs > 1 and len(jobs) > 1:
         # a worker that dies breaks the pool (and raises) instead of being
         # replaced; spawned workers import this module, not the caller's

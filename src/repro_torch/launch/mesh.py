@@ -9,6 +9,11 @@ shapes as a ``repro_torch.core.distributed.RankMesh`` over the current
 process group, one rank a card (or a CPU process): the caller starts the
 ranks (``repro_torch.launch.ranks.run_ranks``) and initialises the group,
 and picks each rank's device and the backend.
+
+:class:`MetaMesh` plays one rank of such a mesh without starting any: its
+collectives return ``meta`` tensors of the right shapes and count their
+output bytes by the reference's kind names, which is how ``launch.dryrun``
+counts one rank of the 256- and 512-card meshes.
 """
 from __future__ import annotations
 
@@ -23,12 +28,62 @@ PEAK_F32_FLOPS = 67e12
 # HBM3, bytes a second
 HBM_BW = 3.35e12
 # NVLink 4, bytes a second each way between two cards: read only by the
-# roofline's collective term, which is 0 on one card
+# roofline's collective term (0 on one card; a mesh's records count the
+# bytes of one rank's collectives, ``MetaMesh``)
 LINK_BW = 450e9
 
 PRODUCTION = {"data": 16, "model": 16}
 MULTI_POD = {"pod": 2, "data": 16, "model": 16}
 SINGLE_POD_WITH_POD_AXIS = {"pod": 1, "data": 16, "model": 16}
+
+
+MESHES = {"pod16x16": PRODUCTION, "pod2x16x16": MULTI_POD}
+
+
+class MetaMesh:
+    """Rank ``rank`` (0 by default) of a mesh of ``shape`` that is never
+    started: ``shape``, ``coords`` and ``world`` as ``RankMesh``'s, and
+    the collectives the sharded LM calls (``psum``, ``all_gather``), which
+    take and return ``meta`` tensors of the shapes
+    a ``RankMesh`` returns.  Each adds its output's bytes to ``coll``
+    under the reference's kind name (``all-reduce``, ``all-gather``), as
+    ``repro.launch.dryrun.collective_bytes`` sums the output shapes of an
+    HLO's collectives."""
+
+    def __init__(self, shape, rank: int = 0):
+        from repro_torch.core.distributed import coords_of
+        self.shape = dict(shape)
+        self.world = math.prod(self.shape.values())
+        if not 0 <= rank < self.world:
+            raise ValueError(f"rank {rank} of a mesh of {self.world}")
+        self.rank = rank
+        self.coords = coords_of(self.shape, rank)
+        self.coll = {}
+
+    def __repr__(self) -> str:
+        return f"MetaMesh({self.shape!r}, rank={self.rank})"
+
+    def _size(self, axes) -> int:
+        if axes is None:
+            return self.world
+        if list(axes) != [a for a in self.shape if a in axes]:
+            raise ValueError(f"axes {tuple(axes)} must follow the mesh's "
+                             f"order {tuple(self.shape)}")
+        return math.prod(self.shape[a] for a in axes)
+
+    def _out(self, kind: str, t, shape):
+        if t.device.type != "meta":
+            raise ValueError(f"MetaMesh takes meta tensors, got {t.device}")
+        out = t.new_empty(shape)
+        self.coll[kind] = self.coll.get(kind, 0) + out.nbytes
+        return out
+
+    def psum(self, t, axes):
+        self._size(axes)
+        return self._out("all-reduce", t, t.shape)
+
+    def all_gather(self, t, axes=None):
+        return self._out("all-gather", t, (self._size(axes),) + t.shape)
 
 
 def host_mesh_shape(n: int = 8, axes=("data", "model")) -> dict:

@@ -33,6 +33,24 @@ order, every rank the same jobs on the same inputs (SPMD), and prints
   * ``moe_lm``: an LM's prefill with ``moe_impl="a2a"`` from the flat
     weights of the ``.npz`` (``params_from_numpy(..., ep=...)``); rank 0
     writes the logits.
+  * ``psum``: ``RankMesh.psum`` of the rank's row of each stacked array of
+    the ``.npz`` (float32; bfloat16 as its uint16 patterns, keys ending
+    in ``_bf16``) over each axis group of ``spec["axes"]`` (a list of
+    lists of ``spec["mesh"]``'s axes); each rank writes
+    ``DIR/<name>_r<rank>.npz``, a group's sums under ``<axes joined by
+    "+">.<key>``.
+  * ``lm_tp``: a dense LM served tensor-parallel over ``spec["mesh"]``
+    (``models.shard``): each rank holds its shards, from the flat weights
+    of the ``.npz`` (``params_from_numpy(..., mesh=...)``, its ``toks``)
+    or drawn on the device from ``spec["seed"]`` (:func:`draw_dense`, ids
+    of ``spec["shape"]``); it prefills the first ``spec["steps"]`` ids
+    (untimed), then all of them, then decodes those first ids from empty
+    caches one step at a time, the last step held against the first
+    prefill (:func:`serve_lm`).  Rank 0 writes the logits to
+    ``DIR/<name>.pt``; with ``"dump": true`` every rank writes its
+    parameters and caches to ``DIR/<name>_r<rank>.pt``.  Each rank reports its seconds (prefill,
+    decode steps, inside ``psum`` and ``all_gather``), flash launches,
+    parameter bytes and peak memory.
 
 The kernels are built by the caller before the ranks start on a card
 (:func:`run_ranks` does it), so that the ranks only load them.
@@ -493,9 +511,186 @@ def _moe_lm_job(spec: dict, ctx: dict) -> dict:
     return {"logits": list(logits.shape)}
 
 
+def _psum_job(spec: dict, ctx: dict) -> dict:
+    import torch
+    from repro_torch.core.distributed import RankMesh
+    mesh = RankMesh(spec["mesh"], device=ctx["device"],
+                    backend=ctx["backend"])
+    z = np.load(spec["data"])
+    out = {}
+    for axes in spec["axes"]:
+        for k in z.files:
+            x = torch.from_numpy(z[k][ctx["rank"]].copy())
+            if k.endswith("_bf16"):
+                x = x.view(torch.bfloat16)
+            y = mesh.psum(x.to(ctx["device"]), axes).cpu()
+            out[f"{'+'.join(axes)}.{k}"] = (
+                y.view(torch.uint16) if k.endswith("_bf16") else y).numpy()
+    np.savez(Path(ctx["out"]) / f"{spec['name']}_r{ctx['rank']}.npz", **out)
+    return {"calls": mesh.stats["psum_calls"]}
+
+
+def parity_fan_in(name: str, shape) -> int:
+    """The input width by whose square root a parity draw (:func:`draw_dense`,
+    ``chip_smoke.parity_model``) divides a normal leaf: its first axis
+    (the embedding's is the vocabulary, as the reference's), the first two
+    of attention's ``wo`` [H, hd, d], the second of the experts'
+    ``moe.w_in`` [E, d, 2ff] and ``moe.w_out`` [E, ff, d] (the first is
+    the expert), the last of sLSTM's ``r_gates`` [4, H, dh, dh] (its
+    recurrent product contracts dh)."""
+    if name.endswith(".wo"):
+        return shape[0] * shape[1]
+    if name.endswith(".r_gates"):
+        return shape[-1]
+    if ".moe.w_" in name:
+        return shape[1]
+    return shape[0]
+
+
+def draw_dense(cfg, seed: int, device, mesh=None):
+    """A dense LM drawn on ``device`` from ``seed``: norms zeros, every
+    matrix normal at 1/sqrt(its input width) (:func:`parity_fan_in`), each
+    leaf from a generator seeded by its place in the plan, drawn whole in
+    float32 and rounded to ``cfg.param_dtype``.  ``mesh``: the model of
+    the mesh's own rank, each leaf cut to its shard after the draw, so
+    that every rank, and a process without a mesh, hold the same values."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.shard import Layout
+    layout = None if mesh is None else Layout.of(cfg, mesh)
+    plan = lm.plan_model(cfg)
+    gen = torch.Generator(device=device)
+    tensors = {}
+    for k, (name, s) in enumerate(plan.items()):
+        if s.init != "normal":
+            t = (torch.zeros if s.init == "zeros" else torch.ones)(
+                s.shape, device=device)
+        else:
+            gen.manual_seed(seed * len(plan) + k)
+            t = torch.randn(s.shape, generator=gen, device=device).mul_(
+                1.0 / math.sqrt(parity_fan_in(name, s.shape)))
+        if layout is not None:
+            t = layout.take(name, s, t)
+        tensors[name] = t.to(dtype=cfg.dtype("param"), copy=True)
+        del t
+    return lm.LM(cfg, tensors, layout=layout)
+
+
+def lm_config(spec: dict):
+    """An ``lm_tp`` job's config: ``arch`` (smoke width with ``"smoke":
+    true``, ``n_layers`` from ``"layers"``) and ``replace`` kwargs."""
+    import repro_torch.configs as C
+    from repro_torch.models.config import smoke_config
+    cfg = C.get(spec["arch"])
+    if spec.get("smoke"):
+        cfg = smoke_config(cfg)
+    if spec.get("layers"):
+        cfg = cfg.replace(n_layers=spec["layers"])
+    return cfg.replace(**spec.get("replace", {}))
+
+
+def serve_lm(cfg, model, toks, steps: int, device, mesh=None) -> dict:
+    """Serve ``toks`` [B, S] (a device tensor) with ``model``: the prefill
+    of its first ``steps`` tokens (untimed: it warms the kernels, the
+    library handles and the mesh's groups; the last decode step is held
+    against it), the prefill's last-token logits, then those ``steps``
+    tokens decoded one step at a time from empty caches.  Returns the
+    logits (float32, on the host) and the seconds: ``prefill_s`` (the
+    second prefill), ``decode_s`` a step, and, under ``mesh``, those spent
+    inside its ``psum`` and ``all_gather`` (``prefill_comm``,
+    ``decode_comm``), with the flash launches of the timed prefill;
+    ``caches`` are the decode's."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import lm
+    b, s = toks.shape
+    prefill = make_prefill_step(cfg, device, mesh)
+    serve = make_serve_step(cfg, device, mesh)
+    short = prefill(model, {"inputs": toks[:, :steps]})
+    reset_launch_counts()
+    if mesh is not None:
+        mesh.reset_stats()
+    _sync(device)
+    t0 = time.perf_counter()
+    logits = prefill(model, {"inputs": toks})
+    _sync(device)
+    out = {"prefill_s": time.perf_counter() - t0,
+           "flash": launch_counts()["flash_attention"]}
+    if mesh is not None:
+        out["prefill_comm"] = dict(mesh.stats)
+        mesh.reset_stats()
+    caches = lm.init_caches(cfg, b, steps, device=device, mesh=mesh)
+    decoded, secs = [], []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        step, caches = serve(model, caches, toks[:, t:t + 1])
+        _sync(device)
+        secs.append(time.perf_counter() - t0)
+        decoded.append(step.float().cpu())
+    if mesh is not None:
+        out["decode_comm"] = dict(mesh.stats)
+    out.update(decode_s=secs, caches=caches, logits={
+        "prefill": logits.float().cpu(), "prefill_short": short.float().cpu(),
+        "decode": torch.stack(decoded)})
+    return out
+
+
+def lm_tp_inputs(cfg, spec: dict, device, mesh=None):
+    """``(model, toks)`` of an ``lm_tp`` job: from its ``.npz`` or drawn
+    from its seed (:func:`draw_dense`; ids of ``spec["shape"]`` from the
+    same seed), the model ``mesh``'s rank's."""
+    import torch
+    from repro_torch.models.transfer import params_from_numpy, \
+        to_reference_tree
+    if "data" in spec:
+        z = np.load(spec["data"])
+        flat = {k[2:]: torch.from_numpy(z[k]) for k in z.files
+                if k.startswith("p.")}
+        model = params_from_numpy(cfg, to_reference_tree(cfg, flat),
+                                  device=device, mesh=mesh)
+        toks = z["toks"]
+    else:
+        model = draw_dense(cfg, spec["seed"], device, mesh=mesh)
+        toks = np.random.default_rng(spec["seed"]).integers(
+            0, cfg.vocab, spec["shape"]).astype(np.int32)
+    return model, torch.from_numpy(toks).to(device)
+
+
+def _lm_tp_job(spec: dict, ctx: dict) -> dict:
+    import torch
+    from repro_torch.core.distributed import RankMesh
+    device = ctx["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = lm_config(spec)
+    mesh = RankMesh(spec["mesh"], device=device, backend=ctx["backend"])
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    model, toks = lm_tp_inputs(cfg, spec, device, mesh)
+    out = serve_lm(cfg, model, toks, spec["steps"], device, mesh)
+    if ctx["rank"] == 0:
+        torch.save(out["logits"], Path(ctx["out"]) / f"{spec['name']}.pt")
+    if spec.get("dump"):
+        torch.save({"params": {k: v.detach().cpu() for k, v in
+                               model.named_parameters()},
+                    "caches": [{part: {k: v.cpu() for k, v in c.items()}
+                                for part, c in layer.items()}
+                               for layer in out["caches"]["layers"]]},
+                   Path(ctx["out"]) / f"{spec['name']}_r{ctx['rank']}.pt")
+    heads = model.layers[0].attn.part
+    del out["logits"], out["caches"]
+    return dict(out, heads=[heads.q.stop - heads.q.start,
+                            heads.kv.stop - heads.kv.start, cfg.head_dim],
+                param_bytes=sum(p.nbytes for p in model.parameters()),
+                peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else float("nan")))
+
+
 JOBS = {"wordcount": _engine_job, "sssp": _engine_job,
         "pagerank": _engine_job, "compress": _compress_job,
-        "moe": _moe_job, "moe_lm": _moe_lm_job}
+        "moe": _moe_job, "moe_lm": _moe_lm_job, "psum": _psum_job,
+        "lm_tp": _lm_tp_job}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -5,7 +5,8 @@ Counterpart of ``repro.launch.roofline``, with its formulas.  For every
 
   compute term    = flops / 989 TFLOP/s       (bf16 tensor cores, dense)
   memory term     = bytes / 3.35 TB/s         (HBM3)
-  collective term = collective bytes / 450 GB/s (NVLink 4; 0 on one card)
+  collective term = collective bytes / 450 GB/s (NVLink 4; 0 on one card,
+                    one rank's collectives on a mesh's records)
 
 plus MODEL_FLOPS = 6·N·D (train) / 2·N·D (prefill) / 2·N_active·B + the
 KV read (decode), the useful-compute ratio MODEL_FLOPS / flops, the
@@ -25,7 +26,8 @@ cache included; cache bytes are counted at 2 an element, the xLSTM
 cells' float32 states included.  Parameters are counted from the port's
 own plan (``lm.plan_model``).
 
-  python -m repro_torch.launch.roofline [--tag baseline] [--md]
+  python -m repro_torch.launch.roofline [--tag baseline] [--md] \\
+      [--mesh pod16x16]
 """
 from __future__ import annotations
 
@@ -144,9 +146,9 @@ def analyze(rec: dict) -> dict:
     }
 
 
-def load_all(tag: str):
+def load_all(tag: str, mesh: str = MESH):
     out = []
-    for f in sorted(ART.glob(f"*__{MESH}__{tag}.json")):
+    for f in sorted(ART.glob(f"*__{mesh}__{tag}.json")):
         rec = json.loads(f.read_text())
         if rec["arch"] == "qwen3-1.7b":   # alias duplicate of qwen3_1_7b
             continue
@@ -181,8 +183,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="baseline")
     ap.add_argument("--md", action="store_true")
+    ap.add_argument("--mesh", default=MESH,
+                    help="the records of this mesh (launch.dryrun --mesh)")
     args = ap.parse_args(argv)
-    recs = load_all(args.tag)
+    recs = load_all(args.tag, args.mesh)
     if args.md:
         print(markdown_table(recs))
         return

@@ -19,9 +19,17 @@ A batch's ``inputs`` are token ids [B, S], or embeddings [B, S, d] when
 ``cfg.embed_inputs`` is False (HuBERT behind its frontend stub), as
 :func:`batch_specs` gives them; another rank raises.
 
+The serving steps take ``mesh=`` (a ``RankMesh``, or a
+``launch.mesh.MetaMesh`` on ``meta``): the model is then that rank's
+shards (``lm.init_params(..., mesh=)``, ``transfer.params_from_numpy(...,
+mesh=)``), the inputs come whole to every rank and the step runs the
+rank's rows of them under the ambient mesh (``models.meshctx``), and
+every rank returns the whole logits.  Training under a mesh raises
+(``models.shard.check_supported``).
+
 The input specs (:func:`batch_specs`, :func:`decode_specs`,
 :func:`opt_specs`, :func:`input_specs`) are the reference's
-``ShapeDtypeStruct`` stand-ins at ``mesh=None``: tensors on ``meta`` (the
+``ShapeDtypeStruct`` stand-ins: tensors on ``meta`` (the
 default) with the shapes and dtypes of a cell's inputs, which hold no
 memory and which every step takes, so that ``launch.dryrun`` runs a step
 without allocating.  On another device they hold values: weights drawn
@@ -30,7 +38,8 @@ on, caches and moments zero.  Two differences from the reference's
 structs: the weights are the port's model (``lm.LM``, flat names) and the
 caches its dict; the xLSTM cells' states are float32 (the reference's
 spec says the compute dtype, and its carries are float32 after the first
-step).
+step).  With ``mesh=`` the parameters and caches are the mesh's own
+rank's, the batch and the tokens whole, as the steps take them.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import lm, meshctx, shard
 from repro_torch.models.common import resolve_device
 from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.optim import AdamWConfig, adamw_update
@@ -66,32 +75,52 @@ def _inputs(cfg: ModelConfig, inputs, dev: torch.device) -> torch.Tensor:
     return x
 
 
-def make_serve_step(cfg: ModelConfig, device="cuda"):
+def _check_mesh(params: lm.LM, mesh, kind: str) -> None:
+    """A model and a step agree on the mesh: both without one, or the
+    model cut for this mesh's rank."""
+    layout = params.layout
+    if mesh is None and layout is not None:
+        raise ValueError(f"{kind} was made without a mesh, but the model "
+                         f"holds a rank's shards: make it with mesh=")
+    if mesh is not None and (layout is None or not layout.matches(mesh)):
+        raise ValueError(f"{kind} was made for {mesh!r}, but the model "
+                         f"was not cut for that rank (lm.init_params or "
+                         f"params_from_numpy with mesh=)")
+
+
+def make_serve_step(cfg: ModelConfig, device="cuda", mesh=None):
     """serve_step(params, caches, tokens [B, 1]) -> (logits [B, V] float32
-    with the logit softcap, caches updated in place)."""
+    with the logit softcap, caches updated in place).  ``mesh``: the
+    rank's model and caches, every rank the whole tokens and logits."""
     dev = resolve_device(device)
+    if mesh is not None:
+        shard.check_supported(cfg, "decode")
 
     def serve_step(params: lm.LM, caches: Dict[str, Any], tokens):
         _on(params, dev, "serve_step")
+        _check_mesh(params, mesh, "serve_step")
         tokens = torch.as_tensor(tokens, device=dev)
-        with torch.inference_mode():
+        with torch.inference_mode(), meshctx.using(mesh):
             return lm.serve_step(cfg, params, caches, tokens)
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig, device="cuda"):
+def make_prefill_step(cfg: ModelConfig, device="cuda", mesh=None):
     """prefill_step(params, {"inputs": [B, S] ids or [B, S, d]
     embeddings}) -> last-token logits [B, 1, V] in the compute dtype,
     without the logit softcap (as the reference).  Every attention layer
-    runs the flash kernel."""
+    runs the flash kernel.  ``mesh``: the rank's model runs its rows of
+    the inputs, and every rank returns the whole logits (``lm.prefill``)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        shard.check_supported(cfg, "prefill")
 
     def prefill_step(params: lm.LM, batch: Dict[str, Any]):
         _on(params, dev, "prefill_step")
+        _check_mesh(params, mesh, "prefill_step")
         inputs = _inputs(cfg, batch["inputs"], dev)
-        with torch.inference_mode():
-            hidden, _ = lm.forward(cfg, params, inputs)
-            return lm.logits_fn(cfg, params, hidden[:, -1:, :])
+        with torch.inference_mode(), meshctx.using(mesh):
+            return lm.prefill(cfg, params, inputs)
     return prefill_step
 
 
@@ -196,14 +225,15 @@ def batch_specs(cfg: ModelConfig, cell: ShapeCell, device="meta",
 
 
 def decode_specs(cfg: ModelConfig, cell: ShapeCell, device="meta",
-                 generator=None):
+                 generator=None, mesh=None):
     """(tokens int32 [B, 1], caches of ``cell.seq_len`` positions as
-    ``lm.init_caches`` makes them) for one serve step."""
+    ``lm.init_caches`` makes them, ``mesh``'s rank's under a mesh) for one
+    serve step."""
     dev = resolve_device(device)
     tokens = _ids((cell.global_batch, 1), cfg.vocab, dev,
                   _draw(dev, generator))
     return tokens, lm.init_caches(cfg, cell.global_batch, cell.seq_len,
-                                  device=dev)
+                                  device=dev, mesh=mesh)
 
 
 def opt_specs(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
@@ -224,22 +254,27 @@ def opt_specs(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 
 def input_specs(cfg: ModelConfig, cell: ShapeCell,
                 opt_cfg: Optional[AdamWConfig] = None, device="meta",
-                generator=None):
+                generator=None, mesh=None):
     """Everything one step of ``cell`` takes: ``(step_fn, args)``, the
     step made for ``device`` and its arguments there: ``(params,
     opt_state, batch)`` for a train cell (the model built with
     ``trainable=True``), ``(params, batch)`` for a prefill, ``(params,
-    caches, tokens)`` for a decode cell."""
+    caches, tokens)`` for a decode cell.  ``mesh``: the step and the
+    arguments of ``mesh``'s own rank (a serving cell of a dense arch;
+    others raise, ``models.shard.check_supported``)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        shard.check_supported(cfg, cell.kind)
     gen = _draw(dev, generator)
-    params = lm.init_params(cfg, gen, dev, trainable=cell.kind == "train")
+    params = lm.init_params(cfg, gen, dev, trainable=cell.kind == "train",
+                            mesh=mesh)
     if cell.kind == "train":
         opt_cfg = opt_cfg or AdamWConfig()
         return make_train_step(cfg, opt_cfg, dev), (
             params, opt_specs(cfg, opt_cfg, dev),
             batch_specs(cfg, cell, dev, gen))
     if cell.kind == "prefill":
-        return make_prefill_step(cfg, dev), (
+        return make_prefill_step(cfg, dev, mesh), (
             params, batch_specs(cfg, cell, dev, gen))
-    tokens, caches = decode_specs(cfg, cell, dev, gen)
-    return make_serve_step(cfg, dev), (params, caches, tokens)
+    tokens, caches = decode_specs(cfg, cell, dev, gen, mesh)
+    return make_serve_step(cfg, dev, mesh), (params, caches, tokens)

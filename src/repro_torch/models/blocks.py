@@ -92,14 +92,31 @@ MLSTM_CHUNK = 64
 
 class Params(nn.Module):
     """A block's parameters, one ``nn.Parameter`` per plan leaf; they take
-    gradients only when ``trainable`` (serving builds them without)."""
+    gradients only when ``trainable`` (serving builds them without).
+    ``part`` (a ``models.shard.Part``): the tensors are one rank's shards
+    of the leaves, and the block runs under the ambient mesh they were cut
+    for."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor],
-                 trainable: bool = False):
+                 trainable: bool = False, part=None):
         super().__init__()
+        self.part = part
         for name, t in tensors.items():
             self.register_parameter(name,
                                     nn.Parameter(t, requires_grad=trainable))
+
+
+def part_mesh(part):
+    """The ambient mesh (``models.meshctx``) for a rank's shards cut as
+    ``part`` says; another mesh, or none, raises."""
+    from repro_torch.models.meshctx import get_mesh
+    from repro_torch.models.shard import where_of
+    mesh = get_mesh()
+    if mesh is None or where_of(mesh) != part.where:
+        raise ValueError(f"these parameters are a rank's shards for the mesh "
+                         f"and coordinates {part.where}; run them under that "
+                         f"mesh (models.meshctx), not {mesh!r}")
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -109,17 +126,17 @@ class Params(nn.Module):
 def plan_attention(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "norm": ParamSpec((d,), "zeros"),
-        "wq": ParamSpec((d, h, hd)),
-        "wk": ParamSpec((d, k, hd)),
-        "wv": ParamSpec((d, k, hd)),
-        "wo": ParamSpec((h, hd, d)),
+        "norm": ParamSpec((d,), ("d_model",), "zeros"),
+        "wq": ParamSpec((d, h, hd), ("d_model", "heads", None)),
+        "wk": ParamSpec((d, k, hd), ("d_model", "kv_heads", None)),
+        "wv": ParamSpec((d, k, hd), ("d_model", "kv_heads", None)),
+        "wo": ParamSpec((h, hd, d), ("heads", None, "d_model")),
     }
     if cfg.qk_norm:
-        p["q_scale"] = ParamSpec((hd,), "zeros")
-        p["k_scale"] = ParamSpec((hd,), "zeros")
+        p["q_scale"] = ParamSpec((hd,), (None,), "zeros")
+        p["k_scale"] = ParamSpec((hd,), (None,), "zeros")
     if cfg.post_norms:
-        p["post_norm"] = ParamSpec((d,), "zeros")
+        p["post_norm"] = ParamSpec((d,), ("d_model",), "zeros")
     return p
 
 
@@ -221,13 +238,24 @@ def apply_attention(cfg: ModelConfig, p, x, pos=None, cache=None, *,
     to T - 1, as the reference's dynamic_update_slice) or, for a local
     layer, slot ``pos mod T`` of a rotating buffer of T = min(window,
     max_len) slots.  Returns (x + attention, cache).
+
+    A rank's shards (``p.part``, ``models.shard``) hold its q heads and
+    either its kv heads or all of them, of which it uses those its q heads
+    read (the cache holds only those); the output projection's partial
+    sum is reduced over the part's mesh axes (``mesh.psum``).
     """
     b, s, d = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    wk, wv = p.wk, p.wv
+    if p.part is not None:
+        h = p.part.q.stop - p.part.q.start
+        kh = p.part.kv.stop - p.part.kv.start
+        if wk.shape[1] == cfg.n_kv_heads:     # replicated: the heads read
+            wk, wv = wk[:, p.part.kv], wv[:, p.part.kv]
     xn = rms_norm(x, p.norm, cfg.norm_eps)
     q = (xn @ p.wq.to(xn.dtype).reshape(d, h * hd)).view(b, s, h, hd)
-    k = (xn @ p.wk.to(xn.dtype).reshape(d, kh * hd)).view(b, s, kh, hd)
-    v = (xn @ p.wv.to(xn.dtype).reshape(d, kh * hd)).view(b, s, kh, hd)
+    k = (xn @ wk.to(xn.dtype).reshape(d, kh * hd)).view(b, s, kh, hd)
+    v = (xn @ wv.to(xn.dtype).reshape(d, kh * hd)).view(b, s, kh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_scale, cfg.norm_eps)
         k = rms_norm(k, p.k_scale, cfg.norm_eps)
@@ -260,15 +288,21 @@ def apply_attention(cfg: ModelConfig, p, x, pos=None, cache=None, *,
                       cpos.reshape(1, 1).expand(b, 1),
                       k_pos[None].expand(b, tmax), window)
     y = out.reshape(b, s, h * hd) @ p.wo.to(out.dtype).reshape(h * hd, d)
+    if p.part is not None and p.part.reduce:
+        y = part_mesh(p.part).psum(y, p.part.reduce)
     if cfg.post_norms:
         y = rms_norm(y, p.post_norm, cfg.norm_eps)
     return x + y, cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
-                    window: int = 0, *, device, dtype) -> Dict[str, torch.Tensor]:
+                    window: int = 0, *, device, dtype,
+                    kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Zero keys and values [batch, T, kv_heads, hd] (T = min(window,
+    max_len) for a local layer); a rank passes its rows and the number of
+    kv heads it reads."""
     t = min(window, max_len) if window > 0 else max_len
-    shape = (batch, t, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, t, kv_heads or cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -280,15 +314,18 @@ def plan_mla(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, h = cfg.d_model, cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "norm": ParamSpec((d,), "zeros"),
-        "wq_a": ParamSpec((d, m.q_lora_rank)),
-        "q_norm": ParamSpec((m.q_lora_rank,), "zeros"),
-        "wq_b": ParamSpec((m.q_lora_rank, h, qk)),
-        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
-        "kv_norm": ParamSpec((m.kv_lora_rank,), "zeros"),
-        "wk_b": ParamSpec((m.kv_lora_rank, h, m.qk_nope_head_dim)),
-        "wv_b": ParamSpec((m.kv_lora_rank, h, m.v_head_dim)),
-        "wo": ParamSpec((h, m.v_head_dim, d)),
+        "norm": ParamSpec((d,), ("d_model",), "zeros"),
+        "wq_a": ParamSpec((d, m.q_lora_rank), ("d_model", None)),
+        "q_norm": ParamSpec((m.q_lora_rank,), (None,), "zeros"),
+        "wq_b": ParamSpec((m.q_lora_rank, h, qk), (None, "heads", None)),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           ("d_model", None)),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), (None,), "zeros"),
+        "wk_b": ParamSpec((m.kv_lora_rank, h, m.qk_nope_head_dim),
+                          (None, "heads", None)),
+        "wv_b": ParamSpec((m.kv_lora_rank, h, m.v_head_dim),
+                          (None, "heads", None)),
+        "wo": ParamSpec((h, m.v_head_dim, d), ("heads", None, "d_model")),
     }
 
 
@@ -374,19 +411,25 @@ def plan_ffn(cfg: ModelConfig, d_ff: Optional[int] = None,
              kind: str = "swiglu") -> Dict[str, ParamSpec]:
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
-    p = {"norm": ParamSpec((d,), "zeros"),
-         "w_in": ParamSpec((d, ff if kind == "gelu" else 2 * ff)),
-         "w_out": ParamSpec((ff, d))}
+    p = {"norm": ParamSpec((d,), ("d_model",), "zeros"),
+         "w_in": ParamSpec((d, ff if kind == "gelu" else 2 * ff),
+                           ("d_model", "d_ff")),
+         "w_out": ParamSpec((ff, d), ("d_ff", "d_model"))}
     if cfg.post_norms:
-        p["post_norm"] = ParamSpec((d,), "zeros")
+        p["post_norm"] = ParamSpec((d,), ("d_model",), "zeros")
     return p
 
 
 def apply_ffn(cfg: ModelConfig, p, x, kind: str = "swiglu"):
+    """The dense FFN; a rank's shards (``p.part``) hold its ``d_ff``
+    columns (``w_in`` as ``[gate_r | up_r]``) and reduce the partial sum
+    over the part's mesh axes."""
     xn = rms_norm(x, p.norm, cfg.norm_eps)
     h = xn @ p.w_in.to(xn.dtype)
     h = F.gelu(h, approximate="tanh") if kind == "gelu" else swiglu(h, kind)
     y = h @ p.w_out.to(h.dtype)
+    if p.part is not None and p.part.reduce:
+        y = part_mesh(p.part).psum(y, p.part.reduce)
     if cfg.post_norms:
         y = rms_norm(y, p.post_norm, cfg.norm_eps)
     return x + y
@@ -395,14 +438,18 @@ def apply_ffn(cfg: ModelConfig, p, x, kind: str = "swiglu"):
 def plan_moe(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     mo = cfg.moe
     d = cfg.d_model
-    p = {"norm": ParamSpec((d,), "zeros"),
-         "router": ParamSpec((d, mo.num_experts)),
-         "w_in": ParamSpec((mo.num_experts, d, 2 * mo.d_ff_expert)),
-         "w_out": ParamSpec((mo.num_experts, mo.d_ff_expert, d))}
+    p = {"norm": ParamSpec((d,), ("d_model",), "zeros"),
+         "router": ParamSpec((d, mo.num_experts), ("d_model", None)),
+         "w_in": ParamSpec((mo.num_experts, d, 2 * mo.d_ff_expert),
+                           ("expert", "d_model", None)),
+         "w_out": ParamSpec((mo.num_experts, mo.d_ff_expert, d),
+                            ("expert", None, "d_model"))}
     if mo.num_shared:
         ffs = mo.d_ff_shared or mo.d_ff_expert
-        p["shared_in"] = ParamSpec((d, 2 * ffs * mo.num_shared))
-        p["shared_out"] = ParamSpec((ffs * mo.num_shared, d))
+        p["shared_in"] = ParamSpec((d, 2 * ffs * mo.num_shared),
+                                   ("d_model", "d_ff"))
+        p["shared_out"] = ParamSpec((ffs * mo.num_shared, d),
+                                    ("d_ff", "d_model"))
     return p
 
 
@@ -620,15 +667,15 @@ def plan_rglru(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     r = cfg.rglru.d_rnn
     cw = cfg.rglru.conv_width
     return {
-        "norm": ParamSpec((d,), "zeros"),
-        "w_x": ParamSpec((d, r)),
-        "w_gate": ParamSpec((d, r)),
-        "conv_w": ParamSpec((cw, r)),
-        "conv_b": ParamSpec((r,), "zeros"),
-        "w_a": ParamSpec((r, r)),
-        "w_i": ParamSpec((r, r)),
-        "lam": ParamSpec((r,), "ones"),
-        "w_out": ParamSpec((r, d)),
+        "norm": ParamSpec((d,), ("d_model",), "zeros"),
+        "w_x": ParamSpec((d, r), ("d_model", "d_ff")),
+        "w_gate": ParamSpec((d, r), ("d_model", "d_ff")),
+        "conv_w": ParamSpec((cw, r), (None, "d_ff")),
+        "conv_b": ParamSpec((r,), ("d_ff",), "zeros"),
+        "w_a": ParamSpec((r, r), ("d_ff", None)),
+        "w_i": ParamSpec((r, r), ("d_ff", None)),
+        "lam": ParamSpec((r,), (None,), "ones"),
+        "w_out": ParamSpec((r, d), ("d_ff", "d_model")),
     }
 
 
@@ -709,14 +756,14 @@ def plan_mlstm(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, h = cfg.d_model, cfg.n_heads
     m = 2 * d                       # projection factor 2
     return {
-        "norm": ParamSpec((d,), "zeros"),
-        "w_up": ParamSpec((d, 2 * m)),
-        "wq": ParamSpec((m, m)),
-        "wk": ParamSpec((m, m)),
-        "wv": ParamSpec((m, m)),
-        "w_if": ParamSpec((m, 2 * h)),
-        "gn": ParamSpec((m,), "zeros"),
-        "w_down": ParamSpec((m, d)),
+        "norm": ParamSpec((d,), ("d_model",), "zeros"),
+        "w_up": ParamSpec((d, 2 * m), ("d_model", "d_ff")),
+        "wq": ParamSpec((m, m), ("d_ff", None)),
+        "wk": ParamSpec((m, m), ("d_ff", None)),
+        "wv": ParamSpec((m, m), ("d_ff", None)),
+        "w_if": ParamSpec((m, 2 * h), ("d_ff", None)),
+        "gn": ParamSpec((m,), (None,), "zeros"),
+        "w_down": ParamSpec((m, d), ("d_ff", "d_model")),
     }
 
 
@@ -820,13 +867,13 @@ def plan_slstm(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     dh = d // h
     ff = max(int(4 * d / 3) // 2 * 2, 8)
     return {
-        "norm": ParamSpec((d,), "zeros"),
-        "w_gates": ParamSpec((d, 4 * d)),
-        "r_gates": ParamSpec((4, h, dh, dh)),
-        "gn": ParamSpec((d,), "zeros"),
-        "norm2": ParamSpec((d,), "zeros"),
-        "up": ParamSpec((d, 2 * ff)),
-        "down": ParamSpec((ff, d)),
+        "norm": ParamSpec((d,), ("d_model",), "zeros"),
+        "w_gates": ParamSpec((d, 4 * d), ("d_model", None)),
+        "r_gates": ParamSpec((4, h, dh, dh), (None, None, None, None)),
+        "gn": ParamSpec((d,), (None,), "zeros"),
+        "norm2": ParamSpec((d,), ("d_model",), "zeros"),
+        "up": ParamSpec((d, 2 * ff), ("d_model", "d_ff")),
+        "down": ParamSpec((ff, d), ("d_ff", "d_model")),
     }
 
 

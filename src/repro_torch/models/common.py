@@ -5,13 +5,22 @@ Counterpart of ``repro.models.common``.  A plan is a flat dict from a
 parameter's name (``layers.3.attn.wq``) to its ``ParamSpec``;
 :func:`tree_init` draws tensors from it with the reference's
 distribution, and the modules of ``blocks`` and ``lm`` take the tensors
-as their parameters.  The sharding helpers (``pspec``, ``constrain``, ...)
-have no counterpart: the port runs on one card.
+as their parameters.
+
+Every leaf carries the reference's logical axes (``ParamSpec.axes``:
+``"d_model"``, ``"heads"``, ``"kv_heads"``, ``"d_ff"``, ``"vocab"``,
+``"expert"``, ``"batch"``, ``"kv_seq"`` or None a dim).
+:func:`shard_spec` maps them through ``ShardingRules`` onto a mesh's axes
+as the reference's ``valid_pspec`` does, and :func:`shard_slice` says
+which part of the leaf a rank at given coordinates holds
+(``repro_torch.models.shard`` cuts a model with them).  ``constrain`` has
+no counterpart: a rank's tensors are its shards, and the collectives are
+explicit (``RankMesh.psum``, ``RankMesh.all_gather``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,11 +30,85 @@ DEVICES = ("cuda", "cpu", "meta")
 
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]    # the reference's logical axis a dim
     init: str = "normal"               # normal | zeros | ones
     # fan-in of the 1/sqrt(fan_in) scale; 0 means the reference's rule on
     # this shape.  Body leaves carry the cycle count: the reference stacks
     # them on a leading cycles axis, which its rule then reads as fan-in.
     fan_in: int = 0
+
+
+def _mesh_axes(rules, logical: Optional[str]):
+    """The mesh axes (a name, a tuple of names or None) ``rules`` gives a
+    logical axis."""
+    if logical is None:
+        return None
+    return getattr(rules, logical, None)
+
+
+def _divisible_entry(entry, dim: int, sizes: Mapping[str, int]):
+    """Mesh axes dropped from the end of ``entry`` until their sizes'
+    product divides ``dim`` (an axis the mesh lacks counts 1), as the
+    reference's ``_divisible_entry``: kv_heads 8 takes no 16-way split and
+    falls back to replicated.  One name stays a name, several a tuple."""
+    if entry is None:
+        return None
+    names = list(entry) if isinstance(entry, (tuple, list)) else [entry]
+    while names:
+        if dim % math.prod(sizes.get(n, 1) for n in names) == 0:
+            break
+        names.pop()
+    if not names:
+        return None
+    return tuple(names) if len(names) > 1 else names[0]
+
+
+def shard_spec(rules, axes: Tuple[Optional[str], ...],
+               shape: Tuple[int, ...], mesh_shape: Mapping[str, int]
+               ) -> Tuple:
+    """The reference's ``valid_pspec(rules, axes, shape, mesh)`` on a mesh
+    given as ``{axis: size}``: one entry a dim, None (replicated), a mesh
+    axis, or a tuple of them (the first slowest)."""
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} do not match shape {shape}")
+    return tuple(_divisible_entry(_mesh_axes(rules, a), d, mesh_shape)
+                 for a, d in zip(axes, shape))
+
+
+def entry_names(entry) -> Tuple[str, ...]:
+    """A spec entry's mesh axes as a tuple (none for None)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def entry_part(entry, mesh_shape: Mapping[str, int],
+               coords: Mapping[str, int]) -> Tuple[int, int]:
+    """(index, parts) of a spec entry at ``coords``: the entry's axes
+    flattened, the first slowest, an axis the mesh lacks of size 1 at 0."""
+    index, parts = 0, 1
+    for n in entry_names(entry):
+        size = mesh_shape.get(n, 1)
+        index = index * size + (coords.get(n, 0) if n in mesh_shape else 0)
+        parts *= size
+    return index, parts
+
+
+def shard_slice(spec: Tuple, shape: Tuple[int, ...],
+                mesh_shape: Mapping[str, int], coords: Mapping[str, int]
+                ) -> Tuple[slice, ...]:
+    """The index range of every dim that the rank at ``coords`` (row order,
+    as ``RankMesh.coords_of`` numbers ranks) holds under ``spec``
+    (:func:`shard_spec`): dim / parts elements from index * dim / parts,
+    as GSPMD tiles a ``NamedSharding``."""
+    out = []
+    for entry, dim in zip(spec, shape):
+        index, parts = entry_part(entry, mesh_shape, coords)
+        if dim % parts:
+            raise ValueError(f"entry {entry} splits {dim} into {parts}")
+        n = dim // parts
+        out.append(slice(index * n, (index + 1) * n))
+    return tuple(out)
 
 
 def resolve_device(device) -> torch.device:

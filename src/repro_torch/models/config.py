@@ -10,9 +10,12 @@ takes the same keywords; ``dtype()`` returns torch dtypes.
 the reference's.  ``moe_impl`` picks the MoE's path as the reference's
 does: ``"gather"`` (the default) or ``"a2a"``, the expert-parallel
 exchange over ``MoEConfig.ep_axes`` of the ambient ``RankMesh``
-(``repro_torch.models.meshctx``).  Of ``ShardingRules`` only ``batch``
-is read (the token blocks of ``a2a``): the port has no GSPMD, so the rest
-of the model runs replicated on every rank.  Not carried over:
+(``repro_torch.models.meshctx``).  ``ShardingRules`` lays a model out
+over a mesh of ranks as the reference's GSPMD layout does
+(``repro_torch.models.shard``: heads, kv heads, ``d_ff`` and the
+vocabulary over ``"model"``, the batch over ``("pod", "data")``), for the
+dense attention kinds; ``a2a`` reads its ``batch`` for its token blocks.
+Not carried over:
 ``scan_layers`` (the stack is a ``ModuleList``).  ``attn_impl``,
 ``attn_block`` and ``MoEConfig``'s ``router_dtype`` are kept so that
 ``replace`` takes the reference's keywords, and nothing reads them: every
@@ -66,9 +69,11 @@ class RGLRUConfig:
 @dataclass(frozen=True)
 class ShardingRules:
     """Logical tensor axes -> mesh axis names (None = replicated), the
-    reference's fields and defaults.  The port reads ``batch`` alone (the
-    a2a path's token blocks); the others name a GSPMD layout the port does
-    not build."""
+    reference's fields and defaults, read by ``models.common.shard_spec``
+    (a model cut for a rank, ``models.shard``) and by the ``a2a`` path's
+    token blocks (``batch``).  ``seq``, ``d_model`` and ``kv_seq`` are
+    None: a rule that splits them raises where the port does not split
+    that axis."""
     batch: Tuple[str, ...] = ("pod", "data")
     seq: Optional[str] = None
     heads: Optional[str] = "model"

@@ -20,8 +20,19 @@ on a model built with ``trainable=True``; ``cfg.remat`` checkpoints each
 layer (the reference checkpoints each scanned super-block, which holds
 the same layers).
 
-Not ported: the sharding helpers (``param_specs``, ``param_shardings``,
-``cache_specs``).
+Under a mesh (``mesh=`` of :func:`init_params`, :func:`init_caches`,
+``LM``'s ``layout``): the model holds one rank's shards of every leaf, as
+the reference's ``param_shardings`` lays them out (``models.shard``), and
+runs under the ambient mesh (``models.meshctx``): the embedding is
+vocab-parallel (ids outside the rank's rows masked, the rows reduced over
+``"model"``, Gemma's sqrt(d) scale after), each layer reduces its partial
+sums, :func:`logits_fn` gives the rank's vocab slice, and
+:func:`gather_logits` (:func:`serve_step`, :func:`prefill`) gathers it
+over ``"model"`` and the batch over ``"data"``, so that every rank returns
+the whole [B, V].  Token ids come whole to every rank;
+:func:`serve_step` and :func:`prefill` run the rank's rows of them.
+Caches hold the rank's rows and the kv heads it reads; ``pos`` stays
+replicated.
 """
 from __future__ import annotations
 
@@ -104,10 +115,10 @@ def plan_model(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     plan: Dict[str, ParamSpec] = {}
     if cfg.embed_inputs:
-        plan["embed"] = ParamSpec((cfg.vocab, d))
-    plan["final_norm"] = ParamSpec((d,), "zeros")
+        plan["embed"] = ParamSpec((cfg.vocab, d), ("vocab", "d_model"))
+    plan["final_norm"] = ParamSpec((d,), ("d_model",), "zeros")
     if not cfg.tie_embeddings or not cfg.embed_inputs:
-        plan["head"] = ParamSpec((d, cfg.vocab))
+        plan["head"] = ParamSpec((d, cfg.vocab), ("d_model", "vocab"))
     n_pre, n_body = len(cfg.prefix_blocks), cfg.cycles * len(cfg.block_pattern)
     for i, kind in enumerate(cfg.layer_kinds):
         body = n_pre <= i < n_pre + n_body
@@ -116,10 +127,10 @@ def plan_model(cfg: ModelConfig) -> Dict[str, ParamSpec]:
                 s = s._replace(fan_in=cfg.cycles)
             plan[f"layers.{i}.{name}"] = s
     if cfg.mtp:
-        plan["mtp_proj"] = ParamSpec((2 * d, d))
+        plan["mtp_proj"] = ParamSpec((2 * d, d), ("d_model", None))
         plan.update((f"mtp_block.{n}", s)
                     for n, s in plan_block(cfg, "attn_dense").items())
-        plan["mtp_norm"] = ParamSpec((d,), "zeros")
+        plan["mtp_norm"] = ParamSpec((d,), ("d_model",), "zeros")
     return plan
 
 
@@ -139,13 +150,21 @@ class Block(nn.Module):
     window)."""
 
     def __init__(self, kind: str, tensors: Dict[str, torch.Tensor],
-                 trainable: bool = False):
+                 trainable: bool = False, parts=None):
         super().__init__()
         _check_kind(kind)
         self.kind = kind
         for part in PARTS[kind]:
             setattr(self, part, B.Params(_sub(tensors, f"{part}."),
-                                         trainable))
+                                         trainable, (parts or {}).get(part)))
+
+
+def _parts(cfg: ModelConfig, layout):
+    """A dense layer's ``shard.Part`` by part (attention, FFN) under
+    ``layout``."""
+    if layout is None:
+        return None
+    return {"attn": layout.attn_heads(), "ffn": layout.ffn(cfg.d_ff)}
 
 
 class LM(nn.Module):
@@ -157,12 +176,20 @@ class LM(nn.Module):
     The parameters take gradients only when ``trainable``.  ``ep_size`` >
     1: the MoE layers hold ``num_experts / ep_size`` experts, a rank's
     slice for the ``a2a`` path (``transfer.params_from_numpy(...,
-    ep=...)``)."""
+    ep=...)``).  ``layout`` (a ``models.shard.Layout``): the tensors are
+    that rank's shards, at the shapes of ``layout.plan()``; a config with
+    a block kind the mesh does not split raises."""
 
     def __init__(self, cfg: ModelConfig, tensors: Dict[str, torch.Tensor],
-                 trainable: bool = False, ep_size: int = 1):
+                 trainable: bool = False, ep_size: int = 1, layout=None):
         super().__init__()
         plan = plan_model(cfg)
+        if layout is not None:
+            from repro_torch.models.shard import check_supported
+            check_supported(cfg, "train" if trainable else "prefill")
+            if ep_size > 1:
+                raise ValueError("a layout and ep_size do not combine")
+            plan = layout.plan()
         if ep_size > 1:
             if cfg.moe is None or cfg.moe.num_experts % ep_size:
                 raise ValueError(f"ep_size {ep_size} must divide the "
@@ -182,12 +209,15 @@ class LM(nn.Module):
         if bad:
             raise ValueError(f"parameters of the wrong shape: {bad[:8]}")
         self.cfg = cfg
+        self.layout = layout
+        self.vocab_part = None if layout is None else layout.vocab()
         for name in ("embed", "final_norm", "head", "mtp_proj", "mtp_norm"):
             if name in tensors:
                 self.register_parameter(
                     name, nn.Parameter(tensors[name], requires_grad=trainable))
         self.layers = nn.ModuleList(
-            Block(kind, _sub(tensors, f"layers.{i}."), trainable)
+            Block(kind, _sub(tensors, f"layers.{i}."), trainable,
+                  _parts(cfg, layout))
             for i, kind in enumerate(cfg.layer_kinds))
         if cfg.mtp:
             self.mtp_block = Block("attn_dense", _sub(tensors, "mtp_block."),
@@ -263,7 +293,16 @@ def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
     advances by one.
     """
     b, s = inputs.shape[:2]
-    if cfg.embed_inputs:
+    vocab = getattr(params, "vocab_part", None)
+    if cfg.embed_inputs and vocab is not None and vocab.reduce:
+        # vocab-parallel: the rank's rows, the others' ids masked to zero
+        ids = inputs.long() - vocab.lo
+        inside = ((ids >= 0) & (ids < vocab.n))[..., None]
+        rows = params.embed[ids.clamp(0, vocab.n - 1)]
+        x = B.part_mesh(vocab).psum(torch.where(inside, rows, 0),
+                                    vocab.reduce).to(cfg.dtype("compute"))
+        x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
+    elif cfg.embed_inputs:
         x = params.embed[inputs.long()].to(cfg.dtype("compute"))
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
     else:
@@ -284,9 +323,29 @@ def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
 
 
 def logits_fn(cfg: ModelConfig, params: LM, hidden: torch.Tensor):
+    """hidden [..., d] -> logits [..., V] in its dtype; a rank's vocab
+    slice [..., V / parts] under a mesh (:func:`gather_logits`)."""
     if cfg.tie_embeddings and cfg.embed_inputs:
         return hidden @ params.embed.to(hidden.dtype).t()
     return hidden @ params.head.to(hidden.dtype)
+
+
+def gather_logits(cfg: ModelConfig, params: LM, logits: torch.Tensor,
+                  batch_axes=()) -> torch.Tensor:
+    """A rank's logits [b, ..., V / parts] of its rows as every rank's whole
+    [B, ..., V]: gathered over the vocabulary's mesh axes (the slices in
+    their order), then over ``batch_axes`` (the rows in their order).  A
+    model without a layout returns ``logits``."""
+    vocab = getattr(params, "vocab_part", None)
+    if vocab is None:
+        return logits
+    mesh = B.part_mesh(vocab)
+    if vocab.reduce:
+        parts = mesh.all_gather(logits, vocab.reduce)
+        logits = parts.movedim(0, -2).reshape(*logits.shape[:-1], -1)
+    if batch_axes:
+        logits = mesh.all_gather(logits, batch_axes).flatten(0, 1)
+    return logits
 
 
 def _chunk_nll(cfg: ModelConfig, params: LM, h: torch.Tensor,
@@ -309,6 +368,10 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]):
     embedded have no embedding table to read, and skip it, as the
     reference does.
     """
+    if getattr(params, "layout", None) is not None:
+        from repro_torch.models.shard import TRAIN_ITEM
+        raise NotImplementedError(f"{cfg.name}: the loss of a rank's "
+                                  f"shards: {TRAIN_ITEM}")
     inputs, targets, mask = batch["inputs"], batch["targets"], batch["mask"]
     hidden, _ = forward(cfg, params, inputs, batch.get("pos"))
     s, chunk = hidden.shape[1], cfg.loss_chunk
@@ -341,15 +404,38 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]):
     return loss
 
 
+def _own_rows(params: LM, x: torch.Tensor):
+    """The rows of a whole batch ``x`` that the model's rank runs, and the
+    mesh axes the batch is split over: all of ``x`` and none without a
+    layout."""
+    if getattr(params, "layout", None) is None:
+        return x, ()
+    rows, axes = params.layout.rows(x.shape[0])
+    return x[rows], axes
+
+
+def prefill(cfg: ModelConfig, params: LM, inputs: torch.Tensor):
+    """inputs [B, S] ids or [B, S, d] embeddings -> last-token logits [B,
+    1, V] in the compute dtype, without the logit softcap (as the
+    reference).  Under a layout the rank runs its rows, and every rank
+    returns the whole logits."""
+    inputs, axes = _own_rows(params, inputs)
+    hidden, _ = forward(cfg, params, inputs)
+    return gather_logits(cfg, params,
+                         logits_fn(cfg, params, hidden[:, -1:, :]), axes)
+
+
 def serve_step(cfg: ModelConfig, params: LM, caches: Dict[str, Any],
                tokens: torch.Tensor):
     """One decode step: tokens [B, 1] -> (logits [B, vocab] float32 with the
     logit softcap, caches updated in place).  A config that is not causal
     raises."""
     _check_decoder(cfg)
+    tokens, axes = _own_rows(params, tokens)
     hidden, caches = forward(cfg, params, tokens, None, caches)
-    logits = logits_fn(cfg, params, hidden[:, -1:, :])
-    logits = softcap(logits.float(), cfg.logit_softcap)
+    logits = logits_fn(cfg, params, hidden[:, -1:, :]).float()
+    logits = softcap(gather_logits(cfg, params, logits, axes),
+                     cfg.logit_softcap)
     return logits[:, 0], caches
 
 
@@ -358,17 +444,32 @@ def serve_step(cfg: ModelConfig, params: LM, caches: Dict[str, Any],
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda", trainable: bool = False) -> LM:
+                device="cuda", trainable: bool = False, mesh=None) -> LM:
     """Random weights with the reference's distribution, drawn from
     ``generator`` (on its own device; pass one on the target device to
-    draw there).  ``device="meta"`` gives the shapes without drawing."""
+    draw there).  ``device="meta"`` gives the shapes without drawing.
+    ``mesh``: the model of ``mesh``'s own rank, each leaf drawn whole (the
+    same values at any mesh) and cut to the rank's shard."""
     dev = resolve_device(device)
-    return LM(cfg, tree_init(plan_model(cfg), generator, cfg.dtype("param"),
-                             dev), trainable)
+    if mesh is None:
+        return LM(cfg, tree_init(plan_model(cfg), generator,
+                                 cfg.dtype("param"), dev), trainable)
+    from repro_torch.models.shard import Layout
+    layout = Layout.of(cfg, mesh)
+    tensors = {}
+    for name, spec in plan_model(cfg).items():
+        if dev.type == "meta":
+            spec = spec._replace(shape=layout.local_shape(spec))
+        whole = tree_init({name: spec}, generator, cfg.dtype("param"),
+                          dev)[name]
+        tensors[name] = whole if dev.type == "meta" else \
+            layout.take(name, spec, whole).clone()
+        del whole
+    return LM(cfg, tensors, trainable, layout=layout)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", mesh=None) -> Dict[str, Any]:
     """Zero caches: ``pos`` (an int32 scalar) and one per layer, keyed by
     the part that reads it: ``{"attn": {"k", "v"}}`` in the compute dtype
     (local layers hold a rotating buffer of min(window, max_len) slots),
@@ -377,10 +478,21 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     ``{"rec": {"h", "conv"}}`` in the compute dtype, and ``{"cell":
     ...}``, mLSTM's ``C``, ``n``, ``m`` and sLSTM's ``c``, ``n``, ``h``,
     ``m`` in float32, the dtype of the reference's carries after its
-    first step.  A config that is not causal raises: it has no decode."""
+    first step.  A config that is not causal raises: it has no decode.
+    ``mesh``: the caches of ``mesh``'s own rank, its rows of the batch and
+    the kv heads its q heads read (``models.shard``)."""
     _check_decoder(cfg)
     dev = resolve_device(device)
     dtype = cfg.dtype("compute")
+    kv_heads = None
+    if mesh is not None:
+        from repro_torch.models.shard import Layout, check_supported
+        check_supported(cfg, "decode")
+        layout = Layout.of(cfg, mesh)
+        rows = layout.rows(batch)[0]
+        batch = rows.stop - rows.start
+        heads = layout.attn_heads().kv
+        kv_heads = heads.stop - heads.start
     layers = []
     for kind in cfg.layer_kinds:
         _check_kind(kind)
@@ -397,7 +509,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         else:
             window = cfg.local_window if kind == "attn_local" else 0
             layers.append({"attn": B.init_attn_cache(
-                cfg, batch, max_len, window, device=dev, dtype=dtype)})
+                cfg, batch, max_len, window, device=dev, dtype=dtype,
+                kv_heads=kv_heads)})
     return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
             "layers": layers}
 

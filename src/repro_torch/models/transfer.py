@@ -13,7 +13,9 @@ the port's flat names (``layers.<i>.<path>``, ``mtp_block.<path>``) and
 
 - :func:`params_from_numpy` / :func:`params_to_numpy`: the model, every
   leaf copied bit for bit (with ``ep=(index, size)``, only the experts of
-  EP rank ``index`` of ``size``, for the MoE's ``a2a`` path).  bfloat16 goes through its 16-bit pattern:
+  EP rank ``index`` of ``size``, for the MoE's ``a2a`` path; with
+  ``mesh=``, only the mesh's own rank's shard of each leaf, as
+  ``models.shard`` lays it out).  bfloat16 goes through its 16-bit pattern:
   in, an array of ``ml_dtypes.bfloat16`` (``jax.tree.map(np.asarray,
   params)``), a uint16 array of the patterns, or a torch tensor; out, the
   uint16 patterns.  A leaf missing, left over, of another shape or of
@@ -150,14 +152,27 @@ def numpy_of(t: torch.Tensor) -> np.ndarray:
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                       device="cuda", trainable: bool = False,
-                      ep=None) -> LM:
+                      ep=None, mesh=None) -> LM:
     """The port's model holding the reference tree's weights.  ``ep``
     ``(index, size)``: each MoE layer keeps experts ``index * E / size``
     up to ``(index + 1) * E / size`` (rank ``index`` of the ``size`` EP
-    ranks), so that no rank copies the others'."""
+    ranks), so that no rank copies the others'.  ``mesh`` (a ``RankMesh``
+    or anything with its ``shape`` and ``coords``): each leaf keeps the
+    mesh's own rank's shard (``models.shard.Layout.take``; the fused FFN
+    input as ``[gate_r | up_r]``)."""
     dev = resolve_device(device)
     dtype = cfg.dtype("param")
     flat = from_reference_tree(cfg, tree)
+    if mesh is not None:
+        if ep is not None:
+            raise ValueError("params_from_numpy takes ep= or mesh=, not both")
+        from repro_torch.models.lm import plan_model
+        from repro_torch.models.shard import Layout
+        layout = Layout.of(cfg, mesh)
+        plan = plan_model(cfg)
+        return LM(cfg, {n: tensor_of(layout.take(n, plan[n], a)
+                                     if n in plan else a, dtype, n).to(dev)
+                        for n, a in flat.items()}, trainable, layout=layout)
     size = 1
     if ep is not None:
         index, size = ep

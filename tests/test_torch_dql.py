@@ -40,6 +40,17 @@ CPU = RunConfig(device="cpu", value_bytes=4)
 XLA = JConfig(backend="xla", value_bytes=4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many small torch ops: without this, 6 pytest-xdist workers on 8
+    cores slow them, and the reference's tests beside them, by intra-op
+    fan-out."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
+
+
 def _jkv(kv):
     """The reference's KV of a port KV (same host arrays)."""
     from repro.core.kvstore import make_kv as jmake_kv

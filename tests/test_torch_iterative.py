@@ -16,6 +16,7 @@ import functools
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from repro.api import RunConfig as JConfig, Session as JSession
 from repro.api import make_delta as jmake_delta
@@ -29,6 +30,17 @@ from repro_torch.api import RunConfig, Session, make_delta
 from repro_torch.apps import apriori, gimv, kmeans, pagerank, sssp
 from repro_torch.core import incr_iter
 from repro_torch.core.transfer import session_from_state
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many small torch ops: without this, 6 pytest-xdist workers on 8
+    cores slow them, and the reference's tests beside them, by intra-op
+    fan-out."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
 
 
 @functools.lru_cache(maxsize=None)

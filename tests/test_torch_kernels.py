@@ -31,6 +31,17 @@ from repro_torch.kernels.spmv_ell import spmv_ell
 INT32_MAX = 2**31 - 1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many small torch ops: without this, 6 pytest-xdist workers on 8
+    cores slow them, and the reference's tests beside them, by intra-op
+    fan-out."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
+
+
 def _eq(got, want, msg=""):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
                                   err_msg=msg)

@@ -54,6 +54,17 @@ F32_REL = 2e-4
 BF16_REL = 3e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many small torch ops: without this, 6 pytest-xdist workers on 8
+    cores slow them, and the reference's tests beside them, by intra-op
+    fan-out."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
+
+
 def _cfgs(arch, dtype="float32"):
     kw = dict(param_dtype=dtype, compute_dtype=dtype)
     return (j_smoke(JC.get(arch)).replace(**kw),

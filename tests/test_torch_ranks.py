@@ -7,10 +7,15 @@ every job: wordcount, SSSP and PageRank on ``{"data": 4}`` and ``{"pod":
 each a run and two fine refreshes; ``compressed_psum``; a per-rank
 snapshot restored; the MoE's ``a2a`` layer at smoke Llama 4 Scout and
 DeepSeek-V3 on ``(data 1, model 4)`` and ``(2, 2)`` (and one case with a
-low ``capacity_factor`` that drops slots); and two smoke LMs' prefill with
-``moe_impl="a2a"``.  All four meshes are views of the one world of 4.
-While the ranks run, one subprocess runs the reference's ``a2a`` on 4
-forced host devices (as ``tests/test_torch_distributed.py``'s mesh test).
+low ``capacity_factor`` that drops slots); two smoke LMs' prefill with
+``moe_impl="a2a"``; and the dense LM served tensor-parallel (``lm_tp``:
+smoke Gemma 2 and Qwen3 in float32 at ``(data 1, model 4)``, where kv 2
+falls back to replicated, and ``(2, 2)``).  All four meshes are views of
+the one world of 4.  While the ranks run, one subprocess runs the
+reference on 4 forced host devices (as
+``tests/test_torch_distributed.py``'s mesh test): its ``a2a``, and the
+dense LMs laid out by ``param_shardings`` with their prefill and serve
+steps jitted under the mesh (GSPMD).
 
 The sizes are ``tests/test_torch_distributed.py``'s (wordcount VOCAB 32 x
 64 documents of 4 words; PageRank S 256, F 5; SSSP 96 vertices, 4
@@ -21,7 +26,14 @@ equals the stacked form bit for bit; the ``a2a`` layer's expert ids equal
 the reference's and its float32 output lies within 1e-5 of the largest
 |output|; the LM's last-token logits with ``a2a`` within 1e-5 of the
 port's ``gather`` prefill (no slot drops: 8 tokens a rank, under the
-capacity's floor).
+capacity's floor).  ``lm_tp``: each rank's parameter shards equal the
+reference device's (the same device number: both meshes lay ranks out in
+row order) bit for bit, ``ffn.w_in`` by its own rule (``[gate_r |
+up_r]``, ``models.shard``); the prefill's last-token logits and 8 decode
+steps' within 2e-4 of the largest |logit| of the reference's
+(``tests/test_torch_models.py``'s LM bound); each rank's caches within
+1e-5 of the rows and kv heads of the port's replicated run; the last
+decode step within 2e-4 of the prefill.
 """
 import json
 import os
@@ -86,6 +98,18 @@ MOE = {
 }
 MOE_LM = {"lm-llama4-1x4": (LLAMA4, {"data": 1, "model": 4}),
           "lm-deepseek-2x2": (DEEPSEEK, {"data": 2, "model": 2})}
+# the dense LM tensor-parallel: name -> (arch, mesh); B x S tokens, all S
+# decoded
+LM_TP = {"tp-gemma2-1x4": ("gemma2_9b", {"data": 1, "model": 4}),
+         "tp-gemma2-2x2": ("gemma2_9b", {"data": 2, "model": 2}),
+         "tp-qwen3-1x4": ("qwen3_1_7b", {"data": 1, "model": 4}),
+         "tp-qwen3-2x2": ("qwen3_1_7b", {"data": 2, "model": 2})}
+TP_B, TP_S = 2, 8
+# RankMesh.psum, one job over PSUM_MESH: name -> the axis group summed
+PSUM_MESH = {"data": 2, "model": 2}
+PSUM = {"psum-model": ["model"], "psum-world": ["data", "model"]}
+LM_REL = 2e-4
+CACHE_TOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
@@ -196,6 +220,55 @@ def _moe_spec(name):
     return spec
 
 
+def _tp_config(arch):
+    return t_smoke(_full_cfg(arch)).replace(param_dtype="float32",
+                                            compute_dtype="float32")
+
+
+def _tp_weights(arch, seed):
+    """Every leaf of the smoke LM drawn with numpy, matrices at 1/sqrt of
+    their input width (``launch.ranks.parity_fan_in``), norms zeros."""
+    from repro_torch.launch.ranks import parity_fan_in
+    cfg = _tp_config(arch)
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for name, s in tlm.plan_model(cfg).items():
+        if s.init == "zeros":
+            flat[name] = np.zeros(s.shape, np.float32)
+            continue
+        flat[name] = (rng.standard_normal(s.shape, np.float32) / np.float32(
+            np.sqrt(parity_fan_in(name, s.shape))))
+    return cfg, flat
+
+
+def _ref_paths(cfg, flat):
+    """The reference tree's leaves by "/" path, and each port leaf's (path,
+    cycle or None)."""
+    from repro_torch.models.transfer import from_reference_tree, \
+        to_reference_tree
+    tree = to_reference_tree(cfg, {n: torch.from_numpy(a)
+                                   for n, a in flat.items()})
+    paths, where = {}, {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                out[k] = walk(v, f"{path}/{k}" if path else k)
+            return out
+        if isinstance(node, list):
+            return [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
+        paths[path] = node.numpy()
+        if path.startswith("body/"):
+            tags = np.empty(node.shape[0], object)
+            for c in range(node.shape[0]):
+                tags[c] = (path, c)
+            return tags
+        return (path, None)
+    where = from_reference_tree(cfg, walk(tree, ""))
+    return paths, where
+
+
 def _lm_model(arch, seed=3):
     cfg = t_smoke(_full_cfg(arch)).replace(param_dtype="float32",
                                            compute_dtype="float32")
@@ -210,11 +283,57 @@ from jax.sharding import Mesh
 import dataclasses
 import repro.configs as C
 from repro.models import blocks, meshctx
+from repro.models import lm
 from repro.models.common import rms_norm
 from repro.models.config import smoke_config
+from repro.launch.steps import make_prefill_step, make_serve_step
 cases = json.loads(open(sys.argv[1]).read())
-out = {}
-for name, c in cases.items():
+out, index = {}, {}
+for name, c in cases["lm"].items():
+    z = np.load(c["data"])
+    cfg = smoke_config(C.get(c["arch"])).replace(
+        param_dtype="float32", compute_dtype="float32")
+    cfg = cfg.replace(sharding=dataclasses.replace(cfg.sharding,
+                                                   batch=("data",)))
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(
+        tuple(c["mesh"].values())), tuple(c["mesh"]))
+    tree = {}
+    for k in z.files:
+        if not k.startswith("r/"):
+            continue
+        node, parts = tree, k[2:].split("/")
+        for a in parts[:-1]:
+            node = node.setdefault(a, {})
+        node[parts[-1]] = jnp.asarray(z[k])
+    tree.setdefault("prefix", [])
+    tree.setdefault("rem", [])
+    shard = lm.param_shardings(cfg, mesh)
+    params = jax.device_put(tree, shard)
+    index[name] = {}
+    def record(path, s, a):
+        key = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                       for p in path)
+        index[name][key] = {str(d.id): [list(sl.indices(n))[:2] for sl, n
+                                        in zip(idx, a.shape)]
+                            for d, idx in s.devices_indices_map(
+                                a.shape).items()}
+    jax.tree_util.tree_map_with_path(record, shard, params)
+    toks = jnp.asarray(z["toks"])
+    b, s = toks.shape
+    with mesh:
+        out[name + "_prefill"] = np.asarray(jax.jit(make_prefill_step(cfg))(
+            params, {"inputs": toks}))
+        specs = lm.cache_specs(cfg, b, s, mesh)
+        caches = jax.tree.map(lambda a, sp: jax.device_put(a, sp.sharding),
+                              lm.init_caches(cfg, b, s), specs)
+        serve = jax.jit(make_serve_step(cfg))
+        steps = []
+        for t in range(s):
+            logits, caches = serve(params, caches, toks[:, t:t + 1])
+            steps.append(np.asarray(logits))
+    out[name + "_decode"] = np.stack(steps)
+json.dump(index, open(sys.argv[3], "w"))
+for name, c in cases["moe"].items():
     z = np.load(c["data"])
     cfg = smoke_config(C.get(c["arch"])).replace(
         param_dtype="float32", compute_dtype="float32", moe_impl="a2a")
@@ -262,6 +381,10 @@ def ranks(tmp_path_factory):
     np.savez(root / "in_compress.npz", **comp)
     jobs.append({"job": "compress", "name": "compress",
                  "data": str(root / "in_compress.npz")})
+    np.savez(root / "in_psum.npz", **_psum_inputs())
+    jobs.append({"job": "psum", "name": "psum", "mesh": PSUM_MESH,
+                 "axes": list(PSUM.values()),
+                 "data": str(root / "in_psum.npz")})
     ref_cases = {}
     for i, (name, (arch, mesh, shape, cf, skewed)) in enumerate(MOE.items()):
         path = root / f"in_{name}.npz"
@@ -270,6 +393,21 @@ def ranks(tmp_path_factory):
                          data=str(path)))
         ref_cases[name] = {"arch": arch, "mesh": mesh,
                            "capacity_factor": cf, "data": str(path)}
+    lm_cases = {}
+    for i, (name, (arch, mesh)) in enumerate(LM_TP.items()):
+        cfg, flat = _tp_weights(arch, 30 + i)
+        paths, _ = _ref_paths(cfg, flat)
+        path = root / f"in_{name}.npz"
+        tp_toks = np.random.default_rng(40 + i).integers(
+            0, cfg.vocab, (TP_B, TP_S)).astype(np.int32)
+        np.savez(path, toks=tp_toks, **{f"p.{n}": a for n, a in flat.items()},
+                 **{f"r/{k}": a for k, a in paths.items()})
+        jobs.append({"job": "lm_tp", "name": name, "arch": arch,
+                     "smoke": True, "mesh": mesh, "data": str(path),
+                     "steps": TP_S, "dump": True,
+                     "replace": {"param_dtype": "float32",
+                                 "compute_dtype": "float32"}})
+        lm_cases[name] = {"arch": arch, "mesh": mesh, "data": str(path)}
     toks = np.random.default_rng(4).integers(0, 256, (2, 16)).astype(
         np.int32)
     for name, (arch, mesh) in MOE_LM.items():
@@ -284,13 +422,15 @@ def ranks(tmp_path_factory):
                                  "compute_dtype": "float32"}})
     (root / "spec.json").write_text(json.dumps({"jobs": jobs,
                                                 "out": str(root)}))
-    (root / "ref.json").write_text(json.dumps(ref_cases))
+    (root / "ref.json").write_text(json.dumps({"moe": ref_cases,
+                                               "lm": lm_cases}))
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu", PYTHONPATH=SRC)
     ref = subprocess.Popen(
         [sys.executable, "-c", _REF_MOE, str(root / "ref.json"),
-         str(root / "ref.npz")], env=env, stdout=subprocess.PIPE,
+         str(root / "ref.npz"), str(root / "ref_index.json")], env=env,
+        stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     try:
         results = run_ranks(MODULE, WORLD, backend="gloo", device="cpu",
@@ -302,7 +442,8 @@ def ranks(tmp_path_factory):
             ref.wait()
     assert ref.returncode == 0, err[-4000:]
     return {"root": root, "results": results, "data": data, "toks": toks,
-            "ref": np.load(root / "ref.npz")}
+            "ref": np.load(root / "ref.npz"),
+            "ref_index": json.loads((root / "ref_index.json").read_text())}
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +481,46 @@ def test_engine_on_ranks_equals_local_mesh(ranks, name):
     if name == "pr-regrow":
         assert want[0]["shuffle"]["regrows"] >= 1
         assert want[0]["shuffle"]["shuffle_cap"] > 16
+
+
+def _psum_inputs():
+    """Stacked partials [WORLD, ...] of magnitudes 1e-3 to 1e3, so that
+    the order of adds shows."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((WORLD, 65, 33)).astype(np.float32)
+    x *= np.float32(10.0) ** rng.integers(-3, 4, x.shape)
+    return {"x_f32": x, "x_bf16": torch.from_numpy(x).bfloat16().view(
+        torch.uint16).numpy()}
+
+
+@pytest.mark.parametrize("name", sorted(PSUM))
+def test_psum_on_ranks_is_the_rank_order_sum(ranks, name):
+    """Every rank's ``psum`` equals the float32 sum of its group's
+    partials added in rank order and rounded once, bit for bit, in
+    float32 and bf16."""
+    from repro_torch.core.distributed import coords_of
+    axes = PSUM[name]
+    z = _psum_inputs()
+    for r in range(WORLD):
+        mine = coords_of(PSUM_MESH, r)
+        group = [q for q in range(WORLD) if all(
+            coords_of(PSUM_MESH, q)[a] == mine[a] for a in PSUM_MESH
+            if a not in axes)]
+        assert len(group) == np.prod([PSUM_MESH[a] for a in axes])
+        got = np.load(ranks["root"] / f"psum_r{r}.npz")
+        for k, parts in z.items():
+            t = torch.from_numpy(parts)
+            if k == "x_bf16":
+                t = t.view(torch.bfloat16)
+            acc = t[group[0]].float()
+            for q in group[1:]:
+                acc = acc + t[q].float()
+            want = acc.to(t.dtype)
+            if k == "x_bf16":
+                want = want.view(torch.uint16)
+            np.testing.assert_array_equal(
+                got[f"{'+'.join(axes)}.{k}"], want.numpy(),
+                err_msg=f"{name} rank {r} {k}")
 
 
 def test_compressed_psum_on_ranks_equals_stacked(ranks):
@@ -389,6 +570,116 @@ def test_moe_lm_a2a_prefill_equals_gather(ranks, name):
     got = torch.load(ranks["root"] / f"{name}.pt")["logits"]
     assert got.shape == want.shape
     assert _rel(want, got) < F32_REL
+
+
+# ---------------------------------------------------------------------------
+# The dense LM tensor-parallel against the reference's GSPMD
+# ---------------------------------------------------------------------------
+
+def _tp_replicated(root, name):
+    """The port's replicated run on the job's weights: (config, weights,
+    prefill logits, decode logits [S, B, V], caches)."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.transfer import params_from_numpy, \
+        to_reference_tree
+    arch, _ = LM_TP[name]
+    cfg = _tp_config(arch)
+    z = np.load(root / f"in_{name}.npz")
+    flat = {k[2:]: torch.from_numpy(z[k]) for k in z.files
+            if k.startswith("p.")}
+    model = params_from_numpy(cfg, to_reference_tree(cfg, flat), "cpu")
+    toks = torch.from_numpy(z["toks"])
+    pre = make_prefill_step(cfg, "cpu")(model, {"inputs": toks})
+    serve = make_serve_step(cfg, "cpu")
+    caches = tlm.init_caches(cfg, TP_B, TP_S, device="cpu")
+    steps = []
+    for t in range(TP_S):
+        out, caches = serve(model, caches, toks[:, t:t + 1])
+        steps.append(out)
+    return cfg, flat, pre, torch.stack(steps), caches
+
+
+@pytest.fixture(scope="module")
+def tp_replicated(ranks):
+    return {name: _tp_replicated(ranks["root"], name) for name in LM_TP}
+
+
+@pytest.mark.parametrize("name", sorted(LM_TP))
+def test_lm_tp_shards_equal_gspmd(ranks, tp_replicated, name):
+    """Each rank's parameters equal the reference device's shard (device
+    r is rank r) bit for bit; ``ffn.w_in`` holds ``[gate_r | up_r]``, as
+    many columns as the device's."""
+    from repro_torch.core.distributed import coords_of
+    from repro_torch.models.shard import Layout, is_fused_glu
+    arch, mesh = LM_TP[name]
+    cfg, flat, *_ = tp_replicated[name]
+    _, where = _ref_paths(cfg, {n: a.numpy() for n, a in flat.items()})
+    index = ranks["ref_index"][name]
+    plan = tlm.plan_model(cfg)
+    fused = 0
+    for r in range(WORLD):
+        got = torch.load(ranks["root"] / f"{name}_r{r}.pt")["params"]
+        assert sorted(got) == sorted(plan)
+        layout = Layout(cfg, mesh, coords_of(mesh, r))
+        for n, t in got.items():
+            path, cyc = where[n]
+            idx = [slice(a, b) for a, b in index[path][str(r)]]
+            if cyc is not None:
+                assert idx[0] == slice(0, cfg.cycles)
+                idx = idx[1:]
+            whole = flat[n].numpy()
+            dev = whole[tuple(idx)]
+            if is_fused_glu(cfg, n) and dev.shape != whole.shape:
+                fused += 1
+                assert dev.shape == tuple(t.shape)
+                np.testing.assert_array_equal(
+                    t.numpy(), layout.take(n, plan[n], whole))
+                assert not np.array_equal(t.numpy(), dev)
+            else:
+                np.testing.assert_array_equal(t.numpy(), dev, err_msg=n)
+    assert fused == WORLD * cfg.n_layers
+
+
+@pytest.mark.parametrize("name", sorted(LM_TP))
+def test_lm_tp_logits_match_reference(ranks, name):
+    """Rank 0's prefill and 8 decode steps' logits (the whole [B, V] every
+    rank returns) within 2e-4 of the reference's GSPMD run's."""
+    got = torch.load(ranks["root"] / f"{name}.pt")
+    ref = ranks["ref"]
+    assert got["prefill"].shape == ref[f"{name}_prefill"].shape
+    assert got["decode"].shape == ref[f"{name}_decode"].shape
+    assert _rel(ref[f"{name}_prefill"], got["prefill"]) < LM_REL
+    assert _rel(ref[f"{name}_decode"], got["decode"]) < LM_REL
+    out = [o[name] for o in ranks["results"]]
+    heads = {tuple(o["heads"]) for o in out}
+    assert heads == ({(1, 1, 16)} if LM_TP[name][1]["model"] == 4
+                     else {(2, 1, 16)})
+
+
+@pytest.mark.parametrize("name", sorted(LM_TP))
+def test_lm_tp_caches_and_decode_vs_prefill(ranks, tp_replicated, name):
+    """Each rank's caches within 1e-5 of its rows and kv heads of the
+    port's replicated run; the sharded logits within 2e-4 of the
+    replicated ones, and the last decode step of the prefill."""
+    from repro_torch.core.distributed import coords_of
+    from repro_torch.models.common import softcap
+    from repro_torch.models.shard import Layout
+    arch, mesh = LM_TP[name]
+    cfg, _, pre, dec, caches = tp_replicated[name]
+    for r in range(WORLD):
+        layout = Layout(cfg, mesh, coords_of(mesh, r))
+        rows, kv = layout.rows(TP_B)[0], layout.attn_heads().kv
+        got = torch.load(ranks["root"] / f"{name}_r{r}.pt")["caches"]
+        for layer, want in zip(got, caches["layers"]):
+            for k in ("k", "v"):
+                w = want["attn"][k][rows][:, :, kv]
+                assert layer["attn"][k].shape == w.shape
+                assert float((layer["attn"][k] - w).abs().max()) < CACHE_TOL
+    got = torch.load(ranks["root"] / f"{name}.pt")
+    assert _rel(pre, got["prefill"]) < LM_REL
+    assert _rel(dec, got["decode"]) < LM_REL
+    last = softcap(got["prefill"][:, 0], cfg.logit_softcap)
+    assert _rel(last, got["decode"][-1]) < LM_REL
 
 
 # ---------------------------------------------------------------------------

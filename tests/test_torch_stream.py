@@ -17,6 +17,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from repro.api import RunConfig as JConfig, StreamConfig as JStreamConfig
 from repro.apps import pagerank as jpr
@@ -49,6 +50,17 @@ CPU = RunConfig(device="cpu")
 # ---------------------------------------------------------------------------
 # coalescer
 # ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Many small torch ops: without this, 6 pytest-xdist workers on 8
+    cores slow them, and the reference's tests beside them, by intra-op
+    fan-out."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
+
 
 def _rows(pattern, seed):
     """(record ids, values, signs) of one cancel pattern, arrival order."""

@@ -18,9 +18,10 @@ Runs on one CUDA card, from the root of a checkout:
   4. drives the iterative path — PageRank's and SSSP's ``Session.run``
      (prime-loop convergence) then one ``update`` (incremental iterative
      refresh) — on graphs of 2^22 vertices with 16 out-slots, checking
-     PageRank against a float64 power iteration within bounds derived
-     from ``tol`` and the CPC threshold, and SSSP against
-     ``scipy.sparse.csgraph.dijkstra``.
+     PageRank against a float64 power iteration (on the card) within
+     bounds derived from ``tol`` and the CPC threshold, and SSSP against
+     ``scipy.sparse.csgraph.dijkstra`` (in two processes of their own,
+     beside phase 5, checked after it).
 
   5. drives the LM serving path — Gemma 2 9B at full width (9,241,705,984
      parameters, bf16, random weights from ``--seed``): ``make_prefill_step``
@@ -164,7 +165,14 @@ Runs on one CUDA card, from the root of a checkout:
      output's max, float32 over 2 x 256 within ``MOE_F32_BOUND``, expert
      ids and kept slots equal at capacity 16, and the dropped slots of
      each at the config's 1.25; (d) ``compressed_psum`` on 4 ranks bitwise
-     equal to the stacked form.
+     equal to the stacked form; (e) Gemma 2 9B at full width served
+     tensor-parallel on the 4 ranks (``{"model": 4}``, ``models.shard``)
+     against its replicated run on the card, bf16 and float32 at 4
+     layers; (f) likewise DeepSeek-V3 at 4 layers (MLA, the MoE, MTP
+     held), Llama 4 Scout at 2, RecurrentGemma 2B (RG-LRU) and xLSTM 125M
+     (mLSTM, sLSTM) at one cycle (``TP4_RUNS``), the MoE archs' prefill
+     held at every position that no routing flip against the replicated
+     run reaches, their decode up to its first flip.
  16. trains the MoE and recurrent archs: (a) the attention gradient
      (flash forward, the dense formula's backward) on the card against
      the CPU in float32 at MLA's pairs of head dims, (q.k 96, v 64) on
@@ -189,8 +197,9 @@ Runs on one CUDA card, from the root of a checkout:
      Phase 2 holds flash at (96, 64) in both dtypes and times
      ``FLASH_MLA_100M`` beside SDPA.
 
-The kernels' launch counts are set to 0 before each path and read after
-it (phase 15: in each rank, around each of its jobs).  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
+Phases 1-16 print their seconds.  The kernels' launch counts are set to
+0 before each path and read after it (phase 15: in each rank, around
+each of its jobs).  ``--docs`` may cut the corpus to 2^18 and ``--vertices`` the graphs
 to 2^20; each cut is logged as a ``CUT`` line.
 
 Prints the card's name and power limit, then one JSON line of per-kernel
@@ -1916,10 +1925,13 @@ def drive_path(path: str, docs: np.ndarray, steps, keep=None,
 # ---------------------------------------------------------------------------
 
 def pagerank_fixpoint(nbrs: np.ndarray, r0=None, tol: float = 1e-8,
-                      max_iters: int = 1000):
-    """float64 power iteration of PageRank's semantics (one ``np.bincount``
-    per iteration) until the largest change is below ``tol``.  Returns the
-    ranks and that last change."""
+                      max_iters: int = 1000, dev=None):
+    """float64 power iteration of PageRank's semantics until the largest
+    change is below ``tol``: on ``dev``'s card where it is one (one
+    ``index_add_`` an iteration: at 2^22 vertices about 100 iterations of
+    33.5M edges, a second where ``np.bincount`` on the host takes 45), else
+    one ``np.bincount`` an iteration.  Independent of the port's engine
+    either way.  Returns the ranks (numpy) and that last change."""
     from repro_torch.apps.pagerank import DAMPING
     v, f = nbrs.shape
     ok = nbrs >= 0
@@ -1928,13 +1940,30 @@ def pagerank_fixpoint(nbrs: np.ndarray, r0=None, tol: float = 1e-8,
     dst = nbrs[ok]
     share = 1.0 / deg[src]
     r = np.ones(v) if r0 is None else np.array(r0, np.float64)
-    for _ in range(max_iters):
-        new = DAMPING * np.bincount(dst, weights=r[src] * share,
-                                    minlength=v) + (1 - DAMPING)
-        change = float(np.abs(new - r).max())
-        r = new
-        if change < tol:
-            return r, change
+    if dev is not None and dev.type == "cuda":
+        import torch
+        src_t, dst_t = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                        for a in (src, dst))
+        share_t = torch.from_numpy(share).to(dev)
+        r_t = torch.from_numpy(r).to(dev)
+        for _ in range(max_iters):
+            new = torch.zeros_like(r_t).index_add_(
+                0, dst_t, r_t[src_t] * share_t) * DAMPING + (1 - DAMPING)
+            change = float((new - r_t).abs().max())
+            r_t = new
+            if change < tol:
+                out = r_t.cpu().numpy()
+                del src_t, dst_t, share_t, r_t, new
+                release(dev)
+                return out, change
+    else:
+        for _ in range(max_iters):
+            new = DAMPING * np.bincount(dst, weights=r[src] * share,
+                                        minlength=v) + (1 - DAMPING)
+            change = float(np.abs(new - r).max())
+            r = new
+            if change < tol:
+                return r, change
     raise AssertionError(f"PageRank oracle did not reach {tol} in "
                          f"{max_iters} iterations")
 
@@ -1994,7 +2023,7 @@ def drive_pagerank(dev, rng, vertices: int, keep=None) -> dict:
     sess = Session(spec, cfg)
     rep = sess.run(data)
     t_run = time.perf_counter() - t0
-    ref, ch = pagerank_fixpoint(nbrs)
+    ref, ch = pagerank_fixpoint(nbrs, dev=dev)
     err = float(np.abs(sess.result["r"].astype(np.float64) - ref).sum())
     # the preserved edges hold the ranks of the second-to-last iteration:
     # off the final ranks by at most the last change, at every vertex
@@ -2011,7 +2040,7 @@ def drive_pagerank(dev, rng, vertices: int, keep=None) -> dict:
     t0 = time.perf_counter()
     rep = sess.update(make_delta(rid, vals, sign))
     t_upd = time.perf_counter() - t0
-    ref2, ch2 = pagerank_fixpoint(after, r0=ref)
+    ref2, ch2 = pagerank_fixpoint(after, r0=ref, dev=dev)
     err = float(np.abs(sess.result["r"].astype(np.float64) - ref2).sum())
     # what a refresh that left the run's ranks in place would score
     stale = float(np.abs(ref - ref2).sum())
@@ -2087,14 +2116,44 @@ def check_sssp(label: str, d: np.ndarray, want: np.ndarray) -> None:
         raise AssertionError(f"sssp {label}: disagrees with dijkstra")
 
 
-def drive_sssp(dev, rng, vertices: int, keep=None) -> dict:
+class DijkstraBeside:
+    """scipy's Dijkstra of each given graph ``(nbrs, w, src)``, each in a
+    process of its own (spawned: no CUDA state, no share of this process's
+    GIL) at niceness ``DRYRUN_NICE``, as the dry-run's, so that phase 4's
+    oracles (about 35 s each at 2^22 vertices) run beside the phases after
+    it and yield the host's cores to them: ``join`` waits for them, stops
+    the processes and returns the distances, raising what one raised."""
+
+    def __init__(self, graphs):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        self.t0 = time.perf_counter()
+        self.pool = ProcessPoolExecutor(
+            len(graphs), mp_context=multiprocessing.get_context("spawn"),
+            initializer=os.nice, initargs=(DRYRUN_NICE,))
+        atexit.register(self.pool.shutdown, wait=False, cancel_futures=True)
+        self.futures = [self.pool.submit(dijkstra, *g) for g in graphs]
+
+    def join(self) -> list:
+        try:
+            return [f.result() for f in self.futures]
+        finally:
+            self.pool.shutdown()
+
+
+def drive_sssp(dev, rng, vertices: int, keep=None, defer: bool = False
+               ) -> dict:
     """SSSP's run and deletion update, each checked against Dijkstra;
     ``keep`` (a dict) receives the graph, the delta, both results, both
-    Dijkstra distances and both wall seconds (phase 9 replays them)."""
+    Dijkstra distances and both wall seconds (phase 9 replays them).
+    The two Dijkstras run in processes of their own from the update on
+    (``DijkstraBeside``); ``defer``: they run on beside what follows, and
+    ``sssp_oracle_check(keep)`` checks them later."""
     import torch
     from repro_torch.api import RunConfig, Session, make_delta
     from repro_torch.apps import sssp
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    keep = {} if keep is None else keep
     nbrs, w = sssp.random_weighted_graph(vertices, OUT_SLOTS,
                                          seed=int(rng.integers(2**31)),
                                          p_edge=P_EDGE)
@@ -2110,11 +2169,8 @@ def drive_sssp(dev, rng, vertices: int, keep=None) -> dict:
     t_run = time.perf_counter() - t0
     log(f"  [sssp] run: {t_run:.3f} s, mode {rep.mode}, {rep.iters} "
         f"iterations; launches {launch_counts()}; shapes {shapes_line()}")
-    dij = dijkstra(nbrs, w, 0)
-    check_sssp("run", sess.result["d"], dij)
-    if keep is not None:
-        keep.update(nbrs=nbrs.copy(), w=w, run=sess.result["d"].copy(),
-                    dij_run=dij, run_s=t_run)
+    keep.update(nbrs=nbrs.copy(), w=w, run=sess.result["d"].copy(),
+                run_s=t_run)
 
     # the update of benchmarks/fig8_overall.py: 30% of the slots of 0.1%
     # of the rows deleted
@@ -2127,21 +2183,20 @@ def drive_sssp(dev, rng, vertices: int, keep=None) -> dict:
     delta = (np.repeat(rows + 1, 2).astype(np.int32),
              {"nbrs": nb, "w": np.repeat(w[rows], 2, axis=0)},
              np.tile(np.int8([-1, 1]), rows.size))
+    after = nbrs.copy()
+    after[rows] = new
+    keep["oracle"] = DijkstraBeside([(keep["nbrs"], w, 0), (after, w, 0)])
     t0 = time.perf_counter()
     rep = sess.update(make_delta(*delta))
     t_upd = time.perf_counter() - t0
-    nbrs[rows] = new
     log(f"  [sssp] update ({rows.size} rows, 30% of slots deleted): "
         f"{t_upd:.3f} s, mode {rep.mode}, {rep.iters} iterations")
     for l in rep.logs:
         log(f"    {l}")
     if rep.mode != "i2":
         raise AssertionError(f"sssp update ran in mode {rep.mode}, not i2")
-    dij = dijkstra(nbrs, w, 0)
-    check_sssp("update", sess.result["d"], dij)
-    if keep is not None:
-        keep.update(delta=delta, rows=rows, update=sess.result["d"].copy(),
-                    dij_update=dij, update_s=t_upd)
+    keep.update(delta=delta, rows=rows, update=sess.result["d"].copy(),
+                update_s=t_upd)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" \
         else float("nan")
@@ -2151,7 +2206,21 @@ def drive_sssp(dev, rng, vertices: int, keep=None) -> dict:
         raise AssertionError("sssp path launched no segment_minmax")
     del sess, data
     release(dev)
+    if not defer:
+        sssp_oracle_check(keep)
     return counts
+
+
+def sssp_oracle_check(keep: dict) -> None:
+    """``drive_sssp``'s run and update against their Dijkstras (waited
+    for); the distances go into ``keep`` (``dij_run``, ``dij_update``)."""
+    oracle = keep.pop("oracle")
+    dij_run, dij_update = oracle.join()
+    log(f"  [sssp] Dijkstra of the run's and the update's graphs: "
+        f"{time.perf_counter() - oracle.t0:.1f} s after they started")
+    check_sssp("run", keep["run"], dij_run)
+    check_sssp("update", keep["update"], dij_update)
+    keep.update(dij_run=dij_run, dij_update=dij_update)
 
 
 # ---------------------------------------------------------------------------
@@ -2600,6 +2669,7 @@ def steps_vs_cpu(dev, seed: int, tag: str, label: str, cfg, host,
     bounded)."""
     import contextlib
     import torch
+    from repro_torch.launch.ranks import RoutingProbe
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
@@ -2998,40 +3068,6 @@ def parity_bound(n_layers: int, n_rec: int = 0, n_mla: int = 0) -> float:
     return 2 * math.sqrt(4 * n_layers + 2 * n_rec + 2 * n_mla) * 2.0**-8
 
 
-class RoutingProbe:
-    """Records the experts every MoE layer chooses, call by call, while
-    it is open: it wraps ``blocks.moe_route`` (which ``apply_moe`` looks up
-    by name at each call) and puts it back on closing, so the serving path
-    pays nothing for it outside the checks.  ``eids``: one [N, K] tensor a
-    layer a forward, in layer order."""
-
-    def __enter__(self):
-        from repro_torch.models import blocks
-        self.eids, self._route = [], blocks.moe_route
-
-        def route(cfg, router, tokens):
-            gate, eid = self._route(cfg, router, tokens)
-            self.eids.append(eid)
-            return gate, eid
-        blocks.moe_route = route
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.models import blocks
-        blocks.moe_route = self._route
-
-
-def dropped_slots(cfg, eids) -> tuple:
-    """(slots dropped, slots) of the (token, k) choices ``eids`` (one [N,
-    K] tensor a layer of one forward): a slot drops where its position in
-    its expert's buffer reaches the capacity for N tokens."""
-    from repro_torch.models import blocks
-    drop = sum(int((blocks.moe_slots(e, cfg.moe.num_experts)
-                    >= blocks.moe_capacity(cfg, e.shape[0])).sum())
-               for e in eids)
-    return drop, sum(e.numel() for e in eids)
-
-
 def moe_decode_vs_prefill(cfg, model, toks, dev) -> dict:
     """``decode_vs_prefill`` for an MoE model, with each layer's chosen
     experts recorded on both paths (``RoutingProbe``).  A (request,
@@ -3045,6 +3081,7 @@ def moe_decode_vs_prefill(cfg, model, toks, dev) -> dict:
     position; ``flips`` by MoE layer, ``first`` each request's first
     divergence (the tokens, where none)."""
     import torch
+    from repro_torch.launch.ranks import RoutingProbe
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import lm
     from repro_torch.models.common import softcap
@@ -3105,6 +3142,7 @@ def arch_decoder(dev, gen, arch: str, prefill_shape, parity_shape,
     every expert is multiplied every step)."""
     import contextlib
     import torch
+    from repro_torch.launch.ranks import RoutingProbe, dropped_slots
     import repro_torch.configs as C
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import HBM_BW
@@ -4005,7 +4043,7 @@ def stream_pagerank(dev, rng, vertices: int):
     reps = ss.session.history[1:]
     if any(r.iters >= cfg.refresh_iters_ for r in reps):
         raise AssertionError("stream (e): a refresh hit max_iters")
-    want, ch = pagerank_fixpoint(source.values["nbrs"])
+    want, ch = pagerank_fixpoint(source.values["nbrs"], dev=dev)
     got = ss.result["r"]
     err = float(np.abs(got.astype(np.float64) - want).sum())
     # as phase 4: a vertex no refresh touched holds the run's last change,
@@ -4791,9 +4829,9 @@ def dist_pagerank(dev, rng, vertices: int, single: dict):
     spec, data = pagerank.make_job(nbrs)
     cfg = RunConfig(device=dev.type, cpc_threshold=PR_CPC,
                     mesh=mesh_config())
-    ref, ch = pagerank_fixpoint(nbrs)
+    ref, ch = pagerank_fixpoint(nbrs, dev=dev)
     (rid, vals, sign), after = rewire_delta(rng, nbrs, 0.001)
-    ref2, ch2 = pagerank_fixpoint(after, r0=ref)
+    ref2, ch2 = pagerank_fixpoint(after, r0=ref, dev=dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -4930,6 +4968,33 @@ TP_MESH = {"model": RANK_SHARDS}
 TP_SHAPE = (1, 2048)
 TP_STEPS = 8
 TP_SMOKE = False              # True: smoke width (a CPU rehearsal)
+# (f) the other block kinds served tensor-parallel on the same 4 ranks,
+# {"model": 4}, at full width, bf16, weights from draw_dense (only a rank's
+# experts drawn): (arch, the bf16 run's depth, its prefill B x S, the
+# float32 run's config).  DeepSeek-V3 at 4 of 61 layers (3 mla_dense, 1
+# attn_moe, MTP held; MLA 32 of 128 heads, 64 of 256 experts a rank: 31
+# GB replicated, 8 a rank), float32 at its MoE layer alone (56 GB
+# replicated); Llama 4 Scout at 2 of 48 (10 of 40 heads, 2 of 8 kv, 4 of
+# 16 experts), float32 at 1; RecurrentGemma 2B one cycle (rec, rec,
+# attn_local: 640 of 2,560 RG-LRU columns; its 10 heads and 1 kv head
+# replicated: no reduction), float32 too; xLSTM 125M one cycle (mlstm,
+# slstm: 384 of 1,536 columns; the cells whole), prefill at 512 (its
+# cells step a token at a time on every rank).  TP4_STEPS tokens decoded.
+# bf16 against the replicated run within parity_bound, float32 within
+# MOE_F32_BOUND (2e-4), the MoE archs where no routing flip reaches (the
+# prefill at every position held_positions gives, the decode up to its
+# first flip; the flips printed): a rank-order float32 sum in a reduction
+# can order two experts' near-equal scores the other way.
+TP4_RUNS = (
+    ("deepseek_v3_671b", dict(n_layers=4), (1, 1024),
+     dict(prefix_blocks=[], n_layers=1)),
+    ("llama4_scout_17b_a16e", dict(n_layers=2), (1, 1024),
+     dict(n_layers=1)),
+    ("recurrentgemma_2b", dict(n_layers=3), (1, 1024), dict(n_layers=3)),
+    ("xlstm_125m", dict(n_layers=2), (1, 512), dict(n_layers=2)),
+)
+TP4_STEPS = 8
+TP4_F32_SHAPE = (1, 64)
 
 
 def rank_jobs_file(work: Path, jobs: list) -> str:
@@ -5032,7 +5097,8 @@ def moe_gather_want(dev, spec: dict) -> dict:
     weights and x (drawn alike from its seed): y, the expert ids
     (``RoutingProbe``) and the kept slots."""
     import torch
-    from repro_torch.launch.ranks import moe_config, moe_inputs
+    from repro_torch.launch.ranks import RoutingProbe, moe_config, \
+        moe_inputs
     from repro_torch.models import blocks
     cfg = moe_config(spec).replace(moe_impl="gather")
     w, x = moe_inputs(cfg, spec, dev)
@@ -5058,9 +5124,37 @@ def tp_specs(seed: int) -> dict:
                                     "compute_dtype": "float32"})}
 
 
+def tp4_specs(seed: int) -> dict:
+    """(f)'s ``lm_tp`` jobs, two an arch of TP4_RUNS: bf16 at the cut
+    depth, float32 at the float32 config; each with its parity bound
+    (``bound``) and, for the MoE archs, the experts recorded
+    (``routes``)."""
+    import repro_torch.configs as C
+    from repro_torch.models import lm
+    specs = {}
+    for i, (arch, cut, shape, f32) in enumerate(TP4_RUNS):
+        cfg = C.get(arch).replace(**cut)
+        kinds = cfg.layer_kinds
+        n_mla = sum(lm.is_mla(cfg, k) for k in kinds)
+        base = dict(job="lm_tp", arch=arch, mesh=TP_MESH, seed=seed + 17 + i,
+                    steps=TP4_STEPS, smoke=TP_SMOKE,
+                    routes=cfg.moe is not None)
+        tag = arch.split("_")[0]
+        specs[f"tp4-{tag}-bf16"] = dict(
+            base, name=f"tp4-{tag}-bf16", shape=list(shape),
+            replace=dict(cut), bound=parity_bound(
+                len(kinds), kinds.count("rec"), n_mla))
+        specs[f"tp4-{tag}-f32"] = dict(
+            base, name=f"tp4-{tag}-f32", shape=list(TP4_F32_SHAPE),
+            replace=dict(f32, param_dtype="float32",
+                         compute_dtype="float32"), bound=MOE_F32_BOUND)
+    return specs
+
+
 def tp_replicated(dev, spec: dict) -> dict:
-    """(e)'s replicated run on the card: the job's draw and ids through
-    ``launch.ranks.serve_lm`` without a mesh; the model freed after."""
+    """(e)'s and (f)'s replicated run on the card: the job's draw and ids
+    through ``launch.ranks.serve_lm`` without a mesh (the experts
+    recorded where the job records them); the model freed after."""
     import torch
     from repro_torch.launch.ranks import lm_config, lm_tp_inputs, serve_lm
     t0 = time.perf_counter()
@@ -5068,13 +5162,68 @@ def tp_replicated(dev, spec: dict) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     model, toks = lm_tp_inputs(cfg, spec, dev)
-    out = serve_lm(cfg, model, toks, spec["steps"], dev)
+    out = serve_lm(cfg, model, toks, spec["steps"], dev,
+                   routes=bool(spec.get("routes")))
     out["param_bytes"] = sum(p.nbytes for p in model.parameters())
     out["peak_gib"] = memory_gib(dev, peak=True)
     del model, toks, out["caches"]
     release(dev)
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def route_flips(got: dict, want: dict, n: int) -> dict:
+    """Where the experts two runs chose part (``serve_lm``'s ``routes`` of
+    one request, B 1): ``prefill`` the prefill's positions at which any
+    MoE layer's expert set differs, ``decode`` the first decode step at
+    which one does (``n``, the steps, where none), ``short`` whether the
+    decode's differ from the short prefill's at any position (the decode
+    against the prefill of the decoded tokens)."""
+    def sets(layers):
+        return [e.sort(dim=-1).values for e in layers]
+
+    def diff(a, b):
+        return [bool((x != y).any()) for x, y in zip(sets(a), sets(b))]
+    pre = [p for p in range(got["prefill"][0].shape[0]) if any(
+        bool((x[p] != y[p]).any()) for x, y in zip(sets(got["prefill"]),
+                                                     sets(want["prefill"])))]
+    steps = [any(diff(g, w)) for g, w in zip(got["decode"], want["decode"])]
+    first = steps.index(True) if any(steps) else n
+    short = sets(got["prefill_short"])
+    moved = any(bool((e.sort(dim=-1).values != short[layer][t]).any())
+                for t, step in enumerate(got["decode"])
+                for layer, e in enumerate(step))
+    return {"prefill": pre, "decode": first, "short": moved}
+
+
+def held_positions(cfg, got: list, want: list, b: int) -> tuple:
+    """The prefill positions at which two runs' logits are held although
+    their routes part somewhere (``serve_lm``'s ``routes["prefill"]``: one
+    [B S, K] a MoE layer, in layer order), [B, S] bool: where every MoE
+    layer chose the same experts on both runs and kept the same of their
+    slots (a slot's place in its expert's buffer counts the earlier
+    tokens' choices), and no MoE layer but the model's last one parted at
+    an earlier position of the request (the next layers' attention or
+    recurrence mixes it into the later positions; after the last layer's
+    FFN the logits are position-wise).  Also returns each request's
+    positions before its first parting in any layer (the rule of
+    ``moe_decode_vs_prefill``), [B]."""
+    import torch
+    from repro_torch.models import blocks
+    moe_at = [i for i, k in enumerate(cfg.layer_kinds) if k == "attn_moe"]
+    e = cfg.moe.num_experts
+    held = before = None
+    for layer, g, w in zip(moe_at, got, want):
+        cap = blocks.moe_capacity(cfg, g.shape[0])
+        kept = [(blocks.moe_slots(x, e) < cap).gather(-1, x.argsort(-1))
+                for x in (g, w)]
+        same = ((g.sort(-1).values == w.sort(-1).values).all(-1)
+                & (kept[0] == kept[1]).all(-1)).view(b, -1)
+        prefix = same.int().cumprod(-1).bool()
+        ok = same if layer == cfg.n_layers - 1 else prefix
+        held = ok if held is None else held & ok
+        before = prefix if before is None else before & prefix
+    return held, before.sum(-1)
 
 
 def tp_rank_bytes(spec: dict) -> list:
@@ -5090,36 +5239,76 @@ def tp_rank_bytes(spec: dict) -> list:
 
 
 def check_tp(work: Path, outs: list, specs: dict, want: dict) -> list:
-    """(e): the ranks' logits against the replicated run's, decode against
-    prefill, each rank's parameter bytes against ``meta``'s count; logs
-    the flash launches, seconds and peaks.  Returns what failed."""
+    """(e) and (f): the ranks' logits against the replicated run's, decode
+    against prefill, each rank's parameter bytes against ``meta``'s count;
+    logs the flash launches, seconds and peaks.  A job's bound is its
+    ``bound`` ((f)) or PARITY_TOL ((e)); where the job recorded the
+    experts (the MoE archs), the prefill's logits at every position are
+    held where no routing flip can reach them (:func:`held_positions`;
+    how many positions, and how many before the first flip, printed), the
+    decode up to the first step where one parts the two runs, decode
+    against prefill only where the decode's experts are the short
+    prefill's (the flips printed).  Returns what failed."""
     import torch
-    import repro_torch.configs as C
+    from repro_torch.launch.ranks import lm_config
     from repro_torch.models.common import softcap
     bad = []
-    cap = C.get(TP_ARCH).logit_softcap
 
     def gap(a, b):
         return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
     for n, spec in specs.items():
-        tol = PARITY_TOL["float32" if n == "tp-f32" else "bfloat16"]
+        cfg = lm_config(spec)
+        f32 = cfg.compute_dtype == "float32"
+        tol = spec.get("bound", PARITY_TOL["float32" if f32 else "bfloat16"])
         got, rep = torch.load(work / f"{n}.pt"), want[n]["logits"]
         errs = {k: gap(got[k], rep[k]) for k in ("prefill", "decode")}
-        last = softcap(got["prefill_short"][:, 0], cap)
+        last = softcap(got["prefill_short"][:, 0], cfg.logit_softcap)
         errs["decode_vs_prefill"] = gap(got["decode"][-1], last)
-        finite = all(bool(got[k].isfinite().all()) for k in got)
+        held, flips = dict(errs), None
+        if "routes" in got:
+            flips = route_flips(got["routes"], rep["routes"], spec["steps"])
+            mask, before = held_positions(cfg, got["routes"]["prefill"],
+                                          rep["routes"]["prefill"],
+                                          got["prefill_every"].shape[0])
+            a, w = (x["prefill_every"].float() for x in (got, rep))
+            scale = max(1.0, float(w.abs().max()))
+            flips["held"] = (int(mask.sum()), mask.numel(), before.tolist())
+            held["prefill"] = float((a - w)[mask].abs().max()) / scale \
+                if bool(mask.any()) else 0.0
+            errs["prefill_every"] = float((a - w).abs().max()) / scale
+            held["decode"] = gap(got["decode"][:flips["decode"]],
+                                 rep["decode"][:flips["decode"]]) \
+                if flips["decode"] else 0.0
+            if flips["short"]:
+                held.pop("decode_vs_prefill")
+        finite = all(bool(got[k].isfinite().all()) for k in
+                     ("prefill", "prefill_short", "decode"))
         meta = tp_rank_bytes(spec)
-        held = [o[n]["param_bytes"] for o in outs]
         o = [out[n] for out in outs]
-        log(f"  [ranks-tp] {n}: {TP_ARCH} {spec.get('layers') or 'all'} "
-            f"layers on {RANK_SHARDS} ranks {TP_MESH}, prefill "
-            f"{TP_SHAPE[0]} x {TP_SHAPE[1]}, {TP_STEPS} decode steps: max "
-            f"|ranks - replicated| / max |logit| prefill "
+        held_bytes = [x["param_bytes"] for x in o]
+        s = spec.get("shape") or list(TP_SHAPE)
+        log(f"  [ranks-tp] {n}: {spec['arch']} "
+            f"{cfg.n_layers} layers {cfg.layer_kinds} on {RANK_SHARDS} ranks "
+            f"{spec['mesh']}, prefill {s[0]} x {s[1]}, {spec['steps']} decode "
+            f"steps: max |ranks - replicated| / max |logit| prefill "
             f"{errs['prefill']:.3g}, decode {errs['decode']:.3g}; decode vs "
-            f"prefill {errs['decode_vs_prefill']:.3g} (bound {tol}); flash "
-            f"launches a rank {[x['flash'] for x in o]} at (H, KH, hd) "
-            f"{o[0]['heads']}; parameter bytes a rank {held} (meta "
-            f"{meta}; replicated {want[n]['param_bytes']})")
+            f"prefill {errs['decode_vs_prefill']:.3g}; held "
+            f"{ {k: float(f'{v:.3g}') for k, v in held.items()} } (bound "
+            f"{tol:.3g})"
+            + (f"; routing flips against the replicated run: prefill "
+               f"positions {flips['prefill'][:8]} ({len(flips['prefill'])}), "
+               f"first decode step {flips['decode']} of {spec['steps']}, "
+               f"decode's experts off the short prefill's {flips['short']}; "
+               f"prefill held at {flips['held'][0]} of {flips['held'][1]} "
+               f"positions ({flips['held'][2]} before the first flip; every "
+               f"position {errs['prefill_every']:.3g})"
+               if flips is not None else "")
+            + f"; flash launches a rank {[x['flash'] for x in o]}; a rank "
+            f"holds (heads, experts, columns) {o[0]['heads']}, "
+            f"{o[0]['experts']}, {o[0]['columns']}; parameter bytes a rank "
+            f"{held_bytes} (meta {meta}; replicated "
+            f"{want[n]['param_bytes']})")
+        share = [x["prefill_comm"]["psum_s"] / x["prefill_s"] for x in o]
         log(f"  [ranks-tp] {n}: prefill s a rank "
             f"{[round(x['prefill_s'], 4) for x in o]} (replicated "
             f"{want[n]['prefill_s']:.4f} s), decode ms a step (median) "
@@ -5128,17 +5317,22 @@ def check_tp(work: Path, outs: list, specs: dict, want: dict) -> list:
             f"{float(np.median(want[n]['decode_s'])) * 1e3:.2f} ms; phase "
             f"5: {LM_TIMES}); inside the gloo reductions, prefill "
             f"{[round(x['prefill_comm']['psum_s'], 4) for x in o]} s "
-            f"({o[0]['prefill_comm']['psum_calls']} psums) and gathers "
-            f"{[round(x['prefill_comm']['gather_s'], 4) for x in o]} s, "
+            f"({o[0]['prefill_comm']['psum_calls']} psums, "
+            f"{[round(v, 3) for v in share]} of the prefill) and gathers "
+            f"{[round(x['prefill_comm']['gather_s'], 4) for x in o]} s "
+            f"({o[0]['prefill_comm']['gather_calls']}), "
             f"decode {[round(x['decode_comm']['psum_s'], 4) for x in o]} s "
             f"({o[0]['decode_comm']['psum_calls']} psums); peak device "
             f"memory a rank {[round(x['peak_gib'], 2) for x in o]} GiB "
             f"(replicated {want[n]['peak_gib']:.2f} GiB); the job "
             f"{[round(x['job_seconds'], 2) for x in o]} s a rank, the "
             f"replicated run {want[n]['seconds']:.2f} s")
-        if not (finite and max(errs.values()) <= tol and held == meta):
-            bad.append(f"(e) {n}: errors {errs} over {tol}, finite {finite},"
-                       f" or parameter bytes {held} != meta's {meta}")
+        if not (finite and max(held.values()) <= tol and held_bytes == meta
+                and (flips is None or flips["decode"] > 0)):
+            bad.append(f"{n}: held errors {held} over {tol}, finite "
+                       f"{finite}, parameter bytes {held_bytes} != meta's "
+                       f"{meta}, or a routing flip at the first decode "
+                       f"step ({flips})")
     return bad
 
 
@@ -5147,8 +5341,9 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
     """Phase 15: (a) one rank on nccl, (b) 4 ranks sharing the card on
     gloo (wordcount, SSSP, PageRank), (c) Llama 4 Scout's MoE layer on 4
     ranks, (d) ``compressed_psum`` on 4 ranks, (e) Gemma 2 9B served
-    tensor-parallel on the 4 ranks.  Returns the ranks' launches of (a),
-    (b) and (e) added up."""
+    tensor-parallel on the 4 ranks, (f) the MoE, MLA and recurrent archs
+    likewise.  Returns the ranks' launches of (a), (b), (e) and (f) added
+    up."""
     import torch
     from repro_torch.apps import pagerank
     from repro_torch.launch.ranks import moe_config, save_deltas
@@ -5170,8 +5365,8 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
         delta, after = rewire_delta(rng, nbrs, RANK_PR_REWIRE)
         np.savez(work / "in_pagerank.npz",
                  **save_deltas({"nbrs": nbrs}, [delta]))
-        pr_ref, pr_ch = pagerank_fixpoint(nbrs)
-        pr_ref2, pr_ch2 = pagerank_fixpoint(after, r0=pr_ref)
+        pr_ref, pr_ch = pagerank_fixpoint(nbrs, dev=dev)
+        pr_ref2, pr_ch2 = pagerank_fixpoint(after, r0=pr_ref, dev=dev)
         del nbrs, after
         failures = []
 
@@ -5238,7 +5433,14 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
         tp = tp_specs(seed)
         tp_want = {n: tp_replicated(dev, spec) for n, spec in tp.items()}
         log(f"  references (LocalMesh, the gather layer, the stacked "
-            f"compressed_psum) {time.perf_counter() - t0:.1f} s")
+            f"compressed_psum, (e)'s replicated runs) "
+            f"{time.perf_counter() - t0:.1f} s")
+        t_f = time.perf_counter()
+        tp4 = tp4_specs(seed)
+        for n, spec in tp4.items():
+            tp_want[n] = tp_replicated(dev, spec)
+        t_f = time.perf_counter() - t_f
+        log(f"  (f)'s replicated runs {t_f:.1f} s")
 
         # (b) + (c) + (d): one launch of 4 ranks sharing the card on gloo
         t0 = time.perf_counter()
@@ -5248,8 +5450,8 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
         jobs += list(moe.values())
         jobs.append({"job": "compress", "name": "d",
                      "data": str(work / "in_compress.npz")})
-        jobs += list(tp.values())
-        log(f"  (b)-(d) {RANK_SHARDS} ranks, gloo (host staging), all on "
+        jobs += list(tp.values()) + list(tp4.values())
+        log(f"  (b)-(f) {RANK_SHARDS} ranks, gloo (host staging), all on "
             f"cuda:0: {[j['name'] for j in jobs]}")
         outs = launch_ranks(dev, work, RANK_SHARDS, "gloo", jobs)
         log(f"  [ranks-gloo] the launch: {time.perf_counter() - t0:.1f} s "
@@ -5382,11 +5584,20 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
         log(f"  [ranks-compress] (d) compressed_psum on {RANK_SHARDS} ranks "
             f"bitwise equal to the stacked form, rank by rank: {same}")
 
-        # (e) the dense LM tensor-parallel
-        failures += check_tp(work, outs, tp, tp_want)
+        # (e) the dense LM tensor-parallel, (f) the other block kinds
+        failures += [f"(e) {f}" for f in check_tp(work, outs, tp, tp_want)]
+        failures += [f"(f) {f}" for f in check_tp(work, outs, tp4, tp_want)]
         flash = sum(out[n]["flash"] for out in outs for n in tp)
+        flash4 = sum(out[n]["flash"] for out in outs for n in tp4)
+        jobs_f = [outs[0][n]["job_seconds"] for n in tp4]
+        log(f"  [ranks-tp] (f) {t_f + sum(jobs_f):.1f} s: the replicated "
+            f"runs {t_f:.1f} s and rank 0's jobs "
+            f"{[round(x, 1) for x in jobs_f]} s; "
+            f"flash launches (e) {flash}, (f) {flash4}, all ranks")
+        if dev.type == "cuda" and flash4 == 0:
+            failures.append("(f) launched no flash_attention")
         launches["flash_attention"] = launches.get("flash_attention",
-                                                   0) + flash
+                                                   0) + flash + flash4
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -5706,13 +5917,16 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
 
     log("phase 1: build")
+    t1 = time.perf_counter()
     secs = _build.build_all()
     log(f"  built {', '.join(_build.SOURCES)} in {secs:.2f} s "
         f"into {_build.BUILD_DIR}")
     for lib in sorted(_build.BUILD_DIR.glob(f"*-{_build._digest()}.log")):
         log(f"  {lib.name}: " + "; ".join(ptxas_summary(lib.read_text())))
+    log(f"  phase 1 {time.perf_counter() - t1:.1f} s")
 
     log("phase 2: kernels against their plain versions")
+    t2 = time.perf_counter()
     check_sort(dev, rng)
     check_segment_sum(dev, rng)
     small = check_small_sizes(dev, rng)
@@ -5782,6 +5996,7 @@ def main(argv=None) -> int:
     timed["fused_shuffle_reduce"]["one_block_shapes"] = time_one_block(
         dev, rng, args.vertices)
     torch.cuda.empty_cache()
+    log(f"  phase 2 {time.perf_counter() - t2:.1f} s")
 
     # phase 14 (a), on meta, in the background from here on; stopped at
     # exit whatever the outcome
@@ -5789,6 +6004,7 @@ def main(argv=None) -> int:
     atexit.register(dry.kill)
 
     log("phase 3: main path (wordcount, one-step incremental)")
+    t3 = time.perf_counter()
     if args.docs != FULL_DOCS:
         log(f"  CUT: {args.docs} documents instead of {FULL_DOCS}")
     log(f"  vocab {VOCAB}, {DOC_LEN} words a document, {args.docs} "
@@ -5804,18 +6020,29 @@ def main(argv=None) -> int:
             raise AssertionError(f"mrbg path launched no {name}")
     if acc["segment_sum"] == 0:
         raise AssertionError("accumulator path launched no segment_sum")
+    log(f"  phase 3 {time.perf_counter() - t3:.1f} s")
 
     log("phase 4: iterative path (PageRank, SSSP: run, then incremental "
         "iterative update)")
+    t4 = time.perf_counter()
     if args.vertices != FULL_VERTICES:
         log(f"  CUT: {args.vertices} vertices instead of {FULL_VERTICES}")
     pr_single, sssp_kept = {}, {}    # phase 9 replays and compares
     pr = drive_pagerank(dev, rng, args.vertices, pr_single)
-    sp = drive_sssp(dev, rng, args.vertices, sssp_kept)
+    log(f"  phase 4 PageRank {time.perf_counter() - t4:.1f} s")
+    sp = drive_sssp(dev, rng, args.vertices, sssp_kept, defer=True)
+    log(f"  phase 4 {time.perf_counter() - t4:.1f} s (SSSP's Dijkstra "
+        f"oracles run on, beside phase 5, and are checked after it)")
 
     log("phase 5: LM serving (Gemma 2 9B at full width: prefill, decode, "
         "decode-versus-prefill parity)")
+    t5 = time.perf_counter()
     lmc = drive_lm(dev, args.seed)
+    log(f"  phase 5 {time.perf_counter() - t5:.1f} s")
+    t = time.perf_counter()
+    sssp_oracle_check(sssp_kept)
+    log(f"  phase 4's SSSP checks, after phase 5: waited "
+        f"{time.perf_counter() - t:.1f} s")
 
     log("phase 6: streaming (StreamSession on phase 3's corpus and a "
         "PageRank stream)")
@@ -5891,8 +6118,9 @@ def main(argv=None) -> int:
     log(f"phase 15: one process a rank (RankMesh): 1 rank on nccl; "
         f"{RANK_SHARDS} ranks sharing the card on gloo (wordcount, SSSP, "
         f"PageRank against LocalMesh; Llama 4 Scout's MoE layer, a2a "
-        f"against gather; compressed_psum; Gemma 2 9B tensor-parallel, "
-        f"{TP_MESH}, against its replicated run)")
+        f"against gather; compressed_psum; Gemma 2 9B, then DeepSeek-V3, "
+        f"Llama 4 Scout, RecurrentGemma 2B and xLSTM 125M tensor-parallel, "
+        f"{TP_MESH}, against their replicated runs)")
     t15 = time.perf_counter()
     rk = drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
                      args.seed)

@@ -35,29 +35,30 @@ extrapolated counts.
 
 ``--mesh pod16x16`` (the reference's 16 x 16 ``("data", "model")`` mesh)
 and ``--mesh pod2x16x16`` (``--multi-pod``: 2 x 16 x 16 with ``"pod"``
-first) count one rank, rank 0, of a serving cell (prefill, decode) of a
-dense attention arch: its model cut by ``cfg.sharding``
-(``models.shard``) and its step run on ``meta`` under a
-``launch.mesh.MetaMesh``, whose collectives count their output bytes.
-The batch rule is the reference's ``_fix_rules_for_mesh``: the batch
-splits over ``("data",)`` on one pod, ``("pod", "data")`` on two.  The
-record's ``devices`` is 256 or 512, ``coll`` the rank's collective bytes
-by kind, in closed form (B the cell's batch, B_r the rank's rows of it,
-S the step's tokens a row, d, L layers, V the vocabulary; b the compute
-dtype's bytes, b_l the logits' (the compute dtype's for a prefill,
-float32's for a decode step))::
-
-    all-reduce  (2 L + 1) B_r S d b    two partial sums a layer (attention,
-                                       FFN) and the vocab-parallel
-                                       embedding
-    all-gather  B_r V b_l + B V b_l    the last token's vocab slices over
-                                       "model", then the rows over the
-                                       batch's axes
-
-(HuBERT, whose inputs come embedded, has no embedding reduction).  A
-train cell, and an arch with MLA, MoE, RG-LRU, mLSTM or sLSTM layers,
-raise under a mesh, naming their ROADMAP.md item.  Records go to
-the git-ignored ``build/dryrun/<arch>__<shape>__<mesh>__<tag>.json``.
+first) count one rank, rank 0, of a serving cell (prefill, decode) of
+any arch: its model cut by ``cfg.sharding`` (``models.shard``) and its
+step run on ``meta`` under a ``launch.mesh.MetaMesh``, whose collectives
+count their output bytes (a token-loop config probed and extrapolated
+as above, its collectives too).  The batch rule is the reference's
+``_fix_rules_for_mesh``: the batch splits over ``("data",)`` on one pod,
+``("pod", "data")`` on two.  The record's ``devices`` is 256 or 512,
+``coll`` the rank's collective bytes by kind, in closed form (B the
+cell's batch, B_r the rank's rows of it, S the step's tokens a row, d, V
+the vocabulary; b the compute dtype's bytes, b_l the logits' (the
+compute dtype's for a prefill, float32's for a decode step)).
+``all-reduce``: B_r S d b for the vocab-parallel embedding (none for
+HuBERT, whose inputs come embedded), for each attention or MLA layer
+whose heads split (none where they fall back to replicated: Llama 4
+Scout's 40 and RecurrentGemma's 10 heads on 16), each FFN (sLSTM's
+included), each RG-LRU's and mLSTM's output; plus B_r S 2 R 4 for each
+RG-LRU's gates and B_r S (3 m + 2 H) 4 for each mLSTM's q, k, v and
+gates (float32); B S d b for each MoE layer (the whole batch's output).
+``all-gather``: B S d b for each MoE layer (its rows over the batch's
+axes, where the batch splits), then B_r V b_l (the last token's vocab
+slices over "model") and B V b_l (the rows over the batch's axes, where
+the batch splits).  A train cell raises under a mesh, naming its
+ROADMAP.md item.  Records go to the git-ignored
+``build/dryrun/<arch>__<shape>__<mesh>__<tag>.json``.
 
   python -m repro_torch.launch.dryrun --arch qwen3_1_7b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--skip-existing]
@@ -67,7 +68,7 @@ the git-ignored ``build/dryrun/<arch>__<shape>__<mesh>__<tag>.json``.
       decode_32k --multi-pod
   python -m repro_torch.launch.dryrun --all --mesh pod16x16
 
-``--all`` with a mesh runs the dense archs' serving cells.
+``--all`` with a mesh runs every arch's serving cells (21).
 """
 from __future__ import annotations
 
@@ -91,9 +92,10 @@ from repro_torch.launch.mesh import MESHES, MetaMesh
 
 ART = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 MESH = "h100x1"
-# the shape cells a mesh's --all counts: the serving cells of the dense
-# attention archs (the others raise under a mesh)
-MESH_SHAPES = ("prefill_32k", "decode_32k")
+# the cell kinds a mesh's --all counts: every arch's serving cells (21:
+# prefill_32k and, but for HuBERT, decode_32k; long_500k of the recurrent
+# archs); training under a mesh raises
+MESH_KINDS = ("prefill", "decode")
 # the lengths a token-loop config is run at; S must be a multiple of the
 # first for the extrapolation to stay in integers
 PROBE_LENS = (8, 16)
@@ -216,6 +218,7 @@ def dryrun(cfg, cell, tag: str = "baseline", arch: Optional[str] = None,
            "tag": tag, "devices": 1, "cycles": cfg.cycles,
            "cell": {"seq_len": cell.seq_len,
                     "global_batch": cell.global_batch, "kind": cell.kind}}
+    shape = None
     if mesh != MESH:
         from repro_torch.models.shard import check_supported, \
             fix_rules_for_mesh
@@ -223,13 +226,16 @@ def dryrun(cfg, cell, tag: str = "baseline", arch: Optional[str] = None,
             raise ValueError(f"mesh must be {MESH} or one of "
                              f"{sorted(MESHES)}, got {mesh!r}")
         check_supported(cfg, cell.kind)
-        meta = MetaMesh(MESHES[mesh])
-        cfg = fix_rules_for_mesh(cfg, meta.shape)
-        rec["devices"] = meta.world
-        rec["full"] = trace_step(*input_specs(cfg, cell, mesh=meta), meta)
-        return rec
+        shape = MESHES[mesh]
+        cfg = fix_rules_for_mesh(cfg, shape)
+        rec["devices"] = MetaMesh(shape).world
+
+    def trace(c):
+        meta = None if shape is None else MetaMesh(shape)
+        return trace_step(*input_specs(cfg, c, mesh=meta), meta)
+
     if cell.kind == "decode" or not has_token_loop(cfg):
-        rec["full"] = trace_step(*input_specs(cfg, cell))
+        rec["full"] = trace(cell)
         return rec
     s = cell.seq_len
     if s % PROBE_LENS[0] or s < PROBE_LENS[1]:
@@ -239,18 +245,20 @@ def dryrun(cfg, cell, tag: str = "baseline", arch: Optional[str] = None,
     probes = []
     for p in PROBE_LENS:
         pcell = ShapeCell(cell.name, p, cell.global_batch, cell.kind)
-        probes.append({"seq_len": p,
-                       **trace_step(*input_specs(cfg, pcell))})
+        probes.append({"seq_len": p, **trace(pcell)})
     p1, p2 = probes
+    coll = {k: _extrapolate(p1["coll"].get(k, 0), p2["coll"][k], s)
+            for k in p2["coll"]}
     est = {"flops_per_device": _extrapolate(p1["flops"], p2["flops"], s),
            "bytes_per_device": _extrapolate(p1["bytes"], p2["bytes"], s),
-           "collective_bytes_per_device": {}}
-    _, args = input_specs(cfg, cell)
+           "collective_bytes_per_device": coll}
+    _, args = input_specs(cfg, cell, mesh=None if shape is None
+                          else MetaMesh(shape))
     memory = {k: _extrapolate(p1["memory"][k], p2["memory"][k], s)
               for k in ("output_size", "temp_size")}
     rec["full"] = {"trace_s": round(p1["trace_s"] + p2["trace_s"], 3),
                    "flops": est["flops_per_device"],
-                   "bytes": est["bytes_per_device"], "coll": {},
+                   "bytes": est["bytes_per_device"], "coll": coll,
                    "memory": {"argument_size": storage_bytes(args),
                               **memory}}
     rec.update(probe1=p1, probe2=p2, estimated=est)
@@ -311,6 +319,14 @@ def _run_cell(job):
     return arch, shape, time.perf_counter() - t0, err
 
 
+def mesh_cells():
+    """(arch, shape) of every serving cell, the cells ``--all`` counts at a
+    mesh."""
+    import repro_torch.configs as C
+    from repro_torch.models.config import SHAPES
+    return [(a, s) for a, s in C.all_cells() if SHAPES[s].kind in MESH_KINDS]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch")
@@ -318,7 +334,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default=MESH,
                     choices=[MESH, *MESHES],
                     help="one H100, or rank 0 of the reference's 16 x 16 "
-                         "or 2 x 16 x 16 mesh (dense archs' serving cells)")
+                         "or 2 x 16 x 16 mesh (serving cells)")
     ap.add_argument("--multi-pod", action="store_true",
                     help="the same as --mesh pod2x16x16")
     ap.add_argument("--all", action="store_true")
@@ -333,9 +349,7 @@ def main(argv=None) -> int:
     mesh = "pod2x16x16" if args.multi_pod else args.mesh
     import repro_torch.configs as C
     if args.all and mesh != MESH:
-        from repro_torch.models.shard import SHARDED_KINDS
-        cells = [(a, s) for a, s in C.all_cells() if s in MESH_SHAPES
-                 and set(C.get(a).layer_kinds) <= set(SHARDED_KINDS)]
+        cells = mesh_cells()
     elif args.all:
         cells = C.all_cells()
     elif args.arch and args.shape:

@@ -43,9 +43,9 @@ MESHES = {"pod16x16": PRODUCTION, "pod2x16x16": MULTI_POD}
 class MetaMesh:
     """Rank ``rank`` (0 by default) of a mesh of ``shape`` that is never
     started: ``shape``, ``coords`` and ``world`` as ``RankMesh``'s, and
-    the collectives the sharded LM calls (``psum``, ``all_gather``), which
-    take and return ``meta`` tensors of the shapes
-    a ``RankMesh`` returns.  Each adds its output's bytes to ``coll``
+    the collectives the sharded LM calls (``psum``, ``all_gather``; the MoE
+    gathers the batch's rows with the latter), which take and return
+    ``meta`` tensors of the shapes a ``RankMesh`` returns, and ``index``.  Each adds its output's bytes to ``coll``
     under the reference's kind name (``all-reduce``, ``all-gather``), as
     ``repro.launch.dryrun.collective_bytes`` sums the output shapes of an
     HLO's collectives."""
@@ -62,6 +62,16 @@ class MetaMesh:
 
     def __repr__(self) -> str:
         return f"MetaMesh({self.shape!r}, rank={self.rank})"
+
+    def index(self, axes, rank=None) -> int:
+        """The flattened index over ``axes`` (the last fastest) of this
+        rank, or of ``rank``, as ``RankMesh.index``."""
+        from repro_torch.core.distributed import coords_of
+        coords = self.coords if rank is None else coords_of(self.shape, rank)
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + coords[a]
+        return i
 
     def _size(self, axes) -> int:
         if axes is None:

@@ -39,18 +39,23 @@ order, every rank the same jobs on the same inputs (SPMD), and prints
     lists of ``spec["mesh"]``'s axes); each rank writes
     ``DIR/<name>_r<rank>.npz``, a group's sums under ``<axes joined by
     "+">.<key>``.
-  * ``lm_tp``: a dense LM served tensor-parallel over ``spec["mesh"]``
-    (``models.shard``): each rank holds its shards, from the flat weights
-    of the ``.npz`` (``params_from_numpy(..., mesh=...)``, its ``toks``)
-    or drawn on the device from ``spec["seed"]`` (:func:`draw_dense`, ids
-    of ``spec["shape"]``); it prefills the first ``spec["steps"]`` ids
+  * ``lm_tp``: an LM served tensor-parallel over ``spec["mesh"]``
+    (``models.shard``; every block kind): each rank holds its shards, from
+    the flat weights of the ``.npz`` (``params_from_numpy(..., mesh=...)``,
+    its ``toks``) or drawn on the device from ``spec["seed"]``
+    (:func:`draw_dense`, only the rank's experts; ids of
+    ``spec["shape"]``); the config from ``arch``, ``smoke``, ``layers``,
+    ``replace`` and ``moe`` (:func:`lm_config`); it prefills the first
+    ``spec["steps"]`` ids
     (untimed), then all of them, then decodes those first ids from empty
     caches one step at a time, the last step held against the first
-    prefill (:func:`serve_lm`).  Rank 0 writes the logits to
+    prefill (:func:`serve_lm`; with ``"routes": true`` recording each MoE
+    layer's experts and the prefill's logits at every position).  Rank 0
+    writes the logits (and the routes) to
     ``DIR/<name>.pt``; with ``"dump": true`` every rank writes its
     parameters and caches to ``DIR/<name>_r<rank>.pt``.  Each rank reports its seconds (prefill,
     decode steps, inside ``psum`` and ``all_gather``), flash launches,
-    parameter bytes and peak memory.
+    what it holds (:func:`held_parts`), parameter bytes and peak memory.
 
 The kernels are built by the caller before the ranks start on a card
 (:func:`run_ranks` does it), so that the ranks only load them.
@@ -424,6 +429,41 @@ def moe_config(spec: dict):
     return cfg
 
 
+class RoutingProbe:
+    """Records the experts every MoE layer chooses while it is open: it
+    wraps ``blocks.moe_route`` (which ``apply_moe`` looks up by name at
+    each call) and puts it back on closing, so the serving path pays
+    nothing for it outside a probe.  ``eids``: one [N, K] tensor a layer a
+    forward, in layer order, left on the route's device (a timed call
+    under the probe syncs no more than without it)."""
+
+    def __enter__(self):
+        from repro_torch.models import blocks
+        self.eids, self._route = [], blocks.moe_route
+
+        def route(cfg, router, tokens):
+            gate, eid = self._route(cfg, router, tokens)
+            self.eids.append(eid)
+            return gate, eid
+        blocks.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        blocks.moe_route = self._route
+
+
+def dropped_slots(cfg, eids) -> tuple:
+    """(slots dropped, slots) of the (token, k) choices ``eids`` (one [N,
+    K] tensor a layer of one forward): a slot drops where its position in
+    its expert's buffer reaches the capacity for N tokens."""
+    from repro_torch.models import blocks
+    drop = sum(int((blocks.moe_slots(e, cfg.moe.num_experts)
+                    >= blocks.moe_capacity(cfg, e.shape[0])).sum())
+               for e in eids)
+    return drop, sum(e.numel() for e in eids)
+
+
 def _moe_job(spec: dict, ctx: dict) -> dict:
     import torch
     from repro_torch.core.distributed import RankMesh
@@ -436,19 +476,11 @@ def _moe_job(spec: dict, ctx: dict) -> dict:
     p_ep = math.prod(mesh.shape[a] for a in ep_axes)
     w, x = moe_inputs(cfg, spec, device, ep=(mesh.index(ep_axes), p_ep))
     p = blocks.Params(w)
-    seen = []
-    route = blocks.moe_route
-
-    def spy(c, router, tokens):
-        gate, eid = route(c, router, tokens)
-        seen.append(eid)
-        return gate, eid
     meshctx.set_mesh(mesh)
-    blocks.moe_route = spy
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     try:
-        with torch.no_grad():
+        with torch.no_grad(), RoutingProbe() as probe:
             y = blocks.apply_moe(cfg, p, x)         # one untimed call
             _sync(device)
             t0 = time.perf_counter()
@@ -456,9 +488,8 @@ def _moe_job(spec: dict, ctx: dict) -> dict:
             _sync(device)
             secs = time.perf_counter() - t0
     finally:
-        blocks.moe_route = route
         meshctx.set_mesh(None)
-    eid = seen[-1]
+    eid = probe.eids[-1]
     order, _, _, ok, _ = blocks.a2a_slots(cfg, eid, p_ep)
     kept = torch.zeros_like(ok)
     kept[order] = ok
@@ -548,20 +579,38 @@ def parity_fan_in(name: str, shape) -> int:
 
 
 def draw_dense(cfg, seed: int, device, mesh=None):
-    """A dense LM drawn on ``device`` from ``seed``: norms zeros, every
-    matrix normal at 1/sqrt(its input width) (:func:`parity_fan_in`), each
-    leaf from a generator seeded by its place in the plan, drawn whole in
-    float32 and rounded to ``cfg.param_dtype``.  ``mesh``: the model of
-    the mesh's own rank, each leaf cut to its shard after the draw, so
-    that every rank, and a process without a mesh, hold the same values."""
+    """An LM drawn on ``device`` from ``seed``: norms zeros, every matrix
+    normal at 1/sqrt(its input width) (:func:`parity_fan_in`), rounded to
+    ``cfg.param_dtype``.  Each leaf comes from a generator seeded by its
+    place in the plan, drawn whole in float32; an MoE's expert leaves
+    (``moe.w_in``, ``moe.w_out``) an expert at a time, each expert from a
+    seed of its own (:func:`expert_seed`).  ``mesh``: the model of the
+    mesh's own rank, each leaf cut to its shard after the draw and only
+    the rank's experts drawn, so that every rank, and a process without a
+    mesh, hold the same values (DeepSeek-V3's [256, 7168, 4096] leaf would
+    take 30 GB in float32 a rank whole)."""
     import torch
     from repro_torch.models import lm
     from repro_torch.models.shard import Layout
     layout = None if mesh is None else Layout.of(cfg, mesh)
     plan = lm.plan_model(cfg)
+    dtype = cfg.dtype("param")
     gen = torch.Generator(device=device)
     tensors = {}
     for k, (name, s) in enumerate(plan.items()):
+        if s.init == "normal" and lm.is_expert_leaf(name):
+            held = range(s.shape[0]) if layout is None else range(
+                *layout.slices(s)[0].indices(s.shape[0]))
+            t = torch.empty((len(held),) + tuple(s.shape[1:]), dtype=dtype,
+                            device=device)
+            for i, e in enumerate(held):
+                gen.manual_seed(expert_seed(seed, len(plan), k, e,
+                                            s.shape[0]))
+                t[i] = torch.randn(s.shape[1:], generator=gen,
+                                   device=device).mul_(
+                    1.0 / math.sqrt(parity_fan_in(name, s.shape)))
+            tensors[name] = t
+            continue
         if s.init != "normal":
             t = (torch.zeros if s.init == "zeros" else torch.ones)(
                 s.shape, device=device)
@@ -571,14 +620,25 @@ def draw_dense(cfg, seed: int, device, mesh=None):
                 1.0 / math.sqrt(parity_fan_in(name, s.shape)))
         if layout is not None:
             t = layout.take(name, s, t)
-        tensors[name] = t.to(dtype=cfg.dtype("param"), copy=True)
+        tensors[name] = t.to(dtype=dtype, copy=True)
         del t
     return lm.LM(cfg, tensors, layout=layout)
 
 
+def expert_seed(seed: int, n_leaves: int, k: int, e: int, n_experts: int
+                ) -> int:
+    """The generator seed of expert ``e`` of plan leaf ``k`` in
+    :func:`draw_dense`: past 2^40, apart from every leaf's seed
+    ``seed * n_leaves + k``, and no two (leaf, expert) alike."""
+    return 2**40 + (seed * n_leaves + k) * n_experts + e
+
+
 def lm_config(spec: dict):
     """An ``lm_tp`` job's config: ``arch`` (smoke width with ``"smoke":
-    true``, ``n_layers`` from ``"layers"``) and ``replace`` kwargs."""
+    true``, ``n_layers`` from ``"layers"``), ``replace`` kwargs (lists
+    as tuples: ``prefix_blocks``) and ``moe`` kwargs for its ``MoEConfig``
+    (``capacity_factor``, ``ep_axes``)."""
+    import dataclasses
     import repro_torch.configs as C
     from repro_torch.models.config import smoke_config
     cfg = C.get(spec["arch"])
@@ -586,10 +646,16 @@ def lm_config(spec: dict):
         cfg = smoke_config(cfg)
     if spec.get("layers"):
         cfg = cfg.replace(n_layers=spec["layers"])
-    return cfg.replace(**spec.get("replace", {}))
+    if spec.get("moe"):
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **{
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in spec["moe"].items()}))
+    return cfg.replace(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in spec.get("replace", {}).items()})
 
 
-def serve_lm(cfg, model, toks, steps: int, device, mesh=None) -> dict:
+def serve_lm(cfg, model, toks, steps: int, device, mesh=None,
+             routes: bool = False) -> dict:
     """Serve ``toks`` [B, S] (a device tensor) with ``model``: the prefill
     of its first ``steps`` tokens (untimed: it warms the kernels, the
     library handles and the mesh's groups; the last decode step is held
@@ -599,15 +665,25 @@ def serve_lm(cfg, model, toks, steps: int, device, mesh=None) -> dict:
     second prefill), ``decode_s`` a step, and, under ``mesh``, those spent
     inside its ``psum`` and ``all_gather`` (``prefill_comm``,
     ``decode_comm``), with the flash launches of the timed prefill;
-    ``caches`` are the decode's."""
+    ``caches`` are the decode's.  ``routes``: also the experts each MoE
+    layer chose (``routes``: ``prefill_short``, ``prefill`` and
+    ``decode``, a list of [N, K] a layer, one such list a decode step,
+    through :class:`RoutingProbe`) and the logits at every position of
+    the prefill (``prefill_every`` [B, S, V], in the compute dtype), from
+    an untimed prefill after the timed one, which the experts of
+    ``prefill`` are; the decode steps' experts are copied to the host
+    after each step's time is taken."""
+    import contextlib
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models import lm
+    from repro_torch.models import lm, meshctx
+    probe = RoutingProbe if routes else contextlib.nullcontext
     b, s = toks.shape
     prefill = make_prefill_step(cfg, device, mesh)
     serve = make_serve_step(cfg, device, mesh)
-    short = prefill(model, {"inputs": toks[:, :steps]})
+    with probe() as short_routes:
+        short = prefill(model, {"inputs": toks[:, :steps]})
     reset_launch_counts()
     if mesh is not None:
         mesh.reset_stats()
@@ -619,20 +695,33 @@ def serve_lm(cfg, model, toks, steps: int, device, mesh=None) -> dict:
            "flash": launch_counts()["flash_attention"]}
     if mesh is not None:
         out["prefill_comm"] = dict(mesh.stats)
+    if routes:
+        with torch.inference_mode(), meshctx.using(mesh), \
+                RoutingProbe() as pre_routes:
+            every = lm.prefill(cfg, model, toks, every=True).cpu()
+    if mesh is not None:
         mesh.reset_stats()
     caches = lm.init_caches(cfg, b, steps, device=device, mesh=mesh)
-    decoded, secs = [], []
+    decoded, secs, step_routes = [], [], []
     for t in range(steps):
         t0 = time.perf_counter()
-        step, caches = serve(model, caches, toks[:, t:t + 1])
+        with probe() as r:
+            step, caches = serve(model, caches, toks[:, t:t + 1])
         _sync(device)
         secs.append(time.perf_counter() - t0)
         decoded.append(step.float().cpu())
+        if routes:
+            step_routes.append([e.cpu() for e in r.eids])
     if mesh is not None:
         out["decode_comm"] = dict(mesh.stats)
     out.update(decode_s=secs, caches=caches, logits={
         "prefill": logits.float().cpu(), "prefill_short": short.float().cpu(),
         "decode": torch.stack(decoded)})
+    if routes:
+        out["logits"].update(prefill_every=every, routes={
+            "prefill_short": [e.cpu() for e in short_routes.eids],
+            "prefill": [e.cpu() for e in pre_routes.eids],
+            "decode": step_routes})
     return out
 
 
@@ -668,7 +757,8 @@ def _lm_tp_job(spec: dict, ctx: dict) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     model, toks = lm_tp_inputs(cfg, spec, device, mesh)
-    out = serve_lm(cfg, model, toks, spec["steps"], device, mesh)
+    out = serve_lm(cfg, model, toks, spec["steps"], device, mesh,
+                   routes=bool(spec.get("routes")))
     if ctx["rank"] == 0:
         torch.save(out["logits"], Path(ctx["out"]) / f"{spec['name']}.pt")
     if spec.get("dump"):
@@ -678,13 +768,33 @@ def _lm_tp_job(spec: dict, ctx: dict) -> dict:
                                 for part, c in layer.items()}
                                for layer in out["caches"]["layers"]]},
                    Path(ctx["out"]) / f"{spec['name']}_r{ctx['rank']}.pt")
-    heads = model.layers[0].attn.part
     del out["logits"], out["caches"]
-    return dict(out, heads=[heads.q.stop - heads.q.start,
-                            heads.kv.stop - heads.kv.start, cfg.head_dim],
+    return dict(out, **held_parts(cfg, model),
                 param_bytes=sum(p.nbytes for p in model.parameters()),
                 peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
                           if device.type == "cuda" else float("nan")))
+
+
+def held_parts(cfg, model) -> dict:
+    """What a rank's model holds of the first layer of each part:
+    ``heads`` [q heads, kv heads (None for MLA), head dim] of the first
+    attention layer, ``experts`` of the first MoE layer, ``columns`` of
+    the first RG-LRU or mLSTM layer (None where the model has none)."""
+    out = {"heads": None, "experts": None, "columns": None}
+    for layer in model.layers:
+        attn, moe = getattr(layer, "attn", None), getattr(layer, "moe", None)
+        rec = getattr(layer, "rec", None) or (
+            layer.cell if layer.kind == "mlstm" else None)
+        if attn is not None and out["heads"] is None:
+            q = attn.part.q
+            kv = None if attn.part.kv is None else \
+                attn.part.kv.stop - attn.part.kv.start
+            out["heads"] = [q.stop - q.start, kv, cfg.head_dim]
+        if moe is not None and out["experts"] is None:
+            out["experts"] = moe.part.n
+        if rec is not None and out["columns"] is None:
+            out["columns"] = rec.part.n
+    return out
 
 
 JOBS = {"wordcount": _engine_job, "sssp": _engine_job,

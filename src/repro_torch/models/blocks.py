@@ -56,6 +56,12 @@ runs only its ``num_experts / P`` experts.  The routing
 (:func:`moe_route`) is looked up by name at every call, so that a probe
 can wrap it to record the chosen experts without a cost to the serving
 path.
+
+Every block also runs on one rank's shards of its leaves
+(:class:`Params` ``part``, cut by ``models.shard``): on the rank's heads,
+experts or ``d_ff`` columns, each partial sum reduced through the
+ambient mesh's ``psum``; each ``apply_*`` says how
+(:func:`apply_moe_part` for the MoE).
 """
 from __future__ import annotations
 
@@ -347,10 +353,15 @@ def apply_mla(cfg: ModelConfig, p, x, pos=None, cache=None):
     dynamic_update_slice) in place, and attention is absorbed: q_nope goes
     into latent space through ``wk_b``, the scores over the cache are
     float32, scaled by 1/sqrt(nope + rope), and the context leaves it
-    through ``wv_b``.  Returns (x + attention, cache)."""
+    through ``wv_b``.  Returns (x + attention, cache).
+
+    A rank's shards (``p.part``) hold its heads of ``wq_b``, ``wk_b``,
+    ``wv_b`` and ``wo`` and the whole latent path: it computes the whole
+    latent (its cache holds it whole) and attends with its own heads; the
+    output projection's partial sum is reduced over the part's axes."""
     m = cfg.mla
     b, s, d = x.shape
-    h = cfg.n_heads
+    h = p.wq_b.shape[1]
     nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     r = m.kv_lora_rank
     xn = rms_norm(x, p.norm, cfg.norm_eps)
@@ -391,6 +402,8 @@ def apply_mla(cfg: ModelConfig, p, x, pos=None, cache=None):
         ctx = torch.einsum("bhst,btr->bshr", probs, lat32).to(x.dtype)
         out = torch.einsum("bshr,rhv->bshv", ctx, p.wv_b.to(x.dtype))
     y = out.reshape(b, s, h * vd) @ p.wo.to(out.dtype).reshape(h * vd, d)
+    if p.part is not None and p.part.reduce:
+        y = part_mesh(p.part).psum(y, p.part.reduce)
     return x + y, cache
 
 
@@ -487,11 +500,14 @@ def moe_slots(eid: torch.Tensor, num_experts: int) -> torch.Tensor:
     return pos.gather(1, flat).view(n, k).long()
 
 
-def apply_moe(cfg: ModelConfig, p, x):
-    """The MoE FFN on ``x`` [B, S, d]: :func:`apply_moe_a2a` when
-    ``cfg.moe_impl`` is ``"a2a"`` and the ambient mesh has every
-    ``ep_axes`` axis, else :func:`apply_moe_gather` (the reference's
-    choice).  Returns x + y."""
+def apply_moe(cfg: ModelConfig, p, x, rows=()):
+    """The MoE FFN on ``x`` [B, S, d]: on a rank's shards (``p.part``)
+    :func:`apply_moe_part`, the batch split over ``rows``; else
+    :func:`apply_moe_a2a` when ``cfg.moe_impl`` is ``"a2a"`` and the
+    ambient mesh has every ``ep_axes`` axis, else :func:`apply_moe_gather`
+    (the reference's choice).  Returns x + y."""
+    if p.part is not None:
+        return apply_moe_part(cfg, p, x, rows)
     if cfg.moe_impl == "a2a":
         from repro_torch.models.meshctx import get_mesh
         mesh = get_mesh()
@@ -511,29 +527,44 @@ def apply_moe_gather(cfg: ModelConfig, p, x):
     implementation (see the module note).  Returns x + y."""
     mo = cfg.moe
     b, s, d = x.shape
-    e, kk = mo.num_experts, mo.top_k
     xn = rms_norm(x, p.norm, cfg.norm_eps)
     tokens = xn.reshape(b * s, d)
-    n = tokens.shape[0]
-    gate, eid = moe_route(cfg, p.router, tokens)
-    cap = moe_capacity(cfg, n)
-    pos_k = moe_slots(eid, e)
-    keep = pos_k < cap
-    # dispatch: dropped slots go to row e, which no expert reads
-    flat_e = torch.where(keep, eid, e).reshape(-1)
-    flat_pos = torch.where(keep, pos_k, 0).reshape(-1)
-    disp = tokens.new_zeros((e + 1, cap, d))
-    disp[flat_e, flat_pos] = tokens.repeat_interleave(kk, dim=0)
-    hmid = swiglu(torch.bmm(disp[:e], p.w_in.to(disp.dtype)))
-    eout = torch.bmm(hmid, p.w_out.to(hmid.dtype))
-    # combine: a dropped slot reads expert 0's slot 0 and weighs it by 0
-    gath = eout[flat_e % e, flat_pos]
-    gath = gath * (gate.reshape(-1, 1) * keep.reshape(-1, 1)).to(gath.dtype)
-    y = gath.view(n, kk, d).sum(dim=1)
+    y = gather_experts(cfg, p, tokens)
     if mo.num_shared:
         hs = swiglu(tokens @ p.shared_in.to(tokens.dtype))
         y = y + hs @ p.shared_out.to(hs.dtype)
     return x + y.view(b, s, d)
+
+
+def gather_experts(cfg: ModelConfig, p, tokens, lo: int = 0, on=None):
+    """The routed experts' output [N, d] on ``tokens`` [N, d] through the
+    ``gather`` dispatch: every token routed (:func:`moe_route`), the
+    capacity (:func:`moe_capacity`) and slot positions (:func:`moe_slots`)
+    over all N, the kept slots of experts ``lo`` to ``lo + n`` (``p.w_in``
+    holds those n) scattered into an [n + 1, cap, d] buffer, both products
+    batched by expert, and each slot's output gathered back and weighed by
+    its gate.  ``on`` [N] bool: only those tokens' slots are dispatched
+    (the others add 0)."""
+    mo = cfg.moe
+    n_tok, d = tokens.shape
+    ne, kk = p.w_in.shape[0], mo.top_k
+    gate, eid = moe_route(cfg, p.router, tokens)
+    cap = moe_capacity(cfg, n_tok)
+    pos_k = moe_slots(eid, mo.num_experts)
+    keep = (pos_k < cap) & (eid >= lo) & (eid < lo + ne)
+    if on is not None:
+        keep = keep & on[:, None]
+    # dispatch: the other slots go to row n, which no expert reads
+    flat_e = torch.where(keep, eid - lo, ne).reshape(-1)
+    flat_pos = torch.where(keep, pos_k, 0).reshape(-1)
+    disp = tokens.new_zeros((ne + 1, cap, d))
+    disp[flat_e, flat_pos] = tokens.repeat_interleave(kk, dim=0)
+    hmid = swiglu(torch.bmm(disp[:ne], p.w_in.to(disp.dtype)))
+    eout = torch.bmm(hmid, p.w_out.to(hmid.dtype))
+    # combine: the other slots read expert lo's slot 0 and weigh it by 0
+    gath = eout[flat_e % ne, flat_pos]
+    gath = gath * (gate.reshape(-1, 1) * keep.reshape(-1, 1)).to(gath.dtype)
+    return gath.view(n_tok, kk, d).sum(dim=1)
 
 
 def a2a_slots(cfg: ModelConfig, eid: torch.Tensor, p_ep: int):
@@ -578,32 +609,23 @@ def a2a_block(cfg: ModelConfig, mesh, b: int, s: int, rank=None):
             _block_of(s, ns, mesh.index(seq, rank), "the sequence"))
 
 
-def apply_moe_a2a(cfg: ModelConfig, p, x, mesh):
-    """The expert-parallel MoE on ``x`` [B, S, d] over ``mesh`` (a
-    ``RankMesh``), op for op the reference's ``apply_moe_a2a``.
+def a2a_fits(cfg: ModelConfig, mesh, b: int, s: int) -> bool:
+    """Whether the a2a path's blocks (:func:`a2a_block`) split a [b, s, ...]
+    activation over ``mesh``: the batch over the batch's axes the mesh
+    has, the sequence over ``"model"``."""
+    nb = 1
+    for a in cfg.sharding.batch:
+        nb *= mesh.shape.get(a, 1)
+    return b % nb == 0 and s % mesh.shape.get("model", 1) == 0
 
-    Every rank takes the whole ``x`` and returns the whole ``x + y``, as
-    the reference's function does at its global view.  Inside, a rank
-    works on the token block the reference's ``in_specs`` give it (batch
-    split over the ``cfg.sharding.batch`` axes the mesh has, sequence over
-    ``"model"``): the float32 router and top-k (:func:`moe_route`), gates
-    renormalised, the slots bucketed by destination rank
-    (:func:`a2a_slots`) into a ``[P_ep, cap, d]`` send buffer with their
-    expert ids (-1 in empty slots), two exchanges out over the EP axes and
-    one back (``RankMesh.all_to_all``, a group for each coordinate off
-    them), each of the rank's ``E / P_ep`` experts' SwiGLU products on the
-    capacity buffer masked to its slots, the combine by slot and gate, and
-    the blocks of y brought together with ``all_gather``; then the shared
-    expert on every token.  ``p.w_in`` / ``p.w_out`` hold only this rank's
-    experts (``params_from_numpy(..., ep=...)``).
 
-    As in the reference's scatter (XLA applies a scatter's updates in
-    order), the slots that do not fit write an empty slot to destination
-    0's slot 0 after its token did: with any slot dropped, that token's
-    slot goes empty too.
-    """
+def a2a_experts(cfg: ModelConfig, p, xn, mesh):
+    """The routed experts' output y [B, S, d] of the normed ``xn`` [B, S,
+    d], the whole of it on every rank, through the expert-parallel
+    exchange over ``mesh`` (:func:`apply_moe_a2a`, which adds the shared
+    expert)."""
     mo = cfg.moe
-    b, s, d = x.shape
+    b, s, d = xn.shape
     ep_axes = tuple(a for a in mo.ep_axes if a in mesh.shape)
     p_ep = 1
     for a in ep_axes:
@@ -612,7 +634,6 @@ def apply_moe_a2a(cfg: ModelConfig, p, x, mesh):
     if p.w_in.shape[0] != e_loc:
         raise ValueError(f"{p_ep} EP ranks hold {e_loc} experts each; the "
                          f"layer holds {p.w_in.shape[0]}")
-    xn = rms_norm(x, p.norm, cfg.norm_eps)
     bsl, ssl = a2a_block(cfg, mesh, b, s)
     toks = xn[bsl, ssl].reshape(-1, d)
     n, kk = toks.shape[0], mo.top_k
@@ -647,15 +668,124 @@ def apply_moe_a2a(cfg: ModelConfig, p, x, mesh):
     gathered = back[slot_of]
     w = (gate.reshape(-1) * ok_slot).to(gathered.dtype)
     y_loc = (gathered * w[:, None]).view(n, kk, d).sum(dim=1)
-    y = torch.empty_like(x)
-    blocks = mesh.all_gather(y_loc.view(x[bsl, ssl].shape))
+    y = torch.empty_like(xn)
+    blocks = mesh.all_gather(y_loc.view(xn[bsl, ssl].shape))
     for r in range(mesh.world):
         y[a2a_block(cfg, mesh, b, s, r)] = blocks[r]
+    return y
+
+
+def apply_moe_a2a(cfg: ModelConfig, p, x, mesh):
+    """The expert-parallel MoE on ``x`` [B, S, d] over ``mesh`` (a
+    ``RankMesh``), op for op the reference's ``apply_moe_a2a``.
+
+    Every rank takes the whole ``x`` and returns the whole ``x + y``, as
+    the reference's function does at its global view.  Inside
+    (:func:`a2a_experts`), a rank works on the token block the reference's
+    ``in_specs`` give it (batch split over the ``cfg.sharding.batch`` axes
+    the mesh has, sequence over ``"model"``): the float32 router and top-k
+    (:func:`moe_route`), gates renormalised, the slots bucketed by
+    destination rank (:func:`a2a_slots`) into a ``[P_ep, cap, d]`` send
+    buffer with their expert ids (-1 in empty slots), two exchanges out
+    over the EP axes and one back (``RankMesh.all_to_all``, a group for
+    each coordinate off them), each of the rank's ``E / P_ep`` experts'
+    SwiGLU products on the capacity buffer masked to its slots, the
+    combine by slot and gate, and the blocks of y brought together with
+    ``all_gather``; then the shared expert on every token.  ``p.w_in`` /
+    ``p.w_out`` hold only this rank's experts (``params_from_numpy(...,
+    ep=...)``).
+
+    As in the reference's scatter (XLA applies a scatter's updates in
+    order), the slots that do not fit write an empty slot to destination
+    0's slot 0 after its token did: with any slot dropped, that token's
+    slot goes empty too.
+    """
+    mo = cfg.moe
+    b, s, d = x.shape
+    xn = rms_norm(x, p.norm, cfg.norm_eps)
+    y = a2a_experts(cfg, p, xn, mesh)
     if mo.num_shared:
         flat = xn.reshape(b * s, d)
         hs = swiglu(flat @ p.shared_in.to(flat.dtype))
         y = y + (hs @ p.shared_out.to(hs.dtype)).view(b, s, d)
     return x + y
+
+
+def apply_moe_part(cfg: ModelConfig, p, x, rows=()):
+    """The MoE on a rank's shards (``p.part``: its experts ``lo`` to ``lo +
+    n`` of the split over ``part.experts``, the shared expert's ``d_ff``
+    split over ``part.shared``) of ``x`` [b, S, d], the rank's rows of a
+    batch split over the mesh axes ``rows``.  Returns x + y, y the whole
+    layer's at those rows.
+
+    The normed rows of every rank of ``rows`` are gathered first (the
+    global batch, in its order), so that the routing, the capacity
+    (:func:`moe_capacity`) and the slot positions (:func:`moe_slots`) are
+    the reference's, over all its tokens.  Under ``moe_impl="a2a"``, where
+    the gathered batch splits into the a2a path's blocks
+    (:func:`a2a_fits`; a decode step's one token does not split over
+    ``"model"``), the routed output comes whole to every rank from
+    :func:`a2a_experts`, and the shared expert's partial on the rank's
+    rows, reduced over its axes, is added to it.  Else (``gather``) each
+    rank runs :func:`gather_experts` on the kept slots of its own experts;
+    the shared expert's partial on its own rows is added, and one
+    reduction runs over the axes of the rows, the experts and the shared
+    expert, of which the rank keeps its rows.  So that this reduction
+    counts each (row, expert) once, a rank dispatches a row's slots only
+    where it owns the row along the batch's axes that do not split the
+    experts, and adds anything only at coordinate 0 of an axis of the
+    reduction that splits neither it nor the rows."""
+    part = p.part
+    mesh = part_mesh(part)
+    mo = cfg.moe
+    b, s, d = x.shape
+    rows = tuple(rows)
+    xn = rms_norm(x, p.norm, cfg.norm_eps)
+    xg = mesh.all_gather(xn, rows).flatten(0, 1) if rows else xn
+    n_blocks, own = xg.shape[0] // b, mesh.index(rows) if rows else 0
+
+    def shared():
+        flat = xn.reshape(b * s, d)
+        hs = swiglu(flat @ p.shared_in.to(flat.dtype))
+        return (hs @ p.shared_out.to(hs.dtype)).view(b, s, d)
+
+    ep = tuple(a for a in mo.ep_axes if a in mesh.shape)
+    if cfg.moe_impl == "a2a" and len(ep) == len(mo.ep_axes) and \
+            a2a_fits(cfg, mesh, xg.shape[0], s):
+        if part.experts != tuple(a for a in ep if mesh.shape[a] > 1) or \
+                part.lo != mesh.index(ep) * part.n:
+            raise ValueError(
+                f"the a2a path exchanges over {mo.ep_axes}, but the rank "
+                f"holds experts {part.lo} to {part.lo + part.n} split over "
+                f"{part.experts} (ShardingRules.expert "
+                f"{cfg.sharding.expert})")
+        y = a2a_experts(cfg, p, xg, mesh).view(n_blocks, b, s, d)[own]
+        if mo.num_shared:
+            hs = shared()
+            y = y + (mesh.psum(hs, part.shared) if part.shared else hs)
+        return x + y
+
+    coords = mesh.coords
+    axes = tuple(a for a in mesh.shape
+                 if a in rows + part.experts + part.shared)
+
+    def adds(split) -> bool:
+        return all(coords[a] == 0 for a in axes
+                   if a not in rows and a not in split)
+
+    from repro_torch.core.distributed import coords_of
+    sizes = {a: mesh.shape[a] for a in rows}
+    on = [all(c[a] == coords[a] for a in rows if a not in part.experts)
+          and adds(part.experts)
+          for c in (coords_of(sizes, j) for j in range(n_blocks))]
+    row_on = torch.tensor(on, device=x.device).repeat_interleave(b * s)
+    y = gather_experts(cfg, p, xg.reshape(-1, d), part.lo, row_on)
+    y = y.view(n_blocks, b, s, d)
+    if mo.num_shared and adds(part.shared):
+        y[own] += shared()
+    if axes:
+        y = mesh.psum(y, axes)
+    return x + y[own]
 
 
 # ---------------------------------------------------------------------------
@@ -712,17 +842,36 @@ def apply_rglru(cfg: ModelConfig, p, x, cache=None):
     conv, the gated linear recurrence in float32, the output projection.
     With ``cache`` ({"h" [B, R], "conv" [B, CW-1, R]}) ``x`` is one token
     and the cache takes the new state in place.  Returns (x + y,
-    cache)."""
+    cache).
+
+    A rank's shards (``p.part``) hold its ``d_ff`` columns ``lo`` to ``lo
+    + n`` of ``w_x``, ``w_gate`` and the conv and those rows of ``w_a``,
+    ``w_i`` and ``w_out``: both gates' pre-activations [B, S, 2R] are one
+    float32 partial sum, reduced over the part's axes, of which the rank
+    takes its columns; the recurrence and the cache run on those columns
+    (``h`` [B, n], ``conv`` [B, CW-1, n]); the output projection's partial
+    sum is reduced again."""
     c = 8.0
+    part = p.part
     xn = rms_norm(x, p.norm, cfg.norm_eps)
     u = xn @ p.w_x.to(xn.dtype)
     g = F.gelu(xn @ p.w_gate.to(xn.dtype), approximate="tanh")
     u, new_conv = causal_conv(u, p.conv_w.to(u.dtype), p.conv_b.to(u.dtype),
                               cache["conv"] if cache is not None else None)
     uf = u.float()
-    r = torch.sigmoid(uf @ p.w_a.float())
-    i = torch.sigmoid(uf @ p.w_i.float())
-    log_a = -c * r * F.softplus(p.lam.float())
+    lam = p.lam
+    if part is not None and part.reduce:
+        gates = part_mesh(part).psum(torch.cat(
+            [uf @ p.w_a.float(), uf @ p.w_i.float()], dim=-1), part.reduce)
+        r_all = cfg.rglru.d_rnn
+        cols = slice(part.lo, part.lo + part.n)
+        r = torch.sigmoid(gates[..., :r_all][..., cols])
+        i = torch.sigmoid(gates[..., r_all:][..., cols])
+        lam = lam[cols]
+    else:
+        r = torch.sigmoid(uf @ p.w_a.float())
+        i = torch.sigmoid(uf @ p.w_i.float())
+    log_a = -c * r * F.softplus(lam.float())
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
     bterm = beta * (i * uf)
@@ -737,12 +886,16 @@ def apply_rglru(cfg: ModelConfig, p, x, cache=None):
         cache["conv"].copy_(new_conv)
         h = h[:, None]
     y = (h.to(x.dtype) * g) @ p.w_out.to(x.dtype)
+    if part is not None and part.reduce:
+        y = part_mesh(part).psum(y, part.reduce)
     return x + y, cache
 
 
-def init_rglru_cache(cfg: ModelConfig, batch: int, *, device, dtype
-                     ) -> Dict[str, torch.Tensor]:
-    r, cw = cfg.rglru.d_rnn, cfg.rglru.conv_width
+def init_rglru_cache(cfg: ModelConfig, batch: int, *, device, dtype,
+                     width: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Zero ``h`` [batch, R] and ``conv`` [batch, CW-1, R]; a rank passes
+    the number of ``d_ff`` columns it holds as ``width``."""
+    r, cw = width or cfg.rglru.d_rnn, cfg.rglru.conv_width
     return {"h": torch.zeros((batch, r), dtype=dtype, device=device),
             "conv": torch.zeros((batch, cw - 1, r), dtype=dtype,
                                 device=device)}
@@ -809,19 +962,35 @@ def apply_mlstm(cfg: ModelConfig, p, x, cache=None):
     tokens at a time, each chunk under ``torch.utils.checkpoint`` with the
     state carried across: the backward keeps the states at the chunks'
     starts and recomputes one chunk's tokens at a time.  The values and
-    gradients are the whole loop's."""
+    gradients are the whole loop's.
+
+    A rank's shards (``p.part``) hold ``w_up`` as ``[z_r | gate_r]`` (its
+    ``d_ff`` columns ``lo`` to ``lo + n`` of each half) and those rows of
+    ``wq``, ``wk``, ``wv``, ``w_if`` and ``w_down``: the partials of q, k,
+    v (in the compute dtype) and of the gates (float32) are one float32
+    reduction over the part's axes; the cell, its state and the norm run
+    whole on every rank, and the rank's columns of the normed output go
+    through its gate and ``w_down``, whose partial sum is reduced
+    again."""
     b, s, d = x.shape
     h_ = cfg.n_heads
     m = 2 * d
     dh = m // h_
+    part = p.part if p.part is not None and p.part.reduce else None
     xn = rms_norm(x, p.norm, cfg.norm_eps)
     z, gate = (xn @ p.w_up.to(xn.dtype)).chunk(2, dim=-1)
     # the reference divides in the compute dtype by sqrt(dh) rounded to it
     k_scale = float(torch.tensor(dh ** 0.5, dtype=torch.float64).to(z.dtype))
-    q = (z @ p.wq.to(z.dtype)).view(b, s, h_, dh).float()
-    k = ((z @ p.wk.to(z.dtype)).view(b, s, h_, dh) / k_scale).float()
-    v = (z @ p.wv.to(z.dtype)).view(b, s, h_, dh).float()
+    q, k, v = (z @ w.to(z.dtype) for w in (p.wq, p.wk, p.wv))
     gf = z.float() @ p.w_if.float()
+    if part is not None:
+        qkvg = part_mesh(part).psum(torch.cat(
+            [q.float(), k.float(), v.float(), gf], dim=-1), part.reduce)
+        q, k, v = (t.to(z.dtype) for t in qkvg[..., :3 * m].split(m, dim=-1))
+        gf = qkvg[..., 3 * m:]
+    q = q.view(b, s, h_, dh).float()
+    k = (k.view(b, s, h_, dh) / k_scale).float()
+    v = v.view(b, s, h_, dh).float()
     i_t = gf[..., :h_]
     f_t = F.logsigmoid(gf[..., h_:])
     if cache is None:
@@ -848,7 +1017,11 @@ def apply_mlstm(cfg: ModelConfig, p, x, cache=None):
             cache[name].copy_(t)
         hs = ht[:, None]
     hs = rms_norm(hs.reshape(b, s, m).to(x.dtype), p.gn, cfg.norm_eps)
+    if part is not None:
+        hs = hs[..., part.lo:part.lo + part.n]
     y = (hs * F.silu(gate)) @ p.w_down.to(x.dtype)
+    if part is not None:
+        y = part_mesh(part).psum(y, part.reduce)
     return x + y, cache
 
 
@@ -903,7 +1076,10 @@ def apply_slstm(cfg: ModelConfig, p, x, cache=None):
     token and the cache takes the new state in place.  Its states are
     [B, H, dh], a token's saved tensors the size of its gate inputs, so
     a training pass runs the loop whole (no chunks, unlike
-    :func:`apply_mlstm`)."""
+    :func:`apply_mlstm`).  A rank's shards (``p.part``) hold the cell's
+    weights whole and the FFN's ``d_ff`` columns (``up`` as ``[gate_r |
+    up_r]``): the cell runs whole on every rank, and the FFN's partial sum
+    is reduced over the part's axes."""
     b, s, d = x.shape
     h_ = cfg.n_heads
     dh = d // h_
@@ -927,7 +1103,10 @@ def apply_slstm(cfg: ModelConfig, p, x, cache=None):
     hs = rms_norm(hs.reshape(b, s, d).to(x.dtype), p.gn, cfg.norm_eps)
     y = x + hs
     hff = swiglu(rms_norm(y, p.norm2, cfg.norm_eps) @ p.up.to(y.dtype))
-    return y + hff @ p.down.to(y.dtype), cache
+    out = hff @ p.down.to(y.dtype)
+    if p.part is not None and p.part.reduce:
+        out = part_mesh(p.part).psum(out, p.part.reduce)
+    return y + out, cache
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, *, device

@@ -26,12 +26,14 @@ the reference's ``param_shardings`` lays them out (``models.shard``), and
 runs under the ambient mesh (``models.meshctx``): the embedding is
 vocab-parallel (ids outside the rank's rows masked, the rows reduced over
 ``"model"``, Gemma's sqrt(d) scale after), each layer reduces its partial
-sums, :func:`logits_fn` gives the rank's vocab slice, and
+sums (an MoE layer gathers the batch's rows first: its routing is over
+the global batch), :func:`logits_fn` gives the rank's vocab slice, and
 :func:`gather_logits` (:func:`serve_step`, :func:`prefill`) gathers it
 over ``"model"`` and the batch over ``"data"``, so that every rank returns
 the whole [B, V].  Token ids come whole to every rank;
 :func:`serve_step` and :func:`prefill` run the rank's rows of them.
-Caches hold the rank's rows and the kv heads it reads; ``pos`` stays
+Caches hold the rank's rows, the kv heads it reads and its RG-LRU
+columns; MLA's latent and the xLSTM cells' states are whole; ``pos`` stays
 replicated.
 """
 from __future__ import annotations
@@ -159,12 +161,24 @@ class Block(nn.Module):
                                          trainable, (parts or {}).get(part)))
 
 
-def _parts(cfg: ModelConfig, layout):
-    """A dense layer's ``shard.Part`` by part (attention, FFN) under
-    ``layout``."""
+def _parts(cfg: ModelConfig, layout, kind: str):
+    """A layer of ``kind``'s ``shard.Part`` by part under ``layout``."""
     if layout is None:
         return None
-    return {"attn": layout.attn_heads(), "ffn": layout.ffn(cfg.d_ff)}
+    parts = {}
+    for part in PARTS[kind]:
+        if part == "attn":
+            parts[part] = layout.mla_heads() if is_mla(cfg, kind) \
+                else layout.attn_heads()
+        elif part == "ffn":
+            parts[part] = layout.ffn(cfg.d_ff_dense if kind == "mla_dense"
+                                     else cfg.d_ff)
+        elif part == "cell":
+            parts[part] = layout.mlstm() if kind == "mlstm" \
+                else layout.slstm()
+        else:
+            parts[part] = getattr(layout, part)()      # moe, rec
+    return parts
 
 
 class LM(nn.Module):
@@ -217,11 +231,12 @@ class LM(nn.Module):
                     name, nn.Parameter(tensors[name], requires_grad=trainable))
         self.layers = nn.ModuleList(
             Block(kind, _sub(tensors, f"layers.{i}."), trainable,
-                  _parts(cfg, layout))
+                  _parts(cfg, layout, kind))
             for i, kind in enumerate(cfg.layer_kinds))
         if cfg.mtp:
             self.mtp_block = Block("attn_dense", _sub(tensors, "mtp_block."),
-                                   trainable)
+                                   trainable, _parts(cfg, layout,
+                                                     "attn_dense"))
 
     @property
     def device(self) -> torch.device:
@@ -235,7 +250,9 @@ class LM(nn.Module):
 # Forward
 # ---------------------------------------------------------------------------
 
-def apply_block(cfg: ModelConfig, kind: str, p, x, pos, cache):
+def apply_block(cfg: ModelConfig, kind: str, p, x, pos, cache, rows=()):
+    """One layer on ``x``; ``rows``: the mesh axes a rank's batch is split
+    over (the MoE gathers its rows over them, ``blocks.apply_moe``)."""
     _check_kind(kind)
     if kind in ("mlstm", "slstm"):
         apply = B.apply_mlstm if kind == "mlstm" else B.apply_slstm
@@ -253,14 +270,15 @@ def apply_block(cfg: ModelConfig, kind: str, p, x, pos, cache):
             win = cfg.local_window if kind == "attn_local" else 0
             x, c = B.apply_attention(cfg, p.attn, x, pos, c, window=win)
     if kind == "attn_moe":
-        x = B.apply_moe(cfg, p.moe, x)
+        x = B.apply_moe(cfg, p.moe, x, rows)
     else:
         x = B.apply_ffn(cfg, p.ffn, x, kind=cfg.ffn_kind)
     return x, ({part: c} if cache else None)
 
 
-def _layer(cfg: ModelConfig, layer: Block, x: torch.Tensor) -> torch.Tensor:
-    return apply_block(cfg, layer.kind, layer, x, None, None)[0]
+def _layer(cfg: ModelConfig, layer: Block, x: torch.Tensor,
+           rows=()) -> torch.Tensor:
+    return apply_block(cfg, layer.kind, layer, x, None, None, rows)[0]
 
 
 def _remat(cfg: ModelConfig, fn):
@@ -279,7 +297,7 @@ def _remat(cfg: ModelConfig, fn):
 
 def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
             pos: Optional[torch.Tensor] = None,
-            caches: Optional[Dict[str, Any]] = None):
+            caches: Optional[Dict[str, Any]] = None, rows=()):
     """inputs: token ids [B, S], or embeddings [B, S, d] when
     ``cfg.embed_inputs`` is False (cast to the compute dtype, without the
     sqrt(d) scale of embedded tokens).  Returns (hidden [B, S, d],
@@ -290,7 +308,8 @@ def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
     flash kernel, and, where autograd records, each layer runs under
     ``cfg.remat``.  With caches, one decode step at ``caches["pos"]`` (or
     ``pos``); the caches are updated in place and ``caches["pos"]``
-    advances by one.
+    advances by one.  ``rows``: under a layout, the mesh axes the batch
+    was split over to give the rank ``inputs`` (``layout.rows``).
     """
     b, s = inputs.shape[:2]
     vocab = getattr(params, "vocab_part", None)
@@ -298,8 +317,8 @@ def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
         # vocab-parallel: the rank's rows, the others' ids masked to zero
         ids = inputs.long() - vocab.lo
         inside = ((ids >= 0) & (ids < vocab.n))[..., None]
-        rows = params.embed[ids.clamp(0, vocab.n - 1)]
-        x = B.part_mesh(vocab).psum(torch.where(inside, rows, 0),
+        emb = params.embed[ids.clamp(0, vocab.n - 1)]
+        x = B.part_mesh(vocab).psum(torch.where(inside, emb, 0),
                                     vocab.reduce).to(cfg.dtype("compute"))
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
     elif cfg.embed_inputs:
@@ -312,12 +331,12 @@ def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
         pos = None                         # checked once, not per layer
         run = _remat(cfg, _layer) if torch.is_grad_enabled() else _layer
         for layer in params.layers:
-            x = run(cfg, layer, x)
+            x = run(cfg, layer, x, rows)
     else:
         if pos is None:
             pos = caches["pos"].expand(b, s)
         for layer, c in zip(params.layers, caches["layers"]):
-            x, _ = apply_block(cfg, layer.kind, layer, x, pos, c)
+            x, _ = apply_block(cfg, layer.kind, layer, x, pos, c, rows)
         caches["pos"].add_(1)
     return rms_norm(x, params.final_norm, cfg.norm_eps), caches
 
@@ -414,15 +433,17 @@ def _own_rows(params: LM, x: torch.Tensor):
     return x[rows], axes
 
 
-def prefill(cfg: ModelConfig, params: LM, inputs: torch.Tensor):
+def prefill(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
+            every: bool = False):
     """inputs [B, S] ids or [B, S, d] embeddings -> last-token logits [B,
-    1, V] in the compute dtype, without the logit softcap (as the
-    reference).  Under a layout the rank runs its rows, and every rank
-    returns the whole logits."""
+    1, V] (``every``: every position's, [B, S, V]) in the compute dtype,
+    without the logit softcap (as the reference).  Under a layout the
+    rank runs its rows, and every rank returns the whole logits."""
     inputs, axes = _own_rows(params, inputs)
-    hidden, _ = forward(cfg, params, inputs)
-    return gather_logits(cfg, params,
-                         logits_fn(cfg, params, hidden[:, -1:, :]), axes)
+    hidden, _ = forward(cfg, params, inputs, rows=axes)
+    if not every:
+        hidden = hidden[:, -1:, :]
+    return gather_logits(cfg, params, logits_fn(cfg, params, hidden), axes)
 
 
 def serve_step(cfg: ModelConfig, params: LM, caches: Dict[str, Any],
@@ -432,7 +453,7 @@ def serve_step(cfg: ModelConfig, params: LM, caches: Dict[str, Any],
     raises."""
     _check_decoder(cfg)
     tokens, axes = _own_rows(params, tokens)
-    hidden, caches = forward(cfg, params, tokens, None, caches)
+    hidden, caches = forward(cfg, params, tokens, None, caches, axes)
     logits = logits_fn(cfg, params, hidden[:, -1:, :]).float()
     logits = softcap(gather_logits(cfg, params, logits, axes),
                      cfg.logit_softcap)
@@ -479,26 +500,32 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     ...}``, mLSTM's ``C``, ``n``, ``m`` and sLSTM's ``c``, ``n``, ``h``,
     ``m`` in float32, the dtype of the reference's carries after its
     first step.  A config that is not causal raises: it has no decode.
-    ``mesh``: the caches of ``mesh``'s own rank, its rows of the batch and
-    the kv heads its q heads read (``models.shard``)."""
+    ``mesh``: the caches of ``mesh``'s own rank, its rows of the batch, the
+    kv heads its q heads read and its RG-LRU columns (``models.shard``);
+    MLA's latent and the xLSTM cells' states whole."""
     _check_decoder(cfg)
     dev = resolve_device(device)
     dtype = cfg.dtype("compute")
-    kv_heads = None
+    kv_heads = width = None
     if mesh is not None:
         from repro_torch.models.shard import Layout, check_supported
         check_supported(cfg, "decode")
         layout = Layout.of(cfg, mesh)
         rows = layout.rows(batch)[0]
         batch = rows.stop - rows.start
-        heads = layout.attn_heads().kv
-        kv_heads = heads.stop - heads.start
+        if any("attn" in PARTS[k] and not is_mla(cfg, k)
+               for k in cfg.layer_kinds):
+            heads = layout.attn_heads().kv
+            kv_heads = heads.stop - heads.start
+        if "rec" in cfg.layer_kinds:
+            width = layout.rec().n
     layers = []
     for kind in cfg.layer_kinds:
         _check_kind(kind)
         if kind == "rec":
             layers.append({"rec": B.init_rglru_cache(cfg, batch, device=dev,
-                                                     dtype=dtype)})
+                                                     dtype=dtype,
+                                                     width=width)})
         elif kind in ("mlstm", "slstm"):
             init = B.init_mlstm_cache if kind == "mlstm" \
                 else B.init_slstm_cache

@@ -2,35 +2,67 @@
 
 The reference lays its LM out over a device mesh with GSPMD: every leaf's
 logical axes (``ParamSpec.axes``) go through ``cfg.sharding`` to mesh axes
-(``valid_pspec``; heads, kv heads, d_ff and vocab over ``"model"``, the
-batch over ``("pod", "data")``), and XLA inserts the collectives.  The
-port runs one process a rank (``RankMesh``) and writes the collectives
-out.  :class:`Layout` says, for a rank at given coordinates, which part
-of each leaf it holds (:func:`repro_torch.models.common.shard_spec` and
+(``valid_pspec``; heads, kv heads, d_ff, experts and vocab over
+``"model"``, DeepSeek-V3's experts over ``("data", "model")``, the batch
+over ``("pod", "data")``), and XLA inserts the collectives.  The port
+runs one process a rank (``RankMesh``) and writes the collectives out.
+:class:`Layout` says, for a rank at given coordinates, which part of each
+leaf it holds (:func:`repro_torch.models.common.shard_spec` and
 ``shard_slice``, the reference's tiling), with one named difference:
 
-- **the fused FFN input** ``ffn.w_in`` [d, 2 ff] of a GLU kind (SwiGLU,
-  GeGLU), laid out ``[gate | up]`` and split on ``d_ff``.  GSPMD gives
-  device r the columns ``r 2ff / m`` to ``(r + 1) 2ff / m``: a quarter of
-  ``[gate | up]`` at m 4, not a half of each.  A rank here holds
-  ``[gate_r | up_r]`` (columns ``r ff / m`` to ``(r + 1) ff / m`` of each
-  half), so that the activation runs on its own columns.  It holds as
-  many bytes as the device; the columns differ.
+- **the fused inputs** (:data:`FUSED_LEAVES`): the GLU FFN's ``ffn.w_in``
+  [d, 2 ff] (SwiGLU, GeGLU; ``[gate | up]``), mLSTM's ``cell.w_up`` [d,
+  2 m] (``[z | gate]``), sLSTM's ``cell.up`` [d, 2 ff] and the MoE's
+  ``moe.shared_in`` [d, 2 ffs]: two halves laid side by side and split on
+  ``d_ff``.  GSPMD gives device r the columns ``r 2ff / m`` to ``(r + 1)
+  2ff / m``: a quarter of ``[a | b]`` at m 4, not a half of each.  A rank
+  here holds ``[a_r | b_r]`` (columns ``r ff / m`` to ``(r + 1) ff / m``
+  of each half), so that what pairs the halves runs on its own columns.
+  It holds as many bytes as the device; the columns differ.
 
 Where ``_divisible_entry`` falls back to replication (kv_heads 8 on a
-16-way ``"model"``), the rank holds the whole leaf, as the reference's
-layout says, and computes only the kv heads its own q heads read; its
-attention cache holds just those heads (:meth:`Layout.attn_heads`).
+16-way ``"model"``; RecurrentGemma's 10 heads on 4), the rank holds the
+whole leaf, as the reference's layout says; attention then computes only
+the kv heads its own q heads read (all of them, with no reduction, when
+the q heads are replicated too), and its cache holds just those heads
+(:meth:`Layout.attn_heads`).
 
 Under a mesh the blocks run on the rank's shards (:class:`Part` on each
-``blocks.Params``): attention on its heads, the FFN on its ``d_ff``
-columns, each ending in a partial sum reduced over ``"model"``
-(``mesh.psum``); the embedding is vocab-parallel (ids outside the rank's
-rows masked, then reduced), and the logits are the rank's vocab slice,
-gathered with the batch (``lm.gather_logits``).  Only the dense attention
-kinds (``attn_dense``, ``attn_local``) and the FFN kinds are split; MLA,
-the MoE's experts, RG-LRU, mLSTM and sLSTM under a mesh raise
-(:func:`check_supported`), as does training under a mesh.
+``blocks.Params``), each ending in a partial sum reduced through
+``mesh.psum`` (gathered and added in float32 in rank order):
+
+- attention and MLA on the rank's heads (MLA's latent, its norms,
+  ``wq_a`` and ``wkv_a`` replicated: each rank computes the whole latent,
+  and its cache holds it whole), one reduction after ``wo``;
+- the FFN and sLSTM's post-FFN on the rank's ``d_ff`` columns, one
+  reduction;
+- the MoE: the router replicated, the experts split on ``expert``, the
+  shared expert on ``d_ff``.  Under ``moe_impl="gather"`` every rank
+  routes every token of the global batch (its rows gathered over the
+  batch's axes first: capacity and slot positions are the reference's,
+  over all tokens), runs its own experts' slots, and adds the shared
+  expert's partial on its own rows; one reduction.  Under ``"a2a"``,
+  where the sequence splits over ``"model"``, the layer takes the
+  existing expert-parallel exchange (``blocks.apply_moe_a2a``), the
+  shared expert's partial reduced after it;
+- RG-LRU on the rank's ``d_ff`` columns (the input and gate projections,
+  the conv, the recurrence and its cache); ``w_a`` / ``w_i`` split by
+  rows, so both gates' pre-activations are one float32 reduction, of
+  which the rank takes its columns; a second reduction after ``w_out``.
+  The cache holds the rank's columns (the reference's layout replicates
+  it);
+- mLSTM: ``w_up`` as ``[z_r | gate_r]``, q, k, v and the gates from
+  ``wq`` / ``wk`` / ``wv`` / ``w_if`` split by rows: one reduction of
+  their partials; the cell runs whole on every rank (its state and cache
+  whole, as the reference's layout has them), then the rank's columns of
+  the normed output go through ``w_down``, one more reduction;
+- sLSTM's cell whole on every rank (its weights replicated).
+
+The embedding is vocab-parallel (ids outside the rank's rows masked, then
+reduced), and the logits are the rank's vocab slice, gathered with the
+batch (``lm.gather_logits``).  DeepSeek-V3's MTP leaves are laid out and
+held; no serving step runs them.  Training under a mesh raises
+(:func:`check_supported`), naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -42,17 +74,18 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.config import ModelConfig
 
-# the block kinds a mesh splits; the others raise under a mesh
-SHARDED_KINDS = ("attn_dense", "attn_local")
-KINDS_ITEM = ("the MLA, MoE, RG-LRU, mLSTM and sLSTM layers under a "
-              "\"model\" split are ROADMAP.md item 31")
+# the leaves laid out as two halves side by side and split on d_ff, by
+# (part, leaf): a rank holds [a_r | b_r] (module docstring)
+FUSED_LEAVES = (("ffn", "w_in"), ("cell", "w_up"), ("cell", "up"),
+                ("moe", "shared_in"))
 TRAIN_ITEM = ("training under a mesh (the vocab-parallel loss, the "
               "gradients reduced over \"data\") is ROADMAP.md item 32")
 
 
 def check_supported(cfg: ModelConfig, kind: str = "prefill") -> None:
     """Raise unless a step of ``kind`` (``prefill``, ``decode``, ``train``)
-    of ``cfg`` runs under a mesh: serving the dense attention kinds."""
+    of ``cfg`` runs under a mesh: serving, with rules that split neither
+    the sequence nor ``d_model``."""
     if kind == "train":
         raise NotImplementedError(f"{cfg.name}: {TRAIN_ITEM}")
     split = [a for a in ("seq", "d_model", "kv_seq")
@@ -60,18 +93,16 @@ def check_supported(cfg: ModelConfig, kind: str = "prefill") -> None:
     if split:
         raise NotImplementedError(
             f"{cfg.name}: ShardingRules split {split}; the port splits "
-            f"heads, kv heads, d_ff, the vocabulary and the batch only")
-    other = sorted(set(cfg.layer_kinds) - set(SHARDED_KINDS))
-    if other or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name} has {other or ['mtp']} layers: {KINDS_ITEM}; the "
-            f"port splits only {SHARDED_KINDS} and the FFN over a mesh")
+            f"heads, kv heads, experts, d_ff, the vocabulary and the batch "
+            f"only")
 
 
 def is_fused_glu(cfg: ModelConfig, name: str) -> bool:
-    """Whether ``name`` is a fused ``[gate | up]`` FFN input (the one leaf
-    whose rank columns differ from GSPMD's)."""
-    return name.endswith("ffn.w_in") and cfg.ffn_kind != "gelu"
+    """Whether ``name`` is one of :data:`FUSED_LEAVES` (the FFN's input only
+    of a GLU kind): the leaves whose rank columns differ from GSPMD's."""
+    key = tuple(name.split(".")[-2:])
+    return key in FUSED_LEAVES and not (key == ("ffn", "w_in")
+                                        and cfg.ffn_kind == "gelu")
 
 
 def fix_rules_for_mesh(cfg: ModelConfig, mesh_shape: Mapping[str, int]
@@ -87,11 +118,14 @@ def fix_rules_for_mesh(cfg: ModelConfig, mesh_shape: Mapping[str, int]
 
 
 class Part(NamedTuple):
-    """What a rank holds of one part of a layer (``attn``, ``ffn``) or of
-    the vocabulary: ``reduce``, the mesh axes over which its output is a
-    partial sum (or, for the vocabulary, split); ``q`` / ``kv``, the
-    global q heads it holds and the kv heads they read (attention);
-    ``lo`` / ``n``, its rows of the vocabulary; ``where``, the mesh's
+    """What a rank holds of one part of a layer (``attn``, ``ffn``,
+    ``moe``, ``rec``, ``cell``) or of the vocabulary: ``reduce``, the mesh
+    axes over which its output is a partial sum (or, for the vocabulary,
+    split); ``q`` / ``kv``, the global q heads it holds and the kv heads
+    they read (attention; MLA has no ``kv``); ``lo`` / ``n``, its rows of
+    the vocabulary, its experts (MoE), or its ``d_ff`` columns (RG-LRU,
+    mLSTM); ``experts`` / ``shared``, the mesh axes the MoE's experts and
+    its shared expert's ``d_ff`` are split over; ``where``, the mesh's
     shape and the rank's coordinates it was cut for."""
     reduce: Tuple[str, ...]
     where: Tuple
@@ -99,6 +133,8 @@ class Part(NamedTuple):
     kv: Optional[slice] = None
     lo: int = 0
     n: int = 0
+    experts: Tuple[str, ...] = ()
+    shared: Tuple[str, ...] = ()
 
 
 def where_of(mesh) -> Tuple:
@@ -149,8 +185,8 @@ class Layout:
 
     def take(self, name: str, s: ParamSpec, a):
         """The rank's part of the whole leaf ``a`` (a tensor or an array) of
-        plan entry ``(name, s)``; a fused GLU input as ``[gate_r | up_r]``
-        (module docstring)."""
+        plan entry ``(name, s)``; a fused input as ``[a_r | b_r]`` (module
+        docstring)."""
         sl = self.slices(s)
         if not is_fused_glu(self.cfg, name) or sl[1] == slice(0, s.shape[1]):
             return a[sl]
@@ -158,7 +194,7 @@ class Layout:
         ff = s.shape[1] // 2
         if ff % parts:
             raise ValueError(f"{name}: d_ff {ff} does not split into "
-                             f"{parts} parts of each of gate and up")
+                             f"{parts} parts of each of its halves")
         n = ff // parts
         gate = a[sl[0], index * n:(index + 1) * n]
         up = a[sl[0], ff + index * n:ff + (index + 1) * n]
@@ -208,6 +244,78 @@ class Layout:
         entry = shard_spec(cfg.sharding, ("d_ff", "d_model"),
                            (d_ff, cfg.d_model), self.shape)[0]
         return Part(_live(entry, self.shape), self.where)
+
+    def _split(self, plan, axis: str, leaves, what: str) -> Tuple:
+        """(the mesh axes, the slice) of the rank's part of the logical
+        ``axis`` of the first of ``leaves`` (names of a block's ``plan``);
+        every other leaf must split its ``axis`` over the same mesh axes,
+        or the layer's parts would not line up."""
+        entries = [self.spec(plan[n])[plan[n].axes.index(axis)]
+                   for n in leaves]
+        live = [_live(e, self.shape) for e in entries]
+        if len(set(live)) > 1:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what}'s leaves {list(leaves)} split "
+                f"{axis} over {live} under {self.shape}")
+        first = plan[leaves[0]]
+        dim = first.shape[first.axes.index(axis)]
+        return live[0], shard_slice((entries[0],), (dim,), self.shape,
+                                    self.coords)[0]
+
+    def mla_heads(self) -> Part:
+        """MLA's q heads the rank holds (the ``heads`` entry of ``wq_b``,
+        ``wk_b``, ``wv_b`` and ``wo``) and the axes ``wo``'s partial sum is
+        reduced over; the latent is replicated."""
+        from repro_torch.models.blocks import plan_mla
+        live, q = self._split(plan_mla(self.cfg), "heads",
+                              ("wq_b", "wk_b", "wv_b", "wo"), "MLA")
+        return Part(live, self.where, q=q)
+
+    def moe(self) -> Part:
+        """The MoE's experts the rank holds (``lo`` / ``n``, the ``expert``
+        entry of ``w_in`` and ``w_out``), the axes they split over, and
+        those of the shared expert's ``d_ff``."""
+        from repro_torch.models.blocks import plan_moe
+        plan = plan_moe(self.cfg)
+        experts, ex = self._split(plan, "expert", ("w_in", "w_out"), "MoE")
+        shared = ()
+        if "shared_out" in plan:
+            shared, _ = self._split(plan, "d_ff", ("shared_out", "shared_in"),
+                                    "the shared expert")
+        reduce = tuple(a for a in self.shape if a in experts + shared)
+        return Part(reduce, self.where, lo=ex.start, n=ex.stop - ex.start,
+                    experts=experts, shared=shared)
+
+    def rec(self) -> Part:
+        """RG-LRU's ``d_ff`` columns the rank holds (``w_x``, ``w_gate``,
+        the conv; the rows of ``w_a``, ``w_i`` and ``w_out``) and the axes
+        its gates' and its output's partial sums are reduced over."""
+        from repro_torch.models.blocks import plan_rglru
+        live, cols = self._split(
+            plan_rglru(self.cfg), "d_ff",
+            ("w_a", "w_i", "w_x", "w_gate", "conv_w", "conv_b", "w_out"),
+            "RG-LRU")
+        return Part(live, self.where, lo=cols.start,
+                    n=cols.stop - cols.start)
+
+    def mlstm(self) -> Part:
+        """mLSTM's ``d_ff`` columns the rank holds (of each half of
+        ``w_up``; the rows of ``wq``, ``wk``, ``wv``, ``w_if`` and
+        ``w_down``) and the axes their partial sums are reduced over."""
+        from repro_torch.models.blocks import plan_mlstm
+        live, cols = self._split(
+            plan_mlstm(self.cfg), "d_ff",
+            ("wq", "wk", "wv", "w_if", "w_down", "w_up"), "mLSTM")
+        return Part(live, self.where, lo=cols.start,
+                    n=cols.stop - cols.start)
+
+    def slstm(self) -> Part:
+        """sLSTM's post-FFN: the axes its output's partial sum is reduced
+        over (the cell is replicated)."""
+        from repro_torch.models.blocks import plan_slstm
+        live, _ = self._split(plan_slstm(self.cfg), "d_ff", ("down", "up"),
+                              "sLSTM's FFN")
+        return Part(live, self.where)
 
     def vocab(self) -> Part:
         """The rank's rows of the vocabulary (of ``embed`` [V, d] and of

@@ -456,8 +456,7 @@ def ref_grads(models):
 
 
 @pytest.mark.parametrize("case", list(GRAD_CASES))
-def test_lm_loss_and_gradients_match_reference(ref_grads, case,
-                                               monkeypatch):
+def test_lm_loss_and_gradients_match_reference(ref_grads, case):
     """The port's loss and gradients (remat full: each layer recomputed
     in the backward, MLA's attention through ``FlashAttend``'s dense
     recompute, the MoE's dispatch by autograd) against the reference's on
@@ -472,19 +471,15 @@ def test_lm_loss_and_gradients_match_reference(ref_grads, case,
     packages but for rounding (about 5e-9 in each, of a largest gradient
     near 0.6), so there the two are held to be below 1e-7 of the model's
     largest gradient instead, and only there."""
+    from repro_torch.launch.ranks import RoutingProbe
     tcfg, jp, batch, jloss, jgrads, jids = ref_grads[case]
-    ids, route = [], tblocks.moe_route
-
-    def spy(cfg, router, tokens):
-        gate, eid = route(cfg, router, tokens)
-        ids.append(eid.numpy().copy())
-        return gate, eid
-    monkeypatch.setattr(tblocks, "moe_route", spy)
-    model = params_from_numpy(tcfg, jp, CPU, trainable=True)
-    loss = tlm.lm_loss(tcfg, model, {k: torch.as_tensor(v)
-                                     for k, v in batch.items()})
-    n_fwd = len(ids)
-    loss.backward()
+    with RoutingProbe() as probe:
+        model = params_from_numpy(tcfg, jp, CPU, trainable=True)
+        loss = tlm.lm_loss(tcfg, model, {k: torch.as_tensor(v)
+                                         for k, v in batch.items()})
+        n_fwd = len(probe.eids)
+        loss.backward()
+    ids = [e.numpy() for e in probe.eids]
     assert abs(float(loss.detach()) - jloss) <= 1e-5
     n_moe = tcfg.layer_kinds.count("attn_moe")
     assert len(jids) == n_fwd == n_moe and len(ids) == 2 * n_moe
@@ -566,3 +561,53 @@ def test_full_width_on_meta(arch):
     assert {n: tuple(t.shape) for n, t in first.items()} == (
         {"latent": (1, 32768, 512), "k_rope": (1, 32768, 64)}
         if jcfg.mla else {"k": (1, 32768, 8, 128), "v": (1, 32768, 8, 128)})
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "llama4_scout_17b_a16e"])
+def test_serve_lm_routes_and_every_position(models, arch):
+    """``launch.ranks.serve_lm(..., routes=True)``, as phase 15 (f) of
+    ``chip_smoke.py`` serves the MoE archs: the prefill's logits at every
+    position (``lm.prefill(..., every=True)``) against the last-token
+    prefill and each prefix's prefill, the experts of each MoE layer
+    (``RoutingProbe``) against a forward's, the decode's against the
+    prefill's at the same positions; then ``chip_smoke.held_positions``
+    on those routes and on routes parted at one position: in the model's
+    last layer only that position drops, in an earlier MoE layer every
+    later one of the request."""
+    import chip_smoke
+    from repro_torch.launch.ranks import RoutingProbe, serve_lm
+    _, tcfg, _, _, model = models(arch)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, tcfg.vocab, (B, S)).astype(np.int32))
+    out = serve_lm(tcfg, model, toks, 4, torch.device(CPU), routes=True)
+    every, routes = out["logits"]["prefill_every"], out["logits"]["routes"]
+    assert every.shape == (B, S, tcfg.vocab)
+    assert _rel(every[:, -1], out["logits"]["prefill"][:, 0]) <= 1e-6
+    for t in (0, 5):
+        short = tlm.prefill(tcfg, model, toks[:, :t + 1])
+        assert _rel(every[:, t], short[:, 0]) <= 1e-6
+    moe_at = [i for i, k in enumerate(tcfg.layer_kinds) if k == "attn_moe"]
+    with torch.inference_mode(), RoutingProbe() as probe:
+        tlm.forward(tcfg, model, toks)
+    assert len(routes["prefill"]) == len(moe_at) == len(probe.eids)
+    for got, want in zip(routes["prefill"], probe.eids):
+        assert torch.equal(got, want)
+    for t, step in enumerate(routes["decode"]):
+        for got, want in zip(step, routes["prefill"]):
+            assert torch.equal(got.sort(-1).values,
+                               want.view(B, S, -1)[:, t].sort(-1).values)
+    held, before = chip_smoke.held_positions(tcfg, routes["prefill"],
+                                             routes["prefill"], B)
+    assert bool(held.all()) and before.tolist() == [S, S]
+    for layer, at in enumerate(moe_at):
+        parted = [e.clone() for e in routes["prefill"]]
+        e = parted[layer]
+        e[S + 6] = (e[S + 6] + 1) % tcfg.moe.num_experts   # request 1, pos 6
+        held, before = chip_smoke.held_positions(tcfg, parted,
+                                                 routes["prefill"], B)
+        assert bool(held[0].all()) and before.tolist() == [S, 6]
+        lost = ~held[1]
+        if at == tcfg.n_layers - 1:
+            assert lost.nonzero().flatten().tolist() == [6], lost
+        else:
+            assert lost.nonzero().flatten().tolist() == list(range(6, S))

@@ -8,14 +8,18 @@ each a run and two fine refreshes; ``compressed_psum``; a per-rank
 snapshot restored; the MoE's ``a2a`` layer at smoke Llama 4 Scout and
 DeepSeek-V3 on ``(data 1, model 4)`` and ``(2, 2)`` (and one case with a
 low ``capacity_factor`` that drops slots); two smoke LMs' prefill with
-``moe_impl="a2a"``; and the dense LM served tensor-parallel (``lm_tp``:
-smoke Gemma 2 and Qwen3 in float32 at ``(data 1, model 4)``, where kv 2
-falls back to replicated, and ``(2, 2)``).  All four meshes are views of
-the one world of 4.  While the ranks run, one subprocess runs the
-reference on 4 forced host devices (as
-``tests/test_torch_distributed.py``'s mesh test): its ``a2a``, and the
-dense LMs laid out by ``param_shardings`` with their prefill and serve
-steps jitted under the mesh (GSPMD).
+``moe_impl="a2a"``; and the LM served tensor-parallel (``lm_tp``, in
+float32 at smoke width: Gemma 2 and Qwen3 at ``(data 1, model 4)``,
+where kv 2 falls back to replicated, and ``(2, 2)``; DeepSeek-V3's MLA,
+MoE and MTP at ``(1, 4)`` and at ``(2, 2)`` with its experts over
+``("data", "model")`` and slots dropped; Llama 4 Scout's MoE at ``(1,
+4)`` under ``gather`` and ``a2a``; RecurrentGemma 2B's RG-LRU and xLSTM
+125M's mLSTM and sLSTM at ``(1, 4)``).  All four meshes are views of the
+one world of 4.  While the ranks run, one subprocess runs the reference
+on 4 forced host devices (as ``tests/test_torch_distributed.py``'s mesh
+test): its ``a2a``, and the LMs laid out by ``param_shardings`` with
+their prefill and serve steps jitted under the mesh (GSPMD, its MoE on
+``gather``).
 
 The sizes are ``tests/test_torch_distributed.py``'s (wordcount VOCAB 32 x
 64 documents of 4 words; PageRank S 256, F 5; SSSP 96 vertices, 4
@@ -28,15 +32,17 @@ the reference's and its float32 output lies within 1e-5 of the largest
 port's ``gather`` prefill (no slot drops: 8 tokens a rank, under the
 capacity's floor).  ``lm_tp``: each rank's parameter shards equal the
 reference device's (the same device number: both meshes lay ranks out in
-row order) bit for bit, ``ffn.w_in`` by its own rule (``[gate_r |
-up_r]``, ``models.shard``); the prefill's last-token logits and 8 decode
+row order) bit for bit, the fused inputs by their own rule (``[a_r |
+b_r]``, ``models.shard``); the prefill's last-token logits and 8 decode
 steps' within 2e-4 of the largest |logit| of the reference's
 (``tests/test_torch_models.py``'s LM bound); each rank's caches within
-1e-5 of the rows and kv heads of the port's replicated run; the last
-decode step within 2e-4 of the prefill.
+1e-5 of its part of the port's replicated run's (its rows, the kv heads
+it reads, its RG-LRU columns; MLA's latent and the cells' states whole);
+the last decode step within 2e-4 of the prefill of the decoded tokens.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 from datetime import timedelta
@@ -98,18 +104,48 @@ MOE = {
 }
 MOE_LM = {"lm-llama4-1x4": (LLAMA4, {"data": 1, "model": 4}),
           "lm-deepseek-2x2": (DEEPSEEK, {"data": 2, "model": 2})}
-# the dense LM tensor-parallel: name -> (arch, mesh); B x S tokens, all S
-# decoded
-LM_TP = {"tp-gemma2-1x4": ("gemma2_9b", {"data": 1, "model": 4}),
-         "tp-gemma2-2x2": ("gemma2_9b", {"data": 2, "model": 2}),
-         "tp-qwen3-1x4": ("qwen3_1_7b", {"data": 1, "model": 4}),
-         "tp-qwen3-2x2": ("qwen3_1_7b", {"data": 2, "model": 2})}
-TP_B, TP_S = 2, 8
+# the LM tensor-parallel: name -> (arch, mesh, what a rank holds of its
+# first layer of each kind (launch.ranks.held_parts: [q heads, kv heads or
+# None for MLA, head dim], experts, d_ff columns), the job's other keys);
+# B x S tokens (TP_B x TP_S unless "shape" says), the first TP_STEPS of
+# them decoded
+ONE_BY_4, TWO_BY_2 = {"data": 1, "model": 4}, {"data": 2, "model": 2}
+LM_TP = {
+    "tp-gemma2-1x4": ("gemma2_9b", ONE_BY_4, ([1, 1, 16], None, None), {}),
+    "tp-gemma2-2x2": ("gemma2_9b", TWO_BY_2, ([2, 1, 16], None, None), {}),
+    "tp-qwen3-1x4": ("qwen3_1_7b", ONE_BY_4, ([1, 1, 16], None, None), {}),
+    "tp-qwen3-2x2": ("qwen3_1_7b", TWO_BY_2, ([2, 1, 16], None, None), {}),
+    # MLA on 1 of 4 heads, 1 of the 4 experts, MTP held
+    "tp-deepseek-1x4": (DEEPSEEK, ONE_BY_4, ([1, None, 16], 1, None), {}),
+    # the experts over ("data", "model") as the full config's a2a has them,
+    # 2 x 48 tokens at capacity_factor 0.25: slots drop in the prefill (the
+    # capacity over all 96 tokens of both data ranks), none in the decode
+    "tp-deepseek-2x2": (DEEPSEEK, TWO_BY_2, ([2, None, 16], 1, None), {
+        "moe": {"ep_axes": ["data", "model"], "capacity_factor": 0.25},
+        "shape": [TWO_BY_2["data"], 48]}),
+    "tp-llama4-1x4": (LLAMA4, ONE_BY_4, ([1, 1, 16], 1, None), {}),
+    # the a2a exchange in the prefill, the gather path in the decode (one
+    # token does not split over "model"), on the weights, tokens and
+    # reference run ("same_as") of the case above: the reference runs its
+    # MoE on gather either way
+    "tp-llama4-a2a-1x4": (LLAMA4, ONE_BY_4, ([1, 1, 16], 1, None),
+                          {"replace": {"moe_impl": "a2a"},
+                           "same_as": "tp-llama4-1x4"}),
+    # RG-LRU on 16 of its 64 columns; attn_local's 4 heads split, its one
+    # kv head replicated
+    "tp-recurrentgemma-1x4": ("recurrentgemma_2b", ONE_BY_4,
+                              ([1, 1, 16], None, 16), {}),
+    # mLSTM on 32 of its 128 columns, the cells whole
+    "tp-xlstm-1x4": ("xlstm_125m", ONE_BY_4, (None, None, 32), {}),
+}
+TP_B, TP_S, TP_STEPS = 2, 8, 8
 # RankMesh.psum, one job over PSUM_MESH: name -> the axis group summed
 PSUM_MESH = {"data": 2, "model": 2}
 PSUM = {"psum-model": ["model"], "psum-world": ["data", "model"]}
 LM_REL = 2e-4
 CACHE_TOL = 1e-5
+# the reference's subprocesses, each on 4 forced host devices
+REF_PROCS = 2
 
 
 @pytest.fixture(autouse=True)
@@ -220,16 +256,32 @@ def _moe_spec(name):
     return spec
 
 
-def _tp_config(arch):
-    return t_smoke(_full_cfg(arch)).replace(param_dtype="float32",
-                                            compute_dtype="float32")
+def _tp_spec(name):
+    """The ``lm_tp`` job's config keys of case ``name``: smoke width in
+    float32, the case's ``replace`` and ``moe``."""
+    arch, mesh, _, extra = LM_TP[name]
+    spec = {"arch": arch, "smoke": True, "mesh": mesh,
+            "replace": dict(extra.get("replace", {}),
+                            param_dtype="float32", compute_dtype="float32")}
+    if "moe" in extra:
+        spec["moe"] = extra["moe"]
+    return spec
 
 
-def _tp_weights(arch, seed):
+def _tp_config(name):
+    from repro_torch.launch.ranks import lm_config
+    return lm_config(_tp_spec(name))
+
+
+def _tp_shape(name):
+    return tuple(LM_TP[name][3].get("shape", (TP_B, TP_S)))
+
+
+def _tp_weights(name, seed):
     """Every leaf of the smoke LM drawn with numpy, matrices at 1/sqrt of
     their input width (``launch.ranks.parity_fan_in``), norms zeros."""
     from repro_torch.launch.ranks import parity_fan_in
-    cfg = _tp_config(arch)
+    cfg = _tp_config(name)
     rng = np.random.default_rng(seed)
     flat = {}
     for name, s in tlm.plan_model(cfg).items():
@@ -295,6 +347,10 @@ for name, c in cases["lm"].items():
         param_dtype="float32", compute_dtype="float32")
     cfg = cfg.replace(sharding=dataclasses.replace(cfg.sharding,
                                                    batch=("data",)))
+    if c.get("moe"):
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **{
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in c["moe"].items()}))
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(
         tuple(c["mesh"].values())), tuple(c["mesh"]))
     tree = {}
@@ -305,8 +361,9 @@ for name, c in cases["lm"].items():
         for a in parts[:-1]:
             node = node.setdefault(a, {})
         node[parts[-1]] = jnp.asarray(z[k])
-    tree.setdefault("prefix", [])
-    tree.setdefault("rem", [])
+    for k in ("prefix", "rem"):      # lists of blocks, by index
+        node = tree.get(k, {})
+        tree[k] = [node[str(i)] for i in range(len(node))]
     shard = lm.param_shardings(cfg, mesh)
     params = jax.device_put(tree, shard)
     index[name] = {}
@@ -319,16 +376,16 @@ for name, c in cases["lm"].items():
                                 a.shape).items()}
     jax.tree_util.tree_map_with_path(record, shard, params)
     toks = jnp.asarray(z["toks"])
-    b, s = toks.shape
+    b, n = toks.shape[0], c["steps"]
     with mesh:
         out[name + "_prefill"] = np.asarray(jax.jit(make_prefill_step(cfg))(
             params, {"inputs": toks}))
-        specs = lm.cache_specs(cfg, b, s, mesh)
+        specs = lm.cache_specs(cfg, b, n, mesh)
         caches = jax.tree.map(lambda a, sp: jax.device_put(a, sp.sharding),
-                              lm.init_caches(cfg, b, s), specs)
+                              lm.init_caches(cfg, b, n), specs)
         serve = jax.jit(make_serve_step(cfg))
         steps = []
-        for t in range(s):
+        for t in range(n):
             logits, caches = serve(params, caches, toks[:, t:t + 1])
             steps.append(np.asarray(logits))
     out[name + "_decode"] = np.stack(steps)
@@ -361,8 +418,9 @@ print("DONE")
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Write every job's inputs, start the reference's ``a2a`` subprocess,
-    run the 4 ranks, then wait for the reference."""
+    """Write every job's inputs, start the reference's subprocesses (its
+    ``a2a`` layers and its GSPMD LMs), run the 4 ranks, then wait for the
+    reference."""
     root = tmp_path_factory.mktemp("ranks")
     data = {"wordcount": _wordcount(), "sssp": _sssp(),
             "pagerank": _pagerank()}
@@ -394,20 +452,24 @@ def ranks(tmp_path_factory):
         ref_cases[name] = {"arch": arch, "mesh": mesh,
                            "capacity_factor": cf, "data": str(path)}
     lm_cases = {}
-    for i, (name, (arch, mesh)) in enumerate(LM_TP.items()):
-        cfg, flat = _tp_weights(arch, 30 + i)
-        paths, _ = _ref_paths(cfg, flat)
+    for i, name in enumerate(LM_TP):
         path = root / f"in_{name}.npz"
+        same = LM_TP[name][3].get("same_as")
+        spec = _tp_spec(name)
+        jobs.append(dict(spec, job="lm_tp", name=name, data=str(path),
+                         steps=TP_STEPS, dump=True))
+        if same:
+            shutil.copyfile(root / f"in_{same}.npz", path)
+            continue
+        cfg, flat = _tp_weights(name, 30 + i)
+        paths, _ = _ref_paths(cfg, flat)
         tp_toks = np.random.default_rng(40 + i).integers(
-            0, cfg.vocab, (TP_B, TP_S)).astype(np.int32)
+            0, cfg.vocab, _tp_shape(name)).astype(np.int32)
         np.savez(path, toks=tp_toks, **{f"p.{n}": a for n, a in flat.items()},
                  **{f"r/{k}": a for k, a in paths.items()})
-        jobs.append({"job": "lm_tp", "name": name, "arch": arch,
-                     "smoke": True, "mesh": mesh, "data": str(path),
-                     "steps": TP_S, "dump": True,
-                     "replace": {"param_dtype": "float32",
-                                 "compute_dtype": "float32"}})
-        lm_cases[name] = {"arch": arch, "mesh": mesh, "data": str(path)}
+        lm_cases[name] = {"arch": spec["arch"], "mesh": spec["mesh"],
+                          "moe": spec.get("moe"), "steps": TP_STEPS,
+                          "data": str(path)}
     toks = np.random.default_rng(4).integers(0, 256, (2, 16)).astype(
         np.int32)
     for name, (arch, mesh) in MOE_LM.items():
@@ -422,28 +484,46 @@ def ranks(tmp_path_factory):
                                  "compute_dtype": "float32"}})
     (root / "spec.json").write_text(json.dumps({"jobs": jobs,
                                                 "out": str(root)}))
-    (root / "ref.json").write_text(json.dumps({"moe": ref_cases,
-                                               "lm": lm_cases}))
+    # the reference's cases in REF_PROCS subprocesses side by side (each
+    # LM case's GSPMD compiles take seconds): every REF_PROCS-th LM case in
+    # each, the MoE layers in the last
+    names = sorted(lm_cases)
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu", PYTHONPATH=SRC)
-    ref = subprocess.Popen(
-        [sys.executable, "-c", _REF_MOE, str(root / "ref.json"),
-         str(root / "ref.npz"), str(root / "ref_index.json")], env=env,
-        stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+    refs = []
+    for i in range(REF_PROCS):
+        part = {"moe": ref_cases if i == REF_PROCS - 1 else {},
+                "lm": {n: lm_cases[n] for n in names[i::REF_PROCS]}}
+        (root / f"ref{i}.json").write_text(json.dumps(part))
+        refs.append(subprocess.Popen(
+            [sys.executable, "-c", _REF_MOE, str(root / f"ref{i}.json"),
+             str(root / f"ref{i}.npz"), str(root / f"ref_index{i}.json")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
     try:
         results = run_ranks(MODULE, WORLD, backend="gloo", device="cpu",
                             timeout=300, args=[str(root / "spec.json")])
-        out, err = ref.communicate(timeout=300)
+        errs = [ref.communicate(timeout=300)[1] for ref in refs]
     finally:
-        if ref.poll() is None:
-            ref.kill()
-            ref.wait()
-    assert ref.returncode == 0, err[-4000:]
+        for ref in refs:
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+    for ref, err in zip(refs, errs):
+        assert ref.returncode == 0, err[-4000:]
+    out, index = {}, {}
+    for i in range(REF_PROCS):
+        z = np.load(root / f"ref{i}.npz")
+        out.update((k, z[k]) for k in z.files)
+        index.update(json.loads((root / f"ref_index{i}.json").read_text()))
+    for name, (*_, extra) in LM_TP.items():
+        if "same_as" in extra:
+            index[name] = index[extra["same_as"]]
+            for part in ("_prefill", "_decode"):
+                out[name + part] = out[extra["same_as"] + part]
     return {"root": root, "results": results, "data": data, "toks": toks,
-            "ref": np.load(root / "ref.npz"),
-            "ref_index": json.loads((root / "ref_index.json").read_text())}
+            "ref": out, "ref_index": index}
 
 
 # ---------------------------------------------------------------------------
@@ -578,25 +658,29 @@ def test_moe_lm_a2a_prefill_equals_gather(ranks, name):
 
 def _tp_replicated(root, name):
     """The port's replicated run on the job's weights: (config, weights,
-    prefill logits, decode logits [S, B, V], caches)."""
+    prefill logits, decode logits [steps, B, V], caches, the prefill's
+    dropped slots)."""
+    from repro_torch.launch.ranks import RoutingProbe, dropped_slots
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models.transfer import params_from_numpy, \
         to_reference_tree
-    arch, _ = LM_TP[name]
-    cfg = _tp_config(arch)
+    cfg = _tp_config(name)
     z = np.load(root / f"in_{name}.npz")
     flat = {k[2:]: torch.from_numpy(z[k]) for k in z.files
             if k.startswith("p.")}
     model = params_from_numpy(cfg, to_reference_tree(cfg, flat), "cpu")
     toks = torch.from_numpy(z["toks"])
-    pre = make_prefill_step(cfg, "cpu")(model, {"inputs": toks})
+    with RoutingProbe() as probe:
+        pre = make_prefill_step(cfg, "cpu")(model, {"inputs": toks})
+    dropped = dropped_slots(cfg, probe.eids)[0]
     serve = make_serve_step(cfg, "cpu")
-    caches = tlm.init_caches(cfg, TP_B, TP_S, device="cpu")
+    b = toks.shape[0]
+    caches = tlm.init_caches(cfg, b, TP_STEPS, device="cpu")
     steps = []
-    for t in range(TP_S):
+    for t in range(TP_STEPS):
         out, caches = serve(model, caches, toks[:, t:t + 1])
         steps.append(out)
-    return cfg, flat, pre, torch.stack(steps), caches
+    return cfg, flat, pre, torch.stack(steps), caches, dropped
 
 
 @pytest.fixture(scope="module")
@@ -607,11 +691,12 @@ def tp_replicated(ranks):
 @pytest.mark.parametrize("name", sorted(LM_TP))
 def test_lm_tp_shards_equal_gspmd(ranks, tp_replicated, name):
     """Each rank's parameters equal the reference device's shard (device
-    r is rank r) bit for bit; ``ffn.w_in`` holds ``[gate_r | up_r]``, as
-    many columns as the device's."""
+    r is rank r) bit for bit; each fused input (``ffn.w_in``, mLSTM's
+    ``w_up``, sLSTM's ``up``, the MoE's ``shared_in``) holds ``[a_r |
+    b_r]``, as many columns as the device's, and every one is split."""
     from repro_torch.core.distributed import coords_of
     from repro_torch.models.shard import Layout, is_fused_glu
-    arch, mesh = LM_TP[name]
+    mesh = LM_TP[name][1]
     cfg, flat, *_ = tp_replicated[name]
     _, where = _ref_paths(cfg, {n: a.numpy() for n, a in flat.items()})
     index = ranks["ref_index"][name]
@@ -637,48 +722,74 @@ def test_lm_tp_shards_equal_gspmd(ranks, tp_replicated, name):
                 assert not np.array_equal(t.numpy(), dev)
             else:
                 np.testing.assert_array_equal(t.numpy(), dev, err_msg=n)
-    assert fused == WORLD * cfg.n_layers
+    want = sum(is_fused_glu(cfg, n) for n in plan)
+    assert want > 0
+    assert fused == WORLD * want
 
 
 @pytest.mark.parametrize("name", sorted(LM_TP))
 def test_lm_tp_logits_match_reference(ranks, name):
     """Rank 0's prefill and 8 decode steps' logits (the whole [B, V] every
-    rank returns) within 2e-4 of the reference's GSPMD run's."""
+    rank returns) within 2e-4 of the reference's GSPMD run's; what each
+    rank holds of its first layer of each kind."""
     got = torch.load(ranks["root"] / f"{name}.pt")
     ref = ranks["ref"]
     assert got["prefill"].shape == ref[f"{name}_prefill"].shape
     assert got["decode"].shape == ref[f"{name}_decode"].shape
     assert _rel(ref[f"{name}_prefill"], got["prefill"]) < LM_REL
     assert _rel(ref[f"{name}_decode"], got["decode"]) < LM_REL
-    out = [o[name] for o in ranks["results"]]
-    heads = {tuple(o["heads"]) for o in out}
-    assert heads == ({(1, 1, 16)} if LM_TP[name][1]["model"] == 4
-                     else {(2, 1, 16)})
+    heads, experts, columns = LM_TP[name][2]
+    for o in ranks["results"]:
+        held = o[name]
+        assert (held["heads"], held["experts"], held["columns"]) == \
+            (heads, experts, columns), held
+
+
+def _cache_part(layout, cfg, kind, key, want):
+    """The rank's part of the replicated run's cache ``want`` (its rows
+    already taken) of a layer of ``kind``: the kv heads its q heads read
+    (GQA), its RG-LRU columns, or all of it (MLA's latent, the cells)."""
+    if key in ("k", "v"):
+        return want[:, :, layout.attn_heads().kv]
+    if kind == "rec":
+        part = layout.rec()
+        return want[..., part.lo:part.lo + part.n]
+    return want
 
 
 @pytest.mark.parametrize("name", sorted(LM_TP))
 def test_lm_tp_caches_and_decode_vs_prefill(ranks, tp_replicated, name):
-    """Each rank's caches within 1e-5 of its rows and kv heads of the
-    port's replicated run; the sharded logits within 2e-4 of the
-    replicated ones, and the last decode step of the prefill."""
+    """Each rank's caches within 1e-5 of its part of the replicated run's
+    (its rows; the kv heads it reads, its RG-LRU columns, MLA's latent
+    and the cells' states whole); the sharded logits within 2e-4 of the
+    replicated ones, and the last decode step of the prefill of the
+    decoded tokens.  The DeepSeek-V3 case on (2, 2) drops slots in its
+    prefill (none in the decode)."""
     from repro_torch.core.distributed import coords_of
     from repro_torch.models.common import softcap
     from repro_torch.models.shard import Layout
-    arch, mesh = LM_TP[name]
-    cfg, _, pre, dec, caches = tp_replicated[name]
+    mesh = LM_TP[name][1]
+    cfg, _, pre, dec, caches, dropped = tp_replicated[name]
+    assert (dropped > 0) == (name == "tp-deepseek-2x2"), dropped
+    b = _tp_shape(name)[0]
     for r in range(WORLD):
         layout = Layout(cfg, mesh, coords_of(mesh, r))
-        rows, kv = layout.rows(TP_B)[0], layout.attn_heads().kv
+        rows = layout.rows(b)[0]
         got = torch.load(ranks["root"] / f"{name}_r{r}.pt")["caches"]
-        for layer, want in zip(got, caches["layers"]):
-            for k in ("k", "v"):
-                w = want["attn"][k][rows][:, :, kv]
-                assert layer["attn"][k].shape == w.shape
-                assert float((layer["attn"][k] - w).abs().max()) < CACHE_TOL
+        assert len(got) == len(caches["layers"])
+        for kind, layer, want in zip(cfg.layer_kinds, got, caches["layers"]):
+            assert sorted(layer) == sorted(want)
+            for part, c in want.items():
+                assert sorted(layer[part]) == sorted(c)
+                for k, t in c.items():
+                    w = _cache_part(layout, cfg, kind, k, t[rows])
+                    assert layer[part][k].shape == w.shape, (kind, k)
+                    assert float((layer[part][k] - w).abs().max()) < \
+                        CACHE_TOL, (kind, k)
     got = torch.load(ranks["root"] / f"{name}.pt")
     assert _rel(pre, got["prefill"]) < LM_REL
     assert _rel(dec, got["decode"]) < LM_REL
-    last = softcap(got["prefill"][:, 0], cfg.logit_softcap)
+    last = softcap(got["prefill_short"][:, 0], cfg.logit_softcap)
     assert _rel(last, got["decode"][-1]) < LM_REL
 
 
@@ -776,6 +887,33 @@ def test_draw_moe_slices_and_seeds_apart():
     assert len({tuple(r.tolist()) for r in rows}) == len(rows)
     assert not torch.equal(draw_moe(cfg, 6, "cpu")["w_in"][0],
                            whole["w_in"][0])
+
+
+@pytest.mark.parametrize("arch,mesh", [(DEEPSEEK, TWO_BY_2),
+                                       (LLAMA4, ONE_BY_4)])
+def test_draw_dense_shards_equal_the_replicated_draw(arch, mesh):
+    """``draw_dense`` on a rank (only its experts drawn, each from its own
+    seed) holds exactly the rank's part of the replicated draw, at every
+    rank; DeepSeek-V3's experts over ("data", "model")."""
+    from repro_torch.launch.mesh import MetaMesh
+    from repro_torch.launch.ranks import draw_dense
+    from repro_torch.models.shard import Layout
+    cfg = t_smoke(_full_cfg(arch)).replace(param_dtype="float32")
+    whole = dict(draw_dense(cfg, 7, "cpu").named_parameters())
+    plan = tlm.plan_model(cfg)
+    experts = [n for n in plan if tlm.is_expert_leaf(n)]
+    assert experts and all(whole[n].shape[0] == cfg.moe.num_experts
+                           for n in experts)
+    for r in range(WORLD):
+        where = MetaMesh(mesh, rank=r)
+        layout = Layout.of(cfg, where)
+        got = dict(draw_dense(cfg, 7, "cpu", mesh=where).named_parameters())
+        assert sorted(got) == sorted(plan)
+        for n, t in got.items():
+            want = layout.take(n, plan[n], whole[n])
+            assert torch.equal(t, want), (r, n)
+        assert got[experts[0]].shape[0] == cfg.moe.num_experts // WORLD
+    assert not torch.equal(whole[experts[0]][0], whole[experts[0]][1])
 
 
 def test_nccl_without_a_card_raises():

@@ -1,6 +1,6 @@
 """The port's layout of the LM over a mesh against the reference's GSPMD
-layout, and the dry-run of one rank of the reference's meshes on
-``meta``.
+layout, what a rank of each block kind holds, and the dry-run of one
+rank of the reference's meshes on ``meta``.
 
 Layout, pure and fast: for all ten archs' full configs, every leaf's
 ``shard_spec`` equals ``repro.models.common.valid_pspec`` at the 16 x 16,
@@ -10,15 +10,22 @@ with ``devices = np.empty(shape)`` and no devices are made.  The port's
 body leaves are unstacked (``layers.<i>``): their axes are the
 reference's minus its leading ``cycles`` axis.  Each leaf's bytes on a
 rank equal the reference's shard's; the one named difference is the
-fused FFN input ``ffn.w_in`` of a GLU kind, whose rank holds ``[gate_r |
-up_r]`` where GSPMD gives a device the contiguous columns ``r 2ff / m``
-on (as many of them).
+fused inputs (``ffn.w_in`` of a GLU kind, mLSTM's ``w_up``, sLSTM's
+``up``, the MoE's ``shared_in``), whose rank holds ``[a_r | b_r]`` where
+GSPMD gives a device the contiguous columns ``r 2ff / m`` on (as many of
+them).
 
 The dry-run: Qwen3-1.7B's prefill_32k at ``pod16x16`` on ``meta``, one
 rank: ``devices`` 256, ``argument_size`` the layout's parameter bytes
 plus the batch's, ``coll`` the closed form of ``launch.dryrun``'s
 docstring, and ``roofline.analyze`` reads a collective term over
-``LINK_BW``; a train cell and an MoE arch at that mesh raise.
+``LINK_BW``; a train cell at that mesh raises.  The serving cells of
+DeepSeek-V3, Llama 4 Scout, RecurrentGemma 2B and xLSTM 125M at both
+meshes, at one cycle's depth (and one cell of each at its full depth):
+rank 0's parameter bytes equal the reference's shards' and
+``Layout.param_bytes``, its arguments those and its inputs', and its
+collective bytes by kind each block kind's closed form (the MoE's rows
+gathered over the batch's axes among them).
 """
 import math
 
@@ -179,14 +186,8 @@ def test_dryrun_one_rank_of_pod16x16():
     assert a["t_collective_s"] > 0 and a["t_memory_s"] > 0
     with pytest.raises(NotImplementedError, match="item 32"):
         dryrun.dryrun(cfg, SHAPES["train_4k"], mesh="pod16x16")
-    with pytest.raises(NotImplementedError, match="item 31"):
-        dryrun.dryrun(TC.get("llama4_scout_17b_a16e"), SHAPES["decode_32k"],
-                      mesh="pod16x16")
-    for a in ("recurrentgemma_2b", "xlstm_125m", "deepseek_v3_671b"):
-        with pytest.raises(NotImplementedError, match="item 31"):
-            check_supported(TC.get(a), "decode")
-    for a in DENSE:
-        check_supported(TC.get(a), "prefill")
+    assert len(dryrun.mesh_cells()) == 21
+    assert {a for a, _ in dryrun.mesh_cells()} == set(TC.ARCHS)
 
 
 def test_a_cut_model_refuses_what_it_cannot_run():
@@ -218,3 +219,164 @@ def test_a_cut_model_refuses_what_it_cannot_run():
                                                      d_model="model"))
     with pytest.raises(NotImplementedError, match="d_model"):
         check_supported(split, "prefill")
+
+
+NEW = ("deepseek_v3_671b", "llama4_scout_17b_a16e", "recurrentgemma_2b",
+       "xlstm_125m")
+
+
+@pytest.mark.parametrize("arch", TC.ARCHS)
+def test_check_supported_serves_every_arch(arch):
+    """Serving passes for all ten archs; training raises naming item 32,
+    and rules that split the sequence, ``d_model`` or the cache's
+    sequence raise."""
+    import dataclasses
+    cfg = TC.get(arch)
+    for kind in ("prefill", "decode"):
+        check_supported(cfg, kind)
+    with pytest.raises(NotImplementedError, match="item 32"):
+        check_supported(cfg, "train")
+    for axis in ("seq", "d_model", "kv_seq"):
+        split = cfg.replace(sharding=dataclasses.replace(cfg.sharding,
+                                                         **{axis: "model"}))
+        with pytest.raises(NotImplementedError, match=axis):
+            check_supported(split, "prefill")
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_parts_at_pod16x16(arch):
+    """What ranks 0, 17 and 255 of 16 x 16 hold of each block kind:
+    DeepSeek-V3's MLA 8 of 128 heads and 1 of 256 experts over ("data",
+    "model"); Llama 4 Scout's 40 q and 8 kv heads replicated (no
+    reduction), 1 of 16 experts over "model"; RecurrentGemma's 10 heads
+    replicated, 160 of 2,560 RG-LRU columns; xLSTM's mLSTM 96 of 1,536
+    columns, sLSTM's FFN split; every fused input split."""
+    from repro_torch.core.distributed import coords_of
+    cfg = fix_rules_for_mesh(TC.get(arch), mesh.PRODUCTION)
+    for r in (0, 17, 255):
+        c = coords_of(mesh.PRODUCTION, r)
+        layout = Layout(cfg, mesh.PRODUCTION, c)
+        m = c["model"]
+        if arch == "deepseek_v3_671b":
+            part = layout.mla_heads()
+            assert (part.q, part.kv, part.reduce) == (
+                slice(8 * m, 8 * m + 8), None, ("model",))
+            moe = layout.moe()
+            assert (moe.lo, moe.n) == (16 * c["data"] + m, 1)
+            assert (moe.experts, moe.shared, moe.reduce) == (
+                ("data", "model"), ("model",), ("data", "model"))
+        if arch == "llama4_scout_17b_a16e":
+            part = layout.attn_heads()
+            assert (part.q, part.kv, part.reduce) == (slice(0, 40),
+                                                      slice(0, 8), ())
+            moe = layout.moe()
+            assert (moe.lo, moe.n, moe.experts, moe.reduce) == (
+                m, 1, ("model",), ("model",))
+        if arch == "recurrentgemma_2b":
+            part = layout.attn_heads()
+            assert (part.q, part.kv, part.reduce) == (slice(0, 10),
+                                                      slice(0, 1), ())
+            rec = layout.rec()
+            assert (rec.lo, rec.n, rec.reduce) == (160 * m, 160, ("model",))
+        if arch == "xlstm_125m":
+            cell = layout.mlstm()
+            assert (cell.lo, cell.n, cell.reduce) == (96 * m, 96, ("model",))
+            assert layout.slstm().reduce == ("model",)
+        plan = tlm.plan_model(cfg)
+        for name, s in plan.items():
+            if is_fused_glu(cfg, name):
+                assert layout.local_shape(s)[1] == s.shape[1] // 16, name
+        assert sum(is_fused_glu(cfg, n) for n in plan) > 0
+
+
+def _coll_want(arch, cfg, cell, shape, rows):
+    """Rank 0's collective bytes by kind at ``cell`` on a mesh of ``shape``
+    in closed form, ``rows`` its rows of the batch (b_r): the embedding's
+    reduction, each block kind's (attention and MLA one where their heads
+    split, none where they are replicated; the FFN one; RG-LRU its gates'
+    float32 [b_r, S, 2 R] and its output; mLSTM its q, k, v and gates'
+    float32 [b_r, S, 3 m + 2 H] and its output; the MoE its rows gathered
+    over the batch's axes and one reduction of the whole batch's output),
+    then the logits' vocab slices and rows."""
+    b_r = rows.stop - rows.start
+    big_b, s = cell.global_batch, cell.seq_len if cell.kind == "prefill" \
+        else 1
+    d, v, b = cfg.d_model, cfg.vocab, 2
+    b_l = 2 if cell.kind == "prefill" else 4
+    tok, glob = b_r * s * d * b, big_b * s * d * b
+    kinds = cfg.layer_kinds
+    n = {k: kinds.count(k) for k in set(kinds)}
+    gather = b_r * v * b_l + (big_b * v * b_l if b_r < big_b else 0)
+    if arch == "deepseek_v3_671b":
+        moe = n["attn_moe"]
+        return {"all-reduce": (1 + cfg.n_layers + n["mla_dense"]) * tok
+                + moe * glob, "all-gather": moe * glob + gather}
+    if arch == "llama4_scout_17b_a16e":
+        moe = n["attn_moe"]
+        return {"all-reduce": tok + moe * glob,
+                "all-gather": moe * glob + gather}
+    if arch == "recurrentgemma_2b":
+        r = cfg.rglru.d_rnn
+        return {"all-reduce": (1 + cfg.n_layers + n["rec"]) * tok
+                + n["rec"] * b_r * s * 2 * r * 4, "all-gather": gather}
+    m, h = 2 * d, cfg.n_heads
+    return {"all-reduce": (1 + cfg.n_layers) * tok
+            + n["mlstm"] * b_r * s * (3 * m + 2 * h) * 4,
+            "all-gather": gather}
+
+
+def _check_serving_cell(arch, shape, where, cut):
+    """Rank 0 of ``arch``'s serving cell ``shape`` at mesh ``where`` on
+    ``meta`` (``cut``: at one cycle's depth, the prefix and one pass of
+    ``block_pattern`` but at least 2 layers, the depth of the reference's
+    ``smoke_config``): its parameter
+    bytes equal the reference's device shards' and ``Layout.param_bytes``,
+    its arguments those and its inputs' (the batch, or the caches and the
+    tokens), its collective bytes each kind's closed form."""
+    from repro_torch.launch.steps import decode_specs
+    shape_of = mesh.MESHES[where]
+    tcfg, jcfg = TC.get(arch), JC.get(arch)
+    if cut:
+        n = max(len(tcfg.block_pattern) + len(tcfg.prefix_blocks), 2)
+        tcfg, jcfg = tcfg.replace(n_layers=n), jcfg.replace(n_layers=n)
+    cfg, cell = fix_rules_for_mesh(tcfg, shape_of), SHAPES[shape]
+    rec = dryrun.dryrun(tcfg, cell, arch=arch, mesh=where)
+    assert (rec["mesh"], rec["devices"]) == (where,
+                                             math.prod(shape_of.values()))
+    full = rec["full"]
+    layout = Layout(cfg, shape_of, {a: 0 for a in shape_of})
+    ref = _ref_specs(jcfg, shape_of)
+    assert layout.param_bytes() == 2 * sum(
+        math.prod(d // _parts(e, shape_of) for e, d in zip(*r))
+        for r in ref.values())
+    inputs = batch_specs(cfg, cell) if cell.kind == "prefill" else \
+        decode_specs(cfg, cell, mesh=mesh.MetaMesh(shape_of))
+    assert full["memory"]["argument_size"] == layout.param_bytes() + \
+        dryrun.storage_bytes(inputs)
+    want = _coll_want(arch, cfg, cell, shape_of,
+                      layout.rows(cell.global_batch)[0])
+    assert {k: int(v) for k, v in full["coll"].items()} == want
+
+
+@pytest.mark.parametrize("where", ["pod16x16", "pod2x16x16"])
+@pytest.mark.parametrize("arch,shape", [c for c in dryrun.mesh_cells()
+                                        if c[0] in NEW])
+def test_dryrun_serving_cells_of_the_new_archs(arch, shape, where):
+    """Every serving cell of DeepSeek-V3, Llama 4 Scout, RecurrentGemma 2B
+    and xLSTM 125M at both meshes, at one cycle's depth (the closed forms
+    count the layers of each kind): :func:`_check_serving_cell`."""
+    _check_serving_cell(arch, shape, where, cut=True)
+
+
+# one serving cell of each new arch traced at its full depth (a prefill
+# and the decode's caches among them)
+FULL_DEPTH = {"deepseek_v3_671b": "prefill_32k",
+              "llama4_scout_17b_a16e": "decode_32k",
+              "recurrentgemma_2b": "long_500k", "xlstm_125m": "decode_32k"}
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_dryrun_serving_cell_at_full_depth(arch):
+    """:func:`_check_serving_cell` at pod16x16 on the whole config (61,
+    48, 26 and 12 layers)."""
+    _check_serving_cell(arch, FULL_DEPTH[arch], "pod16x16", cut=False)

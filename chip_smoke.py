@@ -17,7 +17,8 @@ Runs on one CUDA card, from the root of a checkout:
      step against ``np.bincount`` of the updated corpus exactly;
   4. drives the iterative path — PageRank's and SSSP's ``Session.run``
      (prime-loop convergence) then one ``update`` (incremental iterative
-     refresh) — on graphs of 2^22 vertices with 16 out-slots, checking
+     refresh) — on graphs of 2^22 vertices (PageRank's cut to 2^20,
+     ``PR_VERTICES``) with 16 out-slots, checking
      PageRank against a float64 power iteration (on the card) within
      bounds derived from ``tol`` and the CPC threshold, and SSSP against
      ``scipy.sparse.csgraph.dijkstra`` (in two processes of their own,
@@ -48,7 +49,7 @@ Runs on one CUDA card, from the root of a checkout:
      wordcount tenants on the MRBG path: (a) ``benchmarks/serve_load.py``'s
      largest throughput cell, 1,000 tenants (vocab 64, 8 documents of 4
      words), 128 a batched launch, 2 warm and 3 timed rounds, batched and
-     sequential, plus one profiled sweep; (b) 64 wide tenants of 2^20
+     sequential, plus one profiled sweep; (b) 32 wide tenants of 2^20
      edges each (vocab 2^15, 2^14 documents of 64 words), 3 rounds of 16
      documents a tenant, batched and sequential; (c) one latency tenant
      and 32 best-effort ones open loop at twice the measured capacity for
@@ -172,7 +173,18 @@ Runs on one CUDA card, from the root of a checkout:
      held), Llama 4 Scout at 2, RecurrentGemma 2B (RG-LRU) and xLSTM 125M
      (mLSTM, sLSTM) at one cycle (``TP4_RUNS``), the MoE archs' prefill
      held at every position that no routing flip against the replicated
-     run reaches, their decode up to its first flip.
+     run reaches, their decode up to its first flip; (g) Qwen3-1.7B at
+     full width cut to 2 layers trained on the 4 ranks as {"data": 2,
+     "model": 2} (``make_train_step(mesh=)``: the vocab-parallel loss, the
+     backward through every collective, the gradients summed over
+     "data", AdamW on each rank's shards), 2 steps of 2 x 1024 tokens in
+     bf16, against the replicated run of the same draw and batches: each
+     step's loss and grad norm and every parameter shard after the steps
+     within ``train_tp_bounds``, the same at smoke width in float32 within
+     2e-4, each rank's parameter and moment bytes equal to ``meta``'s; a
+     rank's step seconds, its seconds and calls inside the gloo
+     collectives in the forward, the backward, the gradients' reduction
+     and AdamW, its peak memory and flash launches.
  16. trains the MoE and recurrent archs: (a) the attention gradient
      (flash forward, the dense formula's backward) on the card against
      the CPU in float32 at MLA's pairs of head dims, (q.k 96, v 64) on
@@ -239,6 +251,11 @@ INT32_MAX = 2**31 - 1
 # inside int32.
 FULL_VERTICES = 2**22
 MIN_VERTICES = 2**20
+# phase 4's PageRank, cut to the floor to keep a slow host inside the run's
+# time limit: its refresh of 0.1% of the vertices is host work in the MRBG
+# store (101.0 s at 2^22 beside an NVIDIA H100 80GB HBM3 at 700 W); SSSP
+# keeps --vertices
+PR_VERTICES = 2**20
 OUT_SLOTS = 16
 P_EDGE = 0.5
 # PageRank's CPC threshold on the refresh: low enough that the refreshed
@@ -2654,6 +2671,27 @@ class UndecidedProbe:
         return sum(int(m.sum()) for m in self.live.values())
 
 
+class GradMaxProbe:
+    """While open, records each train step's largest |gradient| of each
+    leaf (``steps``: a dict by parameter name a step, floats), wrapping
+    ``launch.steps.adamw_update`` as ``UndecidedProbe`` does."""
+
+    def __enter__(self):
+        from repro_torch.launch import steps
+        self.steps, self._update = [], steps.adamw_update
+
+        def update(grads, *args, **kw):
+            self.steps.append({n: float(g.detach().abs().max())
+                               for n, g in grads.items()})
+            return self._update(grads, *args, **kw)
+        steps.adamw_update = update
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import steps
+        steps.adamw_update = self._update
+
+
 def steps_vs_cpu(dev, seed: int, tag: str, label: str, cfg, host,
                  undecided: bool = False) -> None:
     """``STEP_COUNT`` train steps of ``cfg`` (float32, remat full,
@@ -3788,7 +3826,7 @@ STREAM_BATCH_ROWS = 4096      # (a), (e): max_batch_records
 MRBG_EPOCHS, MRBG_DOCS = 8, 16            # (b): snapshot (d) after half
 BURST_RECORDS, BURST_REWRITES = 256, 8    # (b): the adversarial burst
 CROSSOVER_FRAC = 0.3          # (c): one batch rewriting 30% of the corpus
-# (e): PageRank's stream, cut from phase 4's 2^22 vertices: its refresh
+# (e): PageRank's stream, cut from the scale's 2^22 vertices: a refresh
 # took 67-91 s there, more than this run's time limit leaves
 STREAM_VERTICES = 2**20
 STREAM_PR_FRAC, STREAM_PR_EPOCHS = 1e-3, 2
@@ -4144,8 +4182,10 @@ def drive_stream(dev, rng, docs: np.ndarray, seed: int, vertices: int):
 FLEET_TENANTS, FLEET_VOCAB, FLEET_DOCS, FLEET_DOC_LEN = 1000, 64, 8, 4
 FLEET_BATCH = 128                 # max_batch_tenants
 FLEET_WARM, FLEET_ROUNDS = 2, 3
-# (b) wide tenants: 2^20 edges each, 2^26 in the fleet (phase 3's corpus)
-WIDE_TENANTS, WIDE_VOCAB, WIDE_DOCS, WIDE_DOC_LEN = 64, 2**15, 2**14, 64
+# (b) wide tenants: 2^20 edges each, 2^25 in the fleet (half phase 3's
+# corpus: cut from 64 tenants to keep a slow host inside the run's time
+# limit)
+WIDE_TENANTS, WIDE_VOCAB, WIDE_DOCS, WIDE_DOC_LEN = 32, 2**15, 2**14, 64
 WIDE_ROWS, WIDE_ROUNDS = 16, 3    # documents rewritten a tenant a round
 # (c) serve_load.py's overload cell
 OVER_BEST_EFFORT, OVER_VOCAB, OVER_DOCS, OVER_DOC_LEN = 32, 512, 64, 128
@@ -4282,8 +4322,9 @@ def fleet_cell(dev, mode: str):
 
 
 def wide_cell(dev, mode: str, spill_dir: Path):
-    """(b) 64 tenants of 2^20 edges: 3 timed rounds of 16 documents a
-    tenant, one profiled; (d), batched only: the store budget."""
+    """(b) WIDE_TENANTS tenants of 2^20 edges: 3 timed rounds of 16
+    documents a tenant, one profiled; (d), batched only: the store
+    budget."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import ServeTier, SLOClass, loadgen
     tier = ServeTier(batch_refresh=(mode == "batched"),
@@ -4657,7 +4698,7 @@ def drive_dql(dev, rng, docs: np.ndarray, steps, app_results: list):
 # ---------------------------------------------------------------------------
 
 MESH_SHARDS = 8
-# (c), (e): PageRank's graph, cut from phase 4's 2^22 vertices: a
+# (c), (e): PageRank's graph, cut from the scale's 2^22 vertices: a
 # single-device refresh there takes 69-91 s (ROADMAP item 18)
 DIST_PR_VERTICES = 2**20
 # (e): a threshold the 0.1% rewire's first iteration already trips
@@ -4995,6 +5036,30 @@ TP4_RUNS = (
 )
 TP4_STEPS = 8
 TP4_F32_SHAPE = (1, 64)
+# (g) sharded training (make_train_step(mesh=), models.shard): Qwen3-1.7B
+# at full width (phase 10 (c)'s arch: bf16, remat full, loss_chunk 512),
+# cut in depth to TRAIN_TP_LAYERS of its 28 layers, trained on the 4 ranks
+# as {"data": 2, "model": 2} (each rank 8 of the 16 heads, 4 of the 8 kv
+# heads, half of d_ff and of the tied vocabulary, one of the two rows) for
+# TRAIN_TP_SHAPE = (steps, B, S) ids drawn from the seed, AdamW by
+# STEP_OPT (lr 3e-4 from step 1), weights from draw_dense, against the
+# replicated run of the same draw and batches on the card.  Then the same
+# at smoke width in float32 (TF32 off), TRAIN_TP_F32_SHAPE, held within
+# MOE_F32_BOUND; its AdamW eps at 1 keeps each update smooth in the
+# gradient (at 1e-8 a first step is lr times the gradient's sign, which
+# rounding decides where the gradient is near 0), so the parameters are
+# held to the gradients' bound, of each leaf's largest |update|; lr 1e-2
+# keeps the updates (about 1e-3) far above the float32 rounding of the
+# parameters (7e-9 at 0.1).  The bf16 bounds, derived before the first run
+# (:func:`train_tp_bounds`); the first moments' (:func:`moment_bound`) hold
+# the update itself in both, where the bf16 parameters' bound is past it.
+TRAIN_TP_ARCH = "qwen3_1_7b"
+TRAIN_TP_MESH = {"data": 2, "model": 2}
+TRAIN_TP_LAYERS = 2
+TRAIN_TP_SHAPE = (2, 2, 1024)
+TRAIN_TP_F32_SHAPE = (2, 2, 64)
+TRAIN_TP_F32_OPT = dict(STEP_OPT, lr=1e-2, eps=1.0)
+TRAIN_TP_SMOKE = False        # True: smoke width (a CPU rehearsal)
 
 
 def rank_jobs_file(work: Path, jobs: list) -> str:
@@ -5336,14 +5401,249 @@ def check_tp(work: Path, outs: list, specs: dict, want: dict) -> list:
     return bad
 
 
+def train_tp_specs(seed: int) -> dict:
+    """(g)'s two ``lm_train`` jobs: bf16 at full width and the cut depth,
+    float32 at smoke width; each rank dumps its parameters after the
+    steps."""
+    base = dict(job="lm_train", arch=TRAIN_TP_ARCH, mesh=TRAIN_TP_MESH,
+                seed=seed + 21, dump="params")
+    return {
+        "tp-train-bf16": dict(base, name="tp-train-bf16",
+                              layers=TRAIN_TP_LAYERS, smoke=TRAIN_TP_SMOKE,
+                              shape=list(TRAIN_TP_SHAPE), opt=STEP_OPT),
+        "tp-train-f32": dict(base, name="tp-train-f32", smoke=True,
+                             shape=list(TRAIN_TP_F32_SHAPE),
+                             opt=TRAIN_TP_F32_OPT,
+                             replace={"param_dtype": "float32",
+                                      "compute_dtype": "float32"})}
+
+
+def train_tp_replicated(dev, spec: dict) -> dict:
+    """(g)'s replicated run on the card: the job's draw and batches
+    through ``launch.ranks.train_lm`` without a mesh; the parameters and
+    AdamW's first moments after the steps (and the parameters before, in
+    float32) kept on the card for the check, each step's largest
+    |gradient| of each leaf (``GradMaxProbe``: the moments' bound), and
+    the largest |logit| of a prefill of the first batch (the bf16 bounds'
+    scale)."""
+    import torch
+    from repro_torch.launch.ranks import lm_config, lm_train_inputs, \
+        train_lm
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = lm_config(spec)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model, batches = lm_train_inputs(cfg, spec, dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()} \
+        if cfg.param_dtype == "float32" else None
+    with torch.inference_mode():
+        logit_max = float(lm.prefill(cfg, model, batches[0]["inputs"],
+                                     every=True).abs().max())
+    with GradMaxProbe() as probe:
+        out, state = train_lm(cfg, model, batches, dev, None, spec["opt"])
+    out.update(before=before, logit_max=logit_max, m=state["m"],
+               grad_max=probe.steps,
+               peak_gib=memory_gib(dev, peak=True),
+               params={n: p.detach()
+                       for n, p in model.named_parameters()})
+    del model, batches
+    release(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def train_tp_bounds(cfg, opt: dict, steps: int, logit_max: float) -> dict:
+    """(g)'s bf16 bounds, ranks against the replicated run, derived before
+    the first run.  ``loss``: a step's loss is a mean of logsumexp minus
+    the gold logit, each of which moves by at most the logits' error,
+    which ``parity_bound`` holds to a share of the largest |logit| (a
+    forward's roundings; the ranks' reductions add their partials in
+    float32 and round once, against one bf16 product): twice it, of
+    ``logit_max`` (at least 1).  The second step reads weights that part
+    where Adam's step follows rounding (gradients within rounding of 0,
+    along which the loss is flat), which adds no more.  ``grad_norm``:
+    relative, twice ``parity_bound``: the backward passes through as many
+    roundings a layer as the forward (each reduction's adjoint is the
+    identity or a sum of as many partials).  ``param(max_p)``: a leaf's
+    largest |difference| after the steps, with ``max_p`` its largest
+    |parameter|: each step moves an element by at most lr_t (1.001 + wd
+    |p|) (Adam's |m^ / sqrt(v^)| is at most 1 at step 1 and 1.0004 at step
+    2 with the reference's betas), and two runs can step opposite ways,
+    so 2 sum_t lr_t (1.001 + wd max_p); each step rounds to bf16 once (8
+    bits: at most 2^-7 max_p apart), 2^-6 max_p over two steps.  This
+    bounds rounding and opposite steps only: it is past any one update,
+    so a skipped or reversed update passes it, and ``moment_bound`` holds
+    the update instead."""
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    ocfg = AdamWConfig(**opt)
+    lrs = [float(cosine_schedule(ocfg, t)) for t in range(1, steps + 1)]
+    pb = parity_bound(cfg.n_layers)
+    return {"loss": 2 * pb * max(1.0, logit_max), "grad_norm": 2 * pb,
+            "param": lambda max_p: 2.0**-6 * max_p + 2 * sum(lrs) * (
+                1.001 + ocfg.weight_decay * max_p)}
+
+
+def moment_bound(opt: dict, rel: float, grad_norms, grad_max) -> float:
+    """(g)'s bound on a leaf's largest |difference| of AdamW's first moment
+    m after the steps, ranks against the replicated run, derived before
+    the first run that holds it.  m after T steps is sum_t w_t s_t g_t,
+    with w_t = (1 - b1) b1^(T - t) and s_t = min(1, clip / |g_t|) the
+    clip's scale, in float32 (no rounding of its own to speak of).  Each
+    gradient element is within ``rel`` of its leaf's largest |gradient|
+    G_t (the grad norm's bound, elementwise: ``train_tp_bounds``' 2
+    ``parity_bound`` in bf16, MOE_F32_BOUND in float32), and the scale
+    within ``rel`` of itself (the grad norm's), so |s' g' - s g| <= 2 rel
+    s G_t: in all, 2 rel sum_t w_t s_t G_t, with ``grad_norms`` (the
+    replicated run's |g_t|) and ``grad_max`` (its G_t) by step.  A rank
+    whose update is skipped holds m = 0, and one whose gradient is summed
+    wrongly (a slice on another leaf, a reduction missing) another m: each
+    far past this (1 / (2 rel) of it where a leaf's largest gradients
+    fall on one element in both steps, 11 in bf16 at 2 layers)."""
+    from repro_torch.optim import AdamWConfig
+    ocfg = AdamWConfig(**opt)
+    steps = len(grad_max)
+    total = 0.0
+    for t, (norm, top) in enumerate(zip(grad_norms, grad_max)):
+        scale = min(1.0, ocfg.clip_norm / max(norm, 1e-9)) \
+            if ocfg.clip_norm > 0 else 1.0
+        total += (1 - ocfg.b1) * ocfg.b1**(steps - 1 - t) * scale * top
+    return 2 * rel * total
+
+
+def train_tp_meta_bytes(spec: dict) -> list:
+    """Each rank's (parameter, moment) bytes as the dry-run on ``meta``
+    counts them: ``input_specs`` of the job's train cell under
+    ``MetaMesh(TRAIN_TP_MESH, rank=r)``, ``storage_bytes`` of the model
+    and of AdamW's ``m`` and ``v``."""
+    from repro_torch.launch.dryrun import storage_bytes
+    from repro_torch.launch.mesh import MetaMesh
+    from repro_torch.launch.ranks import lm_config
+    from repro_torch.launch.steps import input_specs
+    from repro_torch.models.config import ShapeCell
+    cfg = lm_config(spec)
+    _, b, s = spec["shape"]
+    out = []
+    for r in range(RANK_SHARDS):
+        _, args = input_specs(cfg, ShapeCell("train", s, b, "train"),
+                              mesh=MetaMesh(TRAIN_TP_MESH, rank=r))
+        out.append([storage_bytes(args[0]),
+                    storage_bytes([args[1]["m"], args[1]["v"]])])
+    return out
+
+
+def check_train_tp(work: Path, outs: list, specs: dict, want: dict) -> list:
+    """(g): each rank's losses, grad norms, parameter shards and AdamW's
+    first moments after the steps against the replicated run's (bf16
+    within :func:`train_tp_bounds`, float32 within MOE_F32_BOUND: the
+    losses and grad norms relative, the parameters of a leaf's largest
+    |update|; the moments within :func:`moment_bound` in both),
+    each rank's parameter and moment bytes against ``meta``'s; logs the
+    step seconds, the seconds and calls inside the gloo collectives by
+    phase, peaks and flash launches.  Returns what failed."""
+    import torch
+    from repro_torch.core.distributed import coords_of
+    from repro_torch.launch.ranks import lm_config
+    from repro_torch.models import lm
+    from repro_torch.models.shard import Layout
+    bad = []
+    for n, spec in specs.items():
+        cfg, w = lm_config(spec), want[n]
+        f32 = cfg.param_dtype == "float32"
+        steps = spec["shape"][0]
+        bounds = train_tp_bounds(cfg, spec["opt"], steps, w["logit_max"])
+        plan = lm.plan_model(cfg)
+        o = [out[n] for out in outs]
+        errs = {"loss": 0.0, "grad_norm": 0.0, "param": 0.0}
+        for x in o:
+            for k in ("loss", "grad_norm"):
+                e = max(abs(a - b) / (max(1.0, abs(b)) if k == "loss" else
+                                      abs(b)) for a, b in zip(x[k], w[k]))
+                errs[k] = max(errs[k], e)
+        worst = worst_m = (0.0, None)
+        rel = MOE_F32_BOUND if f32 else bounds["grad_norm"]
+        for r in range(RANK_SHARDS):
+            layout = Layout(cfg, TRAIN_TP_MESH, coords_of(TRAIN_TP_MESH, r))
+            dump = torch.load(work / f"{n}_r{r}.pt", map_location=next(
+                iter(w["params"].values())).device)
+            got = dump["params"]
+            for leaf, m in dump["m"].items():
+                ref = layout.take(leaf, plan[leaf], w["m"][leaf])
+                diff = float((m - ref).abs().max())
+                tol = moment_bound(spec["opt"], rel, w["grad_norm"],
+                                   [g[leaf] for g in w["grad_max"]])
+                share = diff / max(tol, 1e-30)
+                if share > worst_m[0] or worst_m[1] is None:
+                    worst_m = (share, f"rank {r} {leaf}: {diff:.3g} of "
+                                      f"{tol:.3g}")
+            for leaf, p in got.items():
+                ref = layout.take(leaf, plan[leaf], w["params"][leaf])
+                diff = float((p.float() - ref.float()).abs().max())
+                if f32:
+                    old = layout.take(leaf, plan[leaf], w["before"][leaf])
+                    tol = MOE_F32_BOUND * float((ref - old).abs().max())
+                else:
+                    tol = bounds["param"](float(w["params"][leaf].float()
+                                                .abs().max()))
+                share = diff / max(tol, 1e-30)
+                if share > worst[0]:
+                    worst = (share, f"rank {r} {leaf}: {diff:.3g} of "
+                                    f"{tol:.3g}")
+            del got, dump
+        errs["param"] = worst[0]
+        tol = ({"loss": MOE_F32_BOUND, "grad_norm": MOE_F32_BOUND} if f32
+               else {k: bounds[k] for k in ("loss", "grad_norm")})
+        meta = train_tp_meta_bytes(spec)
+        held = [[x["param_bytes"], x["opt_bytes"]] for x in o]
+        finite = all(np.isfinite(x["loss"]).all()
+                     and np.isfinite(x["grad_norm"]).all() for x in o)
+        _, b, s = spec["shape"]
+        phase_line = "; ".join(
+            f"{ph} " + ", ".join(
+                f"psum {c[ph]['psum_s']:.3f} s ({c[ph]['psum_calls']}) "
+                f"gather {c[ph]['gather_s']:.3f} s "
+                f"({c[ph]['gather_calls']})" for c in o[0]["comm"])
+            for ph in ("forward", "backward", "grads", "update"))
+        log(f"  [ranks-train] {n}: {spec['arch']} {cfg.n_layers} layers "
+            f"d {cfg.d_model} vocab {cfg.vocab} {cfg.param_dtype} on "
+            f"{RANK_SHARDS} ranks {TRAIN_TP_MESH}, {steps} steps of {b} x "
+            f"{s}: losses ranks {o[0]['loss']} replicated {w['loss']}; grad "
+            f"norms {o[0]['grad_norm']} / {w['grad_norm']}; largest gap "
+            f"(all ranks) loss {errs['loss']:.3g} (bound {tol['loss']:.3g}"
+            f"), grad norm {errs['grad_norm']:.3g} (bound "
+            f"{tol['grad_norm']:.3g}), parameters at most {worst[0]:.3g} of "
+            f"their bound ({worst[1]}), first moments at most "
+            f"{worst_m[0]:.3g} of theirs ({worst_m[1]}); max |logit| "
+            f"{w['logit_max']:.4g}; "
+            f"parameter and moment bytes a rank {held} (meta {meta})")
+        log(f"  [ranks-train] {n}: step s a rank "
+            f"{[[round(t, 3) for t in x['step_s']] for x in o]} "
+            f"(replicated {[round(t, 3) for t in w['step_s']]}); rank 0 "
+            f"inside the gloo collectives by step: {phase_line}; peak "
+            f"device memory a rank {[round(x['peak_gib'], 2) for x in o]} "
+            f"GiB (replicated {w['peak_gib']:.2f}); flash launches a rank "
+            f"a step {[x['flash'] for x in o]} (replicated {w['flash']}); "
+            f"the job {[round(x['job_seconds'], 2) for x in o]} s a rank, "
+            f"the replicated run {w['seconds']:.2f} s")
+        if not (finite and errs["loss"] <= tol["loss"]
+                and errs["grad_norm"] <= tol["grad_norm"]
+                and worst[0] <= 1.0 and worst_m[0] <= 1.0
+                and held == meta):
+            bad.append(f"{n}: loss {errs['loss']} / {tol['loss']}, grad "
+                       f"norm {errs['grad_norm']} / {tol['grad_norm']}, "
+                       f"parameters {worst}, first moments {worst_m}, "
+                       f"finite {finite}, bytes {held} != meta's {meta}")
+    return bad
+
+
 def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
                 seed: int) -> dict:
     """Phase 15: (a) one rank on nccl, (b) 4 ranks sharing the card on
     gloo (wordcount, SSSP, PageRank), (c) Llama 4 Scout's MoE layer on 4
     ranks, (d) ``compressed_psum`` on 4 ranks, (e) Gemma 2 9B served
     tensor-parallel on the 4 ranks, (f) the MoE, MLA and recurrent archs
-    likewise.  Returns the ranks' launches of (a), (b), (e) and (f) added
-    up."""
+    likewise, (g) Qwen3-1.7B trained over (data 2, model 2).  Returns the
+    ranks' launches of (a), (b), (e), (f) and (g) added up."""
     import torch
     from repro_torch.apps import pagerank
     from repro_torch.launch.ranks import moe_config, save_deltas
@@ -5441,6 +5741,12 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
             tp_want[n] = tp_replicated(dev, spec)
         t_f = time.perf_counter() - t_f
         log(f"  (f)'s replicated runs {t_f:.1f} s")
+        t_g = time.perf_counter()
+        trn = train_tp_specs(seed)
+        trn_want = {n: train_tp_replicated(dev, spec)
+                    for n, spec in trn.items()}
+        t_g = time.perf_counter() - t_g
+        log(f"  (g)'s replicated runs {t_g:.1f} s")
 
         # (b) + (c) + (d): one launch of 4 ranks sharing the card on gloo
         t0 = time.perf_counter()
@@ -5450,8 +5756,8 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
         jobs += list(moe.values())
         jobs.append({"job": "compress", "name": "d",
                      "data": str(work / "in_compress.npz")})
-        jobs += list(tp.values()) + list(tp4.values())
-        log(f"  (b)-(f) {RANK_SHARDS} ranks, gloo (host staging), all on "
+        jobs += list(tp.values()) + list(tp4.values()) + list(trn.values())
+        log(f"  (b)-(g) {RANK_SHARDS} ranks, gloo (host staging), all on "
             f"cuda:0: {[j['name'] for j in jobs]}")
         outs = launch_ranks(dev, work, RANK_SHARDS, "gloo", jobs)
         log(f"  [ranks-gloo] the launch: {time.perf_counter() - t0:.1f} s "
@@ -5596,8 +5902,21 @@ def drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
             f"flash launches (e) {flash}, (f) {flash4}, all ranks")
         if dev.type == "cuda" and flash4 == 0:
             failures.append("(f) launched no flash_attention")
+
+        # (g) the LM trained over (data 2, model 2)
+        failures += [f"(g) {f}" for f in check_train_tp(work, outs, trn,
+                                                        trn_want)]
+        flash_g = sum(sum(out[n]["flash"]) for out in outs for n in trn)
+        jobs_g = [outs[0][n]["job_seconds"] for n in trn]
+        log(f"  [ranks-train] (g) {t_g + sum(jobs_g):.1f} s: the replicated "
+            f"runs {t_g:.1f} s and rank 0's jobs "
+            f"{[round(x, 1) for x in jobs_g]} s; flash launches {flash_g}, "
+            f"all ranks")
+        if dev.type == "cuda" and flash_g == 0:
+            failures.append("(g) launched no flash_attention")
         launches["flash_attention"] = launches.get("flash_attention",
-                                                   0) + flash + flash4
+                                                   0) + flash + flash4 + \
+            flash_g
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -6028,7 +6347,11 @@ def main(argv=None) -> int:
     if args.vertices != FULL_VERTICES:
         log(f"  CUT: {args.vertices} vertices instead of {FULL_VERTICES}")
     pr_single, sssp_kept = {}, {}    # phase 9 replays and compares
-    pr = drive_pagerank(dev, rng, args.vertices, pr_single)
+    pr_vertices = min(args.vertices, PR_VERTICES)
+    if pr_vertices != args.vertices:
+        log(f"  CUT: PageRank on {pr_vertices} vertices instead of "
+            f"{args.vertices} (PR_VERTICES)")
+    pr = drive_pagerank(dev, rng, pr_vertices, pr_single)
     log(f"  phase 4 PageRank {time.perf_counter() - t4:.1f} s")
     sp = drive_sssp(dev, rng, args.vertices, sssp_kept, defer=True)
     log(f"  phase 4 {time.perf_counter() - t4:.1f} s (SSSP's Dijkstra "
@@ -6120,7 +6443,8 @@ def main(argv=None) -> int:
         f"PageRank against LocalMesh; Llama 4 Scout's MoE layer, a2a "
         f"against gather; compressed_psum; Gemma 2 9B, then DeepSeek-V3, "
         f"Llama 4 Scout, RecurrentGemma 2B and xLSTM 125M tensor-parallel, "
-        f"{TP_MESH}, against their replicated runs)")
+        f"{TP_MESH}, against their replicated runs; Qwen3-1.7B trained over "
+        f"{TRAIN_TP_MESH} against its replicated run)")
     t15 = time.perf_counter()
     rk = drive_ranks(dev, rng, docs, steps, mrbg_results, sssp_kept,
                      args.seed)

@@ -35,11 +35,19 @@ extrapolated counts.
 
 ``--mesh pod16x16`` (the reference's 16 x 16 ``("data", "model")`` mesh)
 and ``--mesh pod2x16x16`` (``--multi-pod``: 2 x 16 x 16 with ``"pod"``
-first) count one rank, rank 0, of a serving cell (prefill, decode) of
-any arch: its model cut by ``cfg.sharding`` (``models.shard``) and its
-step run on ``meta`` under a ``launch.mesh.MetaMesh``, whose collectives
-count their output bytes (a token-loop config probed and extrapolated
-as above, its collectives too).  The batch rule is the reference's
+first) count one rank, rank 0, of any cell of any arch: its model (and,
+for a train cell, its AdamW moments) cut by ``cfg.sharding``
+(``models.shard``) and its step run on ``meta`` under a
+``launch.mesh.MetaMesh``, whose collectives count their output bytes (a
+token-loop config probed and extrapolated as above, its collectives
+too).  A train cell's step is the forward, the backward through every
+collective's adjoint, the gradients' reduction over the batch's axes and
+AdamW on the rank's shards; its record also carries ``coll_phases``
+(the collective bytes of each phase: ``forward``, ``backward``, ``grads``,
+``update``; ``grads`` is one all-reduce of the bytes of every leaf summed
+over ``"data"`` (and ``"pod"``), at the rank's shapes) and
+``state_bytes`` (``params``, the rank's parameters; ``moments``, its
+AdamW ``m`` and ``v``).  The batch rule is the reference's
 ``_fix_rules_for_mesh``: the batch splits over ``("data",)`` on one pod,
 ``("pod", "data")`` on two.  The record's ``devices`` is 256 or 512,
 ``coll`` the rank's collective bytes by kind, in closed form (B the
@@ -56,8 +64,7 @@ gates (float32); B S d b for each MoE layer (the whole batch's output).
 ``all-gather``: B S d b for each MoE layer (its rows over the batch's
 axes, where the batch splits), then B_r V b_l (the last token's vocab
 slices over "model") and B V b_l (the rows over the batch's axes, where
-the batch splits).  A train cell raises under a mesh, naming its
-ROADMAP.md item.  Records go to the git-ignored
+the batch splits).  Records go to the git-ignored
 ``build/dryrun/<arch>__<shape>__<mesh>__<tag>.json``.
 
   python -m repro_torch.launch.dryrun --arch qwen3_1_7b --shape train_4k
@@ -68,7 +75,7 @@ ROADMAP.md item.  Records go to the git-ignored
       decode_32k --multi-pod
   python -m repro_torch.launch.dryrun --all --mesh pod16x16
 
-``--all`` with a mesh runs every arch's serving cells (21).
+``--all`` with a mesh runs every arch's cells (31).
 """
 from __future__ import annotations
 
@@ -92,10 +99,10 @@ from repro_torch.launch.mesh import MESHES, MetaMesh
 
 ART = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 MESH = "h100x1"
-# the cell kinds a mesh's --all counts: every arch's serving cells (21:
-# prefill_32k and, but for HuBERT, decode_32k; long_500k of the recurrent
-# archs); training under a mesh raises
-MESH_KINDS = ("prefill", "decode")
+# the cell kinds a mesh's --all counts: every cell (31: train_4k and
+# prefill_32k of each arch, decode_32k but for HuBERT, long_500k of the
+# recurrent archs)
+MESH_KINDS = ("train", "prefill", "decode")
 # the lengths a token-loop config is run at; S must be a multiple of the
 # first for the extrapolation to stay in integers
 PROBE_LENS = (8, 16)
@@ -172,10 +179,13 @@ class Traffic(TorchDispatchMode):
         return out
 
 
-def trace_step(step, args, mesh=None) -> Dict[str, Any]:
+def trace_step(step, args, mesh=None, phases: bool = False
+               ) -> Dict[str, Any]:
     """Run ``step(*args)`` once under the counters; the reference's
     ``_compile_once`` record, with ``trace_s`` for ``lower_s``; ``coll``,
-    the collective bytes ``mesh`` (a ``MetaMesh``) counted in it."""
+    the collective bytes ``mesh`` (a ``MetaMesh``) counted in it;
+    ``phases`` (a train step under a mesh): ``coll_phases``, its metrics'
+    ``comm``, the bytes of each phase."""
     traffic = Traffic(args)
     flops = FlopCounterMode(display=False)
     t0 = time.perf_counter()
@@ -183,8 +193,9 @@ def trace_step(step, args, mesh=None) -> Dict[str, Any]:
         out = step(*args)
     trace_s = time.perf_counter() - t0
     output = storage_bytes(out, exclude=args)
+    comm = out[2]["comm"] if phases else None
     del out
-    return {
+    rec = {
         "trace_s": round(trace_s, 3),
         "flops": float(flops.get_total_flops()),
         "bytes": float(traffic.bytes),
@@ -193,6 +204,9 @@ def trace_step(step, args, mesh=None) -> Dict[str, Any]:
                    "output_size": output,
                    "temp_size": max(traffic.peak - output, 0)},
     }
+    if phases:
+        rec["coll_phases"] = comm
+    return rec
 
 
 def has_token_loop(cfg) -> bool:
@@ -225,14 +239,21 @@ def dryrun(cfg, cell, tag: str = "baseline", arch: Optional[str] = None,
         if mesh not in MESHES:
             raise ValueError(f"mesh must be {MESH} or one of "
                              f"{sorted(MESHES)}, got {mesh!r}")
-        check_supported(cfg, cell.kind)
+        check_supported(cfg)
         shape = MESHES[mesh]
         cfg = fix_rules_for_mesh(cfg, shape)
         rec["devices"] = MetaMesh(shape).world
 
     def trace(c):
         meta = None if shape is None else MetaMesh(shape)
-        return trace_step(*input_specs(cfg, c, mesh=meta), meta)
+        step, args = input_specs(cfg, c, mesh=meta)
+        train = meta is not None and c.kind == "train"
+        out = trace_step(step, args, meta, phases=train)
+        if train:
+            out["state_bytes"] = {
+                "params": storage_bytes(args[0]),
+                "moments": storage_bytes([args[1]["m"], args[1]["v"]])}
+        return out
 
     if cell.kind == "decode" or not has_token_loop(cfg):
         rec["full"] = trace(cell)
@@ -249,6 +270,14 @@ def dryrun(cfg, cell, tag: str = "baseline", arch: Optional[str] = None,
     p1, p2 = probes
     coll = {k: _extrapolate(p1["coll"].get(k, 0), p2["coll"][k], s)
             for k in p2["coll"]}
+    extra = {}
+    if "coll_phases" in p2:
+        extra["coll_phases"] = {
+            ph: {k: _extrapolate(p1["coll_phases"][ph].get(k, 0), v, s)
+                 for k, v in kinds.items()}
+            for ph, kinds in p2["coll_phases"].items()}
+    if "state_bytes" in p2:
+        extra["state_bytes"] = p2["state_bytes"]
     est = {"flops_per_device": _extrapolate(p1["flops"], p2["flops"], s),
            "bytes_per_device": _extrapolate(p1["bytes"], p2["bytes"], s),
            "collective_bytes_per_device": coll}
@@ -260,7 +289,7 @@ def dryrun(cfg, cell, tag: str = "baseline", arch: Optional[str] = None,
                    "flops": est["flops_per_device"],
                    "bytes": est["bytes_per_device"], "coll": coll,
                    "memory": {"argument_size": storage_bytes(args),
-                              **memory}}
+                              **memory}, **extra}
     rec.update(probe1=p1, probe2=p2, estimated=est)
     return rec
 
@@ -320,8 +349,8 @@ def _run_cell(job):
 
 
 def mesh_cells():
-    """(arch, shape) of every serving cell, the cells ``--all`` counts at a
-    mesh."""
+    """(arch, shape) of every cell of :data:`MESH_KINDS`, the cells
+    ``--all`` counts at a mesh."""
     import repro_torch.configs as C
     from repro_torch.models.config import SHAPES
     return [(a, s) for a, s in C.all_cells() if SHAPES[s].kind in MESH_KINDS]
@@ -334,7 +363,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default=MESH,
                     choices=[MESH, *MESHES],
                     help="one H100, or rank 0 of the reference's 16 x 16 "
-                         "or 2 x 16 x 16 mesh (serving cells)")
+                         "or 2 x 16 x 16 mesh")
     ap.add_argument("--multi-pod", action="store_true",
                     help="the same as --mesh pod2x16x16")
     ap.add_argument("--all", action="store_true")

@@ -45,10 +45,13 @@ class MetaMesh:
     started: ``shape``, ``coords`` and ``world`` as ``RankMesh``'s, and
     the collectives the sharded LM calls (``psum``, ``all_gather``; the MoE
     gathers the batch's rows with the latter), which take and return
-    ``meta`` tensors of the shapes a ``RankMesh`` returns, and ``index``.  Each adds its output's bytes to ``coll``
-    under the reference's kind name (``all-reduce``, ``all-gather``), as
+    ``meta`` tensors of the shapes a ``RankMesh`` returns, and ``index``.
+    Each adds its output's bytes to ``coll`` under the reference's kind
+    name (``all-reduce``, ``all-gather``), as
     ``repro.launch.dryrun.collective_bytes`` sums the output shapes of an
-    HLO's collectives."""
+    HLO's collectives; a train step's backward and its gradients'
+    reduction count alike.  (The MoE's ``a2a`` path indexes by its
+    routing, which ``meta`` cannot run.)"""
 
     def __init__(self, shape, rank: int = 0):
         from repro_torch.core.distributed import coords_of

@@ -56,6 +56,21 @@ order, every rank the same jobs on the same inputs (SPMD), and prints
     parameters and caches to ``DIR/<name>_r<rank>.pt``.  Each rank reports its seconds (prefill,
     decode steps, inside ``psum`` and ``all_gather``), flash launches,
     what it holds (:func:`held_parts`), parameter bytes and peak memory.
+  * ``lm_train``: an LM trained over ``spec["mesh"]``, each rank on its
+    shards (``make_train_step(..., mesh=)``): the weights as ``lm_tp``'s
+    (the ``.npz``'s ``p.<flat name>``, or :func:`draw_dense` from
+    ``spec["seed"]``), the batches from the ``.npz``'s ``toks`` [N, B, S
+    + 1] (inputs the first S, targets the last S) and ``mask`` [N, B, S]
+    (all on without it), or drawn from the seed at ``spec["shape"]`` (N,
+    B, S); AdamW by ``spec["opt"]`` (``AdamWConfig`` kwargs); N steps
+    (:func:`train_lm`).  Each rank reports each step's loss, grad norm and
+    seconds, what the mesh counted in each phase of each step (forward,
+    backward, the gradients' reduction, the update), the flash launches a
+    step, its parameter and moment bytes and peak memory; with ``"dump":
+    true`` every rank writes ``DIR/<name>_r<rank>.pt``: the first step's
+    loss and reduced gradients (:func:`launch.steps.value_and_grad`, run
+    once more before the steps), the parameters and AdamW's first moments
+    ``m`` after the last (with ``"dump": "params"`` only these two).
 
 The kernels are built by the caller before the ranks start on a card
 (:func:`run_ranks` does it), so that the ranks only load them.
@@ -578,7 +593,7 @@ def parity_fan_in(name: str, shape) -> int:
     return shape[0]
 
 
-def draw_dense(cfg, seed: int, device, mesh=None):
+def draw_dense(cfg, seed: int, device, mesh=None, trainable: bool = False):
     """An LM drawn on ``device`` from ``seed``: norms zeros, every matrix
     normal at 1/sqrt(its input width) (:func:`parity_fan_in`), rounded to
     ``cfg.param_dtype``.  Each leaf comes from a generator seeded by its
@@ -588,7 +603,8 @@ def draw_dense(cfg, seed: int, device, mesh=None):
     mesh's own rank, each leaf cut to its shard after the draw and only
     the rank's experts drawn, so that every rank, and a process without a
     mesh, hold the same values (DeepSeek-V3's [256, 7168, 4096] leaf would
-    take 30 GB in float32 a rank whole)."""
+    take 30 GB in float32 a rank whole).  ``trainable``: the model takes
+    gradients."""
     import torch
     from repro_torch.models import lm
     from repro_torch.models.shard import Layout
@@ -622,7 +638,7 @@ def draw_dense(cfg, seed: int, device, mesh=None):
             t = layout.take(name, s, t)
         tensors[name] = t.to(dtype=dtype, copy=True)
         del t
-    return lm.LM(cfg, tensors, layout=layout)
+    return lm.LM(cfg, tensors, trainable, layout=layout)
 
 
 def expert_seed(seed: int, n_leaves: int, k: int, e: int, n_experts: int
@@ -725,10 +741,11 @@ def serve_lm(cfg, model, toks, steps: int, device, mesh=None,
     return out
 
 
-def lm_tp_inputs(cfg, spec: dict, device, mesh=None):
-    """``(model, toks)`` of an ``lm_tp`` job: from its ``.npz`` or drawn
-    from its seed (:func:`draw_dense`; ids of ``spec["shape"]`` from the
-    same seed), the model ``mesh``'s rank's."""
+def lm_tp_inputs(cfg, spec: dict, device, mesh=None,
+                 trainable: bool = False):
+    """``(model, toks)`` of an ``lm_tp`` or ``lm_train`` job: from its
+    ``.npz`` or drawn from its seed (:func:`draw_dense`; ids of
+    ``spec["shape"]`` from the same seed), the model ``mesh``'s rank's."""
     import torch
     from repro_torch.models.transfer import params_from_numpy, \
         to_reference_tree
@@ -737,13 +754,70 @@ def lm_tp_inputs(cfg, spec: dict, device, mesh=None):
         flat = {k[2:]: torch.from_numpy(z[k]) for k in z.files
                 if k.startswith("p.")}
         model = params_from_numpy(cfg, to_reference_tree(cfg, flat),
-                                  device=device, mesh=mesh)
+                                  device=device, trainable=trainable,
+                                  mesh=mesh)
         toks = z["toks"]
     else:
-        model = draw_dense(cfg, spec["seed"], device, mesh=mesh)
+        model = draw_dense(cfg, spec["seed"], device, mesh=mesh,
+                           trainable=trainable)
         toks = np.random.default_rng(spec["seed"]).integers(
             0, cfg.vocab, spec["shape"]).astype(np.int32)
     return model, torch.from_numpy(toks).to(device)
+
+
+def train_batches(spec: dict, toks) -> list:
+    """An ``lm_train`` job's batches, one a step: ``toks`` [N, B, S + 1]
+    cut into inputs and targets, the ``.npz``'s ``mask`` [N, B, S] or all
+    on; drawn from the seed, ``spec["shape"]`` is (N, B, S) and the ids
+    [N, B, S + 1]."""
+    import torch
+    mask = None
+    if "data" in spec:
+        z = np.load(spec["data"])
+        if "mask" in z.files:
+            mask = torch.from_numpy(z["mask"]).to(toks.device)
+    out = []
+    for i in range(toks.shape[0]):
+        t = toks[i]
+        out.append({"inputs": t[:, :-1], "targets": t[:, 1:],
+                    "mask": torch.ones_like(t[:, 1:], dtype=torch.bool)
+                    if mask is None else mask[i]})
+    return out
+
+
+def train_lm(cfg, model, batches, device, mesh=None, opt=None) -> tuple:
+    """``len(batches)`` AdamW steps of ``model`` (built trainable) through
+    ``make_train_step(cfg, AdamWConfig(**opt), device, mesh)``.  Returns
+    ``(report, opt_state)``: the report holds each step's ``loss`` and
+    ``grad_norm`` (floats), ``step_s`` (seconds, the device synchronised),
+    ``flash`` (launches a step), ``comm`` (under ``mesh``: what it counted
+    in each phase of each step), the parameter and moment bytes
+    (``param_bytes``, ``opt_bytes``); the state is AdamW's after the last
+    step."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    opt_cfg = AdamWConfig(**(opt or {}))
+    named = dict(model.named_parameters())
+    state = adamw_init(named, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, device, mesh)
+    out = {"loss": [], "grad_norm": [], "step_s": [], "flash": [],
+           "comm": [], "param_bytes": sum(p.nbytes for p in named.values()),
+           "opt_bytes": sum(t.nbytes for w in ("m", "v")
+                            for t in state[w].values())}
+    for batch in batches:
+        reset_launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        _, state, metrics = step(model, state, batch)
+        _sync(device)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["flash"].append(launch_counts()["flash_attention"])
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+        if mesh is not None:
+            out["comm"].append(metrics["comm"])
+    return out, state
 
 
 def _lm_tp_job(spec: dict, ctx: dict) -> dict:
@@ -775,6 +849,50 @@ def _lm_tp_job(spec: dict, ctx: dict) -> dict:
                           if device.type == "cuda" else float("nan")))
 
 
+def lm_train_inputs(cfg, spec: dict, device, mesh=None) -> tuple:
+    """``(model, batches)`` of an ``lm_train`` job: the model built
+    trainable (``mesh``'s rank's) and its batches (:func:`train_batches`;
+    drawn from the seed, the ids at ``spec["shape"]`` (N, B, S) plus one
+    position)."""
+    if "data" not in spec:
+        n, b, s = spec["shape"]
+        spec = dict(spec, shape=[n, b, s + 1])
+    model, toks = lm_tp_inputs(cfg, spec, device, mesh, trainable=True)
+    return model, train_batches(spec, toks)
+
+
+def _lm_train_job(spec: dict, ctx: dict) -> dict:
+    import torch
+    from repro_torch.core.distributed import RankMesh
+    from repro_torch.launch.steps import value_and_grad
+    device = ctx["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = lm_config(spec)
+    mesh = RankMesh(spec["mesh"], device=device, backend=ctx["backend"])
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    model, batches = lm_train_inputs(cfg, spec, device, mesh)
+    dump = {}
+    if spec.get("dump") is True:
+        loss, grads = value_and_grad(cfg, model, batches[0], mesh)
+        dump = {"loss0": float(loss),
+                "grads0": {n: g.cpu() for n, g in grads.items()}}
+        del grads
+    out, state = train_lm(cfg, model, batches, device, mesh,
+                          spec.get("opt"))
+    if spec.get("dump"):
+        dump["params"] = {k: v.detach().cpu() for k, v in
+                          model.named_parameters()}
+        dump["m"] = {k: v.cpu() for k, v in state["m"].items()}
+        torch.save(dump,
+                   Path(ctx["out"]) / f"{spec['name']}_r{ctx['rank']}.pt")
+    del state
+    return dict(out, **held_parts(cfg, model),
+                peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
+                          if device.type == "cuda" else float("nan")))
+
+
 def held_parts(cfg, model) -> dict:
     """What a rank's model holds of the first layer of each part:
     ``heads`` [q heads, kv heads (None for MLA), head dim] of the first
@@ -800,7 +918,7 @@ def held_parts(cfg, model) -> dict:
 JOBS = {"wordcount": _engine_job, "sssp": _engine_job,
         "pagerank": _engine_job, "compress": _compress_job,
         "moe": _moe_job, "moe_lm": _moe_lm_job, "psum": _psum_job,
-        "lm_tp": _lm_tp_job}
+        "lm_tp": _lm_tp_job, "lm_train": _lm_train_job}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

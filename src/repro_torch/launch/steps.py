@@ -19,13 +19,18 @@ A batch's ``inputs`` are token ids [B, S], or embeddings [B, S, d] when
 ``cfg.embed_inputs`` is False (HuBERT behind its frontend stub), as
 :func:`batch_specs` gives them; another rank raises.
 
-The serving steps take ``mesh=`` (a ``RankMesh``, or a
-``launch.mesh.MetaMesh`` on ``meta``): the model is then that rank's
+The serving steps and the train step take ``mesh=`` (a ``RankMesh``, or
+a ``launch.mesh.MetaMesh`` on ``meta``): the model is then that rank's
 shards (``lm.init_params(..., mesh=)``, ``transfer.params_from_numpy(...,
 mesh=)``), the inputs come whole to every rank and the step runs the
-rank's rows of them under the ambient mesh (``models.meshctx``), and
-every rank returns the whole logits.  Training under a mesh raises
-(``models.shard.check_supported``).
+rank's rows of them under the ambient mesh (``models.meshctx``).  The
+serving steps return the whole logits on every rank.  The train step
+takes the vocab-parallel loss and its backward through the collectives'
+adjoints (``lm.lm_loss``), sums each leaf's gradient over the batch's
+axes it is not split over (``models.shard.Layout.grad_axes``) with
+``mesh.psum`` (float32 adds in rank order, so that a run on nccl can be
+held bit for bit against gloo), and runs AdamW on the rank's shards with
+the global norm summed over the mesh.
 
 The input specs (:func:`batch_specs`, :func:`decode_specs`,
 :func:`opt_specs`, :func:`input_specs`) are the reference's
@@ -49,10 +54,10 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import lm, meshctx, shard
+from repro_torch.models.collectives import tally, tally_since
 from repro_torch.models.common import resolve_device
 from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.optim import AdamWConfig, adamw_update
-
 
 def _on(params: lm.LM, dev: torch.device, what: str) -> None:
     if params.device.type != dev.type:
@@ -94,7 +99,7 @@ def make_serve_step(cfg: ModelConfig, device="cuda", mesh=None):
     rank's model and caches, every rank the whole tokens and logits."""
     dev = resolve_device(device)
     if mesh is not None:
-        shard.check_supported(cfg, "decode")
+        shard.check_supported(cfg)
 
     def serve_step(params: lm.LM, caches: Dict[str, Any], tokens):
         _on(params, dev, "serve_step")
@@ -113,7 +118,7 @@ def make_prefill_step(cfg: ModelConfig, device="cuda", mesh=None):
     the inputs, and every rank returns the whole logits (``lm.prefill``)."""
     dev = resolve_device(device)
     if mesh is not None:
-        shard.check_supported(cfg, "prefill")
+        shard.check_supported(cfg)
 
     def prefill_step(params: lm.LM, batch: Dict[str, Any]):
         _on(params, dev, "prefill_step")
@@ -142,34 +147,113 @@ def deterministic():
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
 
 
+def reduce_grads(layout: shard.Layout, mesh, grads: Dict[str, Any],
+                 rows) -> Dict[str, Any]:
+    """Each gradient summed over its ``layout.grad_axes`` (the batch split
+    over ``rows``) with ``mesh.psum``: the leaves of one axis set and dtype
+    flattened into one buffer, one ``psum`` a buffer.  The sum is
+    elementwise, so the flattening does not change its bits.  Returns the
+    new gradients by name."""
+    plan = lm.plan_model(layout.cfg)
+    groups: Dict[tuple, list] = {}
+    for name, g in grads.items():
+        axes = layout.grad_axes(plan[name], rows)
+        if axes:
+            groups.setdefault((axes, g.dtype), []).append(name)
+    out = dict(grads)
+    for (axes, _), names in groups.items():
+        flat = mesh.psum(torch.cat([grads[n].reshape(-1) for n in names]),
+                         axes)
+        for n, part in zip(names, flat.split([grads[n].numel()
+                                              for n in names])):
+            out[n] = part.view(grads[n].shape)
+    return out
+
+
+class _Phases:
+    """What ``mesh`` counts (``models.collectives.tally``) between one
+    call and the next, by the name given at the later; nothing without a
+    mesh."""
+
+    def __init__(self, mesh):
+        self.mesh, self.comm, self.seen = mesh, {}, None
+        self("")
+
+    def __call__(self, name: str) -> None:
+        if self.mesh is None:
+            return
+        if self.seen is not None and name:
+            self.comm[name] = tally_since(self.mesh, self.seen)
+        self.seen = tally(self.mesh)
+
+
+def value_and_grad(cfg: ModelConfig, params: lm.LM, batch: Dict[str, Any],
+                   mesh=None, phases: Optional[_Phases] = None):
+    """``(loss, grads)``: the loss of ``batch`` (detached) and each
+    parameter's gradient by name (zeros where none reached it), with
+    PyTorch's deterministic algorithms; ``mesh``: the model's rank's, run
+    under that mesh, each gradient summed over its batch axes
+    (:func:`reduce_grads`), so that it is the whole batch's gradient of the
+    rank's shard.  The model's ``.grad`` are left None."""
+    named = dict(params.named_parameters())
+    frozen = [n for n, p in named.items() if not p.requires_grad]
+    if frozen:
+        raise ValueError(f"train_step needs a model built with "
+                         f"trainable=True; {frozen[:4]} take no gradients")
+    phases = phases or _Phases(None)
+    with deterministic(), meshctx.using(mesh):
+        batch = _batch_on(cfg, batch, params.device)
+        loss = lm.lm_loss(cfg, params, batch)
+        phases("forward")
+        loss.backward()
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in named.items()}
+        for p in named.values():
+            p.grad = None
+        phases("backward")
+        if mesh is not None:
+            rows = params.layout.rows(batch["inputs"].shape[0])[1]
+            grads = reduce_grads(params.layout, mesh, grads, rows)
+        phases("grads")
+    return loss.detach(), grads
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
-                    device="cuda"):
+                    device="cuda", mesh=None):
     """train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "lr"}): ``params`` an ``LM`` built with
     ``trainable=True``, updated in place with its moments (the returned
     ``params`` is the same model); the metrics are float32 scalars on the
-    device."""
+    device.  ``mesh``: the model and moments are the mesh's rank's shards
+    and the batch comes whole; the loss is the whole batch's, every rank
+    the same, and the metrics also hold ``comm``, what the mesh counted
+    (``models.collectives.tally``: a ``RankMesh``'s seconds and calls, a
+    ``MetaMesh``'s bytes) in each phase of the step: ``forward``,
+    ``backward`` (the remat recompute's collectives among them),
+    ``grads`` (:func:`reduce_grads`) and ``update`` (AdamW's norm)."""
     opt_cfg = opt_cfg or AdamWConfig()
     dev = resolve_device(device)
+    if mesh is not None:
+        shard.check_supported(cfg)
 
     def train_step(params: lm.LM, opt_state, batch: Dict[str, Any]):
         _on(params, dev, "train_step")
+        _check_mesh(params, mesh, "train_step")
+        phases = _Phases(mesh)
+        loss, grads = value_and_grad(cfg, params, batch, mesh, phases)
         named = dict(params.named_parameters())
-        frozen = [n for n, p in named.items() if not p.requires_grad]
-        if frozen:
-            raise ValueError(f"train_step needs a model built with "
-                             f"trainable=True; {frozen[:4]} take no "
-                             f"gradients")
+        norm_axes = None
+        if mesh is not None:
+            plan = lm.plan_model(cfg)
+            norm_axes = {n: params.layout.split_axes(plan[n]) for n in named}
         with deterministic():
-            loss = lm.lm_loss(cfg, params, _batch_on(cfg, batch, dev))
-            loss.backward()
-            grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-                     for n, p in named.items()}
-            for p in named.values():
-                p.grad = None
             _, opt_state, info = adamw_update(grads, opt_state, named,
-                                              opt_cfg)
-        return params, opt_state, {"loss": loss.detach(), **info}
+                                              opt_cfg, mesh, norm_axes)
+        phases("update")
+        metrics = {"loss": loss, **info}
+        if mesh is not None:
+            metrics["comm"] = phases.comm
+        return params, opt_state, metrics
     return train_step
 
 
@@ -237,13 +321,15 @@ def decode_specs(cfg: ModelConfig, cell: ShapeCell, device="meta",
 
 
 def opt_specs(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
-              device="meta") -> Dict[str, Any]:
+              device="meta", mesh=None) -> Dict[str, Any]:
     """AdamW's state for ``cfg``'s parameters: ``m`` and ``v`` by
     parameter name in ``opt_cfg.opt_dtype`` (zero), and an int32
-    ``step``, as ``optim.adamw_init`` makes it."""
+    ``step``, as ``optim.adamw_init`` makes it; ``mesh``: at the shapes of
+    the mesh's rank's shards."""
     opt_cfg = opt_cfg or AdamWConfig()
     dev = resolve_device(device)
-    plan = lm.plan_model(cfg)
+    plan = lm.plan_model(cfg) if mesh is None \
+        else shard.Layout.of(cfg, mesh).plan()
 
     def moments():
         return {n: torch.zeros(s.shape, dtype=opt_cfg.opt_dtype, device=dev)
@@ -260,18 +346,19 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell,
     opt_state, batch)`` for a train cell (the model built with
     ``trainable=True``), ``(params, batch)`` for a prefill, ``(params,
     caches, tokens)`` for a decode cell.  ``mesh``: the step and the
-    arguments of ``mesh``'s own rank (a serving cell of a dense arch;
-    others raise, ``models.shard.check_supported``)."""
+    arguments of ``mesh``'s own rank (the parameters, moments and caches
+    its shards, the batch and tokens whole; rules that split the
+    sequence or ``d_model`` raise, ``models.shard.check_supported``)."""
     dev = resolve_device(device)
     if mesh is not None:
-        shard.check_supported(cfg, cell.kind)
+        shard.check_supported(cfg)
     gen = _draw(dev, generator)
     params = lm.init_params(cfg, gen, dev, trainable=cell.kind == "train",
                             mesh=mesh)
     if cell.kind == "train":
         opt_cfg = opt_cfg or AdamWConfig()
-        return make_train_step(cfg, opt_cfg, dev), (
-            params, opt_specs(cfg, opt_cfg, dev),
+        return make_train_step(cfg, opt_cfg, dev, mesh), (
+            params, opt_specs(cfg, opt_cfg, dev, mesh),
             batch_specs(cfg, cell, dev, gen))
     if cell.kind == "prefill":
         return make_prefill_step(cfg, dev, mesh), (

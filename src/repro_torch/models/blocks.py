@@ -61,10 +61,16 @@ Every block also runs on one rank's shards of its leaves
 (:class:`Params` ``part``, cut by ``models.shard``): on the rank's heads,
 experts or ``d_ff`` columns, each partial sum reduced through the
 ambient mesh's ``psum``; each ``apply_*`` says how
-(:func:`apply_moe_part` for the MoE).
+(:func:`apply_moe_part` for the MoE).  In training each collective goes
+through ``models.collectives``, whose backward is its adjoint: a
+reduction's is the identity, and what every rank holds alike (the normed
+input, MLA's latent, RG-LRU's reduced gates and ``lam``, mLSTM's normed
+cell output, a replicated ``wk`` / ``wv`` and qk-norm's scales) sums its
+gradient over the axes its split work runs on.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -73,6 +79,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.collectives import (
+    exchange, gather_alike, gather_rows, reduce_out, reduce_own_rows,
+    split_in,
+)
 from repro_torch.models.common import (
     ParamSpec, apply_rope, rms_norm, rope_table, softcap, swiglu,
 )
@@ -253,18 +263,29 @@ def apply_attention(cfg: ModelConfig, p, x, pos=None, cache=None, *,
     b, s, d = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     wk, wv = p.wk, p.wv
+    xn = rms_norm(x, p.norm, cfg.norm_eps)
+    q_scale, k_scale = (getattr(p, "q_scale", None),
+                        getattr(p, "k_scale", None))
     if p.part is not None:
         h = p.part.q.stop - p.part.q.start
         kh = p.part.kv.stop - p.part.kv.start
+        if p.part.reduce:
+            # what every rank holds alike enters its heads' work
+            mesh = part_mesh(p.part)
+            xn = split_in(mesh, xn, p.part.reduce)
+            if cfg.qk_norm:
+                q_scale, k_scale = (split_in(mesh, t, p.part.reduce)
+                                    for t in (q_scale, k_scale))
+            if wk.shape[1] == cfg.n_kv_heads:
+                wk, wv = (split_in(mesh, t, p.part.reduce) for t in (wk, wv))
         if wk.shape[1] == cfg.n_kv_heads:     # replicated: the heads read
             wk, wv = wk[:, p.part.kv], wv[:, p.part.kv]
-    xn = rms_norm(x, p.norm, cfg.norm_eps)
     q = (xn @ p.wq.to(xn.dtype).reshape(d, h * hd)).view(b, s, h, hd)
     k = (xn @ wk.to(xn.dtype).reshape(d, kh * hd)).view(b, s, kh, hd)
     v = (xn @ wv.to(xn.dtype).reshape(d, kh * hd)).view(b, s, kh, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_scale, cfg.norm_eps)
-        k = rms_norm(k, p.k_scale, cfg.norm_eps)
+        q = rms_norm(q, q_scale, cfg.norm_eps)
+        k = rms_norm(k, k_scale, cfg.norm_eps)
     if cache is None:
         pos = prefill_positions(pos, b, s, x.device)
     sin, cos = rope_table(pos, hd, cfg.rope_theta)
@@ -295,7 +316,7 @@ def apply_attention(cfg: ModelConfig, p, x, pos=None, cache=None, *,
                       k_pos[None].expand(b, tmax), window)
     y = out.reshape(b, s, h * hd) @ p.wo.to(out.dtype).reshape(h * hd, d)
     if p.part is not None and p.part.reduce:
-        y = part_mesh(p.part).psum(y, p.part.reduce)
+        y = reduce_out(part_mesh(p.part), y, p.part.reduce)
     if cfg.post_norms:
         y = rms_norm(y, p.post_norm, cfg.norm_eps)
     return x + y, cache
@@ -366,11 +387,16 @@ def apply_mla(cfg: ModelConfig, p, x, pos=None, cache=None):
     r = m.kv_lora_rank
     xn = rms_norm(x, p.norm, cfg.norm_eps)
     cq = rms_norm(xn @ p.wq_a.to(xn.dtype), p.q_norm, cfg.norm_eps)
-    q = _heads(cq, p.wq_b)
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
     ckv = xn @ p.wkv_a.to(xn.dtype)
     latent = rms_norm(ckv[..., :r], p.kv_norm, cfg.norm_eps)
     k_rope = ckv[..., r:][:, :, None, :]                 # [B, S, 1, rope]
+    if p.part is not None and p.part.reduce:
+        # the replicated latent enters the rank's heads
+        mesh = part_mesh(p.part)
+        cq, latent, k_rope = (split_in(mesh, t, p.part.reduce)
+                              for t in (cq, latent, k_rope))
+    q = _heads(cq, p.wq_b)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
     if cache is None:
         pos = prefill_positions(pos, b, s, x.device)
     sin, cos = rope_table(pos, rope_d, cfg.rope_theta)
@@ -403,7 +429,7 @@ def apply_mla(cfg: ModelConfig, p, x, pos=None, cache=None):
         out = torch.einsum("bshr,rhv->bshv", ctx, p.wv_b.to(x.dtype))
     y = out.reshape(b, s, h * vd) @ p.wo.to(out.dtype).reshape(h * vd, d)
     if p.part is not None and p.part.reduce:
-        y = part_mesh(p.part).psum(y, p.part.reduce)
+        y = reduce_out(part_mesh(p.part), y, p.part.reduce)
     return x + y, cache
 
 
@@ -438,11 +464,14 @@ def apply_ffn(cfg: ModelConfig, p, x, kind: str = "swiglu"):
     columns (``w_in`` as ``[gate_r | up_r]``) and reduce the partial sum
     over the part's mesh axes."""
     xn = rms_norm(x, p.norm, cfg.norm_eps)
+    split = p.part is not None and p.part.reduce
+    if split:
+        xn = split_in(part_mesh(p.part), xn, p.part.reduce)
     h = xn @ p.w_in.to(xn.dtype)
     h = F.gelu(h, approximate="tanh") if kind == "gelu" else swiglu(h, kind)
     y = h @ p.w_out.to(h.dtype)
-    if p.part is not None and p.part.reduce:
-        y = part_mesh(p.part).psum(y, p.part.reduce)
+    if split:
+        y = reduce_out(part_mesh(p.part), y, p.part.reduce)
     if cfg.post_norms:
         y = rms_norm(y, p.post_norm, cfg.norm_eps)
     return x + y
@@ -536,7 +565,8 @@ def apply_moe_gather(cfg: ModelConfig, p, x):
     return x + y.view(b, s, d)
 
 
-def gather_experts(cfg: ModelConfig, p, tokens, lo: int = 0, on=None):
+def gather_experts(cfg: ModelConfig, p, tokens, lo: int = 0, on=None,
+                   router=None):
     """The routed experts' output [N, d] on ``tokens`` [N, d] through the
     ``gather`` dispatch: every token routed (:func:`moe_route`), the
     capacity (:func:`moe_capacity`) and slot positions (:func:`moe_slots`)
@@ -544,11 +574,12 @@ def gather_experts(cfg: ModelConfig, p, tokens, lo: int = 0, on=None):
     holds those n) scattered into an [n + 1, cap, d] buffer, both products
     batched by expert, and each slot's output gathered back and weighed by
     its gate.  ``on`` [N] bool: only those tokens' slots are dispatched
-    (the others add 0)."""
+    (the others add 0).  ``router``: in place of ``p.router``."""
     mo = cfg.moe
     n_tok, d = tokens.shape
     ne, kk = p.w_in.shape[0], mo.top_k
-    gate, eid = moe_route(cfg, p.router, tokens)
+    gate, eid = moe_route(cfg, p.router if router is None else router,
+                          tokens)
     cap = moe_capacity(cfg, n_tok)
     pos_k = moe_slots(eid, mo.num_experts)
     keep = (pos_k < cap) & (eid >= lo) & (eid < lo + ne)
@@ -619,11 +650,13 @@ def a2a_fits(cfg: ModelConfig, mesh, b: int, s: int) -> bool:
     return b % nb == 0 and s % mesh.shape.get("model", 1) == 0
 
 
-def a2a_experts(cfg: ModelConfig, p, xn, mesh):
+def a2a_experts(cfg: ModelConfig, p, xn, mesh, router=None):
     """The routed experts' output y [B, S, d] of the normed ``xn`` [B, S,
     d], the whole of it on every rank, through the expert-parallel
     exchange over ``mesh`` (:func:`apply_moe_a2a`, which adds the shared
-    expert)."""
+    expert); ``router`` in place of ``p.router``.  In training the
+    exchanges' adjoints are the reverse exchanges, and the gradient of y
+    comes whole to every rank (:func:`apply_moe_part`)."""
     mo = cfg.moe
     b, s, d = xn.shape
     ep_axes = tuple(a for a in mo.ep_axes if a in mesh.shape)
@@ -637,7 +670,7 @@ def a2a_experts(cfg: ModelConfig, p, xn, mesh):
     bsl, ssl = a2a_block(cfg, mesh, b, s)
     toks = xn[bsl, ssl].reshape(-1, d)
     n, kk = toks.shape[0], mo.top_k
-    gate, eid = moe_route(cfg, p.router, toks)
+    gate, eid = moe_route(cfg, p.router if router is None else router, toks)
     order, sdest, rank, ok, cap = a2a_slots(cfg, eid, p_ep)
     row = torch.where(ok, sdest, 0)
     col = torch.where(ok, rank, 0)
@@ -650,14 +683,14 @@ def a2a_experts(cfg: ModelConfig, p, xn, mesh):
         send[0, 0] = 0
         send_eid[0, 0] = -1
 
-    rt = mesh.all_to_all(send, ep_axes)                  # [p_ep * cap, d]
+    rt = exchange(mesh, send, ep_axes)                   # [p_ep * cap, d]
     local_e = mesh.all_to_all(send_eid, ep_axes) - mesh.index(ep_axes) * e_loc
     out = torch.zeros_like(rt)
     for le in range(e_loc):
         sel = (local_e == le)[:, None]
         h = swiglu(torch.where(sel, rt, 0) @ p.w_in[le].to(rt.dtype))
         out = out + torch.where(sel, h @ p.w_out[le].to(h.dtype), 0)
-    back = mesh.all_to_all(out.view(p_ep, cap, d), ep_axes)
+    back = exchange(mesh, out.view(p_ep, cap, d), ep_axes)
 
     last = p_ep * cap - 1
     slot_of = torch.full((n * kk,), last, dtype=torch.int64,
@@ -669,7 +702,7 @@ def a2a_experts(cfg: ModelConfig, p, xn, mesh):
     w = (gate.reshape(-1) * ok_slot).to(gathered.dtype)
     y_loc = (gathered * w[:, None]).view(n, kk, d).sum(dim=1)
     y = torch.empty_like(xn)
-    blocks = mesh.all_gather(y_loc.view(xn[bsl, ssl].shape))
+    blocks = gather_alike(mesh, y_loc.view(xn[bsl, ssl].shape))
     for r in range(mesh.world):
         y[a2a_block(cfg, mesh, b, s, r)] = blocks[r]
     return y
@@ -734,24 +767,33 @@ def apply_moe_part(cfg: ModelConfig, p, x, rows=()):
     counts each (row, expert) once, a rank dispatches a row's slots only
     where it owns the row along the batch's axes that do not split the
     experts, and adds anything only at coordinate 0 of an axis of the
-    reduction that splits neither it nor the rows."""
+    reduction that splits neither it nor the rows.
+
+    In training (``models.collectives``): the gathered batch's gradient
+    is summed over every axis that split the work on it and the rank
+    keeps its block (the shared expert reads the rank's block of the
+    gathered batch, so its gradient goes the same way); the reduced
+    output's gradient is every block's, gathered over ``rows``; the
+    router, which every rank holds alike and applies to its share of the
+    slots, sums its gradient over the axes that split that share but not
+    the rows (``models.shard`` sums it over the rows' axes after)."""
     part = p.part
     mesh = part_mesh(part)
     mo = cfg.moe
     b, s, d = x.shape
     rows = tuple(rows)
+    own = mesh.index(rows) if rows else 0
     xn = rms_norm(x, p.norm, cfg.norm_eps)
-    xg = mesh.all_gather(xn, rows).flatten(0, 1) if rows else xn
-    n_blocks, own = xg.shape[0] // b, mesh.index(rows) if rows else 0
 
-    def shared():
-        flat = xn.reshape(b * s, d)
+    def shared(xb):
+        flat = xb[own].reshape(b * s, d)
         hs = swiglu(flat @ p.shared_in.to(flat.dtype))
         return (hs @ p.shared_out.to(hs.dtype)).view(b, s, d)
 
     ep = tuple(a for a in mo.ep_axes if a in mesh.shape)
+    n_rows = math.prod(mesh.shape[a] for a in rows)
     if cfg.moe_impl == "a2a" and len(ep) == len(mo.ep_axes) and \
-            a2a_fits(cfg, mesh, xg.shape[0], s):
+            a2a_fits(cfg, mesh, n_rows * b, s):
         if part.experts != tuple(a for a in ep if mesh.shape[a] > 1) or \
                 part.lo != mesh.index(ep) * part.n:
             raise ValueError(
@@ -759,10 +801,15 @@ def apply_moe_part(cfg: ModelConfig, p, x, rows=()):
                 f"holds experts {part.lo} to {part.lo + part.n} split over "
                 f"{part.experts} (ShardingRules.expert "
                 f"{cfg.sharding.expert})")
-        y = a2a_experts(cfg, p, xg, mesh).view(n_blocks, b, s, d)[own]
+        # every rank works on its block of the gathered batch
+        split = tuple(a for a in mesh.shape if mesh.shape[a] > 1)
+        xb = gather_rows(mesh, xn, rows, split, own)
+        router = split_in(mesh, p.router,
+                          tuple(a for a in split if a not in rows))
+        y = a2a_experts(cfg, p, xb.flatten(0, 1), mesh, router)
+        y = reduce_own_rows(mesh, y.view(n_rows, b, s, d), (), rows, own)
         if mo.num_shared:
-            hs = shared()
-            y = y + (mesh.psum(hs, part.shared) if part.shared else hs)
+            y = y + reduce_out(mesh, shared(xb), part.shared)
         return x + y
 
     coords = mesh.coords
@@ -774,18 +821,19 @@ def apply_moe_part(cfg: ModelConfig, p, x, rows=()):
                    if a not in rows and a not in split)
 
     from repro_torch.core.distributed import coords_of
+    xb = gather_rows(mesh, xn, rows, axes, own)
+    router = split_in(mesh, p.router,
+                      tuple(a for a in part.experts if a not in rows))
     sizes = {a: mesh.shape[a] for a in rows}
     on = [all(c[a] == coords[a] for a in rows if a not in part.experts)
           and adds(part.experts)
-          for c in (coords_of(sizes, j) for j in range(n_blocks))]
+          for c in (coords_of(sizes, j) for j in range(n_rows))]
     row_on = torch.tensor(on, device=x.device).repeat_interleave(b * s)
-    y = gather_experts(cfg, p, xg.reshape(-1, d), part.lo, row_on)
-    y = y.view(n_blocks, b, s, d)
+    y = gather_experts(cfg, p, xb.reshape(-1, d), part.lo, row_on, router)
+    y = y.view(n_rows, b, s, d)
     if mo.num_shared and adds(part.shared):
-        y[own] += shared()
-    if axes:
-        y = mesh.psum(y, axes)
-    return x + y[own]
+        y = torch.cat([y[:own], (y[own] + shared(xb))[None], y[own + 1:]])
+    return x + reduce_own_rows(mesh, y, axes, rows, own)
 
 
 # ---------------------------------------------------------------------------
@@ -854,6 +902,8 @@ def apply_rglru(cfg: ModelConfig, p, x, cache=None):
     c = 8.0
     part = p.part
     xn = rms_norm(x, p.norm, cfg.norm_eps)
+    if part is not None and part.reduce:
+        xn = split_in(part_mesh(part), xn, part.reduce)
     u = xn @ p.w_x.to(xn.dtype)
     g = F.gelu(xn @ p.w_gate.to(xn.dtype), approximate="tanh")
     u, new_conv = causal_conv(u, p.conv_w.to(u.dtype), p.conv_b.to(u.dtype),
@@ -861,13 +911,17 @@ def apply_rglru(cfg: ModelConfig, p, x, cache=None):
     uf = u.float()
     lam = p.lam
     if part is not None and part.reduce:
-        gates = part_mesh(part).psum(torch.cat(
-            [uf @ p.w_a.float(), uf @ p.w_i.float()], dim=-1), part.reduce)
+        # the reduced gates, like lam, every rank holds alike; each takes
+        # its columns
+        mesh = part_mesh(part)
+        gates = split_in(mesh, reduce_out(mesh, torch.cat(
+            [uf @ p.w_a.float(), uf @ p.w_i.float()], dim=-1), part.reduce),
+            part.reduce)
         r_all = cfg.rglru.d_rnn
         cols = slice(part.lo, part.lo + part.n)
         r = torch.sigmoid(gates[..., :r_all][..., cols])
         i = torch.sigmoid(gates[..., r_all:][..., cols])
-        lam = lam[cols]
+        lam = split_in(mesh, lam, part.reduce)[cols]
     else:
         r = torch.sigmoid(uf @ p.w_a.float())
         i = torch.sigmoid(uf @ p.w_i.float())
@@ -887,7 +941,7 @@ def apply_rglru(cfg: ModelConfig, p, x, cache=None):
         h = h[:, None]
     y = (h.to(x.dtype) * g) @ p.w_out.to(x.dtype)
     if part is not None and part.reduce:
-        y = part_mesh(part).psum(y, part.reduce)
+        y = reduce_out(part_mesh(part), y, part.reduce)
     return x + y, cache
 
 
@@ -978,13 +1032,16 @@ def apply_mlstm(cfg: ModelConfig, p, x, cache=None):
     dh = m // h_
     part = p.part if p.part is not None and p.part.reduce else None
     xn = rms_norm(x, p.norm, cfg.norm_eps)
+    if part is not None:
+        mesh = part_mesh(part)
+        xn = split_in(mesh, xn, part.reduce)
     z, gate = (xn @ p.w_up.to(xn.dtype)).chunk(2, dim=-1)
     # the reference divides in the compute dtype by sqrt(dh) rounded to it
     k_scale = float(torch.tensor(dh ** 0.5, dtype=torch.float64).to(z.dtype))
     q, k, v = (z @ w.to(z.dtype) for w in (p.wq, p.wk, p.wv))
     gf = z.float() @ p.w_if.float()
     if part is not None:
-        qkvg = part_mesh(part).psum(torch.cat(
+        qkvg = reduce_out(mesh, torch.cat(
             [q.float(), k.float(), v.float(), gf], dim=-1), part.reduce)
         q, k, v = (t.to(z.dtype) for t in qkvg[..., :3 * m].split(m, dim=-1))
         gf = qkvg[..., 3 * m:]
@@ -1018,10 +1075,11 @@ def apply_mlstm(cfg: ModelConfig, p, x, cache=None):
         hs = ht[:, None]
     hs = rms_norm(hs.reshape(b, s, m).to(x.dtype), p.gn, cfg.norm_eps)
     if part is not None:
-        hs = hs[..., part.lo:part.lo + part.n]
+        # the whole cell's normed output enters the rank's columns
+        hs = split_in(mesh, hs, part.reduce)[..., part.lo:part.lo + part.n]
     y = (hs * F.silu(gate)) @ p.w_down.to(x.dtype)
     if part is not None:
-        y = part_mesh(part).psum(y, part.reduce)
+        y = reduce_out(mesh, y, part.reduce)
     return x + y, cache
 
 
@@ -1102,10 +1160,13 @@ def apply_slstm(cfg: ModelConfig, p, x, cache=None):
         hs = state[2][:, None]
     hs = rms_norm(hs.reshape(b, s, d).to(x.dtype), p.gn, cfg.norm_eps)
     y = x + hs
-    hff = swiglu(rms_norm(y, p.norm2, cfg.norm_eps) @ p.up.to(y.dtype))
-    out = hff @ p.down.to(y.dtype)
-    if p.part is not None and p.part.reduce:
-        out = part_mesh(p.part).psum(out, p.part.reduce)
+    yn = rms_norm(y, p.norm2, cfg.norm_eps)
+    split = p.part is not None and p.part.reduce
+    if split:
+        yn = split_in(part_mesh(p.part), yn, p.part.reduce)
+    out = swiglu(yn @ p.up.to(y.dtype)) @ p.down.to(y.dtype)
+    if split:
+        out = reduce_out(part_mesh(p.part), out, p.part.reduce)
     return y + out, cache
 
 

@@ -211,9 +211,3 @@ def masked_nll(logits: torch.Tensor, targets: torch.Tensor,
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return ((logz - gold) * mask.float()).sum()
 
-
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: torch.Tensor, logit_cap: float = 0.0) -> torch.Tensor:
-    """Token-mean cross-entropy in float32 after the logit softcap."""
-    return masked_nll(logits, targets, mask, logit_cap) / torch.clamp(
-        mask.float().sum(), min=1.0)

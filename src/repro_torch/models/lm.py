@@ -34,7 +34,10 @@ the whole [B, V].  Token ids come whole to every rank;
 :func:`serve_step` and :func:`prefill` run the rank's rows of them.
 Caches hold the rank's rows, the kv heads it reads and its RG-LRU
 columns; MLA's latent and the xLSTM cells' states are whole; ``pos`` stays
-replicated.
+replicated.  :func:`lm_loss` under a layout is vocab-parallel on the
+rank's rows, and its backward goes through each collective's adjoint
+(``models.collectives``); the gradients it leaves are partial over the
+batch's axes (``launch.steps.make_train_step`` sums them).
 """
 from __future__ import annotations
 
@@ -48,9 +51,9 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.models import blocks as B
+from repro_torch.models.collectives import reduce_out, split_in
 from repro_torch.models.common import (
-    ParamSpec, cross_entropy, masked_nll, resolve_device, rms_norm, softcap,
-    tree_init,
+    ParamSpec, masked_nll, resolve_device, rms_norm, softcap, tree_init,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -200,7 +203,7 @@ class LM(nn.Module):
         plan = plan_model(cfg)
         if layout is not None:
             from repro_torch.models.shard import check_supported
-            check_supported(cfg, "train" if trainable else "prefill")
+            check_supported(cfg)
             if ep_size > 1:
                 raise ValueError("a layout and ep_size do not combine")
             plan = layout.plan()
@@ -295,6 +298,20 @@ def _remat(cfg: ModelConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
+def embed(cfg: ModelConfig, params: LM, ids: torch.Tensor) -> torch.Tensor:
+    """The rows of ``embed`` for token ``ids``, in the parameters' dtype;
+    under a layout vocab-parallel: the rank's rows, the others' ids masked
+    to zero, reduced over the vocabulary's axes."""
+    vocab = getattr(params, "vocab_part", None)
+    if vocab is None or not vocab.reduce:
+        return params.embed[ids.long()]
+    ids = ids.long() - vocab.lo
+    inside = ((ids >= 0) & (ids < vocab.n))[..., None]
+    emb = params.embed[ids.clamp(0, vocab.n - 1)]
+    return reduce_out(B.part_mesh(vocab), torch.where(inside, emb, 0),
+                      vocab.reduce)
+
+
 def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
             pos: Optional[torch.Tensor] = None,
             caches: Optional[Dict[str, Any]] = None, rows=()):
@@ -312,17 +329,8 @@ def forward(cfg: ModelConfig, params: LM, inputs: torch.Tensor,
     was split over to give the rank ``inputs`` (``layout.rows``).
     """
     b, s = inputs.shape[:2]
-    vocab = getattr(params, "vocab_part", None)
-    if cfg.embed_inputs and vocab is not None and vocab.reduce:
-        # vocab-parallel: the rank's rows, the others' ids masked to zero
-        ids = inputs.long() - vocab.lo
-        inside = ((ids >= 0) & (ids < vocab.n))[..., None]
-        emb = params.embed[ids.clamp(0, vocab.n - 1)]
-        x = B.part_mesh(vocab).psum(torch.where(inside, emb, 0),
-                                    vocab.reduce).to(cfg.dtype("compute"))
-        x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
-    elif cfg.embed_inputs:
-        x = params.embed[inputs.long()].to(cfg.dtype("compute"))
+    if cfg.embed_inputs:
+        x = embed(cfg, params, inputs).to(cfg.dtype("compute"))
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
     else:
         x = inputs.to(cfg.dtype("compute"))
@@ -367,10 +375,29 @@ def gather_logits(cfg: ModelConfig, params: LM, logits: torch.Tensor,
     return logits
 
 
-def _chunk_nll(cfg: ModelConfig, params: LM, h: torch.Tensor,
+def _vocab_nll(cfg: ModelConfig, params: LM, h: torch.Tensor,
                t: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """Summed NLL of one chunk from its logits in the compute dtype."""
-    return masked_nll(logits_fn(cfg, params, h), t, m, cfg.logit_softcap)
+    """Summed NLL of the rank's rows ``h`` [b, c, d] (targets ``t``, mask
+    ``m``), float32 after the logit softcap, from the rank's vocab slice
+    of the logits: the logsumexp's max over the slices (no gradient goes
+    through it), its sum of exponentials and the gold logit (from the rank
+    that holds the target; the others add 0) reduced over the vocabulary's
+    axes in one sum.  Without a layout, or with the vocabulary whole on
+    the rank, the plain ``masked_nll``."""
+    vocab = getattr(params, "vocab_part", None)
+    if vocab is None or not vocab.reduce:
+        return masked_nll(logits_fn(cfg, params, h), t, m, cfg.logit_softcap)
+    mesh = B.part_mesh(vocab)
+    lg = softcap(logits_fn(cfg, params, split_in(mesh, h, vocab.reduce))
+                 .float(), cfg.logit_softcap)
+    top = mesh.all_gather(lg.detach().amax(-1), vocab.reduce).amax(0)
+    ids = t.long() - vocab.lo
+    inside = (ids >= 0) & (ids < vocab.n)
+    gold = torch.gather(lg, -1, ids.clamp(0, vocab.n - 1)[..., None])[..., 0]
+    sums = reduce_out(mesh, torch.stack(
+        [torch.exp(lg - top[..., None]).sum(-1),
+         torch.where(inside, gold, 0)]), vocab.reduce)
+    return ((top + torch.log(sums[0]) - sums[1]) * m.float()).sum()
 
 
 def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]):
@@ -386,50 +413,65 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: Dict[str, torch.Tensor]):
     and adds 0.3 times its cross-entropy (DeepSeek-V3); inputs that come
     embedded have no embedding table to read, and skip it, as the
     reference does.
+
+    Under a layout (a model cut for a rank, run under its mesh) the batch
+    comes whole to every rank, which runs its rows of it: the loss is
+    vocab-parallel (:func:`_vocab_nll`), each rank sums its rows' NLL and
+    divides by the whole batch's token count (the whole mask is on every
+    rank), and the returned loss is those shares summed over the batch's
+    axes, whose gradient reaches each rank's share unchanged
+    (``collectives.reduce_out``).  The gradients a rank's backward leaves
+    are partial over the batch's axes (``models.shard`` says which leaves
+    to sum over which axes).
     """
-    if getattr(params, "layout", None) is not None:
-        from repro_torch.models.shard import TRAIN_ITEM
-        raise NotImplementedError(f"{cfg.name}: the loss of a rank's "
-                                  f"shards: {TRAIN_ITEM}")
-    inputs, targets, mask = batch["inputs"], batch["targets"], batch["mask"]
-    hidden, _ = forward(cfg, params, inputs, batch.get("pos"))
+    total = batch["mask"].float().sum()
+    pos = batch.get("pos")
+    (inputs, targets, mask), axes = _own_rows(params, (
+        batch["inputs"], batch["targets"], batch["mask"]))
+    if pos is not None:
+        pos, _ = _own_rows(params, pos)
+    hidden, _ = forward(cfg, params, inputs, pos, rows=axes)
     s, chunk = hidden.shape[1], cfg.loss_chunk
     if chunk and s % chunk == 0 and s > chunk:
-        nll = functools.partial(checkpoint, _chunk_nll, use_reentrant=False) \
-            if torch.is_grad_enabled() else _chunk_nll
-        tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        nll = functools.partial(checkpoint, _vocab_nll, use_reentrant=False) \
+            if torch.is_grad_enabled() else _vocab_nll
+        tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for c in range(0, s, chunk):
-            m = mask[:, c:c + chunk].float()
             tot = tot + nll(cfg, params, hidden[:, c:c + chunk],
-                            targets[:, c:c + chunk], m)
-            cnt = cnt + m.sum()
-        loss = tot / torch.clamp(cnt, min=1.0)
+                            targets[:, c:c + chunk], mask[:, c:c + chunk])
+        loss = tot / torch.clamp(total, min=1.0)
     else:
-        loss = cross_entropy(logits_fn(cfg, params, hidden), targets, mask,
-                             cfg.logit_softcap)
+        loss = _vocab_nll(cfg, params, hidden, targets, mask) / \
+            torch.clamp(total, min=1.0)
 
     if cfg.mtp and cfg.embed_inputs:
-        nxt = params.embed[targets.long()].to(hidden.dtype)
+        nxt = embed(cfg, params, targets).to(hidden.dtype)
         h2 = torch.cat([hidden, nxt], dim=-1) @ params.mtp_proj.to(
             hidden.dtype)
         h2, _ = apply_block(cfg, "attn_dense", params.mtp_block, h2, None,
-                            None)
+                            None, axes)
         h2 = rms_norm(h2, params.mtp_norm, cfg.norm_eps)
         t2 = torch.cat([targets[:, 1:], targets[:, -1:]], dim=1)
         m2 = torch.cat([mask[:, :-1], torch.zeros_like(mask[:, :1])],
                        dim=1).float()
-        loss = loss + 0.3 * cross_entropy(logits_fn(cfg, params, h2), t2, m2,
-                                          cfg.logit_softcap)
+        total2 = batch["mask"][:, :-1].float().sum()
+        loss = loss + 0.3 * _vocab_nll(cfg, params, h2, t2, m2) / \
+            torch.clamp(total2, min=1.0)
+    if axes:
+        loss = reduce_out(B.part_mesh(params.vocab_part), loss, axes)
     return loss
 
 
-def _own_rows(params: LM, x: torch.Tensor):
-    """The rows of a whole batch ``x`` that the model's rank runs, and the
-    mesh axes the batch is split over: all of ``x`` and none without a
-    layout."""
+def _own_rows(params: LM, x):
+    """The rows of a whole batch ``x`` (a tensor, or a tuple of them) that
+    the model's rank runs, and the mesh axes the batch is split over: all
+    of ``x`` and none without a layout."""
     if getattr(params, "layout", None) is None:
         return x, ()
-    rows, axes = params.layout.rows(x.shape[0])
+    first = x[0] if isinstance(x, tuple) else x
+    rows, axes = params.layout.rows(first.shape[0])
+    if isinstance(x, tuple):
+        return tuple(t[rows] for t in x), axes
     return x[rows], axes
 
 
@@ -509,7 +551,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     kv_heads = width = None
     if mesh is not None:
         from repro_torch.models.shard import Layout, check_supported
-        check_supported(cfg, "decode")
+        check_supported(cfg)
         layout = Layout.of(cfg, mesh)
         rows = layout.rows(batch)[0]
         batch = rows.stop - rows.start

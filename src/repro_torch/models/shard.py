@@ -61,8 +61,21 @@ Under a mesh the blocks run on the rank's shards (:class:`Part` on each
 The embedding is vocab-parallel (ids outside the rank's rows masked, then
 reduced), and the logits are the rank's vocab slice, gathered with the
 batch (``lm.gather_logits``).  DeepSeek-V3's MTP leaves are laid out and
-held; no serving step runs them.  Training under a mesh raises
-(:func:`check_supported`), naming its ROADMAP.md item.
+held; no serving step runs them.
+
+Training (``lm.lm_loss`` under the mesh, ``launch.steps.make_train_step``
+with ``mesh=``): the loss is vocab-parallel on the rank's rows, and the
+backward goes through every collective by its adjoint
+(``models.collectives``).  A replicated leaf that enters a rank's split
+work (the kv heads a rank's q heads read, qk-norm's scales, RG-LRU's
+``lam``, the MoE's router) sums its gradient over the axes of that split
+inside the backward; after it, a leaf's gradient is partial only over the
+batch's axes that it is not split over (:meth:`Layout.grad_axes`):
+DeepSeek-V3's experts, split over ``("data", "model")``, see every row
+through the MoE's gathered batch and take no sum.  The global norm sums
+each leaf's squares over the axes it is split over
+(:meth:`Layout.split_axes`), a replicated leaf counted once; the moments
+lie on the rank's shards.
 """
 from __future__ import annotations
 
@@ -78,16 +91,11 @@ from repro_torch.models.config import ModelConfig
 # (part, leaf): a rank holds [a_r | b_r] (module docstring)
 FUSED_LEAVES = (("ffn", "w_in"), ("cell", "w_up"), ("cell", "up"),
                 ("moe", "shared_in"))
-TRAIN_ITEM = ("training under a mesh (the vocab-parallel loss, the "
-              "gradients reduced over \"data\") is ROADMAP.md item 32")
 
 
-def check_supported(cfg: ModelConfig, kind: str = "prefill") -> None:
-    """Raise unless a step of ``kind`` (``prefill``, ``decode``, ``train``)
-    of ``cfg`` runs under a mesh: serving, with rules that split neither
-    the sequence nor ``d_model``."""
-    if kind == "train":
-        raise NotImplementedError(f"{cfg.name}: {TRAIN_ITEM}")
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless the steps of ``cfg`` (prefill, decode, train) run under
+    a mesh: with rules that split neither the sequence nor ``d_model``."""
     split = [a for a in ("seq", "d_model", "kv_seq")
              if getattr(cfg.sharding, a) is not None]
     if split:
@@ -334,6 +342,21 @@ class Layout:
                            self.shape)[0]
         sl = shard_slice((entry,), (batch,), self.shape, self.coords)[0]
         return sl, _live(entry, self.shape)
+
+    def split_axes(self, s: ParamSpec) -> Tuple[str, ...]:
+        """The mesh axes (of more than one rank) that a leaf of plan entry
+        ``s`` (``lm.plan_model``'s, at the whole shape) is split over, in
+        the mesh's order."""
+        names = {n for e in self.spec(s) for n in _live(e, self.shape)}
+        return tuple(a for a in self.shape if a in names)
+
+    def grad_axes(self, s: ParamSpec, rows: Tuple[str, ...]
+                  ) -> Tuple[str, ...]:
+        """The axes a leaf's gradient is summed over after the backward:
+        of ``rows``, the axes a batch splits over (:meth:`rows`), those
+        the leaf is not split over (module docstring)."""
+        split = self.split_axes(s)
+        return tuple(a for a in rows if a not in split)
 
     def param_bytes(self) -> int:
         """Bytes of the rank's parameters in ``cfg.param_dtype``."""

@@ -13,12 +13,18 @@ parameters and moments in place, leaf by leaf (the reference returns new
 trees), so a step holds one leaf's float32 temporaries, not a second copy
 of the state; a leaf of more than ``ADAMW_SLICE_ELEMS`` elements goes in
 slices of its leading axis, so that they stay near that size.
+
+Under a mesh (a model cut for a rank, ``models.shard``) the parameters,
+gradients and moments are the rank's shards: :func:`global_norm` sums
+each leaf's squares over the mesh axes it is split over (``norm_axes``),
+so that every rank clips by the same norm, bit for bit, and the update is
+elementwise on the shards.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,10 +64,28 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * (0.5 * (1.0 + torch.cos(math.pi * t)))
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+def global_norm(tree: Dict[str, torch.Tensor], mesh=None,
+                norm_axes: Optional[Dict[str, Tuple[str, ...]]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32.  ``mesh``:
+    the leaves are a rank's shards, and the squares of the leaves split
+    over the same axes (``norm_axes[name]``, none for a replicated leaf)
+    are added on the rank, then summed over those axes with
+    ``mesh.psum`` (float32, in rank order); the groups are added in the
+    order of their axes, so that every rank gets the same bits."""
     sums = [leaf.float().square().sum() for leaf in tree.values()]
-    return torch.sqrt(sum(sums[1:], sums[0]))
+    if mesh is None:
+        return torch.sqrt(sum(sums[1:], sums[0]))
+    groups: Dict[Tuple[str, ...], list] = {}
+    for name, sq in zip(tree, sums):
+        groups.setdefault(tuple(norm_axes.get(name, ())), []).append(sq)
+    total = None
+    for axes in sorted(groups):
+        part = torch.stack(groups[axes]).sum()
+        if axes:
+            part = mesh.psum(part, axes)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 def leaf_slices(shape) -> list:
@@ -89,12 +113,14 @@ def adamw_init(params: Dict[str, torch.Tensor], cfg: AdamWConfig):
 
 @torch.no_grad()
 def adamw_update(grads: Dict[str, torch.Tensor], opt_state,
-                 params: Dict[str, torch.Tensor], cfg: AdamWConfig):
+                 params: Dict[str, torch.Tensor], cfg: AdamWConfig,
+                 mesh=None, norm_axes=None):
     """One AdamW step: ``params`` and the moments of ``opt_state`` are
     updated in place.  Returns ``(params, opt_state, {"grad_norm", "lr"})``
-    with ``opt_state["step"]`` a new tensor one higher."""
+    with ``opt_state["step"]`` a new tensor one higher.  ``mesh`` and
+    ``norm_axes``: the leaves are a rank's shards (:func:`global_norm`)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, norm_axes)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.clip_norm > 0 else 1.0
     lr = cosine_schedule(cfg, step)

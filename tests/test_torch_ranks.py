@@ -14,12 +14,20 @@ where kv 2 falls back to replicated, and ``(2, 2)``; DeepSeek-V3's MLA,
 MoE and MTP at ``(1, 4)`` and at ``(2, 2)`` with its experts over
 ``("data", "model")`` and slots dropped; Llama 4 Scout's MoE at ``(1,
 4)`` under ``gather`` and ``a2a``; RecurrentGemma 2B's RG-LRU and xLSTM
-125M's mLSTM and sLSTM at ``(1, 4)``).  All four meshes are views of the
-one world of 4.  While the ranks run, one subprocess runs the reference
-on 4 forced host devices (as ``tests/test_torch_distributed.py``'s mesh
-test): its ``a2a``, and the LMs laid out by ``param_shardings`` with
-their prefill and serve steps jitted under the mesh (GSPMD, its MoE on
-``gather``).
+125M's mLSTM and sLSTM at ``(1, 4)``); and the LM trained over the mesh
+(``lm_train``: Qwen3-1.7B at ``(1, 4)`` and ``(2, 2)``, the latter with
+the chunked loss under remat full, DeepSeek-V3 at ``(2, 2)`` with its
+experts over ``("data", "model")``, MLA and MTP, RecurrentGemma 2B at
+``(1, 4)``, one step each; Qwen3 at ``(2, 2)`` two steps and DeepSeek-V3
+at ``(2, 2)`` through the ``a2a`` exchange one, against the port's
+replicated steps).  All four
+meshes are views of the one world of 4.  While the ranks run,
+``REF_PROCS`` subprocesses run the reference on 4 forced host devices
+(as ``tests/test_torch_distributed.py``'s mesh test): its ``a2a``, the
+LMs laid out by ``param_shardings`` with their prefill and serve steps
+jitted under the mesh (GSPMD, its MoE on ``gather``), and, on the same
+layout with the batch split over ``"data"``, ``jax.value_and_grad`` of
+``lm_loss`` and one ``adamw_update`` jitted together.
 
 The sizes are ``tests/test_torch_distributed.py``'s (wordcount VOCAB 32 x
 64 documents of 4 words; PageRank S 256, F 5; SSSP 96 vertices, 4
@@ -39,6 +47,11 @@ steps' within 2e-4 of the largest |logit| of the reference's
 1e-5 of its part of the port's replicated run's (its rows, the kv heads
 it reads, its RG-LRU columns; MLA's latent and the cells' states whole);
 the last decode step within 2e-4 of the prefill of the decoded tokens.
+``lm_train`` (``tests/test_torch_train.py``'s bounds): the loss and grad
+norm within 1e-5, each rank's gradient shard within 1e-4 of the leaf's
+largest |gradient| and each parameter shard after the step within 1e-4
+of the leaf's largest |update|, against the reference's; the two
+``"replicated"`` cases likewise against the port's replicated steps.
 """
 import json
 import os
@@ -139,6 +152,38 @@ LM_TP = {
     "tp-xlstm-1x4": ("xlstm_125m", ONE_BY_4, (None, None, 32), {}),
 }
 TP_B, TP_S, TP_STEPS = 2, 8, 8
+# training over the mesh (``lm_train``): name -> (arch, mesh, the job's
+# config keys, steps, held against the reference's GSPMD step or the
+# port's own replicated run); TRAIN_B x TRAIN_S tokens a step, float32 at
+# smoke width.  Qwen3's 2 x 2 takes the chunked loss (chunks of 4) under
+# remat full, so that the loss's and the layers' collectives run again
+# in the backward; DeepSeek-V3's experts lie over ("data", "model") and
+# its MTP runs.
+LM_TRAIN = {
+    "train-qwen3-1x4": ("qwen3_1_7b", ONE_BY_4, {}, 1, "reference"),
+    "train-qwen3-2x2": ("qwen3_1_7b", TWO_BY_2, {
+        "replace": {"loss_chunk": 4, "remat": "full"}}, 1, "reference"),
+    "train-deepseek-2x2": (DEEPSEEK, TWO_BY_2, {
+        "moe": {"ep_axes": ["data", "model"]}}, 1, "reference"),
+    "train-recurrentgemma-1x4": ("recurrentgemma_2b", ONE_BY_4, {}, 1,
+                                 "reference"),
+    "train-qwen3-2x2-steps": ("qwen3_1_7b", TWO_BY_2, {}, 2, "replicated"),
+    # the MoE's a2a exchange and its reverse in the backward (the
+    # reference runs its MoE on gather); no slot drops at this capacity,
+    # so the replicated gather step is its yardstick
+    "train-deepseek-a2a-2x2": (DEEPSEEK, TWO_BY_2, {
+        "moe": {"ep_axes": ["data", "model"]},
+        "replace": {"moe_impl": "a2a"}}, 1, "replicated"),
+}
+TRAIN_B, TRAIN_S = 2, 8
+# AdamW's eps at 1 keeps the update smooth in the gradient (at 1e-8 the
+# first step is lr times the gradient's sign, which rounding decides
+# wherever the gradient is near 0), so that the parameters after a step
+# are held to the gradients' bound
+TRAIN_OPT = {"lr": 1e-2, "warmup": 1, "eps": 1.0}
+# tests/test_torch_train.py's bounds: the loss within LOSS_TOL, each
+# gradient leaf within GRAD_REL of its largest |value|
+LOSS_TOL, GRAD_REL = 1e-5, 1e-4
 # RankMesh.psum, one job over PSUM_MESH: name -> the axis group summed
 PSUM_MESH = {"data": 2, "model": 2}
 PSUM = {"psum-model": ["model"], "psum-world": ["data", "model"]}
@@ -280,8 +325,11 @@ def _tp_shape(name):
 def _tp_weights(name, seed):
     """Every leaf of the smoke LM drawn with numpy, matrices at 1/sqrt of
     their input width (``launch.ranks.parity_fan_in``), norms zeros."""
+    return _draw_weights(_tp_config(name), seed)
+
+
+def _draw_weights(cfg, seed):
     from repro_torch.launch.ranks import parity_fan_in
-    cfg = _tp_config(name)
     rng = np.random.default_rng(seed)
     flat = {}
     for name, s in tlm.plan_model(cfg).items():
@@ -291,6 +339,31 @@ def _tp_weights(name, seed):
         flat[name] = (rng.standard_normal(s.shape, np.float32) / np.float32(
             np.sqrt(parity_fan_in(name, s.shape))))
     return cfg, flat
+
+
+def _train_spec(name):
+    """The ``lm_train`` job's config keys of case ``name``: smoke width in
+    float32, the case's ``replace`` and ``moe``."""
+    arch, mesh, extra, steps, _ = LM_TRAIN[name]
+    spec = {"arch": arch, "smoke": True, "mesh": mesh, "opt": TRAIN_OPT,
+            "replace": dict(extra.get("replace", {}),
+                            param_dtype="float32", compute_dtype="float32")}
+    if "moe" in extra:
+        spec["moe"] = extra["moe"]
+    return spec
+
+
+def _train_inputs(name, seed):
+    """(config, weights, ids [steps, B, S + 1], mask [steps, B, S]): a
+    fifth of the positions masked off."""
+    from repro_torch.launch.ranks import lm_config
+    cfg = lm_config(_train_spec(name))
+    _, flat = _draw_weights(cfg, seed)
+    rng = np.random.default_rng(seed + 100)
+    steps = LM_TRAIN[name][3]
+    toks = rng.integers(0, cfg.vocab, (steps, TRAIN_B, TRAIN_S + 1)
+                        ).astype(np.int32)
+    return cfg, flat, toks, rng.random((steps, TRAIN_B, TRAIN_S)) < 0.8
 
 
 def _ref_paths(cfg, flat):
@@ -331,8 +404,9 @@ def _lm_model(arch, seed=3):
 _REF_MOE = """
 import json, sys
 import numpy as np, jax, jax.numpy as jnp
-from jax.sharding import Mesh
-import dataclasses
+from jax.sharding import Mesh, NamedSharding, PartitionSpec
+import dataclasses, functools
+from repro.optim import AdamWConfig, adamw_init, adamw_update
 import repro.configs as C
 from repro.models import blocks, meshctx
 from repro.models import lm
@@ -341,10 +415,13 @@ from repro.models.config import smoke_config
 from repro.launch.steps import make_prefill_step, make_serve_step
 cases = json.loads(open(sys.argv[1]).read())
 out, index = {}, {}
-for name, c in cases["lm"].items():
-    z = np.load(c["data"])
+
+
+def case(c, z):
+    # the case's config, mesh and weights laid out by param_shardings
     cfg = smoke_config(C.get(c["arch"])).replace(
-        param_dtype="float32", compute_dtype="float32")
+        param_dtype="float32", compute_dtype="float32",
+        **c.get("replace", {}))
     cfg = cfg.replace(sharding=dataclasses.replace(cfg.sharding,
                                                    batch=("data",)))
     if c.get("moe"):
@@ -365,7 +442,42 @@ for name, c in cases["lm"].items():
         node = tree.get(k, {})
         tree[k] = [node[str(i)] for i in range(len(node))]
     shard = lm.param_shardings(cfg, mesh)
-    params = jax.device_put(tree, shard)
+    return cfg, mesh, shard, jax.device_put(tree, shard)
+
+
+def flat(tree):
+    return {"/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                     for p in path): np.asarray(a)
+            for path, a in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+for name, c in cases["train"].items():
+    # the loss, its gradients and one AdamW step, jitted under the mesh
+    # with the batch split over "data" (GSPMD's collectives)
+    z = np.load(c["data"])
+    cfg, mesh, shard, params = case(c, z)
+    opt_cfg = AdamWConfig(**c["opt"])
+    rows = NamedSharding(mesh, PartitionSpec("data"))
+    toks = z["toks"][0]
+    batch = {k: jax.device_put(jnp.asarray(a), rows) for k, a in (
+        ("inputs", toks[:, :-1]), ("targets", toks[:, 1:]),
+        ("mask", z["mask"][0]))}
+
+    def step(params, opt_state, batch):
+        loss, grads = jax.value_and_grad(functools.partial(
+            lm.lm_loss, cfg))(params, batch)
+        new, _, info = adamw_update(grads, opt_state, params, opt_cfg)
+        return loss, grads, new, info["grad_norm"]
+    with mesh:
+        loss, grads, new, gnorm = jax.jit(step)(
+            params, adamw_init(params, opt_cfg), batch)
+    out[name + "_loss"] = np.asarray(loss)
+    out[name + "_gnorm"] = np.asarray(gnorm)
+    out.update((f"{name}_g/{k}", a) for k, a in flat(grads).items())
+    out.update((f"{name}_p/{k}", a) for k, a in flat(new).items())
+for name, c in cases["lm"].items():
+    z = np.load(c["data"])
+    cfg, mesh, shard, params = case(c, z)
     index[name] = {}
     def record(path, s, a):
         key = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
@@ -470,6 +582,21 @@ def ranks(tmp_path_factory):
         lm_cases[name] = {"arch": spec["arch"], "mesh": spec["mesh"],
                           "moe": spec.get("moe"), "steps": TP_STEPS,
                           "data": str(path)}
+    train_cases = {}
+    for i, (name, (*_, steps, against)) in enumerate(LM_TRAIN.items()):
+        path = root / f"in_{name}.npz"
+        cfg, flat, tr_toks, tr_mask = _train_inputs(name, 60 + i)
+        paths, _ = _ref_paths(cfg, flat)
+        np.savez(path, toks=tr_toks, mask=tr_mask,
+                 **{f"p.{n}": a for n, a in flat.items()},
+                 **{f"r/{k}": a for k, a in paths.items()})
+        spec = _train_spec(name)
+        jobs.append(dict(spec, job="lm_train", name=name, data=str(path),
+                         dump=True))
+        if against == "reference":
+            train_cases[name] = dict(spec, data=str(path),
+                                     replace=LM_TRAIN[name][2].get(
+                                         "replace", {}))
     toks = np.random.default_rng(4).integers(0, 256, (2, 16)).astype(
         np.int32)
     for name, (arch, mesh) in MOE_LM.items():
@@ -487,14 +614,16 @@ def ranks(tmp_path_factory):
     # the reference's cases in REF_PROCS subprocesses side by side (each
     # LM case's GSPMD compiles take seconds): every REF_PROCS-th LM case in
     # each, the MoE layers in the last
-    names = sorted(lm_cases)
+    names, train_names = sorted(lm_cases), sorted(train_cases)
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu", PYTHONPATH=SRC)
     refs = []
     for i in range(REF_PROCS):
         part = {"moe": ref_cases if i == REF_PROCS - 1 else {},
-                "lm": {n: lm_cases[n] for n in names[i::REF_PROCS]}}
+                "lm": {n: lm_cases[n] for n in names[i::REF_PROCS]},
+                "train": {n: train_cases[n]
+                          for n in train_names[i::REF_PROCS]}}
         (root / f"ref{i}.json").write_text(json.dumps(part))
         refs.append(subprocess.Popen(
             [sys.executable, "-c", _REF_MOE, str(root / f"ref{i}.json"),
@@ -791,6 +920,133 @@ def test_lm_tp_caches_and_decode_vs_prefill(ranks, tp_replicated, name):
     assert _rel(dec, got["decode"]) < LM_REL
     last = softcap(got["prefill_short"][:, 0], cfg.logit_softcap)
     assert _rel(last, got["decode"][-1]) < LM_REL
+
+
+# ---------------------------------------------------------------------------
+# Training over the mesh against the reference's GSPMD step
+# ---------------------------------------------------------------------------
+
+def _train_ref(ranks, name):
+    """(config, the port's weights by name, the reference's loss, grad
+    norm, gradients and parameters after its step, by the port's names:
+    the body leaves' cycle taken from the reference's stacked leaf)."""
+    cfg, flat, _, _ = _train_inputs(name, 60 + list(LM_TRAIN).index(name))
+    _, where = _ref_paths(cfg, flat)
+    ref = ranks["ref"]
+
+    def by_name(tag):
+        out = {}
+        for n, (path, cyc) in where.items():
+            a = ref[f"{name}_{tag}/{path}"]
+            out[n] = a if cyc is None else a[cyc]
+        return out
+    return (cfg, flat, float(ref[name + "_loss"]),
+            float(ref[name + "_gnorm"]), by_name("g"), by_name("p"))
+
+
+def _rank_layouts(cfg, mesh):
+    from repro_torch.core.distributed import coords_of
+    from repro_torch.models.shard import Layout
+    return [Layout(cfg, mesh, coords_of(mesh, r)) for r in range(WORLD)]
+
+
+TRAIN_REF = sorted(n for n, c in LM_TRAIN.items() if c[4] == "reference")
+
+
+@pytest.mark.parametrize("name", TRAIN_REF)
+def test_lm_train_grads_match_reference(ranks, name):
+    """The first step's loss (within 1e-5) and every rank's gradient shard
+    of every leaf, the whole batch's (within 1e-4 of the leaf's largest
+    |gradient|), against the reference's ``jax.value_and_grad(lm_loss)``
+    jitted under its 4-device mesh, each device's shard; the fused inputs
+    by the ``[a_r | b_r]`` rule (``Layout.take``)."""
+    cfg, _, loss, _, grads, _ = _train_ref(ranks, name)
+    plan = tlm.plan_model(cfg)
+    mesh = LM_TRAIN[name][1]
+    for r, layout in enumerate(_rank_layouts(cfg, mesh)):
+        got = torch.load(ranks["root"] / f"{name}_r{r}.pt")
+        assert abs(got["loss0"] - loss) <= LOSS_TOL * max(1.0, abs(loss))
+        assert sorted(got["grads0"]) == sorted(plan)
+        for n, g in got["grads0"].items():
+            want = layout.take(n, plan[n], grads[n])
+            assert tuple(g.shape) == want.shape, n
+            assert float(np.abs(g.numpy() - want).max()) <= \
+                GRAD_REL * float(np.abs(grads[n]).max()), (r, n)
+
+
+@pytest.mark.parametrize("name", TRAIN_REF)
+def test_lm_train_step_matches_reference(ranks, name):
+    """One step of ``make_train_step(mesh=)``: every rank reports the
+    reference's loss and grad norm (within 1e-5), and every parameter
+    shard after it equals the reference's ``make_train_step`` under its
+    mesh within 1e-4 of the leaf's largest |update|; the gradients'
+    reduction over ``"data"`` ran where the batch splits."""
+    cfg, flat, loss, gnorm, _, new = _train_ref(ranks, name)
+    plan = tlm.plan_model(cfg)
+    mesh = LM_TRAIN[name][1]
+    for r, layout in enumerate(_rank_layouts(cfg, mesh)):
+        out = ranks["results"][r][name]
+        assert abs(out["loss"][0] - loss) <= LOSS_TOL * max(1.0, abs(loss))
+        assert abs(out["grad_norm"][0] - gnorm) <= LOSS_TOL * max(1.0, gnorm)
+        comm = out["comm"][0]
+        assert (comm["grads"]["psum_calls"] > 0) == (mesh["data"] > 1)
+        assert comm["backward"]["psum_calls"] > 0
+        got = torch.load(ranks["root"] / f"{name}_r{r}.pt")["params"]
+        for n, p in got.items():
+            want = layout.take(n, plan[n], new[n])
+            moved = np.abs(want - layout.take(n, plan[n], flat[n])).max()
+            assert moved > 0, n
+            assert float(np.abs(p.numpy() - want).max()) <= \
+                GRAD_REL * moved, (r, n)
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, c in LM_TRAIN.items() if c[4] == "replicated"))
+def test_lm_train_on_ranks_equals_replicated(ranks, name):
+    """``make_train_step(mesh=)`` on (data 2, model 2) against the port's
+    own replicated steps (the MoE on ``gather``) on the same weights and
+    batches: each step's loss and grad norm within 1e-5, the first step's
+    gradient shards, the parameter shards and AdamW's first moments after
+    the steps within 1e-4 of the leaf's largest |gradient|, |update| and
+    |moment|.  Qwen3's two steps show
+    the gradients' reduction over ``"data"`` and the global norm right
+    without the reference; DeepSeek-V3's the ``a2a`` exchanges' reverse."""
+    from repro_torch.launch.ranks import lm_config, train_batches, train_lm
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.transfer import params_from_numpy, \
+        to_reference_tree
+    spec = dict(_train_spec(name), data=str(ranks["root"] / f"in_{name}.npz"))
+    cfg = lm_config(spec).replace(moe_impl="gather")
+    z = np.load(spec["data"])
+    flat = {k[2:]: torch.from_numpy(z[k]) for k in z.files
+            if k.startswith("p.")}
+    model = params_from_numpy(cfg, to_reference_tree(cfg, flat), "cpu",
+                              trainable=True)
+    batches = train_batches(spec, torch.from_numpy(z["toks"]))
+    _, grads = value_and_grad(cfg, model, batches[0])
+    want, state = train_lm(cfg, model, batches, torch.device("cpu"),
+                           opt=spec["opt"])
+    plan = tlm.plan_model(cfg)
+    params = dict(model.named_parameters())
+    for r, layout in enumerate(_rank_layouts(cfg, spec["mesh"])):
+        out = ranks["results"][r][name]
+        for k in ("loss", "grad_norm"):
+            assert np.allclose(out[k], want[k], rtol=LOSS_TOL, atol=0), k
+        assert all(c["grads"]["psum_calls"] > 0 for c in out["comm"])
+        got = torch.load(ranks["root"] / f"{name}_r{r}.pt")
+        for n, g in got["grads0"].items():
+            w = layout.take(n, plan[n], grads[n])
+            assert float((g - w).abs().max()) <= \
+                GRAD_REL * float(grads[n].abs().max()), (r, n)
+        for n, p in got["params"].items():
+            w = layout.take(n, plan[n], params[n].detach())
+            moved = float((w - layout.take(n, plan[n], flat[n])).abs().max())
+            assert float((p - w).abs().max()) <= GRAD_REL * moved, (r, n)
+        assert sorted(got["m"]) == sorted(plan)
+        for n, m in got["m"].items():
+            w = layout.take(n, plan[n], state["m"][n])
+            assert float((m - w).abs().max()) <= \
+                GRAD_REL * float(state["m"][n].abs().max()), (r, n)
 
 
 # ---------------------------------------------------------------------------

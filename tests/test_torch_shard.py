@@ -19,7 +19,11 @@ The dry-run: Qwen3-1.7B's prefill_32k at ``pod16x16`` on ``meta``, one
 rank: ``devices`` 256, ``argument_size`` the layout's parameter bytes
 plus the batch's, ``coll`` the closed form of ``launch.dryrun``'s
 docstring, and ``roofline.analyze`` reads a collective term over
-``LINK_BW``; a train cell at that mesh raises.  The serving cells of
+``LINK_BW``.  A train cell of Qwen3-1.7B at full width cut to 2 layers
+at that mesh: its parameter and moment bytes the layout's, its
+gradients' reduction one all-reduce of the bytes of the leaves summed
+over ``"data"``, its forward's collectives in closed form; the train
+cells of the four archs below likewise.  The serving cells of
 DeepSeek-V3, Llama 4 Scout, RecurrentGemma 2B and xLSTM 125M at both
 meshes, at one cycle's depth (and one cell of each at its full depth):
 rank 0's parameter bytes equal the reference's shards' and
@@ -40,7 +44,7 @@ import repro_torch.configs as TC
 from repro_torch.launch import dryrun, mesh, roofline
 from repro_torch.launch.steps import batch_specs
 from repro_torch.models import lm as tlm
-from repro_torch.models.config import SHAPES
+from repro_torch.models.config import SHAPES, ShapeCell
 from repro_torch.models.shard import (
     Layout, check_supported, fix_rules_for_mesh, is_fused_glu,
 )
@@ -162,7 +166,8 @@ def test_kv_heads_fall_back_and_read_their_own():
 def test_dryrun_one_rank_of_pod16x16():
     """Qwen3-1.7B prefill_32k on rank 0 of 16 x 16: devices, the
     parameter and batch bytes, the closed-form collectives, the
-    roofline's collective term; a train cell and an MoE arch raise."""
+    roofline's collective term; ``--all`` at a mesh counts all 31 cells,
+    the train cells among them."""
     arch = "qwen3_1_7b"
     cfg, cell = TC.get(arch), SHAPES["prefill_32k"]
     rec = dryrun.dryrun(cfg, cell, arch=arch, mesh="pod16x16")
@@ -184,16 +189,68 @@ def test_dryrun_one_rank_of_pod16x16():
     a = roofline.analyze(rec)
     assert a["t_collective_s"] == sum(full["coll"].values()) / mesh.LINK_BW
     assert a["t_collective_s"] > 0 and a["t_memory_s"] > 0
-    with pytest.raises(NotImplementedError, match="item 32"):
-        dryrun.dryrun(cfg, SHAPES["train_4k"], mesh="pod16x16")
-    assert len(dryrun.mesh_cells()) == 21
-    assert {a for a, _ in dryrun.mesh_cells()} == set(TC.ARCHS)
+    assert dryrun.mesh_cells() == TC.all_cells()
+    assert len(dryrun.mesh_cells()) == 31
+    assert sum(SHAPES[c].kind == "train" for _, c in dryrun.mesh_cells()) \
+        == len(TC.ARCHS)
+
+
+def test_dryrun_train_cell_at_pod16x16():
+    """Rank 0 of 16 x 16 training Qwen3-1.7B at full width cut to 2
+    layers, B 32 x S 64 (2 rows a rank), on ``meta``: its parameter and
+    moment bytes are ``Layout.param_bytes()`` and two float32 copies of
+    its shards, its arguments those, AdamW's step and the batch; the
+    gradients' reduction is one all-reduce of the bytes of the rank's
+    shards of the leaves summed over ``"data"`` (every leaf: none is
+    split over it), the norm's one float32 scalar over ``"model"``; the
+    forward's collectives in closed form (the embedding and each layer's
+    two reductions; the loss's sum of exponentials and gold logit, its
+    max over the vocabulary's 16 slices, the reported loss over
+    ``"data"``); the backward's at least the forward's again (remat
+    full)."""
+    from repro_torch.models.config import ShapeCell
+    arch = "qwen3_1_7b"
+    cfg = TC.get(arch).replace(n_layers=2)
+    cell = ShapeCell("train_cut", 64, 32, "train")
+    rec = dryrun.dryrun(cfg, cell, arch=arch, mesh="pod16x16")
+    full = rec["full"]
+    fixed = fix_rules_for_mesh(cfg, mesh.PRODUCTION)
+    layout = Layout(fixed, mesh.PRODUCTION, {"data": 0, "model": 0})
+    plan = tlm.plan_model(fixed)
+    local = layout.plan()
+    elems = sum(math.prod(s.shape) for s in local.values())
+    assert full["state_bytes"] == {"params": layout.param_bytes(),
+                                   "moments": 2 * 4 * elems}
+    batch = dryrun.storage_bytes(batch_specs(cfg, cell))
+    assert full["memory"]["argument_size"] == layout.param_bytes() + \
+        2 * 4 * elems + 4 + batch
+    rows, axes = layout.rows(cell.global_batch)
+    assert axes == ("data",)
+    summed = [n for n, s in plan.items() if layout.grad_axes(s, axes)]
+    assert summed == list(plan)
+    phases = full["coll_phases"]
+    assert phases["grads"] == {
+        "all-reduce": 2 * sum(math.prod(local[n].shape) for n in summed),
+        "all-gather": 0}
+    assert phases["update"] == {"all-reduce": 4, "all-gather": 0}
+    b_r, s, d = rows.stop - rows.start, cell.seq_len, cfg.d_model
+    assert phases["forward"] == {
+        "all-reduce": (2 * cfg.n_layers + 1) * b_r * s * d * 2
+        + 2 * b_r * s * 4 + 4,
+        "all-gather": 16 * b_r * s * 4}
+    assert phases["backward"]["all-reduce"] > \
+        phases["forward"]["all-reduce"]
+    assert sum(sum(p.values()) for p in phases.values()) == \
+        sum(full["coll"].values())
+    a = roofline.analyze(rec)
+    assert a["t_collective_s"] == sum(full["coll"].values()) / mesh.LINK_BW
 
 
 def test_a_cut_model_refuses_what_it_cannot_run():
     """A smoke Gemma 2 cut for rank 1 of ``{"data": 2, "model": 2}``: the
-    steps without that mesh, the forward outside it and the loss raise;
-    a config whose rules split ``d_model`` raises under a mesh."""
+    steps without that mesh, the forward outside it and the loss outside
+    it raise; a config whose rules split ``d_model`` raises under a
+    mesh."""
     import dataclasses
     import torch
     from repro_torch.launch.steps import make_prefill_step
@@ -209,16 +266,17 @@ def test_a_cut_model_refuses_what_it_cannot_run():
         make_prefill_step(cfg, "cpu")(model, {"inputs": toks})
     with pytest.raises(ValueError, match="shards for the mesh"):
         tlm.forward(cfg, model, torch.from_numpy(toks))
-    with pytest.raises(NotImplementedError, match="item 32"):
-        tlm.lm_loss(cfg, model, {"inputs": toks, "targets": toks,
-                                 "mask": np.ones((2, 4), bool)})
+    with pytest.raises(ValueError, match="shards for the mesh"):
+        tlm.lm_loss(cfg, model, {"inputs": torch.from_numpy(toks),
+                                 "targets": torch.from_numpy(toks),
+                                 "mask": torch.ones((2, 4), dtype=bool)})
     with pytest.raises(ValueError, match="not cut for that rank"):
         make_prefill_step(cfg, "cpu", mesh.MetaMesh({"data": 2, "model": 2}))(
             model, {"inputs": toks})
     split = cfg.replace(sharding=dataclasses.replace(cfg.sharding,
                                                      d_model="model"))
     with pytest.raises(NotImplementedError, match="d_model"):
-        check_supported(split, "prefill")
+        check_supported(split)
 
 
 NEW = ("deepseek_v3_671b", "llama4_scout_17b_a16e", "recurrentgemma_2b",
@@ -227,20 +285,16 @@ NEW = ("deepseek_v3_671b", "llama4_scout_17b_a16e", "recurrentgemma_2b",
 
 @pytest.mark.parametrize("arch", TC.ARCHS)
 def test_check_supported_serves_every_arch(arch):
-    """Serving passes for all ten archs; training raises naming item 32,
-    and rules that split the sequence, ``d_model`` or the cache's
-    sequence raise."""
+    """Serving and training pass for all ten archs, and rules that split
+    the sequence, ``d_model`` or the cache's sequence raise."""
     import dataclasses
     cfg = TC.get(arch)
-    for kind in ("prefill", "decode"):
-        check_supported(cfg, kind)
-    with pytest.raises(NotImplementedError, match="item 32"):
-        check_supported(cfg, "train")
+    check_supported(cfg)
     for axis in ("seq", "d_model", "kv_seq"):
         split = cfg.replace(sharding=dataclasses.replace(cfg.sharding,
                                                          **{axis: "model"}))
         with pytest.raises(NotImplementedError, match=axis):
-            check_supported(split, "prefill")
+            check_supported(split)
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -358,9 +412,77 @@ def _check_serving_cell(arch, shape, where, cut):
     assert {k: int(v) for k, v in full["coll"].items()} == want
 
 
+def _check_train_cell(arch, where):
+    """Rank 0 of ``arch``'s train_4k at mesh ``where`` on ``meta``, at one
+    cycle's depth (as :func:`_check_serving_cell`): its parameter and
+    moment bytes the layout's, its arguments those, AdamW's step and the
+    batch; the gradients' reduction one all-reduce of the bytes of the
+    rank's shards of the leaves summed over the batch's axes
+    (``Layout.grad_axes``: DeepSeek-V3's experts, split over ``("data",
+    "model")``, only over ``"pod"``); the norm's one float32 scalar a set
+    of split axes; the forward's collectives the prefill's closed form
+    (:func:`_coll_want`) at the cell's length without the logits'
+    gathers, plus the vocab-parallel loss's (its sums [2, b_r, S] float32
+    reduced, its max [b_r, S] float32 gathered over the 16 slices; again
+    for DeepSeek-V3's MTP, with its block's two reductions and its
+    embedding's) and the reported loss's float32 scalar over the batch's
+    axes."""
+    shape_of = mesh.MESHES[where]
+    tcfg = TC.get(arch)
+    n = max(len(tcfg.block_pattern) + len(tcfg.prefix_blocks), 2)
+    tcfg = tcfg.replace(n_layers=n)
+    cfg, cell = fix_rules_for_mesh(tcfg, shape_of), SHAPES["train_4k"]
+    rec = dryrun.dryrun(tcfg, cell, arch=arch, mesh=where)
+    full = rec["full"]
+    layout = Layout(cfg, shape_of, {a: 0 for a in shape_of})
+    plan, local = tlm.plan_model(cfg), layout.plan()
+    elems = sum(math.prod(s.shape) for s in local.values())
+    assert full["state_bytes"] == {"params": layout.param_bytes(),
+                                   "moments": 2 * 4 * elems}
+    assert full["memory"]["argument_size"] == layout.param_bytes() + \
+        2 * 4 * elems + 4 + dryrun.storage_bytes(batch_specs(cfg, cell))
+    rows, axes = layout.rows(cell.global_batch)
+    summed = [n for n, s in plan.items() if layout.grad_axes(s, axes)]
+    # DeepSeek-V3's experts see every row of the pod: summed over "pod"
+    # only, where the mesh has it
+    experts = {n: layout.grad_axes(plan[n], axes) for n in plan
+               if tlm.is_expert_leaf(n)}
+    assert set(experts.values()) <= {tuple(
+        a for a in axes if a not in cfg.sharding.expert)}
+    phases = full["coll_phases"]
+    assert {k: int(v) for k, v in phases["grads"].items()} == {
+        "all-reduce": 2 * sum(math.prod(local[n].shape) for n in summed),
+        "all-gather": 0}
+    groups = {layout.split_axes(s) for s in plan.values()} - {()}
+    assert phases["update"] == {"all-reduce": 4 * len(groups),
+                                "all-gather": 0}
+    prefill = ShapeCell("prefill", cell.seq_len, cell.global_batch,
+                        "prefill")
+    want = _coll_want(arch, cfg, prefill, shape_of, rows)
+    b_r, s, d = rows.stop - rows.start, cell.seq_len, cfg.d_model
+    v = cfg.vocab
+    want["all-gather"] -= b_r * v * 2 + cell.global_batch * v * 2
+    heads = 1 + cfg.mtp
+    want["all-reduce"] += heads * 2 * b_r * s * 4 + 4 + \
+        cfg.mtp * 3 * b_r * s * d * 2
+    want["all-gather"] += heads * shape_of["model"] * b_r * s * 4
+    assert {k: int(x) for k, x in phases["forward"].items()} == want
+    assert sum(sum(p.values()) for p in phases.values()) == \
+        pytest.approx(sum(full["coll"].values()), rel=1e-12)
+
+
 @pytest.mark.parametrize("where", ["pod16x16", "pod2x16x16"])
-@pytest.mark.parametrize("arch,shape", [c for c in dryrun.mesh_cells()
-                                        if c[0] in NEW])
+@pytest.mark.parametrize("arch", NEW)
+def test_dryrun_train_cells_of_the_new_archs(arch, where):
+    """The train_4k cell of DeepSeek-V3, Llama 4 Scout, RecurrentGemma 2B
+    and xLSTM 125M at both meshes: :func:`_check_train_cell`."""
+    _check_train_cell(arch, where)
+
+
+@pytest.mark.parametrize("where", ["pod16x16", "pod2x16x16"])
+@pytest.mark.parametrize("arch,shape", [
+    c for c in dryrun.mesh_cells()
+    if c[0] in NEW and SHAPES[c[1]].kind != "train"])
 def test_dryrun_serving_cells_of_the_new_archs(arch, shape, where):
     """Every serving cell of DeepSeek-V3, Llama 4 Scout, RecurrentGemma 2B
     and xLSTM 125M at both meshes, at one cycle's depth (the closed forms
@@ -380,3 +502,4 @@ def test_dryrun_serving_cell_at_full_depth(arch):
     """:func:`_check_serving_cell` at pod16x16 on the whole config (61,
     48, 26 and 12 layers)."""
     _check_serving_cell(arch, FULL_DEPTH[arch], "pod16x16", cut=False)
+
